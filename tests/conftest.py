@@ -24,6 +24,14 @@ if not os.environ.get("SMQTK_TPU_TESTS"):
     jax.config.update("jax_platforms", "cpu")
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card; skips without one (run on the card "
+        "with: python -m pytest --noconftest -p no:cacheprovider -q "
+        "-m cuda tests/test_torch_cuda.py)")
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _bound_xla_compile_state():
     """Drop JAX/XLA compilation caches between test modules.
