@@ -5,27 +5,43 @@ card.
 
     python3 chip_smoke.py          # from the repository root
 
-Phases, each printing one JSON line; any failure raises, so the exit code
-is not 0:
+Phases, each printing JSON lines; any failure raises, so the exit code is
+not 0:
 
 0. card: the card's name and power limit from ``nvidia-smi``;
-1. build: the hand-written kernels compiled with ``nvcc`` for sm_90a;
-2. kernels: each kernel against its plain PyTorch version at the main
-   path's shapes (B=2048 queries, N=1,048,576 rows, d=128; f32 and bf16,
-   with dead rows), timed with CUDA events as plain, kernel, kernel,
-   plain; plus the selection, stage-2 and whole ``flat_topk_fused``
-   times at the same shapes;
-3. main path: ``FlatNearestNeighborsIndex(device="cuda")`` over 1,000,000
+1. build: the hand-written kernels compiled with ``nvcc`` for sm_90a, one
+   ``nvcc`` a source, all at once, then linked into one library;
+2. flat kernels: K1 (``segment_minima``) against its plain PyTorch version
+   at the flat path's shapes (B=2048 queries, N=1,048,576 rows, d=128; f32
+   and bf16, with dead rows), timed with CUDA events as plain, kernel,
+   kernel, plain; plus the selection, stage-2 and whole
+   ``flat_topk_fused`` times at the same shapes;
+3. flat path: ``FlatNearestNeighborsIndex(device="cuda")`` over 1,000,000
    x 128 SIFT1M-shaped vectors (uniform * 218, seed 0, as ``bench.py``
    makes them), through ``build_index`` / ``nn_many`` with 2048 held-out
    queries at k=10, with the per-batch host-clock split of ``nn_many``
    into ``store.knn`` and result assembly (from the tracing spans);
    self-queries must return themselves and recall@10 against a float64
    oracle must be 1.0. Then smaller builds for inner_product, cosine and
-   bfloat16.
+   bfloat16;
+4. IVF serving line: ``IvfNearestNeighborsIndex(n_lists=4096, nprobe=4,
+   dtype="sq8", storage="code", rerank="score", device="cuda")`` over
+   1,000,000 x 96 clustered Deep1M-shaped vectors (``bench.py``'s recipe,
+   seed 2, 1,024 held-out queries). K7 (``ivf_list_scores_tiled``) and
+   K3 (``seg_gather_tiled``) against their plain versions and float64 at
+   the built index's operands (B=1024); then 5 timed ``nn_many(1024,
+   k=10)`` batches with the ``ivf.query`` / ``ivf.assemble`` split, peak
+   device bytes and recall@10 against float64 (128 queries), which must
+   be >= 0.95; then ``rerank="exact"`` on the same index (K3), whose
+   recall must be no worse than score mode's less 0.01;
+5. IVF rows tier: ``storage="rows"`` with float32 and sq8 over the same
+   vectors at nprobe=4 (K6, ``ivf_list_scores``, held against its plain
+   version and float64 at each index's operands), then nprobe = n_lists
+   on 128 queries, which must give recall@10 = 1.0 for float32.
 
-Then a ``{"kernels": [...]}`` line with each kernel's launches during
-phase 3, and last ``{"ok": true, "device": {...}}``.
+Each path sets the kernels' launch counts to 0 just before it runs and
+reads them just after. Then a ``{"kernels": [...]}`` line with each
+kernel's launches in its path, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -44,9 +60,17 @@ K = 10
 N_SMALL = 200_000
 B_SMALL = 256
 N_ORACLE = 128
-#: Kernel vs plain version: the two sum exact f32 (or bf16 x bf16)
-#: products in different orders, so they differ by rounding only.
+#: Kernel vs plain version, and vs float64: both sum exact f32 (or bf16 x
+#: bf16, int8 x f32) products in f32 in different orders, so they differ
+#: by rounding only: at most 1e-5 of the largest sum of absolute terms.
 REL_TOL = 1e-5
+IVF_N = 1_000_000
+IVF_DIM = 96
+IVF_BATCH = 1024
+IVF_LISTS = 4096
+IVF_NPROBE = 4
+#: The recall the serving line must reach (bench.py's line read 0.9672).
+IVF_RECALL_FLOOR = 0.95
 
 
 def emit(phase: str, **fields) -> None:
@@ -86,44 +110,74 @@ def recall(found, truth) -> float:
     return hits / truth.size
 
 
-def main() -> None:
+def reset_counts() -> None:
+    """Set every kernel's launch count to 0."""
+    from smqtk_indexing_tpu_torch.ops import fused_scan, ivf_scan
+    fused_scan.LAUNCHES = 0
+    fused_scan.GATHER_LAUNCHES = 0
+    for name in ivf_scan.LAUNCHES:
+        ivf_scan.LAUNCHES[name] = 0
+
+
+def read_counts() -> dict:
+    from smqtk_indexing_tpu_torch.ops import fused_scan, ivf_scan
+    return {"segment_minima": fused_scan.LAUNCHES,
+            "seg_gather_tiled": fused_scan.GATHER_LAUNCHES,
+            **ivf_scan.LAUNCHES}
+
+
+def hold(name: str, kernel, plain, f64, smi: str, reps=(10, 3), **info):
+    """
+    Hold a kernel against its plain version (all queries) and float64 (the
+    first N_ORACLE queries), and time both with CUDA events as plain,
+    kernel, kernel, plain. ``f64()`` returns (exact scores, the sum of the
+    absolute terms of each score), or None for a copy, which must be
+    bit-equal. Raises on disagreement.
+
+    :return: (max |kernel - plain|, mean kernel ms, mean plain ms).
+    """
     import torch
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: no CUDA device "
-                         "(torch.cuda.is_available() is False)")
+    ref = plain()
+    out = kernel()
+    torch.cuda.synchronize()
+    if f64 is None:
+        ok = bool(torch.equal(out, ref))
+        err = f64_err = 0.0 if ok else float("inf")
+        tol = 0.0
+        inf_match = True
+    else:
+        inf_match = bool(torch.equal(torch.isinf(ref), torch.isinf(out)))
+        fin = torch.isfinite(ref)
+        err = (out - ref)[fin].abs().max().item()
+        exact, mag = f64()
+        fin64 = torch.isfinite(exact)
+        f64_err = (out[:N_ORACLE].double() - exact)[fin64].abs().max().item()
+        tol = REL_TOL * mag[fin64].max().item()
+        ok = inf_match and err <= tol and f64_err <= tol
+        del exact, mag
+    plain(), kernel()                                      # warm-up
+    t_plain = [cuda_ms(plain, reps[1])]
+    t_kernel = [cuda_ms(kernel, reps[0]), cuda_ms(kernel, reps[0])]
+    t_plain.append(cuda_ms(plain, reps[1]))
+    emit("kernel", kernel=name, max_abs_err=err, f64_max_abs_err=f64_err,
+         tol=tol, inf_match=inf_match, ms=t_kernel, plain_ms=t_plain,
+         card=smi, ok=ok, **info)
+    if not ok:
+        raise RuntimeError(f"{name} disagrees with its plain version")
+    del ref, out
+    torch.cuda.empty_cache()
+    return err, statistics.mean(t_kernel), statistics.mean(t_plain)
+
+
+def flat_phases(smi: str, dev) -> dict:
+    """Phases 2 and 3; returns K1's row of the kernels line."""
+    import torch
     from smqtk_indexing_tpu_torch.data import DescriptorMemoryElement
     from smqtk_indexing_tpu_torch.models.nn_index.flat import (
         FlatNearestNeighborsIndex,
     )
-    from smqtk_indexing_tpu_torch.ops import _kernels, fused_scan
+    from smqtk_indexing_tpu_torch.ops import fused_scan
     from smqtk_indexing_tpu_torch.utils.tracing import COUNTERS
-
-    # -- 0. card -------------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
-    kind = torch.cuda.get_device_name(0)
-    cap = torch.cuda.get_device_capability(0)
-    emit("card", kind=kind, nvidia_smi=smi, capability=list(cap),
-         count=torch.cuda.device_count(), torch=torch.__version__,
-         cuda=torch.version.cuda)
-    if cap != (9, 0):
-        raise RuntimeError(f"kernels are built for sm_90a; card is sm_{cap}")
-    dev = torch.device("cuda", 0)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-    # -- 1. build ------------------------------------------------------
-    t0 = time.perf_counter()
-    info = _kernels.build()
-    _kernels.library()
-    ptxas = [ln.strip() for ln in info["log"].splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit("build", seconds=time.perf_counter() - t0,
-         nvcc=" ".join(info["cmd"]), ptxas=ptxas)
 
     # -- 2. kernels vs plain versions at the main path's shapes ----------
     n_pad = 1 << 20
@@ -205,7 +259,7 @@ def main() -> None:
                for i in range(BATCH)]
     truth = oracle_topk(data, queries[:N_ORACLE], K, "euclidean")
 
-    fused_scan.LAUNCHES = 0
+    reset_counts()
     torch.cuda.reset_peak_memory_stats(dev)
     index = FlatNearestNeighborsIndex(metric="euclidean", device="cuda")
     t0 = time.perf_counter()
@@ -264,25 +318,322 @@ def main() -> None:
         if rec != 1.0:
             raise RuntimeError(f"{metric}/{dtype}: recall {rec} != 1.0")
         del index
-    launches = fused_scan.LAUNCHES
+    launches = read_counts()["segment_minima"]
     if launches == 0:
-        raise RuntimeError("the main path never launched segment_minima")
+        raise RuntimeError("the flat path never launched segment_minima")
+    err, ms, plain_ms = kernel_rows["float32"]
+    return {"name": "segment_minima", "route": "cuda",
+            "source": "smqtk_indexing_tpu_torch/csrc/segment_minima.cu",
+            "replaces": "smqtk_indexing_tpu/ops/pallas_scan.py:173",
+            "launches": launches,
+            "max_abs_err": max(err, kernel_rows["bfloat16"][0]),
+            "ms": ms, "plain_ms": plain_ms}
+
+
+def ivf_data():
+    """bench.py's serving-line recipe (bench.py:183-190): a clustered
+    Deep1M-shaped mixture, 1,024 held-out queries."""
+    rng = np.random.default_rng(2)
+    total = IVF_N + IVF_BATCH
+    centers = rng.random((1024, IVF_DIM), dtype=np.float32)
+    pts = centers[rng.integers(0, 1024, size=total)]
+    pts += rng.normal(size=(total, IVF_DIM)).astype(np.float32) / 12
+    pts = np.clip(pts, 0, 1).astype(np.float32)[rng.permutation(total)]
+    return pts[:IVF_N], pts[IVF_N:]
+
+
+def _f64_tiled(db3, s2t, t, ti, c0, lo, hi):
+    """K7's scores in float64 for the first N_ORACLE queries, and the sum
+    of each score's absolute terms."""
+    import torch
+    from smqtk_indexing_tpu_torch.ops.ivf_scan import W_TILED
+    dev = db3.device
+    lane = torch.arange(W_TILED, device=dev)
+    dims = torch.arange(db3.shape[1], device=dev)
+    exact, mag = [], []
+    for q0 in range(0, N_ORACLE, 8):
+        tt = ti[q0:q0 + 8].long()[..., None]
+        cols = c0[q0:q0 + 8].long()[..., None] + lane
+        u = db3[tt[..., None], dims[:, None], cols[..., None, :]].double()
+        prod = u * t[q0:q0 + 8, None, :, None].double()
+        s2 = s2t[tt, 0, cols].double()
+        ok = (lane >= lo[q0:q0 + 8, :, None]) & (lane < hi[q0:q0 + 8, :,
+                                                          None])
+        exact.append(torch.where(ok, s2 - 2.0 * prod.sum(2), float("inf")))
+        mag.append(torch.where(ok, s2 + 2.0 * prod.abs().sum(2),
+                               float("inf")))
+        del u, prod
+    return torch.cat(exact), torch.cat(mag)
+
+
+def _f64_rows(db, t, a, starts, lo, hi):
+    """K6's scores in float64 for the first N_ORACLE queries, and the sum
+    of each score's absolute terms."""
+    import torch
+    from smqtk_indexing_tpu_torch.ops.ivf_scan import L_MAX
+    lane = torch.arange(L_MAX, device=db.device)
+    exact, mag = [], []
+    for q0 in range(0, N_ORACLE, 8):
+        u = db[starts[q0:q0 + 8].long()[..., None] + lane].double()
+        au2 = ((u * a.double()) ** 2).sum(-1)
+        prod = u * t[q0:q0 + 8, None, None, :].double()
+        ok = (lane >= lo[q0:q0 + 8, :, None]) & (lane < hi[q0:q0 + 8, :,
+                                                          None])
+        exact.append(torch.where(ok, au2 - 2.0 * prod.sum(-1),
+                                 float("inf")))
+        mag.append(torch.where(ok, au2 + 2.0 * prod.abs().sum(-1),
+                               float("inf")))
+        del u, prod
+    return torch.cat(exact), torch.cat(mag)
+
+
+def _timed_batches(index, q_elems, n_batches: int):
+    """``nn_many`` over all of ``q_elems`` ``n_batches`` times; (results of
+    the last, per-batch seconds, the mean span ms of the batches)."""
+    from smqtk_indexing_tpu_torch.utils.tracing import COUNTERS
+    COUNTERS.reset()
+    batch_s = []
+    for _ in range(n_batches):
+        t0 = time.perf_counter()
+        res = index.nn_many(q_elems, K)
+        batch_s.append(time.perf_counter() - t0)
+    spans = COUNTERS.snapshot()
+    split_ms = {name: 1e3 * spans[f"span.{name}.seconds"]
+                / spans[f"span.{name}.calls"]
+                for name in ("ivf.query", "ivf.assemble")}
+    return res, batch_s, split_ms
+
+
+def _checked(res, truth, n_q: int) -> float:
+    """recall@10 of ``res`` against the float64 ids, after checking the
+    results' shape and that every distance is finite and sorted."""
+    if len(res) != n_q or not all(
+            len(r[0]) == K and np.all(np.isfinite(r[1]))
+            and list(r[1]) == sorted(r[1]) for r in res):
+        raise RuntimeError("IVF results are short, unsorted or not finite")
+    return recall([[e.uuid() for e in r[0]] for r in res[:N_ORACLE]],
+                  truth)
+
+
+def ivf_phases(smi: str, dev) -> list:
+    """Phases 4 and 5; returns the kernels line's rows of K7, K3 and K6."""
+    import torch
+    from smqtk_indexing_tpu_torch.data import DescriptorMemoryElement
+    from smqtk_indexing_tpu_torch.models.nn_index.ivf import (
+        IvfNearestNeighborsIndex,
+    )
+    from smqtk_indexing_tpu_torch.ops import fused_scan, ivf_scan
+
+    data, queries = ivf_data()
+    elems = [DescriptorMemoryElement(i, data[i]) for i in range(IVF_N)]
+    q_elems = [DescriptorMemoryElement(("q", i), queries[i])
+               for i in range(IVF_BATCH)]
+    truth = oracle_topk(data, queries[:N_ORACLE], K, "euclidean")
+
+    # -- 4. the serving line -------------------------------------------
+    torch.cuda.reset_peak_memory_stats(dev)
+    index = IvfNearestNeighborsIndex(
+        n_lists=IVF_LISTS, nprobe=IVF_NPROBE, kmeans_iterations=10,
+        max_points_per_centroid=64, random_seed=0, dtype="sq8",
+        storage="code", rerank="score", device="cuda")
+    t0 = time.perf_counter()
+    index.build_index(elems)
+    build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated(dev)
+    d_pad = index._centroids_np.shape[1]
+    qd = torch.from_numpy(np.pad(queries, ((0, 0), (0, d_pad - IVF_DIM)))) \
+        .to(dev)
+    t, ti, c0, lo, hi = ivf_scan.tiled_windows(
+        index._sq8_a, index._sq8_b, index._dev_centroids, index._slot_table,
+        index._v_tile, index._v_col, index._v_len, qd,
+        nprobe_orig=IVF_NPROBE)
+    k7_args = (index._dev3, index._s2t, t, ti, c0, lo, hi)
+    k7 = hold("ivf_list_scores_tiled",
+              lambda: ivf_scan.ivf_list_scores_tiled(*k7_args),
+              lambda: ivf_scan.ivf_list_scores_tiled_reference(*k7_args),
+              lambda: _f64_tiled(*k7_args), smi,
+              shape=[IVF_BATCH, ti.shape[1], ivf_scan.W_TILED],
+              live_slots=int((hi > lo).sum()))
+    # K3 on the winner segments the exact re-rank gathers: the top k + 8
+    # of those scores (k rounds up to 16 in the index).
+    scores = ivf_scan.ivf_list_scores_tiled(*k7_args).reshape(IVF_BATCH, -1)
+    _, sel = fused_scan.topk_smallest(scores, 16 + 8)
+    base = ti.long() * ivf_scan.TILE_ROWS + c0.long()
+    rows = torch.gather(base, 1, sel // ivf_scan.W_TILED) \
+        + sel % ivf_scan.W_TILED
+    sid = rows // fused_scan.SEG
+    k3 = hold("seg_gather_tiled",
+              lambda: fused_scan.seg_gather_tiled(index._dev3, sid),
+              lambda: fused_scan.seg_gather_tiled_reference(index._dev3,
+                                                            sid),
+              None, smi, shape=list(sid.shape) + [d_pad, fused_scan.SEG])
+    del scores, sel, rows, k7_args, t, ti, c0, lo, hi
+
+    index_bytes = torch.cuda.memory_allocated(dev)
+    index.nn_many(q_elems, K)                              # warm-up
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    res, batch_s, split_ms = _timed_batches(index, q_elems, 5)
+    counts = read_counts()
+    rec = _checked(res, truth, IVF_BATCH)
+    emit("main", path="ivf serving line", n=IVF_N, d=IVF_DIM,
+         n_lists=IVF_LISTS, nprobe=IVF_NPROBE, dtype="sq8",
+         storage="code", rerank="score", batch=IVF_BATCH, k=K,
+         build_s=build_s, batch_s=batch_s,
+         qps=IVF_BATCH / statistics.median(batch_s), split_ms=split_ms,
+         recall_at_10=rec, launches=counts, index_device_bytes=index_bytes,
+         peak_device_bytes_queries=torch.cuda.max_memory_allocated(dev),
+         peak_device_bytes_build=build_peak, card=smi)
+    if rec < IVF_RECALL_FLOOR:
+        raise RuntimeError(f"serving line: recall@10 {rec} < "
+                           f"{IVF_RECALL_FLOOR}")
+    k7_launches = counts["ivf_list_scores_tiled"]
+
+    index.rerank = "exact"
+    index.nn_many(q_elems, K)                              # warm-up
+    reset_counts()
+    res, batch_s, split_ms = _timed_batches(index, q_elems, 2)
+    counts = read_counts()
+    rec_exact = _checked(res, truth, IVF_BATCH)
+    emit("main", path="ivf serving line, rerank=exact", batch=IVF_BATCH,
+         k=K, batch_s=batch_s,
+         qps=IVF_BATCH / statistics.median(batch_s), split_ms=split_ms,
+         recall_at_10=rec_exact, launches=counts, card=smi)
+    if rec_exact < rec - 0.01:
+        raise RuntimeError(f"rerank=exact: recall@10 {rec_exact} < score "
+                           f"mode's {rec} - 0.01")
+    k3_launches = counts["seg_gather_tiled"]
+    del index, res
+    torch.cuda.empty_cache()
+
+    # -- 5. the rows tier ----------------------------------------------
+    k6_rows, k6_launches = [], 0
+    for dtype in ("float32", "sq8"):
+        index = IvfNearestNeighborsIndex(
+            n_lists=IVF_LISTS, nprobe=IVF_NPROBE, kmeans_iterations=10,
+            max_points_per_centroid=64, random_seed=0, dtype=dtype,
+            device="cuda")
+        t0 = time.perf_counter()
+        index.build_index(elems)
+        build_s = time.perf_counter() - t0
+        if not index._dma_eligible():
+            raise RuntimeError(f"rows tier {dtype}: not served by K6")
+        n_probe, nprobe_orig, first_virt = index._probe_plan()
+        dq = (index._sq8_a, index._sq8_b) if dtype == "sq8" else None
+        t, a, starts, lo, hi = ivf_scan.row_windows(
+            index._dev, index._dev_centroids, index._dev_offsets,
+            index._dev_lens, qd, n_probe=n_probe, first_virt=first_virt,
+            nprobe_orig=nprobe_orig, dq=dq)
+        k6_args = (index._dev, t, a, starts, lo, hi)
+        k6_rows.append(hold(
+            "ivf_list_scores",
+            lambda: ivf_scan.ivf_list_scores(*k6_args),
+            lambda: ivf_scan.ivf_list_scores_reference(*k6_args),
+            lambda: _f64_rows(*k6_args), smi, dtype=dtype,
+            shape=[IVF_BATCH, n_probe, ivf_scan.L_MAX],
+            live_slots=int((hi > lo).sum())))
+        del k6_args, t, a, starts, lo, hi
+        index.nn_many(q_elems, K)                          # warm-up
+        reset_counts()
+        res, batch_s, split_ms = _timed_batches(index, q_elems, 2)
+        counts = read_counts()
+        k6_launches += counts["ivf_list_scores"]
+        rec = _checked(res, truth, IVF_BATCH)
+        emit("main", path=f"ivf rows tier {dtype}", n=IVF_N, d=IVF_DIM,
+             n_lists=IVF_LISTS, nprobe=IVF_NPROBE, batch=IVF_BATCH, k=K,
+             build_s=build_s, batch_s=batch_s,
+             qps=IVF_BATCH / statistics.median(batch_s), split_ms=split_ms,
+             recall_at_10=rec, launches=counts, card=smi)
+        if dtype == "float32":
+            # Exhaustive probe: every sublist, so the exact top-k.
+            index.nprobe = IVF_LISTS
+            reset_counts()
+            t0 = time.perf_counter()
+            res = index.nn_many(q_elems[:N_ORACLE], K)
+            ex_s = time.perf_counter() - t0
+            counts = read_counts()
+            k6_launches += counts["ivf_list_scores"]
+            rec = _checked(res, truth, N_ORACLE)
+            emit("main", path="ivf rows tier float32, nprobe=n_lists",
+                 batch=N_ORACLE, k=K, batch_s=[ex_s], recall_at_10=rec,
+                 launches=counts, card=smi)
+            if rec != 1.0:
+                raise RuntimeError(f"exhaustive rows tier: recall@10 {rec}"
+                                   " != 1.0")
+        del index, res
+        torch.cuda.empty_cache()
+
+    for name, n in (("ivf_list_scores_tiled", k7_launches),
+                    ("seg_gather_tiled", k3_launches),
+                    ("ivf_list_scores", k6_launches)):
+        if n == 0:
+            raise RuntimeError(f"the IVF paths never launched {name}")
+    return [
+        {"name": "ivf_list_scores_tiled", "route": "cuda",
+         "source": "smqtk_indexing_tpu_torch/csrc/ivf_list_scores_tiled.cu",
+         "replaces": "smqtk_indexing_tpu/ops/pallas_ivf.py:469",
+         "launches": k7_launches, "max_abs_err": k7[0], "ms": k7[1],
+         "plain_ms": k7[2]},
+        {"name": "seg_gather_tiled", "route": "cuda",
+         "source": "smqtk_indexing_tpu_torch/csrc/seg_gather.cu",
+         "replaces": "smqtk_indexing_tpu/ops/pallas_scan.py:406",
+         "launches": k3_launches, "max_abs_err": k3[0], "ms": k3[1],
+         "plain_ms": k3[2]},
+        {"name": "ivf_list_scores", "route": "cuda",
+         "source": "smqtk_indexing_tpu_torch/csrc/ivf_list_scores.cu",
+         "replaces": "smqtk_indexing_tpu/ops/pallas_ivf.py:128",
+         "launches": k6_launches,
+         "max_abs_err": max(r[0] for r in k6_rows), "ms": k6_rows[0][1],
+         "plain_ms": k6_rows[0][2]},
+    ]
+
+
+def main() -> None:
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device "
+                         "(torch.cuda.is_available() is False)")
+    from smqtk_indexing_tpu_torch.ops import _kernels
+
+    # -- 0. card -------------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    kind = torch.cuda.get_device_name(0)
+    cap = torch.cuda.get_device_capability(0)
+    emit("card", kind=kind, nvidia_smi=smi, capability=list(cap),
+         count=torch.cuda.device_count(), torch=torch.__version__,
+         cuda=torch.version.cuda)
+    if cap != (9, 0):
+        raise RuntimeError(f"kernels are built for sm_90a; card is sm_{cap}")
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # -- 1. build ------------------------------------------------------
+    t0 = time.perf_counter()
+    info = _kernels.build()
+    _kernels.library()
+    ptxas = [ln.strip() for ln in info["log"].splitlines()
+             if "registers" in ln or "spill" in ln]
+    emit("build", seconds=time.perf_counter() - t0, nvcc=info["cmd"],
+         ptxas=ptxas)
+
+    t0 = time.perf_counter()
+    kernels = [flat_phases(smi, dev)]
+    emit("seconds", of="flat phases", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    kernels += ivf_phases(smi, dev)
+    emit("seconds", of="ivf phases", seconds=time.perf_counter() - t0)
     if any(mod is not None and (name == "jax" or name.startswith("jax."))
            for name, mod in sys.modules.items()):
         raise RuntimeError("jax was imported")
 
-    err, ms, plain_ms = kernel_rows["float32"]
     print(smi, flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "segment_minima",
-        "route": "cuda",
-        "source": "smqtk_indexing_tpu_torch/csrc/segment_minima.cu",
-        "replaces": "smqtk_indexing_tpu/ops/pallas_scan.py:173",
-        "launches": launches,
-        "max_abs_err": max(err, kernel_rows["bfloat16"][0]),
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

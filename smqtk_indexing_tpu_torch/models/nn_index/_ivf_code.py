@@ -1,0 +1,122 @@
+"""
+Tiled (code-tier) engine of the port's ``IvfNearestNeighborsIndex``: the
+SQ8 branch of ``smqtk_indexing_tpu/models/nn_index/_ivf_code.py``
+(``encode_rows`` :19-54, ``upload_tiled`` single-device :57-187 and
+:243-261, ``query_tiled`` :264-349 without PQ).
+
+It serves ``storage='code'`` always, and rows-tier SQ8 with
+``rerank='score'`` (``_ivf_rows.upload_rows``). The host builds the
+tiled-transposed layout and the per-row stats with the JAX package's
+numpy arithmetic, so both packages hold the same tiles, stats and sublist
+tables for the same codes; the device then holds them as tensors.
+Functions take the index instance as ``idx`` and run under its lock.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from smqtk_indexing_tpu_torch.ops.ivf_scan import (
+    TILE_ROWS, build_slot_table, build_tiled_csr, ivf_query_dma_tiled_table,
+)
+from smqtk_indexing_tpu_torch.ops.sq8 import sq8_encode_np, sq8_train
+
+
+def encode_rows(idx, mat: np.ndarray, assigns: np.ndarray,
+                valid: np.ndarray) -> np.ndarray:
+    """Code-tier host mirror: float32 rows train the codec once (the first
+    build) and encode to int8; rows that are codes already (a re-layout
+    after an update or a compaction) pass through. Cosine codes carry the
+    unit rows."""
+    if mat.dtype == np.int8:
+        return mat
+    mat = idx._prep_for_metric(np.asarray(mat, np.float32))
+    if idx._code_a is None:
+        live = mat[valid] if not valid.all() else mat
+        idx._code_a, idx._code_b = sq8_train(live)
+    return sq8_encode_np(mat, idx._code_a, idx._code_b)
+
+
+def upload_tiled(idx, sq8_codes: Optional[np.ndarray] = None,
+                 sq8_ab=None) -> None:
+    """
+    Tiled device build: codes in (n_tiles, d_pad, TILE_ROWS) int8 tiles,
+    the per-row stats ``s2 = sum((a u)^2)`` (zero for inner_product) with
+    +inf on dead rows and on the padding past the last row, the sublist
+    CSR and the list -> sublist slot table.
+
+    :param sq8_codes: (n, dim) int8 codes of the rows-tier mirror, with
+        their codec ``sq8_ab``; None on the code tier, whose mirror is the
+        codes.
+    """
+    idx._dev = idx._dev_sq = idx._dev_norm = None
+    idx._dev_valid = idx._dev_offsets = idx._dev_lens = None
+    idx._dev_first_virt = None
+    n = idx._host.shape[0]
+    dim = idx._dim
+    d_pad = idx._centroids_np.shape[1]
+    n_tiles = max(1, -(-n // TILE_ROWS))
+    n_pad = n_tiles * TILE_ROWS
+    dead = np.ones(n_pad, dtype=bool)
+    dead[:n] = ~idx._valid_host
+    code_a, code_b = sq8_ab if sq8_ab is not None \
+        else (idx._code_a, idx._code_b)
+    codes = np.zeros((n_pad, d_pad), dtype=np.int8)
+    codes[:n, :dim] = sq8_codes if sq8_codes is not None else idx._host
+    # Padding dims: scale 1e-12 and offset 0, so zero codes and zero query
+    # dims add nothing to any score term.
+    a_p = np.full(d_pad, 1e-12, dtype=np.float32)
+    b_p = np.zeros(d_pad, dtype=np.float32)
+    a_p[:dim] = code_a
+    b_p[:dim] = code_b
+    # Stats and tiles in chunks of ~1M rows: never a float32 copy of the
+    # whole mirror.
+    s2 = np.empty(n_pad, dtype=np.float32)
+    tiles = np.empty((n_tiles, d_pad, TILE_ROWS), dtype=np.int8)
+    t_chunk = max(1, (1 << 20) // TILE_ROWS)
+    for t0 in range(0, n_tiles, t_chunk):
+        t1 = min(t0 + t_chunk, n_tiles)
+        r0, r1 = t0 * TILE_ROWS, t1 * TILE_ROWS
+        if idx.metric == "inner_product":
+            s2[r0:r1] = 0.0
+        else:
+            u = codes[r0:r1].astype(np.float32)
+            u *= a_p
+            s2[r0:r1] = np.einsum("nd,nd->n", u, u)
+        tiles[t0:t1] = codes[r0:r1] \
+            .reshape(t1 - t0, TILE_ROWS, d_pad).transpose(0, 2, 1)
+    s2[dead] = np.inf
+    dev = idx._device
+    idx._sq8_a = torch.from_numpy(a_p).to(dev)
+    idx._sq8_b = torch.from_numpy(b_p).to(dev)
+    idx._dev3 = torch.from_numpy(tiles).to(dev)
+    idx._s2t = torch.from_numpy(s2.reshape(n_tiles, 1, TILE_ROWS)).to(dev)
+    c_count = idx._centroids_np.shape[0]
+    lens = np.bincount(idx._assign_host, minlength=c_count).astype(np.int64)
+    v_tile, v_col, v_len, v_orig, _ = build_tiled_csr(
+        lens[None, :], np.zeros(1, dtype=np.int64))
+    idx._v_tile = torch.from_numpy(v_tile).to(dev)
+    idx._v_col = torch.from_numpy(v_col).to(dev)
+    idx._v_len = torch.from_numpy(v_len).to(dev)
+    idx._slot_table = torch.from_numpy(
+        build_slot_table(v_orig, c_count)).long().to(dev)
+    idx._dev_centroids = torch.from_numpy(
+        idx._centroids_np.astype(np.float32)).to(dev)
+    idx._capacity = n_pad
+    idx._n_virtual = len(v_len)
+
+
+def query_tiled(idx, q_p: torch.Tensor, k_dev: int):
+    """Serve one padded query batch through the tiled engine, or return
+    None when the index holds no tiled state (the row-major engines of
+    ``_ivf_rows.query_rows`` serve it)."""
+    if idx._dev3 is None:
+        return None
+    return ivf_query_dma_tiled_table(
+        idx._dev3, idx._s2t, idx._sq8_a, idx._sq8_b, idx._dev_centroids,
+        idx._slot_table, idx._v_tile, idx._v_col, idx._v_len, q_p,
+        k=k_dev, nprobe_orig=min(idx.nprobe, idx._centroids_np.shape[0]),
+        rerank="score" if idx.rerank == "score" else "gather",
+        metric=idx.metric)

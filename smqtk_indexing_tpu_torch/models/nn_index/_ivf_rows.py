@@ -1,0 +1,129 @@
+"""
+Rows-tier engine of the port's ``IvfNearestNeighborsIndex``: the f32 /
+bf16 / sq8 branches of ``smqtk_indexing_tpu/models/nn_index/_ivf_rows.py``
+(``upload_rows`` :24-187, ``query_rows`` :266-299 single-device).
+
+The host mirror is the float32 rows, sorted by list. The device holds
+them row-major (f32, bf16, or SQ8 codes with a codec trained per layout),
+with the list balancer's sublist CSR. Rows-tier SQ8 with
+``rerank='score'`` routes to the tiled engine instead (``_ivf_code``).
+Functions take the index instance as ``idx`` and run under its lock.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from smqtk_indexing_tpu_torch.models.nn_index._ivf_code import upload_tiled
+from smqtk_indexing_tpu_torch.ops.device import (
+    capacity_for, pad_rows_np, pow2_at_least,
+)
+from smqtk_indexing_tpu_torch.ops.ivf import ivf_query
+from smqtk_indexing_tpu_torch.ops.ivf_scan import L_MAX, ivf_query_dma
+from smqtk_indexing_tpu_torch.ops.sq8 import (
+    sq8_build_store, sq8_encode_np, sq8_train,
+)
+
+_FLOAT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def balance_lists(lens: np.ndarray, n: int):
+    """
+    The rows tier's list balancer (``_ivf_rows.py:125-171``): a list longer
+    than ``cap`` splits into contiguous sublists that share its centroid,
+    where ``cap`` is twice the mean list length, at least 32 and at most
+    ``L_MAX - 32`` (so every sublist fits K6's window). An empty list keeps
+    one empty slot, so it is ranked as FAISS ranks it.
+
+    :param lens: (C,) list lengths over a list-sorted layout of ``n`` rows.
+    :return: (v_off, v_len, v_orig) int32 sublist starts, lengths and
+        original lists, and first_virt (C,) int32, one slot per list.
+    """
+    c_count = lens.shape[0]
+    offsets = np.zeros(c_count, dtype=np.int64)
+    offsets[1:] = np.cumsum(lens)[:-1]
+    cap = min(max(int(np.ceil(2.0 * max(n, 1) / c_count)), 32), L_MAX - 32)
+    v_off, v_len, v_orig = [], [], []
+    for li in range(c_count):
+        length, start = int(lens[li]), int(offsets[li])
+        if length == 0:
+            v_off.append(start)
+            v_len.append(0)
+            v_orig.append(li)
+            continue
+        for lo in range(0, length, cap):
+            v_off.append(start + lo)
+            v_len.append(min(cap, length - lo))
+            v_orig.append(li)
+    v_orig = np.asarray(v_orig, dtype=np.int32)
+    first_virt = np.searchsorted(v_orig, np.arange(c_count)).astype(np.int32)
+    return (np.asarray(v_off, dtype=np.int32),
+            np.asarray(v_len, dtype=np.int32), v_orig, first_virt)
+
+
+def upload_rows(idx) -> None:
+    """Rows-tier device build, or the tiled build for rows-tier SQ8 with
+    ``rerank='score'`` (a codec trained on this layout's live rows)."""
+    if idx._tiled_rows_ok():
+        live = idx._host[idx._valid_host] \
+            if not idx._valid_host.all() else idx._host
+        a, b = sq8_train(live)
+        upload_tiled(idx, sq8_codes=sq8_encode_np(idx._host, a, b),
+                     sq8_ab=(a, b))
+        return
+    idx._dev3 = idx._s2t = None
+    idx._v_tile = idx._v_col = idx._v_len = idx._slot_table = None
+    dev = idx._device
+    n = idx._host.shape[0]
+    idx._capacity = capacity_for(n)
+    d_pad = idx._centroids_np.shape[1]
+    valid = np.zeros(idx._capacity, dtype=bool)
+    valid[:n] = idx._valid_host
+    if idx.dtype == "sq8":
+        # int8 codes; the scoring stats are the dequantized rows', so the
+        # surrogate and the exact re-rank agree.
+        idx._sq8_a, idx._sq8_b, idx._dev, _, nrm = sq8_build_store(
+            idx._host, idx._valid_host, idx._capacity, d_pad, idx._dim, dev)
+        idx._dev_sq = nrm * nrm
+        idx._dev_norm = nrm
+    else:
+        padded = pad_rows_np(idx._host, idx._capacity, d_pad)
+        sq = np.zeros(idx._capacity, dtype=np.float32)
+        sq[:n] = np.einsum("ij,ij->i", idx._host, idx._host)
+        idx._dev = torch.from_numpy(padded).to(dev, _FLOAT_DTYPES[idx.dtype])
+        idx._dev_sq = torch.from_numpy(sq).to(dev)
+        idx._dev_norm = torch.sqrt(idx._dev_sq)
+    idx._dev_valid = torch.from_numpy(valid).to(dev)
+    c_count = idx._centroids_np.shape[0]
+    lens = np.bincount(idx._assign_host, minlength=c_count)
+    v_off, v_len, v_orig, first_virt = balance_lists(lens, n)
+    idx._n_virtual = len(v_off)
+    idx._dev_first_virt = torch.from_numpy(first_virt).long().to(dev)
+    # Most sublists of one list: the query's probe budget scales by it.
+    idx._max_split = int(np.bincount(v_orig).max())
+    idx._l_max_raw = max(int(v_len.max()), 1)
+    idx._l_max = pow2_at_least(idx._l_max_raw)
+    # Centroids stay float over int8 codes; bf16 storage keeps them bf16.
+    cent = idx._centroids_np[v_orig].astype(np.float32)
+    idx._dev_centroids = torch.from_numpy(cent).to(
+        dev, torch.bfloat16 if idx.dtype == "bfloat16" else torch.float32)
+    idx._dev_offsets = torch.from_numpy(v_off).long().to(dev)
+    idx._dev_lens = torch.from_numpy(v_len).long().to(dev)
+
+
+def query_rows(idx, q_p: torch.Tensor, k_dev: int, nprobe: int,
+               first_virt, nprobe_orig, has_dead: bool):
+    """Serve one padded query batch through K6 (``_dma_eligible``) or the
+    plain list gather (``ops/ivf.ivf_query``)."""
+    dq = (idx._sq8_a, idx._sq8_b) if idx.dtype == "sq8" else None
+    if idx._dma_eligible():
+        return ivf_query_dma(
+            idx._dev, idx._dev_valid, idx._dev_centroids, idx._dev_offsets,
+            idx._dev_lens, q_p, k=k_dev, n_probe=nprobe,
+            first_virt=first_virt, nprobe_orig=nprobe_orig,
+            has_dead=has_dead, dq=dq)
+    return ivf_query(
+        idx._dev, idx._dev_sq, idx._dev_norm, idx._dev_valid,
+        idx._dev_centroids, idx._dev_offsets, idx._dev_lens, q_p, k=k_dev,
+        nprobe=nprobe, l_max=idx._l_max, metric=idx.metric, dq=dq,
+        first_virt=first_virt, nprobe_orig=nprobe_orig, has_dead=has_dead)

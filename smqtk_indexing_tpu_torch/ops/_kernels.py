@@ -2,12 +2,14 @@
 Build and load the port's hand-written CUDA kernels.
 
 The sources in ``smqtk_indexing_tpu_torch/csrc/`` have a plain C interface
-(no PyTorch headers), so ``nvcc`` compiles them in seconds into one shared
-library, which ``ctypes`` loads:
+(no PyTorch headers), so ``nvcc`` compiles them in seconds. Each source is
+compiled to an object by its own ``nvcc``, all started together, and the
+objects are linked into one shared library, which ``ctypes`` loads:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o <build>/libsmqtk_kernels_<hash>.so
-         csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas -v -c -o <build>/<source>.o csrc/<source>
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
+         -o <build>/libsmqtk_kernels_<hash>.so <build>/*.o
 
 The library is built on the first call of :func:`library` (the first CUDA
 launch) into ``smqtk_indexing_tpu_torch/_build/``, which git ignores, and
@@ -30,15 +32,35 @@ from typing import Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("segment_minima.cu",)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCES = ("segment_minima.cu", "ivf_list_scores.cu",
+           "ivf_list_scores_tiled.cu", "seg_gather.cu")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                     "-Xptxas", "-v")
 
-#: C entry points: (q, db, db_sq, penalty, out, n_queries, n_rows, dim,
-#: device, stream) -> cudaError_t.
-_ENTRY_POINTS = ("segment_minima_f32", "segment_minima_bf16")
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 3
-             + [ctypes.c_int, ctypes.c_void_p])
+
+def _args(n_ptr: int, n_int64: int) -> list:
+    """ctypes argtypes of an entry point: its pointers, its int64 sizes,
+    then the device index and the stream."""
+    return ([ctypes.c_void_p] * n_ptr + [ctypes.c_int64] * n_int64
+            + [ctypes.c_int, ctypes.c_void_p])
+
+
+#: C entry points -> argtypes; each returns a cudaError_t.
+_ENTRY_POINTS = {
+    # (q, db, db_sq, penalty, out, n_queries, n_rows, dim)
+    "segment_minima_f32": _args(5, 3),
+    "segment_minima_bf16": _args(5, 3),
+    # (t, a, db, starts, lo, hi, out, n_queries, n_probe, dim, win)
+    "ivf_list_scores_f32": _args(7, 4),
+    "ivf_list_scores_bf16": _args(7, 4),
+    "ivf_list_scores_i8": _args(7, 4),
+    # (t, db3, s2t, ti, c0, lo, hi, out, n_queries, n_probe, dim, tile_n,
+    #  win)
+    "ivf_list_scores_tiled_i8": _args(8, 5),
+    # (db3, sid, out, n_seg, dim, tile_n, esize)
+    "seg_gather_tiled": _args(3, 4),
+}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -74,31 +96,49 @@ def library_path() -> Path:
     return BUILD_DIR / f"libsmqtk_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build() -> dict:
-    """Compile the sources into :func:`library_path` (replacing any library
-    already there).
+def _run(cmds: list) -> str:
+    """Run the commands at once; their joined output.
 
-    :return: the nvcc command, its seconds and its output (ptxas register
-        and spill lines).
+    :raises RuntimeError: any command fails.
+    """
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    for c, p, log in zip(cmds, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({p.returncode}):\n{' '.join(c)}\n{log}")
+    return "".join(logs)
+
+
+def build() -> dict:
+    """Compile each source with its own nvcc, all at once, and link them
+    into :func:`library_path` (replacing any library already there).
+
+    :return: the nvcc commands, their seconds and their output (ptxas
+        register and spill lines).
     :raises RuntimeError: nvcc is missing or fails.
     """
     target = library_path()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp_dir = BUILD_DIR / f"obj.{os.getpid()}"
+    tmp_dir.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
+    objs = [str(tmp_dir / f"{s}.o") for s in SOURCES]
+    compile_cmds = [[nvcc(), *NVCC_FLAGS, "-c", "-o", o, str(CSRC / s)]
+                    for s, o in zip(SOURCES, objs)]
+    link_cmd = [nvcc(), *ARCH, "-shared", "-o", str(tmp), *objs]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        log = _run(compile_cmds) + _run([link_cmd])
+    finally:
+        shutil.rmtree(tmp_dir, ignore_errors=True)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}")
     # Atomic publish: a concurrent process sees the old name or the whole
     # library, never a partial file.
     os.replace(tmp, target)
-    return {"cmd": cmd, "seconds": seconds,
-            "log": proc.stdout + proc.stderr}
+    return {"cmd": [" ".join(c) for c in compile_cmds + [link_cmd]],
+            "seconds": seconds, "log": log}
 
 
 def library() -> ctypes.CDLL:
@@ -110,9 +150,9 @@ def library() -> ctypes.CDLL:
             if not path.exists():
                 build()
             lib = ctypes.CDLL(str(path))
-            for name in _ENTRY_POINTS:
+            for name, argtypes in _ENTRY_POINTS.items():
                 fn = getattr(lib, name)
-                fn.argtypes = _ARGTYPES
+                fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib

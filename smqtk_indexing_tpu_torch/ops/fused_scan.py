@@ -21,6 +21,12 @@ top-k row, with slack for ties.
 
 The bf16 ``db_seg_lo`` stage-2 form (``pallas_scan.py:702-755``) is not
 ported: the store never takes it.
+
+``seg_gather_tiled`` is the port of ``pallas_scan._seg_gather_tiled``
+(``:393-454``): it gathers (d, 128) segments of the tiled-transposed
+layout, for the IVF code tier's exact re-rank (``ops/ivf_scan.py``). On a
+CUDA tensor it runs ``csrc/seg_gather.cu``; on a CPU tensor, its plain
+version.
 """
 from __future__ import annotations
 
@@ -42,6 +48,10 @@ FUSED_METRICS = ("euclidean", "inner_product", "cosine")
 #: Launches of the CUDA stage-1 kernel in this process. The wrapper adds
 #: one where it launches the kernel and nowhere else.
 LAUNCHES = 0
+
+#: Launches of the CUDA segment-gather kernel (``seg_gather_tiled``), kept
+#: the same way.
+GATHER_LAUNCHES = 0
 
 #: Cap on the (B, C) f32 score block of ``segment_minima_reference``.
 REFERENCE_BYTES = 1 << 28
@@ -153,6 +163,85 @@ def _segment_minima_cuda(db, db_sq, penalty, q) -> torch.Tensor:
     _kernels.check(err, name)
     LAUNCHES += 1
     return out
+
+
+def _check_gather(db3: torch.Tensor, sid: torch.Tensor) -> None:
+    if db3.dim() != 3 or db3.shape[2] % SEG:
+        raise ValueError(f"seg_gather_tiled: db3 {tuple(db3.shape)} must be "
+                         f"(n_tiles, d, tile_n) with tile_n % {SEG} == 0")
+    if sid.dim() != 2 or sid.dtype not in (torch.int32, torch.int64):
+        raise ValueError("seg_gather_tiled: sid must be (B, s_keep) int32 "
+                         "or int64")
+    if sid.device != db3.device:
+        raise ValueError(f"seg_gather_tiled: tensors on several devices "
+                         f"{db3.device}, {sid.device}")
+
+
+def seg_gather_tiled(db3: torch.Tensor, sid: torch.Tensor) -> torch.Tensor:
+    """
+    Gather (d, 128) column slices of the tiled-transposed layout by global
+    segment id (``pallas_scan._seg_gather_tiled``, ``:405-454``): segment
+    ``s`` is ``db3[s // (tile_n / 128), :, (s % (tile_n / 128)) * 128 :][:,
+    :128]``.
+
+    :param db3: (n_tiles, d, tile_n) tensor of any dtype, tile_n % 128 == 0.
+    :param sid: (B, s_keep) global segment ids, each in
+        ``[0, n_tiles * tile_n / 128)`` (callers clamp empty slots to 0).
+    :return: (B, s_keep, d, 128) gathered blocks, in ``db3``'s dtype. On a
+        CUDA tensor it runs ``csrc/seg_gather.cu`` (a copy, bit-equal to
+        the plain version); on a CPU tensor, ``seg_gather_tiled_reference``.
+    :raises RuntimeError: on CUDA tensors, if the kernel cannot be built or
+        launched. There is no fallback to the plain version.
+    """
+    _check_gather(db3, sid)
+    if db3.device.type == "cpu":
+        return seg_gather_tiled_reference(db3, sid)
+    if db3.device.type == "cuda":
+        return _seg_gather_cuda(db3, sid)
+    raise ValueError(f"seg_gather_tiled: unsupported device {db3.device}")
+
+
+def seg_gather_tiled_reference(db3: torch.Tensor,
+                               sid: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of :func:`seg_gather_tiled`: advanced
+    indexing over the tile axis and a 128-column window per segment."""
+    _check_gather(db3, sid)
+    n_tiles, d, tile_n = db3.shape
+    flat = sid.reshape(-1).long()
+    nseg_t = tile_n // SEG
+    ti = flat // nseg_t
+    cols = (flat % nseg_t)[:, None] * SEG \
+        + torch.arange(SEG, device=db3.device)
+    # (M, d, 128): tile ti, every dim, the segment's 128 columns.
+    out = db3[ti[:, None, None],
+              torch.arange(d, device=db3.device)[None, :, None],
+              cols[:, None, :]]
+    return out.reshape(*sid.shape, d, SEG)
+
+
+def _seg_gather_cuda(db3: torch.Tensor, sid: torch.Tensor) -> torch.Tensor:
+    """Launch ``csrc/seg_gather.cu`` on the current stream."""
+    global GATHER_LAUNCHES
+    if not db3.is_contiguous():
+        raise ValueError("seg_gather_tiled: db3 is not contiguous")
+    esize = db3.element_size()
+    if esize not in (1, 2, 4):
+        raise TypeError(f"seg_gather_tiled: {db3.dtype} is not a 1, 2 or "
+                        "4-byte type")
+    n_tiles, d, tile_n = db3.shape
+    flat = sid.reshape(-1).to(torch.int64).contiguous()
+    out = torch.empty((flat.shape[0], d, SEG), dtype=db3.dtype,
+                      device=db3.device)
+    if db3.data_ptr() % 16:
+        raise ValueError("seg_gather_tiled: db3 must be 16-byte aligned")
+    lib = _kernels.library()
+    stream = torch.cuda.current_stream(db3.device).cuda_stream
+    err = lib.seg_gather_tiled(db3.data_ptr(), flat.data_ptr(),
+                               out.data_ptr(), flat.shape[0], d, tile_n,
+                               esize, db3.device.index, stream)
+    _kernels.check(err, "seg_gather_tiled")
+    GATHER_LAUNCHES += 1
+    return out.reshape(*sid.shape, d, SEG)
 
 
 def topk_smallest(m: torch.Tensor, kk: int

@@ -1,9 +1,12 @@
 """
 Exhaustive kNN scan with a carried running top-k, in plain PyTorch.
 
-Counterpart of ``smqtk_indexing_tpu/ops/scan.py:26-144, 218-291``
+Counterpart of ``smqtk_indexing_tpu/ops/scan.py:26-144, 180-291``
 (``METRICS``, ``_chunk_scores``, ``_finalize``, ``flat_topk``,
-``pad_to_k``, ``_exact_selected``, ``rerank_exact``). Row blocks stream
+``exact_rerank_decoded``, ``pad_to_k``, ``_exact_selected``,
+``rerank_exact``). The IVF query functions (``ops/ivf.py``,
+``ops/ivf_scan.py``) finish through ``_exact_selected``,
+``exact_rerank_decoded`` and ``pad_to_k``. Row blocks stream
 through a product (or an elementwise pass for hik / chi_square), each
 block's surrogate scores merge into a running (B, k) best set, and true
 distances are rebuilt only for the k winners, so the full (B, N) distance
@@ -141,19 +144,24 @@ def pad_to_k(dists: torch.Tensor, rows: torch.Tensor, k: int):
 
 def _exact_selected(metric: str, db: torch.Tensor, q: torch.Tensor,
                     q_sq: torch.Tensor, scores: torch.Tensor,
-                    rows: torch.Tensor):
+                    rows: torch.Tensor, dq=None):
     """
     True distances for the selected (B, k) rows, re-sorted ascending. For
     L2 the surrogate ``x_sq - 2ip`` cancels catastrophically at tiny
     distances, so the k winners are recomputed in the difference form from
     a (B, k, d) gather. Other metrics' surrogates finalise without
     cancellation. Slots past the live rows are +inf / -1 for every metric.
+
+    :param dq: Optional (a, b) SQ8 codec tensors when ``db`` holds int8
+        codes: the gathered rows dequantize before the exact distance.
     """
     if metric != "euclidean":
         # Unfilled slots stay +inf (cosine would map them to 2).
         return torch.where(torch.isinf(scores), math.inf,
                            _finalize(metric, scores, q_sq)), rows
     sel = db[torch.clamp(rows, min=0)].float()
+    if dq is not None:
+        sel = sel * dq[0] + dq[1]
     # In place: the gather is a fresh copy.
     diff2 = sel.sub_(q[:, None, :]).square_()
     exact = torch.sqrt(torch.clamp(diff2.sum(-1), min=0.0))
@@ -162,6 +170,41 @@ def _exact_selected(metric: str, db: torch.Tensor, q: torch.Tensor,
     # Exact values may reorder near-ties relative to the surrogate ranking.
     exact, order = torch.sort(exact, dim=1)
     return exact, torch.gather(rows, 1, order)
+
+
+def exact_rerank_decoded(x: torch.Tensor, q: torch.Tensor,
+                         q_norm: torch.Tensor, best_s: torch.Tensor,
+                         best_r: torch.Tensor, metric: str, k: int):
+    """
+    Exact re-rank of surrogate winners already decoded to f32
+    (``scan.py:180-215``): per-metric distances, re-sorted, (B, k) out.
+
+    :param x: (B, kk, d) float32 decoded candidate rows.
+    :param best_s: (B, kk) surrogate scores (+inf marks empty slots).
+    :param best_r: (B, kk) rows (-1 marks empty slots).
+    :return: (dists (B, k) ascending, rows (B, k); +inf / -1 padding).
+    """
+    if metric == "euclidean":
+        diff = x - q[:, None, :]
+        exact = torch.sqrt(torch.clamp((diff * diff).sum(-1), min=0.0))
+    elif metric == "inner_product":
+        exact = -(x * q[:, None, :]).sum(-1)
+    elif metric == "cosine":
+        ipx = (x * q[:, None, :]).sum(-1)
+        xn = torch.sqrt(torch.clamp((x * x).sum(-1), min=0.0))
+        denom = q_norm[:, None] * xn
+        sim = torch.clamp(ipx / torch.where(denom == 0, 1.0, denom),
+                          -1.0, 1.0)
+        exact = 2.0 * torch.arccos(sim) / math.pi
+    else:
+        raise ValueError(f"exact_rerank_decoded: unsupported metric "
+                         f"{metric!r}")
+    exact = torch.where(torch.isinf(best_s) | (best_r < 0), math.inf, exact)
+    out_d, sel = torch.topk(exact, min(k, exact.shape[1]), dim=1,
+                            largest=False, sorted=True)
+    out_r = torch.gather(best_r, 1, sel)
+    out_r = torch.where(torch.isinf(out_d), -1, out_r)
+    return pad_to_k(out_d, out_r, k)
 
 
 def rerank_exact(metric: str, q: torch.Tensor,

@@ -1,6 +1,8 @@
 """
-The port's hand-written kernels on the card, against their plain PyTorch
-versions and against the port's CPU path. Every test here is marked
+The port's hand-written kernels on the card (K1 ``segment_minima``, K7
+``ivf_list_scores_tiled``, K6 ``ivf_list_scores``, K3
+``seg_gather_tiled``), against their plain PyTorch versions and against
+the port's CPU path, for the flat and the IVF indexes. Every test here is marked
 ``cuda`` and skips without a card. This file imports neither jax nor the
 JAX package's compute, so it runs on a machine with the card and no jax:
 
@@ -16,7 +18,9 @@ from smqtk_indexing_tpu_torch.models.nn_index.flat import (
     FlatNearestNeighborsIndex,
 )
 from smqtk_indexing_tpu_torch.ops import fused_scan
-from tests.test_torch_helpers import scan_inputs
+from tests.test_torch_helpers import (
+    assert_same_neighbours, scan_inputs,
+)
 
 torch.set_num_threads(1)
 
@@ -131,3 +135,184 @@ def test_full_f32_policy_belongs_to_the_caller(card):
         assert torch.backends.cuda.matmul.allow_tf32
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+# ---------------------------------------------------------------------------
+# IVF kernels: K7 (ivf_list_scores_tiled), K6 (ivf_list_scores), K3
+# (seg_gather_tiled)
+# ---------------------------------------------------------------------------
+
+def _tiled_inputs(n_tiles, b, p, seed, d=128):
+    """Random tiled codes, stats with dead rows (+inf), and probe windows:
+    dead slots, windows clamped to the end of the last tile."""
+    from smqtk_indexing_tpu_torch.ops.ivf_scan import TILE_ROWS, W_TILED
+    rng = np.random.default_rng(seed)
+    db3 = rng.integers(-127, 128, size=(n_tiles, d, TILE_ROWS)) \
+        .astype(np.int8)
+    s2t = (rng.random((n_tiles, 1, TILE_ROWS)) * 50).astype(np.float32)
+    s2t[rng.random(s2t.shape) < 0.05] = np.inf
+    t = rng.normal(size=(b, d)).astype(np.float32) * 0.05
+    ti = rng.integers(0, n_tiles, size=(b, p)).astype(np.int32)
+    c0 = (rng.integers(0, (TILE_ROWS - W_TILED) // 128 + 1, size=(b, p))
+          * 128).astype(np.int32)
+    ti[:, 0], c0[:, 0] = n_tiles - 1, TILE_ROWS - W_TILED   # last window
+    lo = rng.integers(0, 128, size=(b, p)).astype(np.int32)
+    hi = np.minimum(lo + rng.integers(0, 513, size=(b, p)),
+                    W_TILED).astype(np.int32)
+    hi[:, 0] = W_TILED
+    hi[:, 1], ti[:, 1], c0[:, 1] = lo[:, 1], 0, 0               # dead
+    return db3, s2t, t, ti, c0, lo, hi
+
+
+@pytest.mark.cuda
+def test_k7_matches_plain_version(card):
+    from smqtk_indexing_tpu_torch.ops import ivf_scan
+    args = [torch.from_numpy(a).to(card)
+            for a in _tiled_inputs(3, 37, 64, seed=11)]
+    before = ivf_scan.LAUNCHES["ivf_list_scores_tiled"]
+    out = ivf_scan.ivf_list_scores_tiled(*args)
+    torch.cuda.synchronize()
+    assert ivf_scan.LAUNCHES["ivf_list_scores_tiled"] == before + 1
+    ref = ivf_scan.ivf_list_scores_tiled_reference(*args)
+    assert ivf_scan.LAUNCHES["ivf_list_scores_tiled"] == before + 1
+    assert torch.equal(torch.isinf(out), torch.isinf(ref))
+    assert torch.isinf(out[:, 1]).all()
+    fin = torch.isfinite(ref)
+    scale = ref[fin].abs().max().item()
+    assert (out - ref)[fin].abs().max().item() <= STAGE1_RTOL * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_k6_matches_plain_version(card, dtype):
+    from smqtk_indexing_tpu_torch.ops import ivf_scan
+    n, d, b, p = 8192, 256, 19, 24
+    rng = np.random.default_rng(12)
+    if dtype == "int8":
+        db = torch.from_numpy(rng.integers(-127, 128, size=(n, d))
+                              .astype(np.int8))
+        a = torch.from_numpy(rng.random(d).astype(np.float32) * 0.1)
+    else:
+        db = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)) \
+            .to(getattr(torch, dtype))
+        a = torch.ones(d)
+    t = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32))
+    starts = torch.from_numpy(
+        rng.integers(0, (n - 512) // 32 + 1, size=(b, p)) * 32).int()
+    starts[:, 0] = n - 512                                      # last window
+    lo = torch.from_numpy(rng.integers(0, 32, size=(b, p))).int()
+    hi = torch.clamp(lo + torch.from_numpy(
+        rng.integers(0, 481, size=(b, p))).int(), max=512)
+    hi[:, 1] = lo[:, 1]                                         # dead
+    args = [x.to(card) for x in (db, t, a, starts, lo, hi)]
+    before = ivf_scan.LAUNCHES["ivf_list_scores"]
+    out = ivf_scan.ivf_list_scores(*args)
+    torch.cuda.synchronize()
+    assert ivf_scan.LAUNCHES["ivf_list_scores"] == before + 1
+    ref = ivf_scan.ivf_list_scores_reference(*args)
+    assert torch.equal(torch.isinf(out), torch.isinf(ref))
+    assert torch.isinf(out[:, 1]).all()
+    fin = torch.isfinite(ref)
+    scale = ref[fin].abs().max().item()
+    assert (out - ref)[fin].abs().max().item() <= STAGE1_RTOL * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16", "float32"])
+def test_k3_is_bit_equal_to_plain_version(card, dtype):
+    rng = np.random.default_rng(13)
+    db3 = torch.from_numpy(rng.integers(-127, 128, size=(3, 128, 4096))
+                           .astype(np.int8)).to(getattr(torch, dtype))
+    sid = torch.from_numpy(rng.integers(0, 96, size=(7, 18)))
+    sid[0, :2] = torch.tensor([0, 95])
+    db3, sid = db3.to(card), sid.to(card)
+    before = fused_scan.GATHER_LAUNCHES
+    out = fused_scan.seg_gather_tiled(db3, sid)
+    torch.cuda.synchronize()
+    assert fused_scan.GATHER_LAUNCHES == before + 1
+    assert torch.equal(out, fused_scan.seg_gather_tiled_reference(db3, sid))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rerank", ["score", "gather"])
+def test_tiled_query_ragged_blocks_match_cpu(card, monkeypatch, rerank):
+    # A score budget small enough that 13 queries run in blocks of 4,
+    # the last one ragged.
+    from smqtk_indexing_tpu_torch.ops import ivf_scan
+    rng = np.random.default_rng(14)
+    n_tiles, d, c = 2, 128, 16
+    db3, s2t = _tiled_inputs(n_tiles, 1, 2, seed=14)[:2]
+    s2t[:] = (db3.astype(np.float32) ** 2).sum(1, keepdims=True) * 1e-4
+    a = np.full(d, 1e-2, np.float32)
+    b_codec = np.zeros(d, np.float32)
+    lens = np.bincount(np.sort(rng.integers(0, c, size=n_tiles * 4096)),
+                       minlength=c)
+    v_tile, v_col, v_len, v_orig, _ = ivf_scan.build_tiled_csr(
+        lens[None, :], np.zeros(1, np.int64))
+    table = ivf_scan.build_slot_table(v_orig, c)
+    cents = rng.normal(size=(c, d)).astype(np.float32)
+    q = rng.normal(size=(13, d)).astype(np.float32)
+    per_query = 4 * 64 * ivf_scan.W_TILED + (18 * d * 128 if rerank
+                                             == "gather" else 0)
+    monkeypatch.setattr(ivf_scan, "SCORE_BYTES", 4 * per_query)
+    outs = []
+    for dev in (card, torch.device("cpu")):
+        outs.append(ivf_scan.ivf_query_dma_tiled_table(
+            *(torch.from_numpy(x).to(dev) for x in (db3, s2t, a, b_codec,
+                                                    cents)),
+            torch.from_numpy(table).long().to(dev),
+            *(torch.from_numpy(x).to(dev) for x in (v_tile, v_col, v_len,
+                                                    q)),
+            k=10, nprobe_orig=3, rerank=rerank))
+    (d_gpu, r_gpu), (d_cpu, r_cpu) = outs
+    np.testing.assert_allclose(d_gpu.cpu().numpy(), d_cpu.numpy(),
+                               rtol=DIST_RTOL, atol=1e-5)
+    assert (r_gpu.cpu() == r_cpu).float().mean().item() >= 0.95
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage,dtype,rerank", [
+    ("code", "sq8", "score"), ("code", "sq8", "exact"),
+    ("rows", "float32", "exact"), ("rows", "sq8", "exact")])
+def test_ivf_index_on_card_matches_cpu(card, storage, dtype, rerank):
+    # The card's index loads the CPU index's payload, so both query the
+    # same centroids and codec; then both take the same update and removal.
+    from smqtk_indexing_tpu.data.data_element import DataMemoryElement
+    from smqtk_indexing_tpu_torch.models.nn_index.ivf import (
+        IvfNearestNeighborsIndex,
+    )
+    from smqtk_indexing_tpu_torch.ops import ivf_scan
+    rng = np.random.default_rng(15)
+    centres = rng.random((32, 96), dtype=np.float32)
+    x = (centres[rng.integers(0, 32, size=6000)]
+         + rng.normal(size=(6000, 96)) / 12).astype(np.float32)
+    els = [DescriptorMemoryElement(i, x[i]) for i in range(6000)]
+    kw = dict(n_lists=16, nprobe=4, random_seed=0, dtype=dtype,
+              storage=storage, rerank=rerank)
+    elem = DataMemoryElement()
+    cpu = IvfNearestNeighborsIndex(index_element=elem, device="cpu", **kw)
+    cpu.build_index(els[:5000])
+    gpu = IvfNearestNeighborsIndex(
+        index_element=DataMemoryElement(elem.get_bytes()), device="cuda",
+        **kw)
+    results = []
+    for index in (gpu, cpu):
+        index.update_index(els[5000:])
+        index.remove_from_index(list(range(0, 6000, 7)))
+        before = dict(ivf_scan.LAUNCHES)
+        res = index.nn_many(els[1:40:2], 10)
+        launched = {k for k in before if ivf_scan.LAUNCHES[k] > before[k]}
+        assert bool(launched) == (index is gpu)
+        results.append((np.array([[e.uuid() for e in r[0]] for r in res]),
+                        np.array([r[1] for r in res])))
+    (u_gpu, d_gpu), (u_cpu, d_cpu) = results
+    if rerank == "score":
+        # Score mode reports sqrt(s2 - 2<t, u> + ||q - b||^2): its f32
+        # sums of terms up to ~50 cancel at small distances, so the two
+        # devices' summation orders are compared on the squared distance,
+        # within 1e-5 of that scale.
+        assert_same_neighbours(u_gpu, d_gpu ** 2, u_cpu, d_cpu ** 2,
+                               rtol=0.0, atol=1e-3)
+    else:
+        assert_same_neighbours(u_gpu, d_gpu, u_cpu, d_cpu, rtol=1e-4,
+                               atol=1e-4)

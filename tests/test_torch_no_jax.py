@@ -1,7 +1,8 @@
 """
 The port imports and runs with jax blocked: every module of
-``smqtk_indexing_tpu_torch`` imports, and a tiny CPU build and query run,
-in a fresh interpreter where ``import jax`` fails.
+``smqtk_indexing_tpu_torch`` imports, tiny CPU builds and queries of the
+flat and IVF indexes run, and the bare class names of a config resolve to
+the port's classes, in a fresh interpreter where ``import jax`` fails.
 """
 import json
 import os
@@ -28,17 +29,35 @@ for m in mods:
 from smqtk_indexing_tpu_torch.data import DescriptorMemoryElement
 from smqtk_indexing_tpu_torch.models.nn_index.flat import (
     FlatNearestNeighborsIndex)
+from smqtk_indexing_tpu_torch.models.nn_index.ivf import (
+    IvfNearestNeighborsIndex)
+from smqtk_indexing_tpu.core.configuration import from_config_dict
+from smqtk_indexing_tpu.interfaces.nearest_neighbor_index import (
+    NearestNeighborsIndex)
 rng = np.random.default_rng(0)
 x = rng.normal(size=(300, 20)).astype(np.float32)
 els = [DescriptorMemoryElement(i, x[i]) for i in range(300)]
-index = FlatNearestNeighborsIndex(device="cpu")
-index.build_index(els)
-res = index.nn_many(els[:4], 3)
-loaded = [n for n, m in sys.modules.items()
-          if m is not None and (n == "jax" or n.startswith("jax."))]
-print(json.dumps({"modules": mods, "loaded_jax": loaded,
-                  "first": [r[0][0].uuid() for r in res],
-                  "dists": [r[1][0] for r in res]}))
+out = {"modules": mods}
+for name, index in (
+        ("flat", FlatNearestNeighborsIndex(device="cpu")),
+        ("ivf", IvfNearestNeighborsIndex(n_lists=4, nprobe=4, random_seed=0,
+                                         device="cpu")),
+        ("ivf_code", IvfNearestNeighborsIndex(
+            n_lists=4, nprobe=4, random_seed=0, dtype="sq8",
+            storage="code", device="cpu"))):
+    index.build_index(els)
+    res = index.nn_many(els[:4], 3)
+    out[name] = [[r[0][0].uuid() for r in res], [r[1][0] for r in res]]
+# With jax blocked only the port's classes exist, so a bare class name
+# resolves to them.
+impls = NearestNeighborsIndex.get_impls()
+out["bare"] = {
+    bare: type(from_config_dict(
+        {"type": bare, bare: {"device": "cpu"}}, impls)).__module__
+    for bare in ("FlatNearestNeighborsIndex", "IvfNearestNeighborsIndex")}
+out["loaded_jax"] = [n for n, m in sys.modules.items()
+                     if m is not None and (n == "jax" or n.startswith("jax."))]
+print(json.dumps(out))
 """
 
 
@@ -47,8 +66,19 @@ def test_port_runs_with_jax_blocked():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert "smqtk_indexing_tpu_torch.models.nn_index.flat" in out["modules"]
-    assert "smqtk_indexing_tpu_torch.ops.fused_scan" in out["modules"]
+    for mod in ("models.nn_index.flat", "models.nn_index.ivf",
+                "models.nn_index._ivf_code", "models.nn_index._ivf_rows",
+                "models.nn_index._ivf_persist",
+                "models.nn_index._ivf_matrix", "ops.fused_scan", "ops.ivf",
+                "ops.ivf_scan", "ops.kmeans", "ops.sq8"):
+        assert "smqtk_indexing_tpu_torch." + mod in out["modules"]
     assert out["loaded_jax"] == []
-    assert out["first"] == [0, 1, 2, 3]
-    assert out["dists"] == [0.0] * 4
+    assert out["flat"] == [[0, 1, 2, 3], [0.0] * 4]
+    assert out["ivf"] == [[0, 1, 2, 3], [0.0] * 4]
+    assert out["ivf_code"][0] == [0, 1, 2, 3]
+    assert max(out["ivf_code"][1]) < 0.1      # the SQ8 step only
+    assert out["bare"] == {
+        "FlatNearestNeighborsIndex":
+            "smqtk_indexing_tpu_torch.models.nn_index.flat",
+        "IvfNearestNeighborsIndex":
+            "smqtk_indexing_tpu_torch.models.nn_index.ivf"}
