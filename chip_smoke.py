@@ -37,7 +37,24 @@ not 0:
 5. IVF rows tier: ``storage="rows"`` with float32 and sq8 over the same
    vectors at nprobe=4 (K6, ``ivf_list_scores``, held against its plain
    version and float64 at each index's operands), then nprobe = n_lists
-   on 128 queries, which must give recall@10 = 1.0 for float32.
+   on 128 queries, which must give recall@10 = 1.0 for float32;
+6. IVF-PQ code tier: ``IvfNearestNeighborsIndex(n_lists=4096,
+   nprobe=16, dtype="opq16", storage="code", pq_residual=True,
+   rerank="exact", device="cuda")`` (the 'OPQ16,IVF4096,PQ16' by_residual
+   configuration) over 1,000,000 x 96 vectors of ``bench_all.py``'s rank-8
+   correlated recipe (seed 2, 1,024 held-out queries). K8
+   (``ivf_list_scores_tiled_pq``) against its plain version and float64
+   at the built index's operands (B=1024); 5 timed batches, recall@10
+   against float64 over the raw vectors (>= 0.85); ``rerank="score"``
+   (within 0.01 of exact mode); nprobe = n_lists on 128 queries, whose
+   top-10 must be the float64 top-10 over the index's reconstructions;
+7. IVF-PQ rows tier: ``dtype="pq16", storage="rows", pq_residual=True``
+   at nprobe=4 on the same vectors, routed to K8 (recall@10 >= 0.75);
+8. flat codecs: ``FlatNearestNeighborsIndex(dtype="sq8")`` over the flat
+   phase's vectors, whose stage 1 is K1's int8 form (held against its
+   plain version and float64 at the store's operands), then
+   ``dtype="pq16"``; each top-10 of 128 queries must be the float64
+   top-10 over the store's quantized rows.
 
 Each path sets the kernels' launch counts to 0 just before it runs and
 reads them just after. Then a ``{"kernels": [...]}`` line with each
@@ -71,6 +88,17 @@ IVF_LISTS = 4096
 IVF_NPROBE = 4
 #: The recall the serving line must reach (bench.py's line read 0.9672).
 IVF_RECALL_FLOOR = 0.95
+#: IVF-PQ: 'OPQ16,IVF4096,PQ16' by_residual on the code tier at nprobe=16,
+#: and residual PQ16 on the rows tier at nprobe=4. The floors sit under
+#: the JAX package's record on the same data (docs/benchmarks.md:214:
+#: 0.892 and 0.787), with a margin for training on another backend.
+PQ_NPROBE = 16
+PQ_RECALL_FLOOR = 0.85
+PQ_ROWS_NPROBE = 4
+PQ_ROWS_RECALL_FLOOR = 0.75
+#: Distances reported by an exact re-rank (f32, codec space) against
+#: float64 over the same reconstructions.
+RECON_TOL = 1e-4
 
 
 def emit(phase: str, **fields) -> None:
@@ -169,6 +197,14 @@ def hold(name: str, kernel, plain, f64, smi: str, reps=(10, 3), **info):
     return err, statistics.mean(t_kernel), statistics.mean(t_plain)
 
 
+def flat_data():
+    """bench.py's SIFT1M-shaped flat data: uniform * 218, seed 0."""
+    rng = np.random.default_rng(0)
+    data = rng.random((N_MAIN, DIM), dtype=np.float32) * 218.0
+    queries = rng.random((BATCH, DIM), dtype=np.float32) * 218.0
+    return data, queries
+
+
 def flat_phases(smi: str, dev) -> dict:
     """Phases 2 and 3; returns K1's row of the kernels line."""
     import torch
@@ -251,9 +287,7 @@ def flat_phases(smi: str, dev) -> dict:
     torch.cuda.empty_cache()
 
     # -- 3. main path through the public API ------------------------------
-    rng = np.random.default_rng(0)
-    data = rng.random((N_MAIN, DIM), dtype=np.float32) * 218.0
-    queries = rng.random((BATCH, DIM), dtype=np.float32) * 218.0
+    data, queries = flat_data()
     elems = [DescriptorMemoryElement(i, data[i]) for i in range(N_MAIN)]
     q_elems = [DescriptorMemoryElement(("q", i), queries[i])
                for i in range(BATCH)]
@@ -588,6 +622,341 @@ def ivf_phases(smi: str, dev) -> list:
     ]
 
 
+def pq_data():
+    """bench_all.py's correlated recipe (bench_all.py:65-85; rank 8, seed
+    2, scale 1.0): a 1,024-cluster mixture in a rank-8 latent space mixed
+    into 96 dims, 1,024 held-out queries."""
+    rng = np.random.default_rng(2)
+    n_clusters, rank, scale = 1024, 8, 1.0
+    total = IVF_N + IVF_BATCH
+    lat = rng.random((n_clusters, rank), dtype=np.float32) * scale
+    w = rng.standard_normal((rank, IVF_DIM)).astype(np.float32) \
+        / np.sqrt(rank)
+    z = lat[rng.integers(0, n_clusters, size=total)]
+    z += rng.normal(size=(total, rank)).astype(np.float32) * (scale / 12)
+    pts = (z @ w + rng.normal(size=(total, IVF_DIM)).astype(np.float32)
+           * (scale / 50)).astype(np.float32)
+    pts = pts[rng.permutation(total)]
+    return pts[:IVF_N], pts[IVF_N:]
+
+
+def topk64(x64, q64, k: int, valid=None):
+    """Float64 euclidean top-k (rows, distances) on the card, over the
+    rows ``valid`` marks live."""
+    import torch
+    d2 = (q64 * q64).sum(1)[:, None] - 2.0 * (q64 @ x64.T) \
+        + (x64 * x64).sum(1)[None, :]
+    if valid is not None:
+        d2 = torch.where(valid[None, :], d2, float("inf"))
+    d2, rows = torch.topk(d2, k, dim=1, largest=False, sorted=True)
+    return rows.cpu().numpy(), np.sqrt(np.maximum(d2.cpu().numpy(), 0.0))
+
+
+def same_topk(uids, dists, ref_uids, ref_dists, what: str) -> None:
+    """The top-k of each query equals the reference's: distances within
+    RECON_TOL (relative and absolute), and ids that differ only where
+    they tie with the k-th distance within the same tolerance."""
+    dists = np.asarray(dists, np.float64)
+    ok = np.allclose(dists, ref_dists, rtol=RECON_TOL, atol=RECON_TOL)
+    for i in range(ref_uids.shape[0]):
+        kth = float(ref_dists[i, -1])
+        look = dict(zip(ref_uids[i].tolist(), ref_dists[i].tolist()))
+        look.update(zip(list(uids[i]), dists[i].tolist()))
+        for u in set(uids[i]) ^ set(ref_uids[i].tolist()):
+            ok = ok and abs(look[u] - kth) <= RECON_TOL * (1.0 + abs(kth))
+    if not ok:
+        raise RuntimeError(f"{what}: the top-{K} is not the float64 top-{K}"
+                           " over the reconstructions")
+
+
+def _f64_tiled_pq(db3c, s2t, lut, ti, c0, lo, hi):
+    """K8's scores in float64 for the first N_ORACLE queries, and the sum
+    of each score's absolute terms."""
+    import torch
+    from smqtk_indexing_tpu_torch.ops.ivf_scan import W_TILED
+    dev = db3c.device
+    lane = torch.arange(W_TILED, device=dev)
+    subs = torch.arange(db3c.shape[1], device=dev)
+    p = ti.shape[1]
+    exact, mag = [], []
+    for q0 in range(0, N_ORACLE, 8):
+        tt = ti[q0:q0 + 8].long()[..., None]
+        cols = c0[q0:q0 + 8].long()[..., None] + lane
+        codes = db3c[tt[..., None], subs[:, None], cols[..., None, :]]
+        idx = subs[:, None] * 256 + codes.long()        # (8, P, M, W)
+        vals = torch.gather(
+            lut[q0:q0 + 8].double()[:, None, :].expand(-1, p, -1), 2,
+            idx.flatten(2)).view(idx.shape)
+        s2 = s2t[tt, 0, cols].double()
+        ok = (lane >= lo[q0:q0 + 8, :, None]) & (lane < hi[q0:q0 + 8, :,
+                                                          None])
+        exact.append(torch.where(ok, s2 - 2.0 * vals.sum(2), float("inf")))
+        mag.append(torch.where(ok, s2.abs() + 2.0 * vals.abs().sum(2),
+                               float("inf")))
+        del codes, idx, vals
+    return torch.cat(exact), torch.cat(mag)
+
+
+def _pq_recon64(index, dev):
+    """The code tier's reconstructions in float64 on the card, in the
+    codec space (residual: the list centroid added back), and the float64
+    query transform to that space."""
+    import torch
+    from smqtk_indexing_tpu_torch.ops.pq import _dequant
+    n = index._host.shape[0]
+    codes = torch.from_numpy(index._host).to(dev)
+    x = _dequant(codes, index._cb_dev).double()
+    if index.pq_residual:
+        x += index._cents_codec_dev.double()[index._row2list_dev[:n].long()]
+    transform = index._perm_dev
+
+    def prep(q_pad):
+        q = torch.from_numpy(q_pad).to(dev).double()
+        d_codec = transform.shape[0]
+        q = torch.nn.functional.pad(q, (0, d_codec - q.shape[1]))
+        return q @ transform.double() if transform.dim() == 2 \
+            else q[:, transform.long()]
+    return x, prep
+
+
+def ivf_pq_phases(smi: str, dev) -> list:
+    """Phases 6 and 7: the IVF-PQ code tier (K8, K3) and the routed rows
+    tier (K8); returns the kernels line's row of K8 and the K3 launches."""
+    import torch
+    from smqtk_indexing_tpu_torch.data import DescriptorMemoryElement
+    from smqtk_indexing_tpu_torch.models.nn_index.ivf import (
+        IvfNearestNeighborsIndex,
+    )
+    from smqtk_indexing_tpu_torch.ops import ivf_scan
+
+    data, queries = pq_data()
+    elems = [DescriptorMemoryElement(i, data[i]) for i in range(IVF_N)]
+    q_elems = [DescriptorMemoryElement(("q", i), queries[i])
+               for i in range(IVF_BATCH)]
+    truth = oracle_topk(data, queries[:N_ORACLE], K, "euclidean")
+
+    # -- 6. 'OPQ16,IVF4096,PQ16' by_residual, code tier --------------------
+    torch.cuda.reset_peak_memory_stats(dev)
+    index = IvfNearestNeighborsIndex(
+        n_lists=IVF_LISTS, nprobe=PQ_NPROBE, kmeans_iterations=10,
+        max_points_per_centroid=64, random_seed=0, dtype="opq16",
+        storage="code", pq_residual=True, rerank="exact", device="cuda")
+    t0 = time.perf_counter()
+    index.build_index(elems)
+    build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated(dev)
+    d_pad = index._centroids_np.shape[1]
+    q_pad = np.pad(queries, ((0, 0), (0, d_pad - IVF_DIM)))
+    _, lut, ti, c0, lo, hi, _ = ivf_scan.tiled_windows_pq(
+        index._cb_dev, index._perm_dev, index._dev_centroids,
+        index._slot_table, index._v_tile, index._v_col, index._v_len,
+        torch.from_numpy(q_pad).to(dev), nprobe_orig=PQ_NPROBE,
+        residual=True)
+    k8_args = (index._dev3, index._s2t, lut, ti, c0, lo, hi)
+    k8 = hold("ivf_list_scores_tiled_pq",
+              lambda: ivf_scan.ivf_list_scores_tiled_pq(*k8_args),
+              lambda: ivf_scan.ivf_list_scores_tiled_pq_reference(*k8_args),
+              lambda: _f64_tiled_pq(*k8_args), smi,
+              shape=[IVF_BATCH, ti.shape[1], ivf_scan.W_TILED],
+              m_sub=int(index._dev3.shape[1]),
+              live_slots=int((hi > lo).sum()))
+    del k8_args, lut, ti, c0, lo, hi
+    index_bytes = torch.cuda.memory_allocated(dev)
+    index.nn_many(q_elems, K)                              # warm-up
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    res, batch_s, split_ms = _timed_batches(index, q_elems, 5)
+    counts = read_counts()
+    rec = _checked(res, truth, IVF_BATCH)
+    emit("main", path="ivf-pq code tier", n=IVF_N, d=IVF_DIM,
+         n_lists=IVF_LISTS, nprobe=PQ_NPROBE, dtype="opq16",
+         storage="code", pq_residual=True, rerank="exact", batch=IVF_BATCH,
+         k=K, build_s=build_s, batch_s=batch_s,
+         qps=IVF_BATCH / statistics.median(batch_s), split_ms=split_ms,
+         recall_at_10=rec, launches=counts, index_device_bytes=index_bytes,
+         peak_device_bytes_queries=torch.cuda.max_memory_allocated(dev),
+         peak_device_bytes_build=build_peak, card=smi)
+    if rec < PQ_RECALL_FLOOR:
+        raise RuntimeError(f"ivf-pq code tier: recall@10 {rec} < "
+                           f"{PQ_RECALL_FLOOR}")
+    k8_launches = counts["ivf_list_scores_tiled_pq"]
+    k3_launches = counts["seg_gather_tiled"]
+    if k3_launches == 0:
+        raise RuntimeError("the PQ exact re-rank never launched "
+                           "seg_gather_tiled")
+
+    index.rerank = "score"
+    index.nn_many(q_elems, K)                              # warm-up
+    reset_counts()
+    res, batch_s, split_ms = _timed_batches(index, q_elems, 2)
+    counts = read_counts()
+    rec_score = _checked(res, truth, IVF_BATCH)
+    emit("main", path="ivf-pq code tier, rerank=score", batch=IVF_BATCH,
+         k=K, batch_s=batch_s, qps=IVF_BATCH / statistics.median(batch_s),
+         split_ms=split_ms, recall_at_10=rec_score, launches=counts,
+         card=smi)
+    if rec_score < rec - 0.01:
+        raise RuntimeError(f"rerank=score: recall@10 {rec_score} < exact "
+                           f"mode's {rec} - 0.01")
+    k8_launches += counts["ivf_list_scores_tiled_pq"]
+
+    # Exhaustive probe: the float64 top-k over the index's own
+    # reconstructions (the exactness contract, whatever the codec).
+    index.rerank = "exact"
+    index.nprobe = IVF_LISTS
+    reset_counts()
+    t0 = time.perf_counter()
+    res = index.nn_many(q_elems[:N_ORACLE], K)
+    ex_s = time.perf_counter() - t0
+    counts = read_counts()
+    k8_launches += counts["ivf_list_scores_tiled_pq"]
+    k3_launches += counts["seg_gather_tiled"]
+    _checked(res, truth, N_ORACLE)
+    x64, prep = _pq_recon64(index, dev)
+    rows, ref_d = topk64(x64, prep(q_pad[:N_ORACLE]), K)
+    del x64
+    uids = np.array(index._row2uid, dtype=object)[rows]
+    same_topk([[e.uuid() for e in r[0]] for r in res],
+              np.array([r[1] for r in res]), uids, ref_d,
+              "ivf-pq exhaustive probe")
+    emit("main", path="ivf-pq code tier, nprobe=n_lists", batch=N_ORACLE,
+         k=K, batch_s=[ex_s], equals_f64_over_reconstructions=True,
+         launches=counts, card=smi)
+    del index, res
+    torch.cuda.empty_cache()
+
+    # -- 7. residual PQ16 on the rows tier: routed to K8 ------------------
+    index = IvfNearestNeighborsIndex(
+        n_lists=IVF_LISTS, nprobe=PQ_ROWS_NPROBE, kmeans_iterations=10,
+        max_points_per_centroid=64, random_seed=0, dtype="pq16",
+        storage="rows", pq_residual=True, device="cuda")
+    t0 = time.perf_counter()
+    index.build_index(elems)
+    build_s = time.perf_counter() - t0
+    if index._dev3 is None:
+        raise RuntimeError("rows-tier pq16: not routed to the tiled engine")
+    index.nn_many(q_elems, K)                              # warm-up
+    reset_counts()
+    res, batch_s, split_ms = _timed_batches(index, q_elems, 2)
+    counts = read_counts()
+    k8_launches += counts["ivf_list_scores_tiled_pq"]
+    rec = _checked(res, truth, IVF_BATCH)
+    emit("main", path="ivf-pq rows tier", n=IVF_N, d=IVF_DIM,
+         n_lists=IVF_LISTS, nprobe=PQ_ROWS_NPROBE, dtype="pq16",
+         storage="rows", pq_residual=True, batch=IVF_BATCH, k=K,
+         build_s=build_s, batch_s=batch_s,
+         qps=IVF_BATCH / statistics.median(batch_s), split_ms=split_ms,
+         recall_at_10=rec, launches=counts, card=smi)
+    if rec < PQ_ROWS_RECALL_FLOOR:
+        raise RuntimeError(f"ivf-pq rows tier: recall@10 {rec} < "
+                           f"{PQ_ROWS_RECALL_FLOOR}")
+    del index, res, elems
+    torch.cuda.empty_cache()
+    if k8_launches == 0:
+        raise RuntimeError("the IVF-PQ paths never launched "
+                           "ivf_list_scores_tiled_pq")
+    return [{"name": "ivf_list_scores_tiled_pq", "route": "cuda",
+             "source": "smqtk_indexing_tpu_torch/csrc/"
+                       "ivf_list_scores_tiled_pq.cu",
+             "replaces": "smqtk_indexing_tpu/ops/pallas_ivf.py:785",
+             "launches": k8_launches, "max_abs_err": k8[0], "ms": k8[1],
+             "plain_ms": k8[2]}], k3_launches
+
+
+def flat_codec_phases(smi: str, dev) -> dict:
+    """Phase 8: the flat SQ8 store (K1's int8 form) and the flat PQ16
+    store over the flat phase's vectors; returns the kernels line's row of
+    K1's int8 form."""
+    import torch
+    from smqtk_indexing_tpu_torch.data import DescriptorMemoryElement
+    from smqtk_indexing_tpu_torch.models.nn_index.flat import (
+        FlatNearestNeighborsIndex,
+    )
+    from smqtk_indexing_tpu_torch.ops import fused_scan
+    from smqtk_indexing_tpu_torch.ops.pq import _dequant, pq_prep_queries
+    from smqtk_indexing_tpu_torch.ops.sq8 import sq8_decode
+
+    data, queries = flat_data()
+    elems = [DescriptorMemoryElement(i, data[i]) for i in range(N_MAIN)]
+    q_elems = [DescriptorMemoryElement(("q", i), queries[i])
+               for i in range(BATCH)]
+    truth = oracle_topk(data, queries[:N_ORACLE], K, "euclidean")
+    row = None
+    for dtype in ("sq8", "pq16"):
+        index = FlatNearestNeighborsIndex(dtype=dtype, device="cuda")
+        t0 = time.perf_counter()
+        index.build_index(elems)
+        build_s = time.perf_counter() - t0
+        store = index._store
+        if dtype == "sq8":
+            if not store._sq8_fused_eligible("euclidean"):
+                raise RuntimeError("flat sq8: not served by K1's int8 form")
+            # K1's int8 form on the store's operands: the codes, their
+            # stats and the euclidean query fold (q - b) a.
+            qd = torch.from_numpy(queries).to(dev)
+            t = (qd - store._sq8_b) * store._sq8_a
+            penalty = torch.where(store._dev_valid, 0.0, float("inf"))
+            k1_args = (store._dev, store._dev_sq, penalty, t)
+
+            def f64():
+                tb = t[:N_ORACLE].to(torch.bfloat16).double()
+                u = store._dev.double()
+                exact = (store._dev_sq.double()[None] - 2.0 * (tb @ u.T)
+                         + penalty.double()[None]) \
+                    .view(N_ORACLE, -1, fused_scan.SEG).amin(-1)
+                mag = store._dev_sq.max().double() \
+                    + 2.0 * (tb.abs() @ u.abs().T).max()
+                return exact, torch.full_like(exact, mag.item())
+            row = hold("segment_minima_i8",
+                       lambda: fused_scan.segment_minima(*k1_args),
+                       lambda: fused_scan.segment_minima_reference(
+                           *k1_args), f64, smi,
+                       shape=[BATCH] + list(store._dev.shape))
+            del k1_args, t, penalty, qd
+            x64 = sq8_decode(store._dev, store._sq8_a, store._sq8_b).double()
+            q64 = torch.from_numpy(queries[:N_ORACLE]).to(dev).double()
+        else:
+            perm, rot, _ = store._codec
+            x64 = _dequant(store._dev, store._pq_cb_dev).double()
+            q64 = torch.from_numpy(pq_prep_queries(
+                queries[:N_ORACLE], perm, rot)).to(dev).double()
+        index.nn_many(q_elems, K)                          # warm-up
+        reset_counts()
+        batch_s = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            res = index.nn_many(q_elems, K)
+            batch_s.append(time.perf_counter() - t0)
+        counts = read_counts()
+        rows, ref_d = topk64(x64, q64, K, valid=store._dev_valid)
+        del x64, q64
+        same_topk([[e.uuid() for e in r[0]] for r in res[:N_ORACLE]],
+                  np.array([r[1] for r in res[:N_ORACLE]]),
+                  np.array(store._row2uid, dtype=object)[rows], ref_d,
+                  f"flat {dtype}")
+        rec = recall([[e.uuid() for e in r[0]] for r in res[:N_ORACLE]],
+                     truth)
+        emit("main", path=f"flat {dtype}", n=N_MAIN, d=DIM, batch=BATCH,
+             k=K, build_s=build_s, batch_s=batch_s,
+             qps=BATCH / statistics.median(batch_s),
+             recall_at_10_vs_raw=rec,
+             equals_f64_over_quantized_rows=True, launches=counts,
+             card=smi)
+        if dtype == "sq8":
+            i8_launches = counts["segment_minima"]
+            if i8_launches == 0:
+                raise RuntimeError("the flat sq8 path never launched "
+                                   "segment_minima_i8")
+        del index, res, store
+        torch.cuda.empty_cache()
+    err, ms, plain_ms = row
+    return {"name": "segment_minima_i8", "route": "cuda",
+            "source": "smqtk_indexing_tpu_torch/csrc/segment_minima.cu",
+            "replaces": "smqtk_indexing_tpu/ops/pallas_scan.py:173",
+            "launches": i8_launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -628,6 +997,16 @@ def main() -> None:
     t0 = time.perf_counter()
     kernels += ivf_phases(smi, dev)
     emit("seconds", of="ivf phases", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    k8_rows, k3_launches = ivf_pq_phases(smi, dev)
+    emit("seconds", of="ivf-pq phases", seconds=time.perf_counter() - t0)
+    for row in kernels:
+        if row["name"] == "seg_gather_tiled":
+            row["launches"] += k3_launches
+    kernels += k8_rows
+    t0 = time.perf_counter()
+    kernels.insert(1, flat_codec_phases(smi, dev))
+    emit("seconds", of="flat codec phases", seconds=time.perf_counter() - t0)
     if any(mod is not None and (name == "jax" or name.startswith("jax."))
            for name, mod in sys.modules.items()):
         raise RuntimeError("jax was imported")

@@ -7,10 +7,16 @@
 //     out[b, s] = min over r in [128 s, 128 s + 128) of
 //                 (db_sq[r] - 2 <q_b, x_r>) + penalty[r]
 //
-// for q (B, d) f32, db (N, d) row-major f32 or bf16, db_sq and penalty (N,)
-// f32 (penalty = +inf on dead rows), out (B, N / 128) f32. The (B, N) score
-// matrix never reaches device memory: each block keeps its scores in
-// registers and writes one minimum per query and segment.
+// for q (B, d) f32, db (N, d) row-major f32, bf16 or int8, db_sq and
+// penalty (N,) f32 (penalty = +inf on dead rows), out (B, N / 128) f32. The
+// (B, N) score matrix never reaches device memory: each block keeps its
+// scores in registers and writes one minimum per query and segment.
+//
+// The int8 form is the flat SQ8 store's stage 1 (smqtk_indexing_tpu/ops/
+// sq8.py:237-259): db holds the row-major codes u, q the codec fold
+// t = (q - b) a, db_sq the rows' sum((a u)^2). The TPU kernel reads a
+// transposed int8 mirror; this one reads the row-major codes the store
+// already holds, so no mirror and no extra byte per dim.
 //
 // What bounds it on an H100: at the main path's shapes (B = 2048,
 // N = 1,048,576, d = 128) the products are 2 B N d = 5.5e11 FLOP, about
@@ -27,10 +33,10 @@
 // - The depth d is walked in chunks of 16, staged through 16 KB of shared
 //   memory with coalesced 16-byte global loads; shared memory does not grow
 //   with d.
-// - Accumulation is full f32 FFMA: no TF32, no tensor cores. A bf16
-//   database is widened to f32 as it is staged; the wrapper rounds the
-//   query to bf16 first, so every product of two bf16 values is exact in
-//   f32, as on the TPU's matrix unit.
+// - Accumulation is full f32 FFMA: no TF32, no tensor cores. A bf16 or
+//   int8 database is widened to f32 as it is staged; the wrapper rounds
+//   the query to bf16 first, so every product of a bf16 value with a bf16
+//   value or an int8 code is exact in f32, as on the TPU's matrix unit.
 // - Each query's minimum over its segment is reduced in registers across
 //   the thread's 8 rows, then across the 16 threads of the half-warp that
 //   share the query with warp shuffles.
@@ -70,6 +76,22 @@ __device__ __forceinline__ void load8(const uint16_t* __restrict__ p,
   for (int i = 0; i < 4; ++i) {
     v[2 * i] = __uint_as_float(words[i] << 16);
     v[2 * i + 1] = __uint_as_float(words[i] & 0xffff0000u);
+  }
+}
+
+// Eight int8 codes widened exactly to f32 (byte j of word i is value
+// 4 i + j: the card is little-endian).
+__device__ __forceinline__ void load8(const int8_t* __restrict__ p,
+                                      float v[8]) {
+  const uint2 w = __ldg(reinterpret_cast<const uint2*>(p));
+  const uint32_t words[2] = {w.x, w.y};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[4 * i + j] = static_cast<float>(
+          static_cast<int8_t>((words[i] >> (8 * j)) & 0xffu));
+    }
   }
 }
 
@@ -211,4 +233,17 @@ extern "C" int segment_minima_bf16(const void* q, const void* db,
                           static_cast<const float*>(penalty),
                           static_cast<float*>(out), n_queries, n_rows, dim,
                           device, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int segment_minima_i8(const void* q, const void* db,
+                                 const void* db_sq, const void* penalty,
+                                 void* out, int64_t n_queries,
+                                 int64_t n_rows, int64_t dim, int device,
+                                 void* stream) {
+  return launch<int8_t>(static_cast<const float*>(q),
+                        static_cast<const int8_t*>(db),
+                        static_cast<const float*>(db_sq),
+                        static_cast<const float*>(penalty),
+                        static_cast<float*>(out), n_queries, n_rows, dim,
+                        device, static_cast<cudaStream_t>(stream));
 }

@@ -2,40 +2,44 @@
 The IVF configuration matrix of the port, and its one enforcement point.
 
 Counterpart of ``smqtk_indexing_tpu/models/nn_index/_ivf_matrix.py``: the
-same cells are accepted, minus the ones whose slices are not ported yet,
-which raise ``ValueError`` naming that slice. Every accepted cell is built
-and queried by ``tests/test_torch_ivf.py``.
+same cells are accepted, minus sharding (``n_devices > 1``), which raises
+``ValueError`` naming its slice. Every accepted cell is built and queried
+by ``tests/test_torch_ivf_contract.py``.
 
 storage='rows' (float32 host mirror):
 
-    dtype     metric                           engine
-    float32   euclidean                        K6 (ivf_scan.ivf_query_dma)
-    bfloat16  euclidean                        K6
-    sq8       euclidean, rerank='exact'        K6 over int8 codes
-    sq8       euclidean, rerank='score'        K7 (tiled, as the code tier)
-    any       inner_product / cosine           ivf.ivf_query (list gather)
+    dtype       metric                      engine
+    float32     euclidean                   K6 (ivf_scan.ivf_query_dma)
+    bfloat16    euclidean                   K6
+    sq8         euclidean, rerank='exact'   K6 over int8 codes
+    sq8         euclidean, rerank='score'   K7 (tiled, as the code tier)
+    pq/opq<M>   euclidean                   K8 (tiled, as the code tier)
+    float/sq8   inner_product / cosine      ivf.ivf_query (list gather)
+    pq/opq<M>   inner_product / cosine      ivf.ivf_query_pq (list gather)
+
+    pq_residual=True: pq/opq<M>, euclidean only (through K8).
 
 Layouts whose sublists exceed ``L_MAX - 32`` rows, or whose capacity is
 under ``L_MAX``, take ``ivf.ivf_query`` too.
 
-storage='code' (int8 code host mirror, the capacity tier):
+storage='code' (int8 / uint8 code host mirror, the capacity tier):
 
-    sq8       euclidean / inner_product / cosine, K7; rerank='exact' also
-              runs K3 for the winners' segments. inner_product zeroes the
-              row stats; cosine encodes unit rows and normalizes queries.
+    sq8         euclidean / inner_product / cosine, K7; rerank='exact'
+                also runs K3 for the winners' segments. inner_product
+                zeroes the row stats; cosine encodes unit rows and
+                normalizes queries.
+    pq/opq<M>   euclidean / inner_product / cosine, K8 (and K3 for
+                rerank='exact').
+    pq_residual=True: pq/opq<M>, euclidean or cosine (the euclidean
+                residual pipeline over unit-sphere codes).
 
 rerank='score' changes results only on the tiled paths; elsewhere
 distances are exact already, so it is accepted and has no effect.
 """
 from __future__ import annotations
 
-import re
-
 from smqtk_indexing_tpu_torch.ops.ivf import METRICS
-
-
-def _is_pq_dtype(dtype: str) -> bool:
-    return bool(re.fullmatch(r"o?pq\d+", dtype))
+from smqtk_indexing_tpu_torch.ops.pq import pq_m
 
 
 def validate_ivf_combination(metric: str, dtype: str, storage: str,
@@ -45,14 +49,15 @@ def validate_ivf_combination(metric: str, dtype: str, storage: str,
     Reject an unsupported IVF configuration with its reason.
 
     :raises ValueError: an unknown metric, dtype, storage or rerank value;
-        storage='code' with a float dtype; a PQ/OPQ dtype or pq_residual
-        (the codec slice); n_devices > 1 (the multi-device slice).
+        storage='code' with a float dtype; pq_residual with a non-PQ dtype,
+        with inner_product, or with cosine on the rows tier; n_devices > 1
+        (the multi-device slice).
     """
+    is_pq = pq_m(dtype) is not None
     if metric not in METRICS:
         raise ValueError(
             f"metric must be one of {METRICS}, got {metric!r}")
-    if dtype not in ("float32", "bfloat16", "sq8") \
-            and not _is_pq_dtype(dtype):
+    if dtype not in ("float32", "bfloat16", "sq8") and not is_pq:
         raise ValueError(
             "dtype must be 'float32' | 'bfloat16' | 'sq8' | 'pq<M>' "
             f"| 'opq<M>', got {dtype!r}")
@@ -62,15 +67,26 @@ def validate_ivf_combination(metric: str, dtype: str, storage: str,
     if rerank not in ("exact", "score"):
         raise ValueError(
             f"rerank must be 'exact' | 'score', got {rerank!r}")
-    if _is_pq_dtype(dtype) or pq_residual:
-        raise ValueError(
-            f"dtype={dtype!r} / pq_residual={pq_residual} is not ported "
-            "yet: PQ, OPQ and residual PQ are the 'Codecs' slice of "
-            "ROADMAP.md (queue 1, item 4).")
-    if storage == "code" and dtype != "sq8":
+    if pq_residual:
+        if not is_pq:
+            raise ValueError(
+                "pq_residual requires a PQ dtype ('pq<M>'/'opq<M>'), "
+                f"got {dtype!r}")
+        if metric == "cosine" and storage != "code":
+            raise ValueError(
+                "pq_residual with metric='cosine' requires storage='code' "
+                "(the code tier's codes carry unit rows, so the L2 "
+                "residual pipeline is cosine ranking on the unit sphere; "
+                "the rows tier's codes carry raw rows)")
+        if metric == "inner_product":
+            raise ValueError(
+                "pq_residual serves euclidean (any storage) or cosine "
+                "(storage='code'); inner_product has no L2 probe-score "
+                "decomposition for the per-probe -2<q,c> term")
+    if storage == "code" and dtype != "sq8" and not is_pq:
         raise ValueError(
             "storage='code' (code-resident capacity tier) requires "
-            f"dtype='sq8', got {dtype!r}")
+            f"dtype='sq8', 'pq<M>' or 'opq<M>', got {dtype!r}")
     if n_devices is not None and n_devices > 1:
         raise ValueError(
             f"n_devices={n_devices} is not ported yet: sharding is the "

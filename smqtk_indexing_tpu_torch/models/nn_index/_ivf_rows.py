@@ -1,12 +1,15 @@
 """
-Rows-tier engine of the port's ``IvfNearestNeighborsIndex``: the f32 /
-bf16 / sq8 branches of ``smqtk_indexing_tpu/models/nn_index/_ivf_rows.py``
-(``upload_rows`` :24-187, ``query_rows`` :266-299 single-device).
+Rows-tier engine of the port's ``IvfNearestNeighborsIndex``:
+``smqtk_indexing_tpu/models/nn_index/_ivf_rows.py`` (``upload_rows``
+:24-187, ``query_rows`` :226-300, single device).
 
 The host mirror is the float32 rows, sorted by list. The device holds
-them row-major (f32, bf16, or SQ8 codes with a codec trained per layout),
-with the list balancer's sublist CSR. Rows-tier SQ8 with
-``rerank='score'`` routes to the tiled engine instead (``_ivf_code``).
+them row-major (f32, bf16, SQ8 codes or PQ codes, with a codec trained per
+layout), with the list balancer's sublist CSR. The routed cells
+(``ivf._tiled_rows_ok``: SQ8 with ``rerank='score'``, euclidean PQ, with
+or without ``pq_residual``) take the tiled engine instead (``_ivf_code``),
+with a per-layout codec that is never persisted. Row-major PQ therefore
+serves only inner_product and cosine, which admit no residual.
 Functions take the index instance as ``idx`` and run under its lock.
 """
 from __future__ import annotations
@@ -18,8 +21,13 @@ from smqtk_indexing_tpu_torch.models.nn_index._ivf_code import upload_tiled
 from smqtk_indexing_tpu_torch.ops.device import (
     capacity_for, pad_rows_np, pow2_at_least,
 )
-from smqtk_indexing_tpu_torch.ops.ivf import ivf_query
+from smqtk_indexing_tpu_torch.ops.ivf import ivf_query, ivf_query_pq
 from smqtk_indexing_tpu_torch.ops.ivf_scan import L_MAX, ivf_query_dma
+from smqtk_indexing_tpu_torch.ops.opq import compose_transform, opq_train
+from smqtk_indexing_tpu_torch.ops.pq import (
+    pq_build_store, pq_encode_np, pq_prep_queries, pq_train,
+    pq_transform_queries,
+)
 from smqtk_indexing_tpu_torch.ops.sq8 import (
     sq8_build_store, sq8_encode_np, sq8_train,
 )
@@ -61,15 +69,37 @@ def balance_lists(lens: np.ndarray, n: int):
             np.asarray(v_len, dtype=np.int32), v_orig, first_virt)
 
 
-def upload_rows(idx) -> None:
-    """Rows-tier device build, or the tiled build for rows-tier SQ8 with
-    ``rerank='score'`` (a codec trained on this layout's live rows)."""
-    if idx._tiled_rows_ok():
-        live = idx._host[idx._valid_host] \
-            if not idx._valid_host.all() else idx._host
+def _upload_tiled_routed(idx) -> None:
+    """The routed cells' tiled build, with a codec trained on this
+    layout's live rows: SQ8, or PQ over the codec grid (the residuals
+    ``x_T - c_T[list]`` with ``pq_residual``; an OPQ rotation learned on
+    them for 'opq<M>')."""
+    live_mask = None if idx._valid_host.all() else idx._valid_host
+    m = idx._pq_m(idx.dtype)
+    if m is None:
+        live = idx._host if live_mask is None else idx._host[live_mask]
         a, b = sq8_train(live)
         upload_tiled(idx, sq8_codes=sq8_encode_np(idx._host, a, b),
                      sq8_ab=(a, b))
+        return
+    rows_c = idx._pq_prep_rows(idx._host, rotate=False)
+    if idx.pq_residual:
+        rows_c = rows_c - idx._pq_cents_codec(None)[idx._assign_host]
+    live = rows_c if live_mask is None else rows_c[live_mask]
+    rot = None
+    if idx._pq_rotate(idx.dtype):
+        rot, cb = opq_train(live, m, device=idx._device)
+        rows_c = rows_c @ rot
+    else:
+        cb = pq_train(live, m, device=idx._device)
+    upload_tiled(idx, pq_codes=pq_encode_np(rows_c, cb, device=idx._device),
+                 pq_cb=cb, pq_rot=rot)
+
+
+def upload_rows(idx) -> None:
+    """Rows-tier device build, or the tiled build of the routed cells."""
+    if idx._tiled_rows_ok():
+        _upload_tiled_routed(idx)
         return
     idx._dev3 = idx._s2t = None
     idx._v_tile = idx._v_col = idx._v_len = idx._slot_table = None
@@ -86,6 +116,19 @@ def upload_rows(idx) -> None:
             idx._host, idx._valid_host, idx._capacity, d_pad, idx._dim, dev)
         idx._dev_sq = nrm * nrm
         idx._dev_norm = nrm
+    elif idx._pq_m(idx.dtype) is not None:
+        # PQ codes in list-sorted order (pq_build_store: the interleave,
+        # a per-layout codec, exact reconstruction-norm stats). Padding
+        # rows decode to some codeword; windows never cover them, and
+        # their stats are zeroed anyway.
+        (perm, rot, _, idx._pq_cb_dev, idx._dev, s2) = pq_build_store(
+            idx._host, idx._valid_host, idx._capacity, d_pad,
+            idx._pq_m(idx.dtype), dev, rotate=idx._pq_rotate(idx.dtype))
+        idx._dev_sq = torch.where(torch.from_numpy(valid).to(dev), s2, 0.0)
+        idx._dev_norm = torch.sqrt(torch.clamp(idx._dev_sq, min=0.0))
+        idx._perm_dev = torch.from_numpy(
+            compose_transform(perm, rot) if rot is not None
+            else perm.astype(np.int64)).to(dev)
     else:
         padded = pad_rows_np(idx._host, idx._capacity, d_pad)
         sq = np.zeros(idx._capacity, dtype=np.float32)
@@ -103,8 +146,11 @@ def upload_rows(idx) -> None:
     idx._max_split = int(np.bincount(v_orig).max())
     idx._l_max_raw = max(int(v_len.max()), 1)
     idx._l_max = pow2_at_least(idx._l_max_raw)
-    # Centroids stay float over int8 codes; bf16 storage keeps them bf16.
+    # Centroids stay float over int8 codes; bf16 storage keeps them bf16;
+    # PQ ranks them on the codec grid, as its queries.
     cent = idx._centroids_np[v_orig].astype(np.float32)
+    if idx._pq_m(idx.dtype) is not None:
+        cent = pq_prep_queries(cent, perm, rot)
     idx._dev_centroids = torch.from_numpy(cent).to(
         dev, torch.bfloat16 if idx.dtype == "bfloat16" else torch.float32)
     idx._dev_offsets = torch.from_numpy(v_off).long().to(dev)
@@ -114,8 +160,16 @@ def upload_rows(idx) -> None:
 def query_rows(idx, q_p: torch.Tensor, k_dev: int, nprobe: int,
                first_virt, nprobe_orig, has_dead: bool):
     """Serve one padded query batch through K6 (``_dma_eligible``) or the
-    plain list gather (``ops/ivf.ivf_query``)."""
+    plain list gathers (``ops/ivf.ivf_query``, ``ivf_query_pq``)."""
     dq = (idx._sq8_a, idx._sq8_b) if idx.dtype == "sq8" else None
+    if idx._pq_m(idx.dtype) is not None:
+        return ivf_query_pq(
+            idx._dev, idx._pq_cb_dev, idx._dev_sq, idx._dev_valid,
+            idx._dev_centroids, idx._dev_offsets, idx._dev_lens,
+            pq_transform_queries(q_p, idx._perm_dev),
+            k=k_dev, nprobe=nprobe, l_max=idx._l_max, metric=idx.metric,
+            first_virt=first_virt, nprobe_orig=nprobe_orig,
+            has_dead=has_dead)
     if idx._dma_eligible():
         return ivf_query_dma(
             idx._dev, idx._dev_valid, idx._dev_centroids, idx._dev_offsets,

@@ -7,7 +7,10 @@ contract, plus a ``device`` parameter. The descriptor matrix lives on the
 device in ``ops/store.VectorStore``; a query batch runs the fused exact
 scan (``ops/fused_scan.py``: the hand-written stage-1 kernel, then an
 exact re-rank) for euclidean / inner_product / cosine, and the streamed
-scan (``ops/scan.py``) for hik / chi_square.
+scan (``ops/scan.py``) for hik / chi_square. The compressed codecs
+('sq8', 'pq<M>', 'opq<M>') scan their codes (``ops/sq8.sq8_topk``, with
+the int8 form of the stage-1 kernel; ``ops/pq.pq_topk``) and re-rank
+exactly with respect to the quantized vectors.
 
 Select it in configuration by its fully-qualified key,
 ``"smqtk_indexing_tpu_torch.models.nn_index.flat.FlatNearestNeighborsIndex"``:
@@ -48,6 +51,7 @@ from smqtk_indexing_tpu_torch.models.nn_index._results import (
     assemble_results_from_uids,
 )
 from smqtk_indexing_tpu_torch.ops.device import device_report
+from smqtk_indexing_tpu_torch.ops.pq import PQ_METRICS, pq_m, pq_rotate
 from smqtk_indexing_tpu_torch.ops.scan import METRICS
 from smqtk_indexing_tpu_torch.ops.store import VectorStore
 from smqtk_indexing_tpu_torch.utils.tracing import COUNTERS, trace_span
@@ -66,9 +70,11 @@ class FlatNearestNeighborsIndex (NearestNeighborsIndex):
         payload is the JAX package's: either package loads the other's.
     :param metric: One of 'euclidean' | 'inner_product' | 'cosine' | 'hik'
         | 'chi_square'.
-    :param dtype: Device storage codec: 'float32' (exact) or 'bfloat16'
-        (half the memory traffic). The compressed codecs are a later
-        slice of the port.
+    :param dtype: Device storage codec: 'float32' (exact), 'bfloat16'
+        (half the memory traffic), 'sq8' (one int8 code a dim), 'pq<M>'
+        (product quantization, M bytes a vector) or 'opq<M>' (PQ behind a
+        learned OPQ rotation; not with 'hik'). The compressed codecs serve
+        'euclidean', 'inner_product', 'cosine' and 'hik'.
     :param read_only: Refuse mutations when True.
     :param n_devices: None or 1. Sharding over several cards is a later
         slice of the port.
@@ -142,6 +148,17 @@ class FlatNearestNeighborsIndex (NearestNeighborsIndex):
             raise ValueError(
                 f"n_devices={n_devices} is not ported yet: sharding is the "
                 "'Multi-device' slice of ROADMAP.md (queue 1, item 9).")
+        if pq_rotate(dtype) and metric == "hik":
+            raise ValueError(
+                "metric 'hik' is not supported with OPQ dtypes (min() is "
+                "rotation-variant); use 'pq<M>'")
+        if metric not in PQ_METRICS \
+                and (dtype == "sq8" or pq_m(dtype) is not None):
+            # Fail at construction, not at the first query after a build:
+            # the compressed scans serve the matmul-form metrics and hik.
+            raise ValueError(
+                f"metric {metric!r} is not supported with compressed "
+                f"dtype {dtype!r}; use float32/bfloat16")
         self.descriptor_set = descriptor_set if descriptor_set is not None \
             else MemoryDescriptorSet()
         self.index_element = index_element

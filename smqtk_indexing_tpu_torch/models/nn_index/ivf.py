@@ -12,14 +12,21 @@ nprobe, in original lists) and returns the k best. Three engines, each on
 its hand-written kernel (the routing is the JAX package's TPU routing, on
 every device):
 
-- code tier (``storage='code'``, sq8): the tiled scan, K7
-  (``_ivf_code``, ``ops/ivf_scan.ivf_query_dma_tiled_table``); with
-  ``rerank='exact'`` the winners' segments come through K3;
+- code tier (``storage='code'``): the tiled scan (``_ivf_code``), K7 over
+  SQ8 codes (``ops/ivf_scan.ivf_query_dma_tiled_table``) or K8 over PQ
+  codes (``ivf_query_dma_tiled_table_pq``); with ``rerank='exact'`` the
+  winners' segments come through K3;
 - rows tier, euclidean f32 / bf16 / sq8: the row-major scan, K6
   (``_ivf_rows``, ``ops/ivf_scan.ivf_query_dma``); rows-tier sq8 with
-  ``rerank='score'`` takes the tiled engine;
+  ``rerank='score'`` and rows-tier euclidean PQ take the tiled engine;
 - the rest (rows-tier inner_product and cosine, and lists longer than
-  K6's window): the plain list gather of ``ops/ivf.ivf_query``.
+  K6's window): the plain list gathers of ``ops/ivf.ivf_query`` and
+  ``ivf_query_pq``.
+
+PQ ('pq<M>') and OPQ ('opq<M>') codes live on the codec grid: the padded
+dims extended to a multiple of M, interleaved round-robin over the
+subspaces, and for OPQ rotated. ``pq_residual=True`` encodes
+``x - centroid(list)`` (FAISS ``by_residual``).
 
 Select it in configuration by its fully-qualified key,
 ``"smqtk_indexing_tpu_torch.models.nn_index.ivf.IvfNearestNeighborsIndex"``:
@@ -69,7 +76,10 @@ from smqtk_indexing_tpu_torch.ops.device import (
 )
 from smqtk_indexing_tpu_torch.ops.ivf_scan import L_MAX, TILE_ROWS
 from smqtk_indexing_tpu_torch.ops.kmeans import kmeans_assign, kmeans_lloyd
-from smqtk_indexing_tpu_torch.ops.sq8 import sq8_encode_np
+from smqtk_indexing_tpu_torch.ops.pq import (
+    pq_codec_dim, pq_decode_np, pq_m, pq_perm,
+    pq_prep_queries, pq_rotate,
+)
 from smqtk_indexing_tpu_torch.utils.tracing import COUNTERS, trace_span
 
 LOG = logging.getLogger(__name__)
@@ -93,17 +103,19 @@ class IvfNearestNeighborsIndex (NearestNeighborsIndex):
     :param random_seed: Seed of the k-means init and training subsample
         (numpy, as the JAX package draws them, so one seed gives one init
         in both packages).
-    :param dtype: Device storage: 'float32' | 'bfloat16' | 'sq8'. The PQ
-        codecs are a later slice of the port.
+    :param dtype: Device storage: 'float32' | 'bfloat16' | 'sq8' |
+        'pq<M>' (product quantization, M bytes a vector) | 'opq<M>' (PQ
+        behind a learned OPQ rotation).
     :param storage: 'rows' (float32 host mirror) or 'code' (the capacity
-        tier: the host mirror and the payload are int8 SQ8 codes; requires
-        dtype='sq8').
+        tier: the host mirror and the payload are the codes, int8 SQ8 or
+        uint8 PQ; requires dtype='sq8', 'pq<M>' or 'opq<M>').
     :param rerank: Finalization on the tiled engine: 'exact' re-ranks the
         winners from their decoded codes; 'score' reports the kernel's
         surrogate distance and skips the gather.
     :param read_only: Refuse mutations when True.
     :param n_devices: None or 1. Sharding is a later slice of the port.
-    :param pq_residual: False. Residual PQ is a later slice of the port.
+    :param pq_residual: PQ dtypes only: encode residuals to the list
+        centroid (euclidean; cosine on the code tier).
     :param device: torch device holding the index: 'cuda' (default; raises
         when no card is present) or 'cpu' (the kernels' plain versions).
     """
@@ -194,6 +206,36 @@ class IvfNearestNeighborsIndex (NearestNeighborsIndex):
         self._reset_state()
         self._load_index()
 
+    _pq_m = staticmethod(pq_m)
+    _pq_rotate = staticmethod(pq_rotate)
+
+    def _pq_grid(self):
+        """(m, d_codec, perm) of the PQ codec grid, which follows from the
+        padded dim, so only the learned codebooks and rotation persist."""
+        m = self._pq_m(self.dtype)
+        d_codec = pq_codec_dim(self._centroids_np.shape[1], m)
+        return m, d_codec, pq_perm(d_codec, m)
+
+    def _pq_cents_codec(self, rot: Optional[np.ndarray]) -> np.ndarray:
+        """(C, d_codec) float32 centroids in the codec space (interleave,
+        and the OPQ rotation ``rot``): the residual codec's frame. The
+        ``rot=None`` form is cached until the next full build."""
+        if rot is None and self._cents_codec_cache is not None:
+            return self._cents_codec_cache
+        c = pq_prep_queries(self._centroids_np.astype(np.float32),
+                            self._pq_grid()[2], rot)
+        if rot is None:
+            self._cents_codec_cache = c
+        return np.ascontiguousarray(c)
+
+    def _pq_prep_rows(self, mat: np.ndarray,
+                      rotate: bool = True) -> np.ndarray:
+        """Float rows -> (n, d_codec) codec-grid rows: interleaved, and
+        with ``rotate`` and a trained code-tier rotation, rotated."""
+        return pq_prep_queries(np.asarray(mat, np.float32),
+                               self._pq_grid()[2],
+                               self._code_rot if rotate else None)
+
     def _dma_eligible(self) -> bool:
         """Rows tier through K6 (``ivf.py:289-302``): euclidean, every
         sublist inside the kernel's window less its alignment slack, and a
@@ -203,10 +245,13 @@ class IvfNearestNeighborsIndex (NearestNeighborsIndex):
                 and self._capacity >= L_MAX)
 
     def _tiled_rows_ok(self) -> bool:
-        """Rows-tier sq8 with score finalization takes the tiled engine
-        (``ivf.py:304-337``; score mode exists only there)."""
-        return (self.storage == "rows" and self.dtype == "sq8"
-                and self.metric == "euclidean" and self.rerank == "score")
+        """The rows tier's routed cells take the tiled engine
+        (``ivf.py:304-337``, the TPU routing): euclidean PQ / OPQ always
+        (K8), and sq8 with score finalization (score mode exists only
+        there)."""
+        return (self.storage == "rows" and self.metric == "euclidean"
+                and (self._pq_m(self.dtype) is not None
+                     or (self.dtype == "sq8" and self.rerank == "score")))
 
     def _reset_state(self) -> None:
         # Host source of truth, in list-sorted order.
@@ -229,12 +274,21 @@ class IvfNearestNeighborsIndex (NearestNeighborsIndex):
         self._max_split = 1
         # SQ8 device codec (either layout).
         self._sq8_a = self._sq8_b = None
-        # Code tier host codec: trained once, reused by updates.
+        # Code tier host codec: trained once, reused by updates (SQ8 scale
+        # and offset, or PQ codebooks and OPQ rotation).
         self._code_a: Optional[np.ndarray] = None
         self._code_b: Optional[np.ndarray] = None
+        self._code_cb: Optional[np.ndarray] = None
+        self._code_rot: Optional[np.ndarray] = None
+        self._cents_codec_cache: Optional[np.ndarray] = None
         # Tiled device state (_ivf_code); +inf stats poison dead rows.
         self._dev3 = self._s2t = None
         self._v_tile = self._v_col = self._v_len = self._slot_table = None
+        # PQ device codec (either layout): codebooks and the query
+        # transform (interleave, or the interleave-and-rotation matrix);
+        # residual PQ's codec-space centroids and row -> list map.
+        self._cb_dev = self._pq_cb_dev = self._perm_dev = None
+        self._cents_codec_dev = self._row2list_dev = None
 
     def get_config(self) -> Dict[str, Any]:
         c = self.get_default_config()
@@ -350,11 +404,21 @@ class IvfNearestNeighborsIndex (NearestNeighborsIndex):
 
     def _row_vector(self, i: int) -> np.ndarray:
         """Float view of host row ``i``: the code tier decodes its codes,
-        the only float those rows have."""
-        if self.storage == "code":
+        the only float those rows have (PQ: rotated back out of the OPQ
+        frame, the list centroid added back for residuals, the interleave
+        undone)."""
+        if self.storage != "code":
+            return self._host[i]
+        if self._pq_m(self.dtype) is None:
             return (self._host[i].astype(np.float32) * self._code_a
                     + self._code_b)
-        return self._host[i]
+        x_c = pq_decode_np(self._host[i:i + 1], self._code_cb)
+        if self._code_rot is not None:
+            x_c = x_c @ self._code_rot.T
+        if self.pq_residual:
+            x_c = x_c + self._pq_cents_codec(None)[
+                self._assign_host[i:i + 1]]
+        return x_c[0, np.argsort(self._pq_grid()[2])][:self._dim]
 
     # ------------------------------------------------------------------
     # index API
@@ -381,6 +445,7 @@ class IvfNearestNeighborsIndex (NearestNeighborsIndex):
             self._dim = int(mat.shape[1])
             # A full build retrains the codec too (FAISS train()).
             self._code_a = self._code_b = None
+            self._code_cb = self._code_rot = self._cents_codec_cache = None
             with trace_span("ivf.train"):
                 self._centroids_np = self._train_centroids(mat)
             self._layout(mat, uids, self._assign(mat))
@@ -412,8 +477,9 @@ class IvfNearestNeighborsIndex (NearestNeighborsIndex):
                     # Updates encode with the build-time codec (a FAISS
                     # quantizer never retrains on add), so the mirror stays
                     # codes; cosine codes carry unit rows.
-                    new_mat = sq8_encode_np(self._prep_for_metric(new_mat),
-                                            self._code_a, self._code_b)
+                    new_mat = _ivf_code.encode_rows(
+                        self, new_mat, new_assigns,
+                        np.ones(len(fresh), dtype=bool))
                 self._layout(
                     np.concatenate([self._host[keep], new_mat]),
                     [self._row2uid[i] for i in keep] + fresh,
@@ -438,10 +504,10 @@ class IvfNearestNeighborsIndex (NearestNeighborsIndex):
             self._n_live -= len(rows)
             if self._n_live == 0:
                 kept = (self._centroids_np, self._dim, self._code_a,
-                        self._code_b)
+                        self._code_b, self._code_cb, self._code_rot)
                 self._reset_state()
                 (self._centroids_np, self._dim, self._code_a,
-                 self._code_b) = kept
+                 self._code_b, self._code_cb, self._code_rot) = kept
             elif self._n_live < self._host.shape[0] // 2 \
                     and self._host.shape[0] > 1024:
                 keep = np.flatnonzero(self._valid_host)
@@ -449,8 +515,9 @@ class IvfNearestNeighborsIndex (NearestNeighborsIndex):
                              [self._row2uid[i] for i in keep],
                              self._assign_host[keep])
             elif self._dev3 is not None:
-                # Poison the removed rows' stats in place: the tiled kernel
-                # scores s2 - 2<t, u>, so a +inf row never wins.
+                # Poison the removed rows' stats in place: the tiled
+                # kernels score s2 - 2<t, u> (K7) and s2 - 2 sum LUT (K8),
+                # so a +inf row never wins.
                 r = torch.as_tensor(rows, dtype=torch.long,
                                     device=self._device)
                 self._s2t[r // TILE_ROWS, 0, r % TILE_ROWS] = float("inf")

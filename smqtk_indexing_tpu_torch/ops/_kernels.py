@@ -33,7 +33,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("segment_minima.cu", "ivf_list_scores.cu",
-           "ivf_list_scores_tiled.cu", "seg_gather.cu")
+           "ivf_list_scores_tiled.cu", "ivf_list_scores_tiled_pq.cu",
+           "seg_gather.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                      "-Xptxas", "-v")
@@ -51,6 +52,7 @@ _ENTRY_POINTS = {
     # (q, db, db_sq, penalty, out, n_queries, n_rows, dim)
     "segment_minima_f32": _args(5, 3),
     "segment_minima_bf16": _args(5, 3),
+    "segment_minima_i8": _args(5, 3),
     # (t, a, db, starts, lo, hi, out, n_queries, n_probe, dim, win)
     "ivf_list_scores_f32": _args(7, 4),
     "ivf_list_scores_bf16": _args(7, 4),
@@ -58,6 +60,9 @@ _ENTRY_POINTS = {
     # (t, db3, s2t, ti, c0, lo, hi, out, n_queries, n_probe, dim, tile_n,
     #  win)
     "ivf_list_scores_tiled_i8": _args(8, 5),
+    # (lut, db3, s2t, ti, c0, lo, hi, out, n_queries, n_probe, m_sub,
+    #  tile_n, win)
+    "ivf_list_scores_tiled_pq": _args(8, 5),
     # (db3, sid, out, n_seg, dim, tile_n, esize)
     "seg_gather_tiled": _args(3, 4),
 }

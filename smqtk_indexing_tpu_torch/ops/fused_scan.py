@@ -9,7 +9,9 @@ Stage 1, ``segment_minima``: per query, the minimum of the L2 surrogate
 score matrix never reaches memory. On a CUDA tensor it runs the
 hand-written Hopper kernel ``csrc/segment_minima.cu`` (the port of
 ``pallas_scan.segment_minima`` -> ``_scan_kernel``, ``:102-241``); on a
-CPU tensor, its plain PyTorch version ``segment_minima_reference``.
+CPU tensor, its plain PyTorch version ``segment_minima_reference``. The
+database is f32, bf16 or int8; the int8 form is the flat SQ8 store's
+stage 1 over its row-major codes (``ops/sq8.sq8_topk``).
 
 Stage 2 (``pallas_scan.py:619-700``, the f32 form): the top ``s_keep``
 segments by minimum, a gather of their rows, exact per-metric distances
@@ -45,9 +47,15 @@ SEG = 128
 #: Metrics with a matmul-form surrogate, served by this path.
 FUSED_METRICS = ("euclidean", "inner_product", "cosine")
 
-#: Launches of the CUDA stage-1 kernel in this process. The wrapper adds
-#: one where it launches the kernel and nowhere else.
+#: Launches of the CUDA stage-1 kernel in this process, every database
+#: dtype. The wrapper adds one where it launches the kernel and nowhere
+#: else.
 LAUNCHES = 0
+
+#: The stage-1 kernel's C entry point for each database dtype.
+_STAGE1_ENTRY = {torch.float32: "segment_minima_f32",
+                 torch.bfloat16: "segment_minima_bf16",
+                 torch.int8: "segment_minima_i8"}
 
 #: Launches of the CUDA segment-gather kernel (``seg_gather_tiled``), kept
 #: the same way.
@@ -62,10 +70,11 @@ STAGE2_BYTES = 1 << 28
 
 
 def _q_kernel_dtype(q: torch.Tensor, db_dtype: torch.dtype) -> torch.Tensor:
-    """Stage-1 query operand, f32: rounded to bf16 first for a bf16
-    database (``pallas_scan._q_kernel_dtype``), so that every product of
-    two bf16 values is exact in f32."""
-    if db_dtype == torch.bfloat16:
+    """Stage-1 query operand, f32: rounded to bf16 first for a bf16 or
+    int8 database (``pallas_scan._q_kernel_dtype``, ``:85-99``), so that
+    every product of a bf16 value with a bf16 value or an int8 code is
+    exact in f32."""
+    if db_dtype in (torch.bfloat16, torch.int8):
         return q.to(torch.bfloat16).float()
     return q.float()
 
@@ -80,9 +89,9 @@ def _check_stage1(db, db_sq, penalty, q) -> None:
         raise ValueError(f"segment_minima: N={n} is not a multiple of {SEG}")
     if db_sq.shape != (n,) or penalty.shape != (n,):
         raise ValueError("segment_minima: db_sq and penalty must be (N,)")
-    if db.dtype not in (torch.float32, torch.bfloat16):
+    if db.dtype not in _STAGE1_ENTRY:
         raise TypeError(f"segment_minima: db dtype {db.dtype} is not "
-                        "float32 or bfloat16")
+                        "float32, bfloat16 or int8")
     if (db_sq.dtype, penalty.dtype, q.dtype) != (torch.float32,) * 3:
         raise TypeError("segment_minima: db_sq, penalty and q must be "
                         "float32")
@@ -93,10 +102,13 @@ def segment_minima(db: torch.Tensor, db_sq: torch.Tensor,
     """
     Stage 1: per-query, per-128-row-segment minima of the L2 surrogate.
 
-    :param db: (N, d) row-major database, f32 or bf16, N % 128 == 0.
-    :param db_sq: (N,) f32 squared norms (zeros for inner_product/cosine).
+    :param db: (N, d) row-major database, f32, bf16 or int8 (SQ8 codes),
+        N % 128 == 0.
+    :param db_sq: (N,) f32 squared norms (zeros for inner_product/cosine;
+        ``sum((a u)^2)`` for SQ8 codes).
     :param penalty: (N,) f32, 0 for live rows and +inf for dead ones.
-    :param q: (B, d) f32 queries (rounded to bf16 for a bf16 database).
+    :param q: (B, d) f32 queries, or the SQ8 fold ``(q - b) a`` (rounded
+        to bf16 for a bf16 or int8 database).
     :return: (B, N // 128) f32 segment minima.
     :raises RuntimeError: on CUDA tensors, if the kernel cannot be built
         or launched. There is no fallback to the plain version.
@@ -154,8 +166,7 @@ def _segment_minima_cuda(db, db_sq, penalty, q) -> torch.Tensor:
         raise ValueError("segment_minima: grid exceeds 2^31 blocks")
     out = torch.empty((b, n // SEG), dtype=torch.float32, device=db.device)
     lib = _kernels.library()
-    name = ("segment_minima_bf16" if db.dtype == torch.bfloat16
-            else "segment_minima_f32")
+    name = _STAGE1_ENTRY[db.dtype]
     stream = torch.cuda.current_stream(db.device).cuda_stream
     err = getattr(lib, name)(
         qk.data_ptr(), db.data_ptr(), db_sq.data_ptr(), penalty.data_ptr(),

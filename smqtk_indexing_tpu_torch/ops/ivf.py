@@ -13,7 +13,10 @@ the flat scan's surrogates, and re-ranks the winners exactly
 and cosine, and layouts whose lists are longer than the row-major
 kernel's window (``ops/ivf_scan.L_MAX - 32``). It gathers the
 (b, nprobe * l_max, d) candidate block in f32, so queries run in blocks
-that keep it under ``GATHER_BYTES``.
+that keep it under ``GATHER_BYTES``. ``ivf_query_pq`` is its PQ form
+(``ivf.py:181-324``): the rows tier's inner_product and cosine over PQ
+codes, decoded by ``ops/pq._dequant`` and ranked in f32 (the JAX package
+ranks with bf16 codebooks and products, ``ivf.py:279-286``).
 """
 from __future__ import annotations
 
@@ -23,7 +26,10 @@ from typing import Optional
 import torch
 
 from smqtk_indexing_tpu_torch.ops.device import require_full_f32
-from smqtk_indexing_tpu_torch.ops.scan import _exact_selected, pad_to_k
+from smqtk_indexing_tpu_torch.ops.pq import _dequant
+from smqtk_indexing_tpu_torch.ops.scan import (
+    _exact_selected, exact_rerank_decoded, pad_to_k,
+)
 from smqtk_indexing_tpu_torch.ops.sq8 import sq8_decode
 
 METRICS = ("euclidean", "inner_product", "cosine")
@@ -164,3 +170,90 @@ def ivf_query(db: torch.Tensor, db_sq: torch.Tensor, db_norm: torch.Tensor,
         top_r.append(torch.where(torch.isinf(s), -1, r))
     top_s, top_r = pad_to_k(torch.cat(top_s), torch.cat(top_r), k)
     return _exact_selected(metric, db, q, q_sq, top_s, top_r, dq=dq)
+
+
+def ivf_query_pq(codes: torch.Tensor, codebooks: torch.Tensor,
+                 s2: torch.Tensor, valid: torch.Tensor,
+                 centroids: torch.Tensor, offsets: torch.Tensor,
+                 lens: torch.Tensor, q: torch.Tensor, *, k: int, nprobe: int,
+                 l_max: int, metric: str = "euclidean", first_virt=None,
+                 nprobe_orig=None, has_dead: bool = True, res_cents=None,
+                 row2list=None):
+    """
+    IVF list scan over PQ codes (``ivf.py:181-324``): the probe selection
+    of :func:`ivf_query`, the probed lists' codes decoded in f32, the top
+    ``k + 8`` by the surrogate, and an exact re-rank from the winners' f32
+    reconstructions.
+
+    Residual mode (``res_cents`` and ``row2list`` given, FAISS
+    ``by_residual``): codes carry ``x_T - c_T[list]``, ``s2`` holds
+    ``||c_T + r_hat||^2``, the score adds each probe's ``-2 <q, c>``, and
+    the re-rank adds the winner's centroid back. Euclidean only.
+
+    :param codes: (N, M) uint8 codes in list-sorted order.
+    :param codebooks: (M, 256, dsub) float32.
+    :param s2: (N,) float32 squared reconstruction norms.
+    :param centroids: (V, d_codec) sublist centroids on the codec grid.
+    :param q: (B, d_codec) float32 codec-grid queries.
+    :param res_cents: (C, d_codec) float32 codec-space centroids.
+    :param row2list: (N,) int32 list of each row.
+    :return: (dists (B, k) ascending, rows (B, k) int64; +inf / -1 pads).
+    """
+    if metric not in METRICS:
+        raise ValueError(f"metric must be one of {METRICS}, got {metric!r}")
+    residual = res_cents is not None
+    if residual and metric != "euclidean":
+        raise ValueError("residual PQ serves euclidean only")
+    n = codes.shape[0]
+    d = q.shape[1]
+    q = q.float()
+    q_norm = torch.sqrt((q * q).sum(-1))
+    c = centroids.float()
+    require_full_f32(q)
+    ip_c = q @ c.T
+    if metric == "inner_product":
+        c_scores = -ip_c
+    elif metric == "cosine":
+        denom = q_norm[:, None] * torch.sqrt((c * c).sum(-1))[None, :]
+        c_scores = -(ip_c / torch.where(denom == 0, 1.0, denom))
+    else:
+        c_scores = (c * c).sum(-1)[None, :] - 2.0 * ip_c
+    c_scores = probe_eligibility(c_scores, lens, first_virt, nprobe_orig)
+    lists, lengths = select_probes(c_scores, lens, nprobe)
+    starts = offsets[lists].long()
+
+    ii = torch.arange(l_max, device=codes.device)
+    kk = min(k + 8, nprobe * l_max)
+    q_block = max(1, GATHER_BYTES // (8 * nprobe * l_max * d))
+    top_s, top_r = [], []
+    for lo in range(0, q.shape[0], q_block):
+        hi = min(lo + q_block, q.shape[0])
+        rows = (starts[lo:hi, :, None] + ii).reshape(hi - lo, -1)
+        mask = (ii < lengths[lo:hi, :, None]).reshape(hi - lo, -1)
+        rows = torch.clamp(rows, 0, n - 1)
+        if has_dead:
+            mask = mask & valid[rows]
+        x = _dequant(codes[rows], codebooks)             # (b, P * L, d)
+        ip = (x * q[lo:hi, None, :]).sum(-1)
+        if metric == "inner_product":
+            s = -ip
+        elif metric == "cosine":
+            denom = q_norm[lo:hi, None] \
+                * torch.sqrt(torch.clamp(s2[rows], min=0.0))
+            s = -(ip / torch.where(denom == 0, 1.0, denom))
+        else:
+            s = s2[rows] - 2.0 * ip
+            if residual:
+                off = -2.0 * torch.gather(ip_c[lo:hi], 1, lists[lo:hi])
+                s = s + off.repeat_interleave(l_max, dim=1)
+        s = torch.where(mask, s, math.inf)
+        sv, sel = torch.topk(s, kk, dim=1, largest=False, sorted=True)
+        top_s.append(sv)
+        top_r.append(torch.where(torch.isinf(sv), -1,
+                                 torch.gather(rows, 1, sel)))
+    best_s, best_r = torch.cat(top_s), torch.cat(top_r)
+    rows_c = torch.clamp(best_r, min=0)
+    x = _dequant(codes[rows_c], codebooks)
+    if residual:
+        x = x + res_cents[row2list[rows_c].long()]
+    return exact_rerank_decoded(x, q, q_norm, best_s, best_r, metric, k)

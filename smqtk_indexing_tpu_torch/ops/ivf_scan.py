@@ -27,6 +27,16 @@ Two layouts, one kernel each:
   ``_expand_slots``), runs the kernel, and finishes by the surrogate
   (``rerank='score'``) or by an exact re-rank of the winners fetched
   through ``fused_scan.seg_gather_tiled`` (K3).
+- **Tiled PQ** (the code tier with ``dtype='pq<M>'`` / ``'opq<M>'``, and
+  the rows tier's euclidean PQ): uint8 PQ codes in (n_tiles, M,
+  ``TILE_ROWS``) tiles. ``ivf_list_scores_tiled_pq`` (K8,
+  ``csrc/ivf_list_scores_tiled_pq.cu``) scores, per (query, probe slot),
+  the window ``s2 - 2 sum_m LUT[m, code_m]`` inside ``[lo, hi)`` and +inf
+  outside, with the query's (M, 256) table of codeword inner products.
+  ``ivf_query_dma_tiled_table_pq`` takes queries to the codec grid (the
+  interleave, or the OPQ matrix), builds the table, adds residual PQ's
+  per-probe ``-2 <q, c>`` after the kernel, and finishes by the surrogate
+  or by an exact re-rank of the winners' codes fetched through K3.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs its plain PyTorch version (``*_reference``). The layouts,
@@ -38,7 +48,7 @@ K6's output) is not carried over: K6 writes its scores as (B, P, L_MAX).
 the JAX package's.
 
 Not ported here: ``ivf_query_dma_tiled`` (the virtual-centroid form, which
-only a JAX test calls) and the PQ functions (the codec slice).
+only a JAX test calls).
 """
 from __future__ import annotations
 
@@ -49,11 +59,15 @@ import numpy as np
 import torch
 
 from smqtk_indexing_tpu_torch.ops import _kernels
+from smqtk_indexing_tpu_torch.ops.device import require_full_f32
 from smqtk_indexing_tpu_torch.ops.fused_scan import (
     SEG, seg_gather_tiled, topk_smallest,
 )
 from smqtk_indexing_tpu_torch.ops.ivf import (
     centroid_scores, probe_eligibility, select_probes, smallest,
+)
+from smqtk_indexing_tpu_torch.ops.pq import (
+    K_SUB, _dequant, pq_transform_queries,
 )
 from smqtk_indexing_tpu_torch.ops.scan import (
     _exact_selected, exact_rerank_decoded, pad_to_k,
@@ -78,7 +92,8 @@ TILE_ROWS = 4096
 
 #: Launches of each CUDA kernel of this module in this process. A wrapper
 #: adds one where it launches its kernel and nowhere else.
-LAUNCHES = {"ivf_list_scores": 0, "ivf_list_scores_tiled": 0}
+LAUNCHES = {"ivf_list_scores": 0, "ivf_list_scores_tiled": 0,
+            "ivf_list_scores_tiled_pq": 0}
 
 #: Cap on a query block's f32 score block (B, P, window) plus, in gather
 #: mode, its gathered winner segments: queries run in blocks under it.
@@ -517,11 +532,7 @@ def _tiled_scan_finish(db3, s2t, a, b_codec, q, q_norm, t, ti, c0, lo, hi,
         q1 = min(q0 + q_block, b)
         scores = ivf_list_scores_tiled(db3, s2t, t[q0:q1], ti[q0:q1],
                                        c0[q0:q1], lo[q0:q1], hi[q0:q1])
-        top_s, sel = topk_smallest(scores.reshape(q1 - q0, -1), kk)
-        # Global row of window lane w of probe slot p.
-        base = ti[q0:q1].long() * tile_n + c0[q0:q1].long()
-        rows = torch.gather(base, 1, sel // W_TILED) + sel % W_TILED
-        rows = torch.where(torch.isinf(top_s), -1, rows)
+        top_s, rows = _window_topk(scores, ti[q0:q1], c0[q0:q1], tile_n, kk)
         qb = q[q0:q1]
         if rerank == "score":
             if metric == "inner_product":
@@ -547,6 +558,16 @@ def _tiled_scan_finish(db3, s2t, a, b_codec, q, q_norm, t, ti, c0, lo, hi,
         out_d.append(dd)
         out_r.append(rr)
     return torch.cat(out_d), torch.cat(out_r)
+
+
+def _window_topk(scores, ti, c0, tile_n: int, kk: int):
+    """The ``kk`` smallest of a (b, P, W_TILED) score block and their
+    global rows (window lane w of slot p is row ``ti * tile_n + c0 + w``);
+    -1 where the score is +inf."""
+    top_s, sel = topk_smallest(scores.reshape(scores.shape[0], -1), kk)
+    base = ti.long() * tile_n + c0.long()
+    rows = torch.gather(base, 1, sel // W_TILED) + sel % W_TILED
+    return top_s, torch.where(torch.isinf(top_s), -1, rows)
 
 
 def tiled_windows(a: torch.Tensor, b_codec: torch.Tensor,
@@ -605,3 +626,277 @@ def ivf_query_dma_tiled_table(db3: torch.Tensor, s2t: torch.Tensor,
     return _tiled_scan_finish(db3, s2t, a, b_codec, q,
                               torch.sqrt((q * q).sum(-1)), t, ti, c0, lo,
                               hi, k=k, rerank=rerank, metric=metric)
+
+
+# ---------------------------------------------------------------------------
+# K8: PQ codes over tiled windows
+# ---------------------------------------------------------------------------
+
+def _check_tiled_pq(db3c, s2t, lut, ti, c0, lo, hi) -> None:
+    if db3c.dim() != 3 or db3c.shape[2] < W_TILED or db3c.shape[2] % 128 \
+            or db3c.dtype not in (torch.uint8, torch.int8):
+        raise ValueError(f"ivf_list_scores_tiled_pq: db3c "
+                         f"{tuple(db3c.shape)} {db3c.dtype} must be uint8 "
+                         "(n_tiles, M, tile_n), tile_n a multiple of 128 "
+                         f"and >= {W_TILED}")
+    n_tiles, m_sub, tile_n = db3c.shape
+    if tuple(s2t.shape) != (n_tiles, 1, tile_n) \
+            or s2t.dtype != torch.float32:
+        raise ValueError("ivf_list_scores_tiled_pq: s2t must be (n_tiles, "
+                         "1, tile_n) float32")
+    if lut.dim() != 2 or lut.shape[1] != m_sub * K_SUB \
+            or lut.dtype != torch.float32:
+        raise ValueError(f"ivf_list_scores_tiled_pq: lut must be (B, "
+                         f"{m_sub * K_SUB}) float32")
+    for name, x in (("ti", ti), ("c0", c0), ("lo", lo), ("hi", hi)):
+        if x.dim() != 2 or x.shape != ti.shape \
+                or x.shape[0] != lut.shape[0]:
+            raise ValueError(f"ivf_list_scores_tiled_pq: {name} must be "
+                             "(B, P)")
+    devices = {x.device for x in (db3c, s2t, lut, ti, c0, lo, hi)}
+    if len(devices) != 1:
+        raise ValueError(f"ivf_list_scores_tiled_pq: tensors on several "
+                         f"devices {sorted(map(str, devices))}")
+
+
+def ivf_list_scores_tiled_pq(db3c: torch.Tensor, s2t: torch.Tensor,
+                             lut: torch.Tensor, ti: torch.Tensor,
+                             c0: torch.Tensor, lo: torch.Tensor,
+                             hi: torch.Tensor) -> torch.Tensor:
+    """
+    K8: masked PQ asymmetric-distance scores over tiled windows
+    (``pallas_ivf.ivf_list_scores_tiled_pq``, ``:784-836``).
+
+    :param db3c: (n_tiles, M, tile_n) PQ codes, uint8 (or int8 holding
+        the uint8 bit pattern, as the JAX package stores them); read as
+        unsigned bytes.
+    :param s2t: (n_tiles, 1, tile_n) f32 row stats, +inf on dead rows.
+    :param lut: (B, M * 256) f32 per-query table
+        ``lut[b, m * 256 + v] = <q_m, codebook[m, v]>``.
+    :param ti, c0, lo, hi: (B, P) as for :func:`ivf_list_scores_tiled`.
+    :return: (B, P, W_TILED) f32 ``s2 - 2 sum_m lut[m, code_m]`` of
+        column ``c0 + w`` of tile ``ti`` for ``lo <= w < hi``, +inf
+        elsewhere.
+    """
+    _check_tiled_pq(db3c, s2t, lut, ti, c0, lo, hi)
+    if db3c.device.type == "cpu":
+        return ivf_list_scores_tiled_pq_reference(db3c, s2t, lut, ti, c0,
+                                                  lo, hi)
+    if db3c.device.type == "cuda":
+        return _ivf_list_scores_tiled_pq_cuda(db3c, s2t, lut, ti, c0, lo,
+                                              hi)
+    raise ValueError(f"ivf_list_scores_tiled_pq: unsupported device "
+                     f"{db3c.device}")
+
+
+def ivf_list_scores_tiled_pq_reference(db3c, s2t, lut, ti, c0, lo,
+                                       hi) -> torch.Tensor:
+    """The plain PyTorch version of :func:`ivf_list_scores_tiled_pq`: a
+    gather of each (M, W_TILED) code window and a gather of the table at
+    those codes, in query blocks under ``REFERENCE_BYTES``."""
+    _check_tiled_pq(db3c, s2t, lut, ti, c0, lo, hi)
+    b, p = ti.shape
+    m_sub = db3c.shape[1]
+    dev = db3c.device
+    lane = torch.arange(W_TILED, device=dev)
+    subs = torch.arange(m_sub, device=dev)
+    out = torch.empty((b, p, W_TILED), dtype=torch.float32, device=dev)
+    q_block = max(1, REFERENCE_BYTES // (8 * max(p, 1) * W_TILED * m_sub))
+    for q0 in range(0, b, q_block):
+        q1 = min(q0 + q_block, b)
+        tt = ti[q0:q1].long()[..., None]                 # (b, P, 1)
+        cols = c0[q0:q1].long()[..., None] + lane         # (b, P, W)
+        codes = db3c[tt[..., None], subs[:, None], cols[..., None, :]]
+        idx = subs[:, None] * K_SUB + (codes.long() & 0xFF)   # (b, P, M, W)
+        vals = torch.gather(lut[q0:q1], 1, idx.reshape(q1 - q0, -1))
+        ip = vals.view(idx.shape).sum(2)                  # (b, P, W)
+        scores = s2t[tt, 0, cols] - 2.0 * ip
+        ok = _window_mask(lo[q0:q1], hi[q0:q1], W_TILED, dev)
+        out[q0:q1] = torch.where(ok, scores, math.inf)
+    return out
+
+
+def _ivf_list_scores_tiled_pq_cuda(db3c, s2t, lut, ti, c0, lo,
+                                   hi) -> torch.Tensor:
+    """Launch ``csrc/ivf_list_scores_tiled_pq.cu`` on the current
+    stream."""
+    n_tiles, m_sub, tile_n = db3c.shape
+    b, p = ti.shape
+    db3c = db3c.view(torch.uint8)
+    lut = lut.contiguous()
+    for name, x in (("db3c", db3c), ("s2t", s2t), ("lut", lut)):
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"ivf_list_scores_tiled_pq: {name} must be "
+                             "contiguous and 16-byte aligned")
+    if b * -(-p // 8) >= 2 ** 31:
+        raise ValueError("ivf_list_scores_tiled_pq: grid exceeds 2^31 "
+                         "blocks")
+    ti, c0, lo, hi = (x.to(torch.int32).contiguous()
+                      for x in (ti, c0, lo, hi))
+    out = torch.empty((b, p, W_TILED), dtype=torch.float32,
+                      device=db3c.device)
+    stream = torch.cuda.current_stream(db3c.device).cuda_stream
+    err = _kernels.library().ivf_list_scores_tiled_pq(
+        lut.data_ptr(), db3c.data_ptr(), s2t.data_ptr(), ti.data_ptr(),
+        c0.data_ptr(), lo.data_ptr(), hi.data_ptr(), out.data_ptr(), b, p,
+        m_sub, tile_n, W_TILED, db3c.device.index, stream)
+    _kernels.check(err, "ivf_list_scores_tiled_pq")
+    LAUNCHES["ivf_list_scores_tiled_pq"] += 1
+    return out
+
+
+def pq_lut(q_c: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
+    """(B, M * 256) f32 ADC table ``<q_m, codebook[m, v]>`` of codec-grid
+    queries (``pallas_ivf.py:1033-1036``), in full f32."""
+    b = q_c.shape[0]
+    m_sub, k_sub, dsub = codebooks.shape
+    require_full_f32(q_c)
+    lut = torch.einsum("bms,mvs->bmv", q_c.reshape(b, m_sub, dsub),
+                       codebooks.float())
+    return lut.reshape(b, m_sub * k_sub).contiguous()
+
+
+def _tiled_scan_finish_pq(db3c, s2t, codebooks, q_c, lut, ti, c0, lo, hi,
+                          *, k: int, rerank: str = "gather", probe_off=None,
+                          res_cents=None, row2list=None,
+                          metric: str = "euclidean"):
+    """
+    Tail of the tiled PQ query (``pallas_ivf.py:839-930``): K8 over the
+    probe windows, residual PQ's per-probe offset (+inf windows stay
+    +inf), the top ``k + 8``, then per ``rerank``:
+
+    - "gather": each winner's codes through K3, decoded exactly (plus its
+      list's codec-space centroid in residual mode), exact f32 distance
+      under ``metric`` on the codec grid;
+    - "score": the surrogate. euclidean: ``sqrt(score + ||q||^2)``;
+      inner_product (zeroed stats): ``score / 2``; cosine (unit rows and
+      queries): ``2 arccos(1 - d^2 / 2) / pi``.
+
+    Queries run in blocks that keep the (b, P, W_TILED) scores and the
+    gathered segments under ``SCORE_BYTES``.
+    """
+    n_tiles, m_sub, tile_n = db3c.shape
+    b, n_probe = ti.shape
+    q_sq = (q_c * q_c).sum(-1)
+    q_norm = torch.sqrt(q_sq)
+    kk = min(k + 8, n_probe * W_TILED)
+    per_query = 4 * n_probe * W_TILED
+    if rerank != "score":
+        per_query += kk * m_sub * SEG
+    q_block = max(1, SCORE_BYTES // per_query)
+    out_d, out_r = [], []
+    for q0 in range(0, b, q_block):
+        q1 = min(q0 + q_block, b)
+        scores = ivf_list_scores_tiled_pq(db3c, s2t, lut[q0:q1], ti[q0:q1],
+                                          c0[q0:q1], lo[q0:q1], hi[q0:q1])
+        if probe_off is not None:
+            scores = scores + probe_off[q0:q1, :, None]
+        top_s, rows = _window_topk(scores, ti[q0:q1], c0[q0:q1], tile_n, kk)
+        if rerank == "score":
+            if metric == "inner_product":
+                dists = top_s / 2.0
+            else:
+                d2 = torch.clamp(top_s + q_sq[q0:q1, None], min=0.0)
+                if metric == "cosine":
+                    sim = torch.clamp(1.0 - d2 / 2.0, -1.0, 1.0)
+                    dists = 2.0 * torch.arccos(sim) / math.pi
+                else:
+                    dists = torch.sqrt(d2)
+            dists = torch.where(rows < 0, math.inf, dists)
+            dd, rr = pad_to_k(dists, rows, k)
+        else:
+            rows_c = torch.clamp(rows, min=0)
+            blocks = seg_gather_tiled(db3c, rows_c // SEG)  # (b, kk, M, 128)
+            col = (rows_c % SEG)[:, :, None, None].expand(-1, -1, m_sub, 1)
+            x = _dequant(torch.gather(blocks, 3, col)[..., 0], codebooks)
+            if res_cents is not None:
+                x = x + res_cents[row2list[rows_c].long()]
+            dd, rr = exact_rerank_decoded(x, q_c[q0:q1], q_norm[q0:q1],
+                                          top_s, rows, metric, k)
+        out_d.append(dd)
+        out_r.append(rr)
+    return torch.cat(out_d), torch.cat(out_r)
+
+
+def tiled_windows_pq(codebooks: torch.Tensor, transform: torch.Tensor,
+                     centroids: torch.Tensor, slot_table: torch.Tensor,
+                     v_tile: torch.Tensor, v_col: torch.Tensor,
+                     v_len: torch.Tensor, q: torch.Tensor, *,
+                     nprobe_orig: int, tile_n: int = TILE_ROWS,
+                     metric: str = "euclidean", residual: bool = False):
+    """
+    K8's operands for a query batch (``pallas_ivf.py:1018-1057``): the
+    codec-grid queries and their ADC tables, then the ``nprobe_orig``
+    nearest original centroids (by ``-<q, c>`` for inner_product, L2
+    otherwise) expanded to their sublist windows. In residual mode each
+    slot also gets its list's ``-2 <q, c>`` (zero on padding slots).
+
+    :param transform: (d_codec,) dim interleave or (d_codec, d_codec) OPQ
+        matrix (``ops/pq.pq_transform_queries``).
+    :return: (q_c (B, d_codec), lut (B, M * 256), ti, c0, lo, hi
+        (B, n_probe), probe_off (B, n_probe) or None).
+    """
+    q = q.float()
+    q_c = pq_transform_queries(q, transform)
+    lut = pq_lut(q_c, codebooks)
+    require_full_f32(q)
+    c = centroids.float()
+    ip_c = q @ c.T
+    c_scores = -ip_c if metric == "inner_product" \
+        else (c * c).sum(-1)[None, :] - 2.0 * ip_c
+    _, lists = smallest(c_scores, nprobe_orig)
+    ti, c0, lo, hi = _expand_slots(slot_table, lists, v_tile, v_col, v_len,
+                                   tile_n)
+    probe_off = None
+    if residual:
+        # Per original list, repeated over its S_max sublist slots, then
+        # zero over the budget padding (its windows are empty).
+        off = (-2.0 * torch.gather(ip_c, 1, lists)).repeat_interleave(
+            slot_table.shape[1], dim=1)
+        probe_off = torch.cat(
+            [off, off.new_zeros((off.shape[0], ti.shape[1] - off.shape[1]))],
+            dim=1)
+    return q_c, lut, ti, c0, lo, hi, probe_off
+
+
+def ivf_query_dma_tiled_table_pq(db3c: torch.Tensor, s2t: torch.Tensor,
+                                 codebooks: torch.Tensor,
+                                 transform: torch.Tensor,
+                                 centroids: torch.Tensor,
+                                 slot_table: torch.Tensor,
+                                 v_tile: torch.Tensor, v_col: torch.Tensor,
+                                 v_len: torch.Tensor, q: torch.Tensor, *,
+                                 k: int, nprobe_orig: int,
+                                 rerank: str = "gather", res_cents=None,
+                                 row2list=None, metric: str = "euclidean"):
+    """
+    Tiled IVF-PQ query with original-centroid probe selection
+    (``pallas_ivf.ivf_query_dma_tiled_table_pq``, ``:966-1065``): probe
+    selection in the original dim order, the ADC table and the exact
+    decode on the codec grid (distances are invariant under the
+    interleave and the orthogonal OPQ rotation).
+
+    :param transform: (d_codec,) dim interleave, or the (d_codec, d_codec)
+        OPQ interleave-and-rotation matrix.
+    :param q: (B, d_pad) f32 queries, original (padded) order; cosine
+        callers pass unit queries over codes of unit rows.
+    :param res_cents: (C, d_codec) f32 codec-space centroids: residual
+        mode (codes carry ``x_T - c_T[list]``, s2t holds
+        ``||c_T + r_hat||^2``). Residual inner_product is rejected.
+    :param row2list: (n_pad,) list of each tiled row (residual gather).
+    :return: (dists (B, k) ascending, rows (B, k) int64; +inf / -1 pads).
+    """
+    if res_cents is not None and rerank != "score" and row2list is None:
+        raise ValueError("residual gather re-rank needs row2list")
+    if res_cents is not None and metric == "inner_product":
+        raise ValueError(
+            "residual PQ serves euclidean or cosine (IP probe selection "
+            "has no L2 -2<q,c> decomposition)")
+    q_c, lut, ti, c0, lo, hi, probe_off = tiled_windows_pq(
+        codebooks, transform, centroids, slot_table, v_tile, v_col, v_len,
+        q, nprobe_orig=nprobe_orig, tile_n=db3c.shape[2], metric=metric,
+        residual=res_cents is not None)
+    return _tiled_scan_finish_pq(db3c, s2t, codebooks, q_c, lut, ti, c0, lo,
+                                 hi, k=k, rerank=rerank,
+                                 probe_off=probe_off, res_cents=res_cents,
+                                 row2list=row2list, metric=metric)

@@ -12,6 +12,11 @@ Sums are taken in another order than XLA's, so centroids agree with the
 JAX package's to rounding, and a near tie between two centroids can
 assign a row differently. Parity tests therefore load the JAX index's
 trained state rather than retraining (ROADMAP queue 3, "Trained state").
+
+``kmeans_lloyd_batched`` runs M independent Lloyd problems at once (the
+PQ codebooks, one per subspace): the counterpart of the vmapped
+``kmeans_lloyd`` of ``ops/pq.py:84-94``, with a batched full-f32 product
+for the assignment.
 """
 from __future__ import annotations
 
@@ -23,6 +28,9 @@ from smqtk_indexing_tpu_torch.ops.device import require_full_f32
 
 #: Rows per streamed assignment block.
 ASSIGN_CHUNK = 16384
+
+#: Cap on the batched Lloyd's (M, rows, C) f32 score block.
+BATCHED_BYTES = 1 << 28
 
 
 def _assign_block(x: torch.Tensor, c: torch.Tensor,
@@ -53,9 +61,7 @@ def kmeans_lloyd(x: torch.Tensor, valid: torch.Tensor, init: torch.Tensor,
     n, d = x.shape
     c = init.float().clone()
     c_count = c.shape[0]
-    sign = 1.0 - 2.0 * ((torch.arange(c_count, device=x.device)[:, None]
-                         + torch.arange(d, device=x.device)[None, :]) % 2
-                        ).float()
+    sign = _split_sign(c_count, d, x.device)
     for _ in range(n_iter):
         c_sq = (c * c).sum(-1)
         sums = torch.zeros_like(c)
@@ -78,6 +84,64 @@ def kmeans_lloyd(x: torch.Tensor, valid: torch.Tensor, init: torch.Tensor,
         split = new_c[donor_idx] * (1.0 + 1e-4 * sign)
         c = torch.where(empty[:, None], split, new_c)
     return c, kmeans_assign(x, c, chunk=chunk)
+
+
+def _split_sign(c_count: int, d: int, device) -> torch.Tensor:
+    """(C, d) +-1 pattern of the empty-cell split's perturbation."""
+    return 1.0 - 2.0 * ((torch.arange(c_count, device=device)[:, None]
+                         + torch.arange(d, device=device)[None, :]) % 2
+                        ).float()
+
+
+def kmeans_lloyd_batched(x: torch.Tensor, init: torch.Tensor, *,
+                         n_iter: int) -> torch.Tensor:
+    """
+    M independent Lloyd problems over all-valid rows, one per leading
+    index: ``kmeans_lloyd`` on each ``x[m]`` from ``init[m]``, run as one
+    batched product per row block (``BATCHED_BYTES`` of scores at most),
+    with the empty-cell split applied per problem.
+
+    :param x: (M, N, d) training rows.
+    :param init: (M, C, d) initial centroids.
+    :return: (M, C, d) float32 centroids.
+    """
+    x = x.float()
+    m, n, d = x.shape
+    c = init.float().clone()
+    c_count = c.shape[1]
+    sign = _split_sign(c_count, d, x.device)
+    offs = (torch.arange(m, device=x.device) * c_count)[:, None]
+    chunk = max(1, BATCHED_BYTES // (4 * m * c_count))
+    require_full_f32(x)
+    for _ in range(n_iter):
+        c_sq = (c * c).sum(-1)
+        sums = torch.zeros((m * c_count, d), device=x.device)
+        counts = torch.zeros(m * c_count, device=x.device)
+        for lo in range(0, n, chunk):
+            xb = x[:, lo:lo + chunk]
+            # ||c||^2 - 2 <x, c> in one batched product; ties take the
+            # lowest id, as jnp.argmin does.
+            a = torch.argmin(torch.baddbmm(c_sq[:, None, :], xb,
+                                           c.transpose(1, 2), alpha=-2.0),
+                             dim=2)
+            flat = (a + offs).reshape(-1)
+            sums.index_add_(0, flat, xb.reshape(-1, d))
+            counts.index_add_(0, flat, torch.ones_like(flat,
+                                                       dtype=torch.float32))
+        sums = sums.view(m, c_count, d)
+        counts = counts.view(m, c_count)
+        new_c = torch.where(counts[..., None] > 0,
+                            sums / torch.clamp(counts[..., None], min=1.0), c)
+        # The empty-cell split of kmeans_lloyd, per problem.
+        empty = counts <= 0
+        donors = torch.argsort(-counts, dim=1, stable=True)
+        rank = torch.cumsum(empty.int(), dim=1) - 1
+        donor_idx = torch.gather(
+            donors, 1, torch.clamp(rank, 0, c_count - 1) % c_count)
+        split = torch.gather(new_c, 1, donor_idx[..., None].expand(-1, -1, d)) \
+            * (1.0 + 1e-4 * sign)
+        c = torch.where(empty[..., None], split, new_c)
+    return c
 
 
 def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor, *,

@@ -34,6 +34,14 @@ DEFAULT_CHUNK = 65536
 #: Cap on the (B, C, d) f32 intermediate of the elementwise metrics.
 ELEMENTWISE_BYTES = 1 << 28
 
+#: Segment width of the compressed scans' streamed stage 1 (the fused
+#: kernel's SEG, so the exactness argument is shared).
+SEG_W = 128
+
+#: Cap on ``codec_topk``'s stage-2 candidate block: queries run in blocks
+#: under it.
+STAGE2_BYTES = 1 << 28
+
 
 def _chunk_scores(metric: str, q: torch.Tensor, q_norm: torch.Tensor,
                   x: torch.Tensor, x_sq: torch.Tensor,
@@ -196,6 +204,8 @@ def exact_rerank_decoded(x: torch.Tensor, q: torch.Tensor,
         sim = torch.clamp(ipx / torch.where(denom == 0, 1.0, denom),
                           -1.0, 1.0)
         exact = 2.0 * torch.arccos(sim) / math.pi
+    elif metric == "hik":
+        exact = 1.0 - torch.minimum(q[:, None, :], x).sum(-1)
     else:
         raise ValueError(f"exact_rerank_decoded: unsupported metric "
                          f"{metric!r}")
@@ -205,6 +215,99 @@ def exact_rerank_decoded(x: torch.Tensor, q: torch.Tensor,
     out_r = torch.gather(best_r, 1, sel)
     out_r = torch.where(torch.isinf(out_d), -1, out_r)
     return pad_to_k(out_d, out_r, k)
+
+
+def streamed_segment_minima(score_fn, n: int, chunk: int) -> torch.Tensor:
+    """
+    Stream row blocks of surrogate scores and keep only the minimum of
+    each ``SEG_W``-row segment (``scan.py:152-177``): the plain stage 1 of
+    the compressed scans.
+
+    :param score_fn: ``(lo, hi) -> (B, hi - lo)`` scores, +inf on dead rows.
+    :param n: rows, a multiple of ``SEG_W``.
+    :param chunk: rows per block, a multiple of ``SEG_W``.
+    :return: (B, n // SEG_W) float32 segment minima.
+    """
+    parts = []
+    for lo in range(0, n, chunk):
+        s = score_fn(lo, min(lo + chunk, n))
+        parts.append(s.view(s.shape[0], -1, SEG_W).amin(-1))
+    return torch.cat(parts, dim=1)
+
+
+def hik_scores(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(B, C) histogram-intersection distances of (B, d) queries to (C, d)
+    rows (callers bound B * C * d by ``ELEMENTWISE_BYTES``)."""
+    return 1.0 - torch.minimum(q[:, None, :], x[None, :, :]).sum(-1)
+
+
+def codec_topk(score_block, score_rows, decode_rows, valid: torch.Tensor,
+               q: torch.Tensor, q_norm: torch.Tensor, *, n: int, k: int,
+               metric: str, chunk: int, block: int, row_bytes: int,
+               minima=None):
+    """
+    Exhaustive top-k over a coded database: the skeleton shared by the
+    SQ8 and PQ scans (``sq8.py:150-307``, ``pq.py:340-448``).
+
+    - ``n <= chunk`` (and no ``minima``): the surrogate of every row, and
+      its top ``k + 8``.
+    - Otherwise stage 1 takes per-segment minima (``minima``, or streamed
+      through ``score_block``), keeps the ``k + 16`` best segments, and
+      stage 2 rescores their rows through ``score_rows`` and keeps the top
+      ``k + 8``. Every segment holding a true top-k row has a minimum at
+      most the k-th best score; the margins absorb surrogate noise.
+
+    The ``k + 8`` winners then re-rank exactly from ``decode_rows``.
+
+    :param score_block: ``(lo, hi) -> (B, hi - lo)`` surrogate scores.
+    :param score_rows: ``(q0, q1, rows (b, R) int64) -> (b, R)`` surrogate
+        scores of queries ``q0:q1`` against their candidate rows.
+    :param decode_rows: ``rows (B, kk) int64 -> (B, kk, d)`` f32 rows.
+    :param valid: (n,) bool liveness.
+    :param block: rows per ``score_block`` call (bounds its memory).
+    :param row_bytes: stage-2 bytes per candidate row (sets its query
+        block under ``STAGE2_BYTES``).
+    :param minima: optional (B, n // SEG_W) stage-1 minima from a kernel.
+    :return: (dists (B, k) ascending, rows (B, k) int64; +inf / -1 pads).
+    """
+    b = q.shape[0]
+    kk = min(k + 8, n)
+    dev = q.device
+    if n <= chunk and minima is None:
+        s = torch.cat([score_block(lo, min(lo + block, n))
+                       for lo in range(0, n, block)], dim=1)
+        best_s, best_r = torch.topk(torch.where(valid[None, :], s, math.inf),
+                                    kk, dim=1, largest=False, sorted=True)
+        best_r = torch.where(torch.isinf(best_s), -1, best_r)
+    else:
+        if minima is None:
+            def masked(lo, hi):
+                return torch.where(valid[None, lo:hi], score_block(lo, hi),
+                                   math.inf)
+            minima = streamed_segment_minima(masked, n, block)
+        s_keep = min(k + 16, n // SEG_W)
+        smin, sid = torch.topk(minima, s_keep, dim=1, largest=False,
+                               sorted=True)
+        sid = torch.where(torch.isinf(smin), -1, sid)
+        m_rows = s_keep * SEG_W
+        lane = torch.arange(SEG_W, device=dev)
+        q_block = max(1, STAGE2_BYTES // (row_bytes * m_rows))
+        parts_s, parts_r = [], []
+        for q0 in range(0, b, q_block):
+            q1 = min(q0 + q_block, b)
+            sb = sid[q0:q1]
+            rows = (torch.clamp(sb, min=0)[..., None] * SEG_W + lane) \
+                .reshape(q1 - q0, m_rows)
+            alive = (sb[..., None] >= 0).expand(-1, -1, SEG_W) \
+                .reshape(q1 - q0, m_rows) & valid[rows]
+            s = torch.where(alive, score_rows(q0, q1, rows), math.inf)
+            sv, sel = torch.topk(s, kk, dim=1, largest=False, sorted=True)
+            parts_s.append(sv)
+            parts_r.append(torch.where(torch.isinf(sv), -1,
+                                       torch.gather(rows, 1, sel)))
+        best_s, best_r = torch.cat(parts_s), torch.cat(parts_r)
+    x = decode_rows(torch.clamp(best_r, min=0))
+    return exact_rerank_decoded(x, q, q_norm, best_s, best_r, metric, k)
 
 
 def rerank_exact(metric: str, q: torch.Tensor,

@@ -1,9 +1,9 @@
 """
-SQ8 scalar-quantized vector codec: the part the IVF index uses.
+SQ8 scalar-quantized vector codec and the flat store's scan.
 
-Counterpart of ``smqtk_indexing_tpu/ops/sq8.py:40-125`` (``sq8_train``,
-``sq8_encode_np``, ``sq8_decode``, ``sq8_build_store``,
-``sq8_row_stats``). Vectors are stored as one int8 code per dimension with
+Counterpart of ``smqtk_indexing_tpu/ops/sq8.py:40-307`` (``sq8_train``,
+``sq8_encode_np``, ``sq8_decode``, ``sq8_build_store``, ``sq8_row_stats``,
+``sq8_topk``). Vectors are stored as one int8 code per dimension with
 a per-dimension affine codec ``x_d ~= a_d * u_d + b_d``. The host-side
 numpy functions are re-written here, not imported, because the JAX module
 imports jax; they are the same arithmetic, so both packages train the same
@@ -15,17 +15,32 @@ The scan never dequantizes the database. With ``r = q - b`` and
     ||q - x_hat||^2 = sum(r^2) - 2 <t, u> + sum(a^2 u^2)
 
 so a kernel scores int8 codes against ``t`` plus a per-row
-``s2 = sum(a^2 u^2)`` (``ops/ivf_scan.py``).
+``s2 = sum(a^2 u^2)`` (``ops/ivf_scan.py``, and ``sq8_topk``'s stage 1
+through the int8 form of K1, ``fused_scan.segment_minima``).
 
-``sq8_topk`` and ``sq8_topk_blocked`` (the flat SQ8 store's scans) belong
-to the codec slice and are not ported here.
+``sq8_topk_blocked`` (the single-copy capacity scan, with the TPU kernels
+K5, K2 and K4) is the next slice of the port.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from smqtk_indexing_tpu_torch.ops.device import require_full_f32
+from smqtk_indexing_tpu_torch.ops.fused_scan import segment_minima
+from smqtk_indexing_tpu_torch.ops.scan import (
+    ELEMENTWISE_BYTES, codec_topk, hik_scores,
+)
+
+SQ8_METRICS = ("euclidean", "inner_product", "cosine", "hik")
+
+#: Rows per streamed block (divides every 1024 * 2^m capacity). A store
+#: whose capacity is past one block, and a multiple of the TPU kernel's
+#: 4096-row tile, runs stage 1 through K1 (``ops/store.py``).
+DEFAULT_CHUNK = 65536
 
 
 def sq8_train(mat: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -71,10 +86,11 @@ def sq8_build_store(host: np.ndarray, valid_mask: np.ndarray, capacity: int,
                     d_pad: int, dim: int, device,
                     codec: Optional[Tuple[np.ndarray, np.ndarray]] = None):
     """
-    The SQ8 row-major store build of the IVF rows tier: the codec trained
-    over the live rows (or ``codec`` when given), padding dims with scale
-    1e-12 and offset 0, so zero-padded codes and queries add nothing to any
-    score term.
+    The one shared SQ8 row-major store build (``sq8.py:79-125``; the flat
+    store and the IVF rows tier): the codec trained over the live rows (or
+    ``codec``, the train-once contract), padding dims with scale 1e-12 and
+    offset 0, so zero-padded codes and queries add nothing to any score
+    term.
 
     :return: (a (d_pad,), b (d_pad,), codes (capacity, d_pad) int8,
         s2 (capacity,), nrm (capacity,)), tensors on ``device``.
@@ -96,3 +112,81 @@ def sq8_build_store(host: np.ndarray, valid_mask: np.ndarray, capacity: int,
     codes_dev = torch.from_numpy(codes).to(device)
     s2, nrm = sq8_row_stats(codes_dev, a_dev, b_dev)
     return a_dev, b_dev, codes_dev, s2, nrm
+
+
+def sq8_topk(codes: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+             s2: torch.Tensor, nrm: torch.Tensor, valid: torch.Tensor,
+             q: torch.Tensor, *, k: int, metric: str = "euclidean",
+             chunk: int = DEFAULT_CHUNK, fused: bool = False
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """
+    Exhaustive top-k over an SQ8-coded database (``sq8.py:150-307``,
+    without ``i8dot``): the surrogate scores of the int8 codes against the
+    query fold, a k + 8 margin, and an exact re-rank of the winners from
+    dequantized f32 rows, so distances are exact with respect to the
+    quantized vectors. Selection runs in f32; the JAX package's streamed
+    path ranks with bf16 products (``sq8.py:127-133``).
+
+    :param codes: (N, d) int8 codes (rows past the live set zero).
+    :param a, b: (d,) float32 codec scale and offset.
+    :param s2: (N,) float32 ``sum((a u)^2)``.
+    :param nrm: (N,) float32 dequantized row norms.
+    :param valid: (N,) bool row liveness.
+    :param q: (B, d) float32 queries.
+    :param fused: run stage 1 through K1's int8 form over the row-major
+        codes (euclidean and inner_product, N > ``chunk``): the query fold
+        rounds to bf16 there, as on the TPU; stage 2 rescores in f32.
+    :return: (dists (B, k) ascending, rows (B, k) int64; +inf / -1 pads).
+    """
+    if metric not in SQ8_METRICS:
+        raise ValueError(
+            f"metric must be one of {SQ8_METRICS}, got {metric!r}")
+    n, d = codes.shape
+    q = q.float()
+    q_norm = torch.sqrt((q * q).sum(-1))
+    # inner_product / cosine: <q, x_hat> = <q a, u> + <q, b>.
+    t = (q - b) * a if metric == "euclidean" else q * a
+    qb = (q * b).sum(-1)
+
+    def surrogate(ip, s2_sel, nrm_sel, q_b, q_n):
+        if metric == "euclidean":
+            return s2_sel - 2.0 * ip
+        if metric == "inner_product":
+            return -(ip + q_b)
+        denom = q_n * nrm_sel
+        return -((ip + q_b) / torch.where(denom == 0, 1.0, denom))
+
+    def score_block(lo, hi):
+        if metric == "hik":
+            return hik_scores(q, sq8_decode(codes[lo:hi], a, b))
+        require_full_f32(t)
+        return surrogate(t @ codes[lo:hi].float().T, s2[None, lo:hi],
+                         nrm[None, lo:hi], qb[:, None], q_norm[:, None])
+
+    def score_rows(q0, q1, rows):
+        cand = codes[rows]                               # (b, R, d)
+        if metric == "hik":
+            return 1.0 - torch.minimum(q[q0:q1, None, :],
+                                       sq8_decode(cand, a, b)).sum(-1)
+        ip = (cand.float() * t[q0:q1, None, :]).sum(-1)
+        return surrogate(ip, s2[rows], nrm[rows], qb[q0:q1, None],
+                         q_norm[q0:q1, None])
+
+    minima = None
+    if fused:
+        if metric not in ("euclidean", "inner_product"):
+            raise ValueError(
+                "the fused SQ8 stage 1 serves euclidean / inner_product, "
+                f"not {metric!r}")
+        # Stage-1 values only rank segments, so inner_product's dropped
+        # <q, b> (a per-query constant) changes no selection.
+        penalty = torch.where(valid, 0.0, math.inf).to(torch.float32)
+        sq_row = s2 if metric == "euclidean" else torch.zeros_like(s2)
+        minima = segment_minima(codes, sq_row, penalty, t)
+    block = chunk if metric != "hik" else \
+        max(128, ELEMENTWISE_BYTES // (4 * max(q.shape[0], 1) * d)
+            // 128 * 128)
+    return codec_topk(score_block, score_rows,
+                      lambda rows: sq8_decode(codes[rows], a, b), valid, q,
+                      q_norm, n=n, k=k, metric=metric, chunk=chunk,
+                      block=block, row_bytes=9 * d, minima=minima)

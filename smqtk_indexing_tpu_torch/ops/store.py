@@ -2,21 +2,30 @@
 Device-resident, growable vector store with UID bookkeeping.
 
 Counterpart of ``smqtk_indexing_tpu/ops/store.py:52-581`` (``VectorStore``)
-for the float32 and bfloat16 codecs. Vectors live once in a padded (C, d)
-tensor on ``device``; the host keeps a float32 mirror (the persistence and
-compaction source of truth), a row -> UID list and a UID -> row dict.
-Removal flips a validity mask; capacity doubles on growth
-(``capacity_for``: 1024 * 2^m rows, so every capacity is a multiple of the
-128-row segment) and the store compacts when under half full.
+for the float32, bfloat16, sq8, pq<M> and opq<M> codecs. Vectors live once
+in a padded tensor on ``device`` (rows, or their codes); the host keeps a
+float32 mirror (the persistence and compaction source of truth), a row ->
+UID list and a UID -> row dict. Removal flips a validity mask; capacity
+doubles on growth (``capacity_for``: 1024 * 2^m rows, so every capacity is
+a multiple of the 128-row segment) and the store compacts when under half
+full. A codec (SQ8 scale and offset; PQ interleave, OPQ rotation and
+codebooks) trains at ``build`` and is kept across capacity growth and
+compaction, so added rows encode with it (out-of-range SQ8 values clip).
 
-Queries route by metric, on every device and capacity:
+Queries route by codec and metric, on every device and capacity (the TPU
+routing of ``store.py:479-545``):
 
-- euclidean, inner_product, cosine -> ``ops/fused_scan.flat_topk_fused``
-  (the CUDA stage-1 kernel on a card, its plain version on the CPU). The
-  kernel reads the row-major matrix, so there is no transposed copy;
-  cosine keeps a row-normalised mirror, built on first use after each
-  upload.
-- hik, chi_square -> ``ops/scan.flat_topk``.
+- float32 / bfloat16, euclidean, inner_product, cosine ->
+  ``ops/fused_scan.flat_topk_fused`` (the CUDA stage-1 kernel on a card,
+  its plain version on the CPU). The kernel reads the row-major matrix,
+  so there is no transposed copy; cosine keeps a row-normalised mirror,
+  built on first use after each upload.
+- float32 / bfloat16, hik, chi_square -> ``ops/scan.flat_topk``.
+- sq8 -> ``ops/sq8.sq8_topk``; euclidean and inner_product at a capacity
+  past one 65,536-row block (and a multiple of 4096) run its stage 1
+  through K1's int8 form over the row-major codes.
+- pq<M> / opq<M> -> ``ops/pq.pq_topk`` over codec-grid queries. hik is
+  refused under OPQ (a rotation does not preserve it).
 
 Unlike the JAX store, batch and k are not rounded up to powers of two:
 PyTorch has no compile cache to bound.
@@ -40,28 +49,38 @@ from smqtk_indexing_tpu_torch.ops.device import (
 from smqtk_indexing_tpu_torch.ops.fused_scan import (
     FUSED_METRICS, flat_topk_fused, normalized_rows,
 )
+from smqtk_indexing_tpu_torch.ops.pq import (
+    pq_build_store, pq_encode_np, pq_m, pq_prep_queries, pq_rotate,
+    pq_row_stats, pq_topk,
+)
+from smqtk_indexing_tpu_torch.ops.sq8 import (
+    DEFAULT_CHUNK, sq8_build_store, sq8_encode_np, sq8_row_stats, sq8_topk,
+)
 from smqtk_indexing_tpu_torch.utils.tracing import trace_span
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
+#: The TPU kernel's row tile: the SQ8 store takes the fused stage 1 only at
+#: capacities that are multiples of it (``store.py:90-103``).
+_FUSED_TILE = 4096
+
 
 class VectorStore:
     """
-    (N, d) float vector store, queryable with exhaustive top-k on its
-    device.
+    (N, d) vector store, queryable with exhaustive top-k on its device.
 
-    :param dtype: 'float32' or 'bfloat16'. The compressed codecs ('sq8',
-        'pq<M>', 'opq<M>') are a later slice of the port.
+    :param dtype: 'float32', 'bfloat16', 'sq8' (one int8 code a dim),
+        'pq<M>' (M bytes a vector) or 'opq<M>' (PQ behind a learned OPQ
+        rotation).
     :param device: torch device of the tensors ('cuda' raises when no card
         is present).
     """
 
     def __init__(self, dtype: str = "float32", device="cuda"):
-        if dtype not in _DTYPES:
+        if dtype not in _DTYPES and dtype != "sq8" and pq_m(dtype) is None:
             raise ValueError(
-                f"dtype {dtype!r} is not ported yet: this store serves "
-                f"{sorted(_DTYPES)}; 'sq8', 'pq<M>' and 'opq<M>' are the "
-                "'Codecs' slice of ROADMAP.md (queue 1, item 4).")
+                f"dtype must be one of {sorted(_DTYPES) + ['sq8']}, "
+                f"'pq<M>' or 'opq<M>', got {dtype!r}")
         self._dtype_name = dtype
         self._device = resolve_device(device)
         self._lock = threading.RLock()
@@ -84,6 +103,12 @@ class VectorStore:
         self._dev_valid: Optional[torch.Tensor] = None
         self._cos_mirror: Optional[torch.Tensor] = None
         self._capacity = 0
+        # Codec, trained at build and kept across growth and compaction:
+        # SQ8 (a, b) numpy over the true dims, with their padded tensors;
+        # PQ (perm, rot | None, codebooks) numpy, with the codebook tensor.
+        self._codec = None
+        self._sq8_a = self._sq8_b = None
+        self._pq_cb_dev = None
 
     @property
     def dim(self) -> Optional[int]:
@@ -252,28 +277,71 @@ class VectorStore:
     def _upload_full(self) -> None:
         n = self._host.shape[0]
         self._capacity = capacity_for(n)
-        padded = pad_rows_np(self._host, self._capacity, pad_dim(self._dim))
-        sq = np.zeros(self._capacity, dtype=np.float32)
-        sq[:n] = np.einsum("ij,ij->i", self._host, self._host)
+        d_pad = pad_dim(self._dim)
         valid = np.zeros(self._capacity, dtype=bool)
         valid[:n] = self._valid_host
+        self._dev_valid = self._to_dev(valid)
+        self._cos_mirror = None
+        if self._dtype_name == "sq8":
+            (self._sq8_a, self._sq8_b, self._dev, self._dev_sq,
+             self._dev_norm) = sq8_build_store(
+                self._host, self._valid_host, self._capacity, d_pad,
+                self._dim, self._device, codec=self._codec)
+            self._codec = (self._sq8_a[:self._dim].cpu().numpy(),
+                           self._sq8_b[:self._dim].cpu().numpy())
+            return
+        if pq_m(self._dtype_name) is not None:
+            perm, rot, cb, self._pq_cb_dev, self._dev, self._dev_sq = \
+                pq_build_store(self._host, self._valid_host, self._capacity,
+                               d_pad, pq_m(self._dtype_name), self._device,
+                               rotate=pq_rotate(self._dtype_name),
+                               codec=self._codec)
+            self._codec = (perm, rot, cb)
+            self._dev_norm = torch.sqrt(torch.clamp(self._dev_sq, min=0.0))
+            return
+        padded = pad_rows_np(self._host, self._capacity, d_pad)
+        sq = np.zeros(self._capacity, dtype=np.float32)
+        sq[:n] = np.einsum("ij,ij->i", self._host, self._host)
         self._dev = self._to_dev(padded, _DTYPES[self._dtype_name])
         self._dev_sq = self._to_dev(sq)
         self._dev_norm = torch.sqrt(self._dev_sq)
-        self._dev_valid = self._to_dev(valid)
-        self._cos_mirror = None
 
     def _upload_rows(self, start: int, mat: np.ndarray) -> None:
-        """Append rows [start, start + len(mat)) in place on the device."""
+        """Append rows [start, start + len(mat)) in place on the device;
+        a codec store encodes them with its build-time codec."""
         stop = start + mat.shape[0]
         block = pad_rows_np(mat, mat.shape[0], pad_dim(self._dim))
-        self._dev[start:stop] = self._to_dev(block, self._dev.dtype)
-        sq = self._to_dev(np.einsum("ij,ij->i", mat, mat)
-                          .astype(np.float32))
+        if self._dtype_name == "sq8":
+            codes = np.zeros(block.shape, dtype=np.int8)
+            codes[:, :self._dim] = sq8_encode_np(mat, *self._codec)
+            codes = self._to_dev(codes)
+            sq, nrm = sq8_row_stats(codes, self._sq8_a, self._sq8_b)
+        elif pq_m(self._dtype_name) is not None:
+            perm, rot, cb = self._codec
+            codes = self._to_dev(pq_encode_np(
+                pq_prep_queries(block, perm, rot), cb, device=self._device))
+            sq = pq_row_stats(codes, self._pq_cb_dev)
+            nrm = torch.sqrt(torch.clamp(sq, min=0.0))
+        else:
+            codes = self._to_dev(block, self._dev.dtype)
+            sq = self._to_dev(np.einsum("ij,ij->i", mat, mat)
+                              .astype(np.float32))
+            nrm = torch.sqrt(sq)
+        self._dev[start:stop] = codes
         self._dev_sq[start:stop] = sq
-        self._dev_norm[start:stop] = torch.sqrt(sq)
+        self._dev_norm[start:stop] = nrm
         self._dev_valid[start:stop] = True
         self._cos_mirror = None
+
+    def _sq8_fused_eligible(self, metric: str) -> bool:
+        """The SQ8 scan's stage 1 runs through K1's int8 form
+        (``store.py:90-103``, the TPU routing): euclidean or
+        inner_product, a capacity past one streamed block and a multiple
+        of the TPU kernel's row tile."""
+        return (self._dtype_name == "sq8"
+                and metric in ("euclidean", "inner_product")
+                and self._capacity > DEFAULT_CHUNK
+                and self._capacity % _FUSED_TILE == 0)
 
     # ------------------------------------------------------------------
     # query
@@ -300,9 +368,27 @@ class VectorStore:
                 raise ValueError(
                     f"Query dim {q.shape[1]} != store dim {self._dim}")
             k_eff = min(k, self._n_live)
-            qd = self._to_dev(
-                pad_rows_np(q, q.shape[0], pad_dim(self._dim)))
-            if metric in FUSED_METRICS:
+            q_pad = pad_rows_np(q, q.shape[0], pad_dim(self._dim))
+            qd = self._to_dev(q_pad)
+            if pq_m(self._dtype_name) is not None:
+                perm, rot, _ = self._codec
+                if rot is not None and metric == "hik":
+                    # min() is not rotation invariant: OPQ serves the
+                    # matmul-form metrics only, as FAISS's OPQ does.
+                    raise ValueError("metric 'hik' is not supported with "
+                                     "OPQ (rotation-variant); use 'pq<M>'")
+                dists, rows = pq_topk(
+                    self._dev, self._pq_cb_dev, self._dev_sq,
+                    self._dev_valid,
+                    self._to_dev(pq_prep_queries(q_pad, perm, rot)),
+                    k=k_eff, metric=metric)
+            elif self._dtype_name == "sq8":
+                dists, rows = sq8_topk(
+                    self._dev, self._sq8_a, self._sq8_b, self._dev_sq,
+                    self._dev_norm, self._dev_valid, qd, k=k_eff,
+                    metric=metric,
+                    fused=self._sq8_fused_eligible(metric))
+            elif metric in FUSED_METRICS:
                 if metric == "cosine" and self._cos_mirror is None:
                     self._cos_mirror = normalized_rows(
                         self._dev, self._dev_norm, self._dev.dtype)

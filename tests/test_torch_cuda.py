@@ -1,8 +1,9 @@
 """
-The port's hand-written kernels on the card (K1 ``segment_minima``, K7
-``ivf_list_scores_tiled``, K6 ``ivf_list_scores``, K3
-``seg_gather_tiled``), against their plain PyTorch versions and against
-the port's CPU path, for the flat and the IVF indexes. Every test here is marked
+The port's hand-written kernels on the card (K1 ``segment_minima`` with
+its f32, bf16 and int8 forms, K7 ``ivf_list_scores_tiled``, K6
+``ivf_list_scores``, K3 ``seg_gather_tiled``, K8
+``ivf_list_scores_tiled_pq``), against their plain PyTorch versions and
+against the port's CPU path, for the flat and the IVF indexes. Every test here is marked
 ``cuda`` and skips without a card. This file imports neither jax nor the
 JAX package's compute, so it runs on a machine with the card and no jax:
 
@@ -316,3 +317,167 @@ def test_ivf_index_on_card_matches_cpu(card, storage, dtype, rerank):
     else:
         assert_same_neighbours(u_gpu, d_gpu, u_cpu, d_cpu, rtol=1e-4,
                                atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The codec slice: K8 (ivf_list_scores_tiled_pq), K1's int8 form
+# ---------------------------------------------------------------------------
+
+def _k8_inputs(m, n_tiles, b, p, seed):
+    """Random uint8 code tiles (codes >= 128 included), stats with +inf
+    rows, ADC tables, and probe windows: dead slots, budget padding, the
+    last window of the last tile and a window at a tile's end."""
+    from smqtk_indexing_tpu_torch.ops.ivf_scan import TILE_ROWS, W_TILED
+    rng = np.random.default_rng(seed)
+    db3c = rng.integers(0, 256, size=(n_tiles, m, TILE_ROWS)) \
+        .astype(np.uint8)
+    s2t = (rng.random((n_tiles, 1, TILE_ROWS)) * 30).astype(np.float32)
+    s2t[rng.random(s2t.shape) < 0.05] = np.inf
+    lut = rng.normal(size=(b, m * 256)).astype(np.float32)
+    ti = rng.integers(0, n_tiles, size=(b, p)).astype(np.int32)
+    c0 = (rng.integers(0, (TILE_ROWS - W_TILED) // 128 + 1, size=(b, p))
+          * 128).astype(np.int32)
+    lo = rng.integers(0, 128, size=(b, p)).astype(np.int32)
+    hi = np.minimum(lo + rng.integers(0, 513, size=(b, p)), W_TILED) \
+        .astype(np.int32)
+    ti[:, 0], c0[:, 0], hi[:, 0] = n_tiles - 1, TILE_ROWS - W_TILED, W_TILED
+    ti[:, 2], c0[:, 2], hi[:, 2] = 0, TILE_ROWS - W_TILED, W_TILED
+    hi[:, 1] = lo[:, 1]                                         # dead
+    hi[:, p - 5:] = lo[:, p - 5:]                               # padding
+    return db3c, s2t, lut, ti, c0, lo, hi
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [16, 12, 64])
+def test_k8_matches_plain_version(card, m):
+    # M=64: a 64 KB table, past the 48 KB a block stages at once, so the
+    # kernel walks it in subspace chunks.
+    from smqtk_indexing_tpu_torch.ops import ivf_scan
+    args = [torch.from_numpy(a).to(card)
+            for a in _k8_inputs(m, 3, 21, 37, seed=16 + m)]
+    before = ivf_scan.LAUNCHES["ivf_list_scores_tiled_pq"]
+    out = ivf_scan.ivf_list_scores_tiled_pq(*args)
+    torch.cuda.synchronize()
+    assert ivf_scan.LAUNCHES["ivf_list_scores_tiled_pq"] == before + 1
+    ref = ivf_scan.ivf_list_scores_tiled_pq_reference(*args)
+    assert ivf_scan.LAUNCHES["ivf_list_scores_tiled_pq"] == before + 1
+    assert torch.equal(torch.isinf(out), torch.isinf(ref))
+    assert torch.isinf(out[:, 1]).all() and torch.isinf(out[:, -5:]).all()
+    # Against float64: within 1e-5 of each score's sum of absolute terms.
+    db3c, s2t, lut, ti, c0, lo, hi = args
+    lane = torch.arange(ivf_scan.W_TILED, device=card)
+    cols = c0.long()[..., None] + lane
+    codes = db3c[ti.long()[..., None, None],
+                 torch.arange(m, device=card)[:, None], cols[:, :, None]]
+    idx = (torch.arange(m, device=card)[:, None] * 256 + codes.long())
+    vals = torch.gather(lut.double()[:, None, :].expand(-1, ti.shape[1], -1),
+                        2, idx.flatten(2)).view(idx.shape)
+    s2 = s2t[ti.long()[..., None], 0, cols].double()
+    ok = (lane >= lo[..., None]) & (lane < hi[..., None])
+    exact = torch.where(ok, s2 - 2.0 * vals.sum(2), float("inf"))
+    mag = s2.abs() + 2.0 * vals.abs().sum(2)
+    assert torch.equal(torch.isinf(out), torch.isinf(exact))
+    fin = torch.isfinite(exact)
+    assert ((out.double() - exact)[fin].abs() <= 1e-5 * mag[fin]).all()
+    assert ((out - ref)[fin].abs() <= 1e-5 * mag[fin]).all()
+
+
+@pytest.mark.cuda
+def test_k8_reads_int8_bit_patterns_as_unsigned(card):
+    # The JAX layout stores uint8 codes as int8 bit patterns: the same
+    # bytes must score the same.
+    from smqtk_indexing_tpu_torch.ops import ivf_scan
+    db3c, *rest = [torch.from_numpy(a).to(card)
+                   for a in _k8_inputs(16, 2, 5, 9, seed=30)]
+    out_u = ivf_scan.ivf_list_scores_tiled_pq(db3c, *rest)
+    out_i = ivf_scan.ivf_list_scores_tiled_pq(db3c.view(torch.int8), *rest)
+    assert torch.equal(out_u, out_i)
+
+
+@pytest.mark.cuda
+def test_k1_int8_matches_plain_version(card):
+    n, d, b = 8192, 128, 200
+    rng = np.random.default_rng(17)
+    codes = rng.integers(-127, 128, size=(n, d)).astype(np.int8)
+    a = (rng.random(d) * 0.02).astype(np.float32)
+    s2 = ((codes.astype(np.float64) * a) ** 2).sum(1).astype(np.float32)
+    pen = np.where(rng.random(n) < 0.02, np.inf, 0.0).astype(np.float32)
+    pen[128:256] = np.inf
+    t = (rng.normal(size=(b, d)) * a).astype(np.float32)
+    args = [torch.from_numpy(x).to(card) for x in (codes, s2, pen, t)]
+    before = fused_scan.LAUNCHES
+    out = fused_scan.segment_minima(*args)
+    torch.cuda.synchronize()
+    assert fused_scan.LAUNCHES == before + 1
+    ref = fused_scan.segment_minima_reference(*args)
+    assert torch.equal(torch.isinf(out), torch.isinf(ref))
+    assert torch.isinf(out[:, 1]).all()
+    fin = torch.isfinite(ref)
+    scale = (args[1].max() + 2.0 * (args[3].abs().to(torch.bfloat16)
+                                    .float() @ args[0].abs().float().T)
+             .max()).item()
+    assert (out - ref)[fin].abs().max().item() <= STAGE1_RTOL * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["euclidean", "inner_product"])
+def test_flat_sq8_on_card_matches_cpu(card, metric):
+    # 70,000 rows: capacity 131,072, past one streamed block and a
+    # multiple of 4096, so the card's stage 1 is K1's int8 form.
+    rng = np.random.default_rng(18)
+    x = rng.random((70000, 48), dtype=np.float32)
+    els = [DescriptorMemoryElement(i, x[i]) for i in range(70000)]
+    results = []
+    for device in ("cuda", "cpu"):
+        index = FlatNearestNeighborsIndex(dtype="sq8", metric=metric,
+                                          device=device)
+        index.build_index(els)
+        index.remove_from_index(list(range(0, 70000, 9)))
+        before = fused_scan.LAUNCHES
+        res = index.nn_many(els[1:200:4], 10)
+        assert (fused_scan.LAUNCHES > before) == (device == "cuda")
+        results.append((np.array([[e.uuid() for e in r[0]] for r in res]),
+                        np.array([r[1] for r in res])))
+    (u_gpu, d_gpu), (u_cpu, d_cpu) = results
+    assert_same_neighbours(u_gpu, d_gpu, u_cpu, d_cpu, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_ivf_pq_index_on_card_matches_cpu(card):
+    # The 'OPQ16,IVF16,PQ16' residual code tier: the card's index loads the
+    # CPU index's payload (centroids, codes, codebooks, rotation), then
+    # both take the same update and removal. Exact mode runs K8 and K3.
+    from smqtk_indexing_tpu.data.data_element import DataMemoryElement
+    from smqtk_indexing_tpu_torch.models.nn_index.ivf import (
+        IvfNearestNeighborsIndex,
+    )
+    from smqtk_indexing_tpu_torch.ops import ivf_scan
+    rng = np.random.default_rng(19)
+    centres = rng.random((32, 96), dtype=np.float32)
+    x = (centres[rng.integers(0, 32, size=6000)]
+         + rng.normal(size=(6000, 96)) / 12).astype(np.float32)
+    els = [DescriptorMemoryElement(i, x[i]) for i in range(6000)]
+    kw = dict(n_lists=16, nprobe=4, random_seed=0, dtype="opq16",
+              storage="code", pq_residual=True, rerank="exact")
+    elem = DataMemoryElement()
+    cpu = IvfNearestNeighborsIndex(index_element=elem, device="cpu", **kw)
+    cpu.build_index(els[:5000])
+    gpu = IvfNearestNeighborsIndex(
+        index_element=DataMemoryElement(elem.get_bytes()), device="cuda",
+        **kw)
+    results = []
+    for index in (gpu, cpu):
+        index.update_index(els[5000:])
+        index.remove_from_index(list(range(0, 6000, 7)))
+        before = dict(ivf_scan.LAUNCHES)
+        gathers = fused_scan.GATHER_LAUNCHES
+        res = index.nn_many(els[1:40:2], 10)
+        on_card = index is gpu
+        assert (ivf_scan.LAUNCHES["ivf_list_scores_tiled_pq"]
+                > before["ivf_list_scores_tiled_pq"]) == on_card
+        assert (fused_scan.GATHER_LAUNCHES > gathers) == on_card
+        results.append((np.array([[e.uuid() for e in r[0]] for r in res]),
+                        np.array([r[1] for r in res])))
+    np.testing.assert_array_equal(gpu._host, cpu._host)
+    (u_gpu, d_gpu), (u_cpu, d_cpu) = results
+    assert_same_neighbours(u_gpu, d_gpu, u_cpu, d_cpu, rtol=1e-4, atol=1e-4)

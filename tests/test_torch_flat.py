@@ -211,7 +211,10 @@ def test_contract_probes():
 
 
 def test_unported_options_raise():
-    for kw in ({"dtype": "sq8"}, {"dtype": "pq16"},
+    # The codecs are ported; OPQ under hik and the compressed codecs under
+    # chi_square are refused, as in the JAX package.
+    for kw in ({"dtype": "opq16", "metric": "hik"},
+               {"dtype": "sq8", "metric": "chi_square"}, {"dtype": "pq4x2"},
                {"storage": "host_stream"}, {"n_devices": 2},
                {"metric": "manhattan"}):
         with pytest.raises(ValueError):

@@ -1,7 +1,7 @@
 """
 The port's ``IvfNearestNeighborsIndex`` contract on the CPU: the
 configuration matrix (the cells of
-``tests/impls/nn_index/test_ivf_combinations.py`` without PQ and sharding),
+``tests/impls/nn_index/test_ivf_combinations.py`` without sharding),
 the interface's contract probes, mutation (update, removal, compaction,
 the code tier's in-place removal poison) against the JAX index from the
 same payload, the configuration round trip and the fully-qualified key.
@@ -61,11 +61,9 @@ def _jax_ok(metric, dtype, storage, residual):
                            ("exact", "score"), (None, 8), (False, True))))
 def test_matrix_cell_validation(metric, dtype, storage, rerank, n_devices,
                                 residual):
-    # The JAX cells, minus PQ / OPQ / residual (the codec slice) and
-    # n_devices > 1 (the multi-device slice), which name their slice.
-    ok = (_jax_ok(metric, dtype, storage, residual)
-          and dtype in ("float32", "bfloat16", "sq8") and not residual
-          and n_devices is None)
+    # The JAX cells, minus n_devices > 1 (the multi-device slice), which
+    # names its slice.
+    ok = _jax_ok(metric, dtype, storage, residual) and n_devices is None
     if ok:
         validate_ivf_combination(metric, dtype, storage, rerank, n_devices,
                                  residual)
@@ -103,13 +101,29 @@ BUILD_CELLS = (
     + [("code", "sq8", "euclidean", "score"),
        ("rows", "sq8", "euclidean", "score")]
 )
+#: The PQ cells of test_ivf_combinations.BUILD_CELLS, single device:
+#: (storage, dtype, metric, rerank, pq_residual).
+PQ_BUILD_CELLS = (
+    [("rows", dt, m, "exact", False) for dt in ("pq4", "opq4")
+     for m in METRICS]
+    + [("code", dt, "euclidean", "exact", False) for dt in ("pq4", "opq4")]
+    + [("code", "pq4", m, rr, False) for m in ("inner_product", "cosine")
+       for rr in ("exact", "score")]
+    + [("rows", "pq4", "euclidean", "exact", True),
+       ("code", "pq4", "euclidean", "exact", True)]
+    + [("code", "pq4", "cosine", rr, True) for rr in ("exact", "score")]
+    + [("code", "opq4", "cosine", "exact", True)]
+)
 
 
-@pytest.mark.parametrize("storage,dtype,metric,rerank", BUILD_CELLS)
-def test_supported_cell_builds_and_queries(storage, dtype, metric, rerank):
+@pytest.mark.parametrize(
+    "storage,dtype,metric,rerank,residual",
+    [c + (False,) for c in BUILD_CELLS] + PQ_BUILD_CELLS)
+def test_supported_cell_builds_and_queries(storage, dtype, metric, rerank,
+                                           residual):
     idx = _index(descriptor_set=MemoryDescriptorSet(), n_lists=4, nprobe=4,
                  metric=metric, dtype=dtype, storage=storage, rerank=rerank,
-                 random_seed=0)
+                 pq_residual=residual, random_seed=0)
     idx.build_index(CORPUS)
     neighbours, dists = idx.nn(CORPUS[17], 5)
     got = [e.uuid() for e in neighbours]
@@ -132,9 +146,10 @@ MUT = _clustered(5000)
 MUT_Q = _clustered(8, seed=1)
 
 
-def _both(storage, dtype, rerank, metric="euclidean"):
+def _both(storage, dtype, rerank, metric="euclidean", residual=False):
     kw = dict(n_lists=16, nprobe=4, random_seed=0, storage=storage,
-              dtype=dtype, rerank=rerank, metric=metric)
+              dtype=dtype, rerank=rerank, metric=metric,
+              pq_residual=residual)
     elem = DataMemoryElement()
     ref = jax_ivf.IvfNearestNeighborsIndex(index_element=elem, **kw)
     ref.build_index(MUT[:4000])
@@ -155,11 +170,16 @@ def _same_results(port, ref, atol):
     return out[0][0]
 
 
-@pytest.mark.parametrize("storage,dtype,rerank", [
-    ("code", "sq8", "exact"), ("code", "sq8", "score"),
-    ("rows", "float32", "exact")])
-def test_update_remove_and_compaction_match_jax(storage, dtype, rerank):
-    ref, port = _both(storage, dtype, rerank)
+@pytest.mark.parametrize("storage,dtype,rerank,residual", [
+    ("code", "sq8", "exact", False), ("code", "sq8", "score", False),
+    ("rows", "float32", "exact", False), ("code", "pq16", "exact", False),
+    ("code", "opq16", "score", True)])
+def test_update_remove_and_compaction_match_jax(storage, dtype, rerank,
+                                                residual):
+    # PQ cells: updates encode with the build-time codebooks (and OPQ
+    # rotation and list residuals), and compaction keeps them.
+    ref, port = _both(storage, dtype, rerank, residual=residual)
+    codec = None if port._code_cb is None else port._code_cb.copy()
     atol = 5e-3 if rerank == "score" else None
     for index in (ref, port):
         index.update_index(MUT[3900:])           # 100 skipped, 1000 new
@@ -183,6 +203,9 @@ def test_update_remove_and_compaction_match_jax(storage, dtype, rerank):
     assert port._host.shape[0] == port.count() == ref.count()
     got = _same_results(port, ref, atol)
     assert not set(got.ravel().tolist()) & (set(removed) | set(more))
+    if codec is not None:
+        np.testing.assert_array_equal(port._code_cb, codec)
+        np.testing.assert_array_equal(port._host, ref._host)
 
 
 def test_contract_probes():
@@ -261,14 +284,22 @@ def test_fully_qualified_key_selects_the_port():
 
 
 def test_pq_payload_raises_until_the_codec_slice():
+    # The codec slice is ported: a JAX PQ code-tier payload loaded by an
+    # SQ8 code-tier instance decodes to float rows, which the SQ8 codec
+    # then encodes (the JAX package does the same).
     elem = DataMemoryElement()
     ref = jax_ivf.IvfNearestNeighborsIndex(
         index_element=elem, n_lists=4, nprobe=4, random_seed=0,
         dtype="pq4", storage="code")
     ref.build_index(CORPUS[:300])
-    with pytest.raises(ValueError, match="Codecs"):
-        _index(index_element=DataMemoryElement(elem.get_bytes()), n_lists=4,
-               dtype="sq8", storage="code")
+    kw = dict(n_lists=4, nprobe=4, dtype="sq8", storage="code")
+    port = _index(index_element=DataMemoryElement(elem.get_bytes()), **kw)
+    jax_sq8 = jax_ivf.IvfNearestNeighborsIndex(
+        index_element=DataMemoryElement(elem.get_bytes()), **kw)
+    assert port.count() == jax_sq8.count() == 300
+    assert port._host.dtype == np.int8
+    np.testing.assert_array_equal(port._host, jax_sq8._host)
+    np.testing.assert_allclose(port._code_a, jax_sq8._code_a, rtol=1e-6)
 
 
 def test_cuda_device_raises_without_a_card():

@@ -1,7 +1,7 @@
 """
 The port imports and runs with jax blocked: every module of
 ``smqtk_indexing_tpu_torch`` imports, tiny CPU builds and queries of the
-flat and IVF indexes run, and the bare class names of a config resolve to
+flat and IVF indexes run (the SQ8, PQ and OPQ codecs included), and the bare class names of a config resolve to
 the port's classes, in a fresh interpreter where ``import jax`` fails.
 """
 import json
@@ -44,7 +44,14 @@ for name, index in (
                                          device="cpu")),
         ("ivf_code", IvfNearestNeighborsIndex(
             n_lists=4, nprobe=4, random_seed=0, dtype="sq8",
-            storage="code", device="cpu"))):
+            storage="code", device="cpu")),
+        ("ivf_opq", IvfNearestNeighborsIndex(
+            n_lists=4, nprobe=4, random_seed=0, dtype="opq4",
+            storage="code", pq_residual=True, device="cpu")),
+        ("ivf_pq_rows", IvfNearestNeighborsIndex(
+            n_lists=4, nprobe=4, random_seed=0, dtype="pq4", device="cpu")),
+        ("flat_sq8", FlatNearestNeighborsIndex(dtype="sq8", device="cpu")),
+        ("flat_pq", FlatNearestNeighborsIndex(dtype="pq4", device="cpu"))):
     index.build_index(els)
     res = index.nn_many(els[:4], 3)
     out[name] = [[r[0][0].uuid() for r in res], [r[1][0] for r in res]]
@@ -70,13 +77,19 @@ def test_port_runs_with_jax_blocked():
                 "models.nn_index._ivf_code", "models.nn_index._ivf_rows",
                 "models.nn_index._ivf_persist",
                 "models.nn_index._ivf_matrix", "ops.fused_scan", "ops.ivf",
-                "ops.ivf_scan", "ops.kmeans", "ops.sq8"):
+                "ops.ivf_scan", "ops.kmeans", "ops.sq8", "ops.pq",
+                "ops.opq", "ops.store"):
         assert "smqtk_indexing_tpu_torch." + mod in out["modules"]
     assert out["loaded_jax"] == []
     assert out["flat"] == [[0, 1, 2, 3], [0.0] * 4]
     assert out["ivf"] == [[0, 1, 2, 3], [0.0] * 4]
     assert out["ivf_code"][0] == [0, 1, 2, 3]
     assert max(out["ivf_code"][1]) < 0.1      # the SQ8 step only
+    assert out["flat_sq8"][0] == [0, 1, 2, 3]
+    # PQ4 over 20 dims is lossy: every query still finds a neighbour.
+    for name in ("ivf_opq", "ivf_pq_rows", "flat_pq"):
+        assert len(out[name][0]) == 4 and all(
+            d >= 0.0 for d in out[name][1]), name
     assert out["bare"] == {
         "FlatNearestNeighborsIndex":
             "smqtk_indexing_tpu_torch.models.nn_index.flat",
