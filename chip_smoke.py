@@ -54,15 +54,32 @@ not 0:
    phase's vectors, whose stage 1 is K1's int8 form (held against its
    plain version and float64 at the store's operands), then
    ``dtype="pq16"``; each top-10 of 128 queries must be the float64
-   top-10 over the store's quantized rows.
+   top-10 over the store's quantized rows;
+9. capacity scan (``smqtk_indexing_tpu_torch.examples.capacity_100m``):
+   100,663,296 x 128 SQ8 codes built on the card in the tiled layout with
+   planted truth; K2, K4 and K5 held against their plain versions and
+   float64 at B=128 on a 4,194,304-row prefix with dead rows (K5's m2
+   must be the group minimum of its m1, bit for bit); then
+   ``sq8_topk_blocked`` at full scale, B=128 and B=256, k=16: recall@10
+   on the planted rows 1.0, margin > 1.0, the first 16 queries' top-16
+   equal to the plain pipeline's (B=128), three timed batches, the stage
+   split and the peak device bytes; last the blocked layout end to end at
+   the prefix (K4), equal to the tiled layout's results.
 
 Each path sets the kernels' launch counts to 0 just before it runs and
 reads them just after. Then a ``{"kernels": [...]}`` line with each
-kernel's launches in its path, and last ``{"ok": true, "device": {...}}``.
+kernel's launches in its path, its error against its plain version, its
+time and the plain version's, its bound (the larger of its bytes over the
+memory rate and its operations over the peak rate of their type, from
+this run's inputs) and the time of one ``torch.mm`` of the same product
+where there is such a yardstick (K1, K2, K4, K5; the port never calls
+it); and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -99,6 +116,17 @@ PQ_ROWS_RECALL_FLOOR = 0.75
 #: Distances reported by an exact re-rank (f32, codec space) against
 #: float64 over the same reconstructions.
 RECON_TOL = 1e-4
+#: The capacity phase holds K2, K4 and K5 on this many tiles of its layout
+#: (4,194,304 rows), where the plain versions and float64 stay affordable,
+#: and compares the full-scale scan with the plain pipeline on this many
+#: queries.
+CAP_PREFIX_TILES = 1024
+CAP_PLAIN_QUERIES = 16
+#: Peaks of one H100 SXM (NVIDIA's data sheet): device memory bytes/s,
+#: FP32 outside the tensor cores, dense bf16 on the tensor cores (FLOP/s).
+HBM_BYTES_S = 3.35e12
+FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 
 
 def emit(phase: str, **fields) -> None:
@@ -138,11 +166,15 @@ def recall(found, truth) -> float:
     return hits / truth.size
 
 
+_COUNTERS = ("LAUNCHES", "GATHER_LAUNCHES", "TILED_LAUNCHES",
+             "BLOCKED_LAUNCHES", "TILED2_LAUNCHES")
+
+
 def reset_counts() -> None:
     """Set every kernel's launch count to 0."""
     from smqtk_indexing_tpu_torch.ops import fused_scan, ivf_scan
-    fused_scan.LAUNCHES = 0
-    fused_scan.GATHER_LAUNCHES = 0
+    for name in _COUNTERS:
+        setattr(fused_scan, name, 0)
     for name in ivf_scan.LAUNCHES:
         ivf_scan.LAUNCHES[name] = 0
 
@@ -151,16 +183,86 @@ def read_counts() -> dict:
     from smqtk_indexing_tpu_torch.ops import fused_scan, ivf_scan
     return {"segment_minima": fused_scan.LAUNCHES,
             "seg_gather_tiled": fused_scan.GATHER_LAUNCHES,
+            "segment_minima_tiled": fused_scan.TILED_LAUNCHES,
+            "segment_minima_blocked": fused_scan.BLOCKED_LAUNCHES,
+            "segment_minima_tiled2": fused_scan.TILED2_LAUNCHES,
             **ivf_scan.LAUNCHES}
 
 
-def hold(name: str, kernel, plain, f64, smi: str, reps=(10, 3), **info):
+def bound(nbytes: float, flops: float, peak: float) -> dict:
+    """The least time the card could take for a kernel's work: the larger
+    of its bytes (each input read once, each output written once) over the
+    memory rate and its operations over ``peak``, the rate of their type."""
+    by_bytes = nbytes / HBM_BYTES_S * 1e3
+    by_ops = flops / peak * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def stage1_bound(b: int, n: int, d: int, esize: int, out_elems: int,
+                 exact_f32: bool) -> dict:
+    """K1, K2, K4, K5: the database, its row stats and penalty, the
+    queries and the f32 outputs once; 2 B N d FLOP, at the FP32 rate for
+    an f32 database (only FFMA keeps those products exact) and at the bf16
+    tensor-core rate for a bf16 or int8 one (its products with the
+    bf16-rounded query are exact there)."""
+    return bound(n * d * esize + 8 * n + 4 * b * d + 4 * out_elems,
+                 2.0 * b * n * d, FP32_FLOPS if exact_f32 else BF16_FLOPS)
+
+
+def distinct_positions(base, lo, hi, width: int, size: int):
+    """(distinct positions, live (slot, lane) pairs) of the windows
+    ``base + [lo, hi)`` over an axis of ``size`` positions: what a windowed
+    kernel must read, each position once, and the pairs it scores."""
+    import torch
+    lane = torch.arange(width, device=base.device)
+    live = (lane >= lo[..., None]) & (lane < hi[..., None])
+    pos = (base.long()[..., None] + lane)[live]
+    mark = torch.zeros(size, dtype=torch.bool, device=base.device)
+    mark[pos] = True
+    return int(mark.sum()), int(live.sum())
+
+
+def library_mm(a, b_t, reps: int = 3) -> float:
+    """Mean ms of one ``torch.mm`` of the same product as a stage-1 kernel
+    (the yardstick ``library_ms``; the port never calls it)."""
+    import torch
+
+    def fn():
+        return torch.mm(a, b_t)
+    fn()                                                   # warm-up
+    ms = cuda_ms(fn, reps)
+    torch.cuda.empty_cache()
+    return ms
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """``sq8_topk_blocked`` with its kernels swapped for their plain
+    versions: the plain pipeline."""
+    from smqtk_indexing_tpu_torch.ops import fused_scan, sq8
+    swap = {"segment_minima_tiled2": fused_scan.segment_minima_tiled2_reference,
+            "segment_minima_blocked":
+                fused_scan.segment_minima_blocked_reference,
+            "seg_gather_tiled": fused_scan.seg_gather_tiled_reference}
+    saved = {name: getattr(sq8, name) for name in swap}
+    for name, fn in swap.items():
+        setattr(sq8, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(sq8, name, fn)
+
+
+def hold(name: str, kernel, plain, f64, smi: str, reps=(10, 3),
+         q_axis: int = 0, **info):
     """
     Hold a kernel against its plain version (all queries) and float64 (the
-    first N_ORACLE queries), and time both with CUDA events as plain,
-    kernel, kernel, plain. ``f64()`` returns (exact scores, the sum of the
-    absolute terms of each score), or None for a copy, which must be
-    bit-equal. Raises on disagreement.
+    first N_ORACLE queries, along ``q_axis`` of the output), and time both
+    with CUDA events as plain, kernel, kernel, plain. ``f64()`` returns
+    (exact scores, the sum of the absolute terms of each score), or None
+    for a copy, which must be bit-equal. Raises on disagreement.
 
     :return: (max |kernel - plain|, mean kernel ms, mean plain ms).
     """
@@ -179,7 +281,8 @@ def hold(name: str, kernel, plain, f64, smi: str, reps=(10, 3), **info):
         err = (out - ref)[fin].abs().max().item()
         exact, mag = f64()
         fin64 = torch.isfinite(exact)
-        f64_err = (out[:N_ORACLE].double() - exact)[fin64].abs().max().item()
+        f64_err = (out.narrow(q_axis, 0, N_ORACLE).double()
+                   - exact)[fin64].abs().max().item()
         tol = REL_TOL * mag[fin64].max().item()
         ok = inf_match and err <= tol and f64_err <= tol
         del exact, mag
@@ -267,6 +370,8 @@ def flat_phases(smi: str, dev) -> dict:
                                "plain version")
         kernel_rows[name] = (max_abs_err, statistics.mean(t_kernel),
                              statistics.mean(t_plain))
+        if dtype == torch.float32:
+            k1_library_ms = library_mm(q, db.T)
     # Stage 2 (plain PyTorch) and the segment selection at the same shapes.
     minima = fused_scan.segment_minima(db, db_sq, penalty, q)
     s_keep = fused_scan.segments_kept(K, n_pad)
@@ -361,7 +466,10 @@ def flat_phases(smi: str, dev) -> dict:
             "replaces": "smqtk_indexing_tpu/ops/pallas_scan.py:173",
             "launches": launches,
             "max_abs_err": max(err, kernel_rows["bfloat16"][0]),
-            "ms": ms, "plain_ms": plain_ms}
+            "ms": ms, "plain_ms": plain_ms,
+            **stage1_bound(BATCH, n_pad, DIM, 4, BATCH * n_pad // 128,
+                           exact_f32=True),
+            "library_ms": k1_library_ms, "shape": [BATCH, n_pad, DIM]}
 
 
 def ivf_data():
@@ -482,6 +590,13 @@ def ivf_phases(smi: str, dev) -> list:
         index._v_tile, index._v_col, index._v_len, qd,
         nprobe_orig=IVF_NPROBE)
     k7_args = (index._dev3, index._s2t, t, ti, c0, lo, hi)
+    n_tiles_k7, d_k7, tile_k7 = index._dev3.shape
+    cols, pairs = distinct_positions(
+        ti.long() * tile_k7 + c0.long(), lo, hi, ivf_scan.W_TILED,
+        n_tiles_k7 * tile_k7)
+    k7_bound = bound(cols * (d_k7 + 4) + 4 * t.numel() + 16 * ti.numel()
+                     + 4 * ti.numel() * ivf_scan.W_TILED,
+                     2.0 * d_k7 * pairs, FP32_FLOPS)
     k7 = hold("ivf_list_scores_tiled",
               lambda: ivf_scan.ivf_list_scores_tiled(*k7_args),
               lambda: ivf_scan.ivf_list_scores_tiled_reference(*k7_args),
@@ -501,6 +616,10 @@ def ivf_phases(smi: str, dev) -> list:
               lambda: fused_scan.seg_gather_tiled_reference(index._dev3,
                                                             sid),
               None, smi, shape=list(sid.shape) + [d_pad, fused_scan.SEG])
+    # K3 reads each distinct segment once and writes every gathered one.
+    seg_bytes = d_pad * fused_scan.SEG * index._dev3.element_size()
+    k3_bound = bound(torch.unique(sid).numel() * seg_bytes
+                     + sid.numel() * (seg_bytes + 8), 0.0, FP32_FLOPS)
     del scores, sel, rows, k7_args, t, ti, c0, lo, hi
 
     index_bytes = torch.cuda.memory_allocated(dev)
@@ -541,7 +660,7 @@ def ivf_phases(smi: str, dev) -> list:
     torch.cuda.empty_cache()
 
     # -- 5. the rows tier ----------------------------------------------
-    k6_rows, k6_launches = [], 0
+    k6_rows, k6_bounds, k6_launches = [], [], 0
     for dtype in ("float32", "sq8"):
         index = IvfNearestNeighborsIndex(
             n_lists=IVF_LISTS, nprobe=IVF_NPROBE, kmeans_iterations=10,
@@ -559,6 +678,13 @@ def ivf_phases(smi: str, dev) -> list:
             index._dev_lens, qd, n_probe=n_probe, first_virt=first_virt,
             nprobe_orig=nprobe_orig, dq=dq)
         k6_args = (index._dev, t, a, starts, lo, hi)
+        rows_read, pairs = distinct_positions(
+            starts, lo, hi, ivf_scan.L_MAX, index._dev.shape[0])
+        k6_bounds.append(bound(
+            rows_read * index._dev.shape[1] * index._dev.element_size()
+            + 4 * (t.numel() + a.numel()) + 12 * starts.numel()
+            + 4 * starts.numel() * ivf_scan.L_MAX,
+            2.0 * index._dev.shape[1] * pairs, FP32_FLOPS))
         k6_rows.append(hold(
             "ivf_list_scores",
             lambda: ivf_scan.ivf_list_scores(*k6_args),
@@ -607,18 +733,18 @@ def ivf_phases(smi: str, dev) -> list:
          "source": "smqtk_indexing_tpu_torch/csrc/ivf_list_scores_tiled.cu",
          "replaces": "smqtk_indexing_tpu/ops/pallas_ivf.py:469",
          "launches": k7_launches, "max_abs_err": k7[0], "ms": k7[1],
-         "plain_ms": k7[2]},
+         "plain_ms": k7[2], **k7_bound, "library_ms": None},
         {"name": "seg_gather_tiled", "route": "cuda",
          "source": "smqtk_indexing_tpu_torch/csrc/seg_gather.cu",
          "replaces": "smqtk_indexing_tpu/ops/pallas_scan.py:406",
          "launches": k3_launches, "max_abs_err": k3[0], "ms": k3[1],
-         "plain_ms": k3[2]},
+         "plain_ms": k3[2], **k3_bound, "library_ms": None},
         {"name": "ivf_list_scores", "route": "cuda",
          "source": "smqtk_indexing_tpu_torch/csrc/ivf_list_scores.cu",
          "replaces": "smqtk_indexing_tpu/ops/pallas_ivf.py:128",
          "launches": k6_launches,
          "max_abs_err": max(r[0] for r in k6_rows), "ms": k6_rows[0][1],
-         "plain_ms": k6_rows[0][2]},
+         "plain_ms": k6_rows[0][2], **k6_bounds[0], "library_ms": None},
     ]
 
 
@@ -665,8 +791,8 @@ def same_topk(uids, dists, ref_uids, ref_dists, what: str) -> None:
         for u in set(uids[i]) ^ set(ref_uids[i].tolist()):
             ok = ok and abs(look[u] - kth) <= RECON_TOL * (1.0 + abs(kth))
     if not ok:
-        raise RuntimeError(f"{what}: the top-{K} is not the float64 top-{K}"
-                           " over the reconstructions")
+        raise RuntimeError(f"{what}: the top-k is not the reference's "
+                           "(beyond near ties)")
 
 
 def _f64_tiled_pq(db3c, s2t, lut, ti, c0, lo, hi):
@@ -753,6 +879,13 @@ def ivf_pq_phases(smi: str, dev) -> list:
         torch.from_numpy(q_pad).to(dev), nprobe_orig=PQ_NPROBE,
         residual=True)
     k8_args = (index._dev3, index._s2t, lut, ti, c0, lo, hi)
+    n_tiles_k8, m_k8, tile_k8 = index._dev3.shape
+    cols, pairs = distinct_positions(
+        ti.long() * tile_k8 + c0.long(), lo, hi, ivf_scan.W_TILED,
+        n_tiles_k8 * tile_k8)
+    k8_bound = bound(cols * (m_k8 + 4) + 4 * lut.numel() + 16 * ti.numel()
+                     + 4 * ti.numel() * ivf_scan.W_TILED,
+                     float(m_k8) * pairs, FP32_FLOPS)
     k8 = hold("ivf_list_scores_tiled_pq",
               lambda: ivf_scan.ivf_list_scores_tiled_pq(*k8_args),
               lambda: ivf_scan.ivf_list_scores_tiled_pq_reference(*k8_args),
@@ -860,7 +993,8 @@ def ivf_pq_phases(smi: str, dev) -> list:
                        "ivf_list_scores_tiled_pq.cu",
              "replaces": "smqtk_indexing_tpu/ops/pallas_ivf.py:785",
              "launches": k8_launches, "max_abs_err": k8[0], "ms": k8[1],
-             "plain_ms": k8[2]}], k3_launches
+             "plain_ms": k8[2], **k8_bound, "library_ms": None}], \
+        k3_launches
 
 
 def flat_codec_phases(smi: str, dev) -> dict:
@@ -912,6 +1046,11 @@ def flat_codec_phases(smi: str, dev) -> dict:
                        lambda: fused_scan.segment_minima_reference(
                            *k1_args), f64, smi,
                        shape=[BATCH] + list(store._dev.shape))
+            n_i8, d_i8 = store._dev.shape
+            i8_bound = stage1_bound(BATCH, n_i8, d_i8, 1,
+                                    BATCH * n_i8 // 128, exact_f32=False)
+            i8_library_ms = library_mm(t.to(torch.bfloat16),
+                                       store._dev.to(torch.bfloat16).T)
             del k1_args, t, penalty, qd
             x64 = sq8_decode(store._dev, store._sq8_a, store._sq8_b).double()
             q64 = torch.from_numpy(queries[:N_ORACLE]).to(dev).double()
@@ -954,7 +1093,216 @@ def flat_codec_phases(smi: str, dev) -> dict:
             "source": "smqtk_indexing_tpu_torch/csrc/segment_minima.cu",
             "replaces": "smqtk_indexing_tpu/ops/pallas_scan.py:173",
             "launches": i8_launches, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms, **i8_bound, "library_ms": i8_library_ms,
+            "shape": [BATCH, n_i8, d_i8]}
+
+
+def capacity_phases(smi: str, dev) -> list:
+    """Phase 9: the 100M-row SQ8 capacity scan; returns the kernels line's
+    rows of K2, K4 and K5 and the K3 launches."""
+    import torch
+    from smqtk_indexing_tpu_torch.examples import capacity_100m as capm
+    from smqtk_indexing_tpu_torch.ops import fused_scan, sq8
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    cap = capm.build(capm.N_TILES, "cuda", seed=0)
+    torch.cuda.synchronize()
+    n, d = cap.s2.shape[0], capm.D
+    emit("capacity build", rows=n, d=d, layout=list(cap.codes.shape),
+         seconds=time.perf_counter() - t0,
+         resident_bytes=torch.cuda.memory_allocated(dev),
+         peak_device_bytes=torch.cuda.max_memory_allocated(dev), card=smi)
+
+    # -- K2, K4, K5 on a prefix, B=128, with dead rows --------------------
+    b = capm.B
+    n_p = CAP_PREFIX_TILES * fused_scan.TILE_N
+    db3 = cap.codes[:CAP_PREFIX_TILES]
+    rows = db3.transpose(1, 2).reshape(n_p, d)
+    blk = fused_scan.blocked_layout(rows)
+    sq = cap.s2[:n_p]
+    pen = torch.zeros(n_p, device=dev)
+    pen[1000 * 128:1003 * 128] = math.inf          # three dead segments
+    pen[::1009] = math.inf
+    t = (cap.queries[:b] - cap.b) * cap.a
+    tb = t.to(torch.bfloat16)
+    n_steps, g, bw = fused_scan.step_shape(CAP_PREFIX_TILES,
+                                           fused_scan.TILE_N)
+
+    def f64():
+        """The minima in float64 on the kernels' operands (the query
+        rounded to bf16), and the largest sum of absolute terms."""
+        tq = tb.double()
+        exact = torch.empty((b, n_p // 128), dtype=torch.float64,
+                            device=dev)
+        mag = 0.0
+        step = 1 << 18
+        for lo in range(0, n_p, step):
+            u = rows[lo:lo + step].double()
+            s = sq[lo:lo + step].double()
+            exact[:, lo // 128:(lo + step) // 128] = (
+                (s - 2.0 * (tq @ u.T)) + pen[lo:lo + step].double()) \
+                .view(b, -1, 128).amin(-1)
+            mag = max(mag, (s.max() + 2.0 * (tq.abs() @ u.abs().T).max())
+                      .item())
+            del u
+        return exact, torch.full_like(exact, mag)
+
+    def f64_steps():
+        exact, mag = f64()
+        return (exact.view(b, n_steps, g).transpose(0, 1),
+                mag.view(b, n_steps, g).transpose(0, 1))
+
+    blk_sq, blk_pen = sq.view(-1, 128), pen.view(-1, 128)
+    shape = [b, n_p, d]
+    k2 = hold("segment_minima_tiled",
+              lambda: fused_scan.segment_minima_tiled(db3, sq, pen, t),
+              lambda: fused_scan.segment_minima_tiled_reference(
+                  db3, sq, pen, t), f64, smi, shape=shape)
+    k4 = hold("segment_minima_blocked",
+              lambda: fused_scan.segment_minima_blocked(blk, blk_sq,
+                                                        blk_pen, t),
+              lambda: fused_scan.segment_minima_blocked_reference(
+                  blk, blk_sq, blk_pen, t), f64, smi, shape=shape)
+    k5 = hold("segment_minima_tiled2",
+              lambda: fused_scan.segment_minima_tiled2(db3, sq, pen, t)[0],
+              lambda: fused_scan.segment_minima_tiled2_reference(
+                  db3, sq, pen, t)[0], f64_steps, smi, q_axis=1,
+              shape=shape, steps=[n_steps, g, bw])
+    m1, m2 = fused_scan.segment_minima_tiled2(db3, sq, pen, t)
+    _, m2_plain = fused_scan.segment_minima_tiled2_reference(db3, sq, pen, t)
+    group_min = bool(torch.equal(
+        m2, m1.view(n_steps, b, g // bw, bw).amin(-1)))
+    inf_match = bool(torch.equal(torch.isinf(m2), torch.isinf(m2_plain)))
+    fin = torch.isfinite(m2_plain)
+    m2_err = (m2 - m2_plain)[fin].abs().max().item()
+    emit("kernel", kernel="segment_minima_tiled2, m2",
+         equals_group_min_of_m1=group_min, inf_match=inf_match,
+         max_abs_err=m2_err, card=smi)
+    # A group minimum moves no further than the minima it is taken over.
+    if not (group_min and inf_match and m2_err <= k5[0]):
+        raise RuntimeError("segment_minima_tiled2: m2 is not the group "
+                           "minimum of m1")
+    del m1, m2, m2_plain
+    library_ms = library_mm(tb, rows.to(torch.bfloat16).T, 10)
+    out_seg = b * n_p // 128
+    flat_bound = stage1_bound(b, n_p, d, 1, out_seg, exact_f32=False)
+    step_bound = stage1_bound(b, n_p, d, 1, out_seg + out_seg // bw,
+                              exact_f32=False)
+    del rows
+    torch.cuda.empty_cache()
+
+    # -- sq8_topk_blocked at full scale -----------------------------------
+    k5_launches = k3_launches = k2_launches = 0
+    _, g_c, bw_c = fused_scan.step_shape(capm.N_TILES, fused_scan.TILE_N)
+    for batch in (capm.B, capm.B_BIG):
+        capm.scan(cap, batch)                              # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        batch_s = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            dists, found = capm.scan(cap, batch)
+            torch.cuda.synchronize()
+            batch_s.append(time.perf_counter() - t0)
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        k5_launches += counts["segment_minima_tiled2"]
+        k3_launches += counts["seg_gather_tiled"]
+        res = capm.check(cap, dists, found)
+        well_formed = (tuple(dists.shape) == (batch, capm.K)
+                       and bool(torch.isfinite(dists).all())
+                       and bool((found >= 0).all())
+                       and bool((dists[:, 1:] >= dists[:, :-1]).all()))
+        plain = {}
+        if batch == capm.B:
+            # The plain pipeline (kernels swapped for their plain versions)
+            # on the first queries: the same top-k within near ties.
+            q16 = cap.queries[:CAP_PLAIN_QUERIES]
+            t0 = time.perf_counter()
+            with plain_kernels():
+                d_p, r_p = sq8.sq8_topk_blocked(
+                    cap.codes, cap.a, cap.b, cap.s2, cap.valid, q16,
+                    k=capm.K)
+            torch.cuda.synchronize()
+            same_topk(found[:CAP_PLAIN_QUERIES].cpu().numpy(),
+                      dists[:CAP_PLAIN_QUERIES].cpu().numpy(),
+                      r_p.cpu().numpy(),
+                      d_p.cpu().numpy().astype(np.float64),
+                      "capacity scan against the plain pipeline")
+            plain = {"equals_plain_pipeline_queries": CAP_PLAIN_QUERIES,
+                     "plain_pipeline_s": time.perf_counter() - t0}
+        reset_counts()
+        ms = capm.stages(cap, batch, reps=3)
+        k2_launches += read_counts()["segment_minima_tiled"]
+        cap_bound = stage1_bound(batch, n, d, 1,
+                                 batch * (n // 128) * (1 + 1 / bw_c),
+                                 exact_f32=False)
+        med = statistics.median(batch_s)
+        emit("main", path="capacity scan, sq8_topk_blocked, tiled",
+             rows=n, d=d, batch=batch, k=capm.K, batch_s=batch_s,
+             batch_ms=1e3 * med, qps=batch / med, **res, **plain,
+             well_formed=well_formed, stages_ms=ms,
+             k5_bound_ms=cap_bound["bound_ms"],
+             k5_bound_by=cap_bound["bound_by"],
+             k5_share_of_bound=cap_bound["bound_ms"] / ms["k5"],
+             launches=counts, peak_device_bytes=peak, card=smi)
+        if not (well_formed and res["recall_at_10"] == 1.0
+                and res["planted_to_random_margin"] > 1.0):
+            raise RuntimeError(f"capacity scan B={batch}: wrong results")
+        del dists, found
+    torch.cuda.empty_cache()
+
+    # -- the blocked layout end to end, at the prefix (K4) -----------------
+    valid_p = pen == 0
+    q = cap.queries[:b]
+    reset_counts()
+    t0 = time.perf_counter()
+    d_blk, r_blk = sq8.sq8_topk_blocked(blk, cap.a, cap.b, sq, valid_p, q,
+                                        k=capm.K)
+    torch.cuda.synchronize()
+    blk_s = time.perf_counter() - t0
+    counts = read_counts()
+    k4_launches = counts["segment_minima_blocked"]
+    d_til, r_til = sq8.sq8_topk_blocked(db3, cap.a, cap.b, sq, valid_p, q,
+                                        k=capm.K)
+    same_topk(r_blk.cpu().numpy(), d_blk.cpu().numpy(), r_til.cpu().numpy(),
+              d_til.cpu().numpy().astype(np.float64),
+              "blocked layout against the tiled layout")
+    live_only = bool(valid_p[r_blk].all())
+    emit("main", path="capacity scan, sq8_topk_blocked, blocked, prefix",
+         rows=n_p, d=d, batch=b, k=capm.K, batch_s=[blk_s],
+         equals_tiled_layout=True, dead_rows_excluded=live_only,
+         launches=counts, card=smi)
+    if not live_only:
+        raise RuntimeError("blocked layout: a dead row was returned")
+    for name, count in (("segment_minima_tiled2", k5_launches),
+                        ("seg_gather_tiled", k3_launches),
+                        ("segment_minima_tiled", k2_launches),
+                        ("segment_minima_blocked", k4_launches)):
+        if count == 0:
+            raise RuntimeError(f"the capacity paths never launched {name}")
+    del cap, blk, db3, pen, valid_p
+    torch.cuda.empty_cache()
+    src = "smqtk_indexing_tpu_torch/csrc/segment_minima_tiled.cu"
+    common = {"route": "cuda", "source": src, "library_ms": library_ms,
+              "shape": shape}
+    return [
+        {"name": "segment_minima_tiled", **common,
+         "replaces": "smqtk_indexing_tpu/ops/pallas_scan.py:246",
+         "launches": k2_launches, "max_abs_err": k2[0], "ms": k2[1],
+         "plain_ms": k2[2], **flat_bound},
+        {"name": "segment_minima_blocked", **common,
+         "replaces": "smqtk_indexing_tpu/ops/pallas_scan.py:491",
+         "launches": k4_launches, "max_abs_err": k4[0], "ms": k4[1],
+         "plain_ms": k4[2], **flat_bound},
+        {"name": "segment_minima_tiled2", **common,
+         "replaces": "smqtk_indexing_tpu/ops/pallas_scan.py:807",
+         "launches": k5_launches, "max_abs_err": k5[0], "ms": k5[1],
+         "plain_ms": k5[2], **step_bound},
+    ], k3_launches
 
 
 def main() -> None:
@@ -1007,6 +1355,13 @@ def main() -> None:
     t0 = time.perf_counter()
     kernels.insert(1, flat_codec_phases(smi, dev))
     emit("seconds", of="flat codec phases", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    cap_rows, cap_k3 = capacity_phases(smi, dev)
+    emit("seconds", of="capacity phases", seconds=time.perf_counter() - t0)
+    for row in kernels:
+        if row["name"] == "seg_gather_tiled":
+            row["launches"] += cap_k3
+    kernels += cap_rows
     if any(mod is not None and (name == "jax" or name.startswith("jax."))
            for name, mod in sys.modules.items()):
         raise RuntimeError("jax was imported")

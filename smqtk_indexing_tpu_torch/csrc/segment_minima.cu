@@ -51,6 +51,8 @@
 
 #include <cstdint>
 
+#include "scan_loads.cuh"
+
 namespace {
 
 constexpr int kSeg = 128;      // rows per segment (one block's row tile)
@@ -58,42 +60,6 @@ constexpr int kTileB = 128;    // queries per block
 constexpr int kDepth = 16;     // depth of one shared-memory stage
 constexpr int kThreads = 256;
 constexpr int kPad = 4;        // keeps rows 16-byte aligned
-
-__device__ __forceinline__ void load8(const float* __restrict__ p,
-                                      float v[8]) {
-  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-  const float4 b = __ldg(reinterpret_cast<const float4*>(p + 4));
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-// Eight bf16 values (raw 16-bit patterns) widened exactly to f32.
-__device__ __forceinline__ void load8(const uint16_t* __restrict__ p,
-                                      float v[8]) {
-  const uint4 w = __ldg(reinterpret_cast<const uint4*>(p));
-  const uint32_t words[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    v[2 * i] = __uint_as_float(words[i] << 16);
-    v[2 * i + 1] = __uint_as_float(words[i] & 0xffff0000u);
-  }
-}
-
-// Eight int8 codes widened exactly to f32 (byte j of word i is value
-// 4 i + j: the card is little-endian).
-__device__ __forceinline__ void load8(const int8_t* __restrict__ p,
-                                      float v[8]) {
-  const uint2 w = __ldg(reinterpret_cast<const uint2*>(p));
-  const uint32_t words[2] = {w.x, w.y};
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      v[4 * i + j] = static_cast<float>(
-          static_cast<int8_t>((words[i] >> (8 * j)) & 0xffu));
-    }
-  }
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)

@@ -19,8 +19,8 @@ import logging
 
 import numpy as np
 
-from smqtk_indexing_tpu.data.descriptor import DescriptorMemoryElement
-from smqtk_indexing_tpu.data.exceptions import ReadOnlyError
+from smqtk_indexing_tpu_torch.data.descriptor import DescriptorMemoryElement
+from smqtk_indexing_tpu_torch.data.exceptions import ReadOnlyError
 from smqtk_indexing_tpu_torch.ops.device import pad_rows_np
 from smqtk_indexing_tpu_torch.ops.pq import pq_decode_np, pq_perm
 

@@ -18,7 +18,7 @@ from typing import Hashable, List, Sequence
 
 import numpy as np
 
-from smqtk_indexing_tpu.interfaces.nearest_neighbor_index import NNResult
+from smqtk_indexing_tpu_torch.interfaces.nearest_neighbor_index import NNResult
 
 
 def assemble_results(dists: np.ndarray, rows: np.ndarray,

@@ -33,17 +33,17 @@ from typing import Any, Dict, Hashable, Iterable, List, Optional, Sequence
 import numpy as np
 import torch
 
-from smqtk_indexing_tpu.core.configuration import (
+from smqtk_indexing_tpu_torch.core.configuration import (
     from_config_dict, make_default_config, merge_dict, to_config_dict,
 )
-from smqtk_indexing_tpu.data.data_element import DataElement
-from smqtk_indexing_tpu.data.descriptor import (
+from smqtk_indexing_tpu_torch.data.data_element import DataElement
+from smqtk_indexing_tpu_torch.data.descriptor import (
     DescriptorElement, DescriptorMemoryElement, DescriptorSet,
     MemoryDescriptorSet,
 )
-from smqtk_indexing_tpu.data.exceptions import ReadOnlyError
-from smqtk_indexing_tpu.data.key_value import KeyValueStore
-from smqtk_indexing_tpu.interfaces.nearest_neighbor_index import (
+from smqtk_indexing_tpu_torch.data.exceptions import ReadOnlyError
+from smqtk_indexing_tpu_torch.data.key_value import KeyValueStore
+from smqtk_indexing_tpu_torch.interfaces.nearest_neighbor_index import (
     NearestNeighborsIndex, NNResult,
 )
 from smqtk_indexing_tpu_torch.models.nn_index._kvs import sync_uid_kvs

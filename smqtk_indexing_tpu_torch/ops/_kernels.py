@@ -32,9 +32,11 @@ from typing import Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("segment_minima.cu", "ivf_list_scores.cu",
-           "ivf_list_scores_tiled.cu", "ivf_list_scores_tiled_pq.cu",
-           "seg_gather.cu")
+SOURCES = ("segment_minima.cu", "segment_minima_tiled.cu",
+           "ivf_list_scores.cu", "ivf_list_scores_tiled.cu",
+           "ivf_list_scores_tiled_pq.cu", "seg_gather.cu")
+#: Headers the sources include; hashed with them.
+HEADERS = ("scan_loads.cuh",)
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                      "-Xptxas", "-v")
@@ -53,6 +55,15 @@ _ENTRY_POINTS = {
     "segment_minima_f32": _args(5, 3),
     "segment_minima_bf16": _args(5, 3),
     "segment_minima_i8": _args(5, 3),
+    # (q, db3, db_sq, penalty, out, n_queries, n_tiles, dim, tile_n)
+    "segment_minima_tiled_f32": _args(5, 4),
+    "segment_minima_tiled_bf16": _args(5, 4),
+    "segment_minima_tiled_i8": _args(5, 4),
+    # (q, db3, db_sq, penalty, m1, m2, n_queries, n_tiles, dim, tile_n, g,
+    #  bw)
+    "segment_minima_tiled2_f32": _args(6, 6),
+    "segment_minima_tiled2_bf16": _args(6, 6),
+    "segment_minima_tiled2_i8": _args(6, 6),
     # (t, a, db, starts, lo, hi, out, n_queries, n_probe, dim, win)
     "ivf_list_scores_f32": _args(7, 4),
     "ivf_list_scores_bf16": _args(7, 4),
@@ -95,7 +106,7 @@ def nvcc() -> str:
 def library_path() -> Path:
     """The shared library's path for the current sources and flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"libsmqtk_kernels_{h.hexdigest()[:16]}.so"

@@ -3,7 +3,7 @@ Device and layout helpers for the PyTorch port.
 
 Counterpart of ``smqtk_indexing_tpu/ops/device.py``. The pure layout
 helpers (``capacity_for``, ``pow2_at_least``, ``pad_dim``, ``pad_rows_np``,
-``round_up``) import jax nowhere and are re-exported from there, so both
+``round_up``) are the same arithmetic as there (``:19-77``), so both
 packages pad and grow their stores identically. The device side is new:
 an explicit ``torch.device`` everywhere, the kernel tier read from where
 the tensors live, and full-f32 matrix products on the card.
@@ -16,11 +16,69 @@ from __future__ import annotations
 
 import os
 
+import numpy as np
 import torch
 
-from smqtk_indexing_tpu.ops.device import (  # noqa: F401  (re-exported)
-    capacity_for, pad_dim, pad_rows_np, pow2_at_least, round_up,
-)
+#: Feature dims pad to a multiple of this (the kernels stage 16-deep
+#: chunks of a 128-wide depth; the JAX package's TPU lane width).
+LANE = 128
+
+# Row-capacity quantum: device row counts are always 1024 * 2^m, so any two
+# capacities (and the scan chunk size) divide each other.
+_CAP_BASE = 1024
+
+
+def round_up(x: int, m: int) -> int:
+    """Round ``x`` up to the next multiple of ``m``.
+
+    >>> round_up(130, 128)
+    256
+    """
+    return -(-x // m) * m
+
+
+def pow2_at_least(x: int, lo: int = 1) -> int:
+    """Smallest power of two >= ``x``, floored at ``lo`` (itself assumed a
+    power of two): the shape-rounding primitive the stores use on batch, k
+    and window dims.
+
+    >>> pow2_at_least(5), pow2_at_least(3, lo=8)
+    (8, 8)
+    """
+    p = lo
+    while p < x:
+        p *= 2
+    return p
+
+
+def pad_dim(d: int) -> int:
+    """Pad a feature dim to a multiple of 128.
+
+    >>> pad_dim(100), pad_dim(300)
+    (128, 384)
+    """
+    return max(round_up(d, LANE), LANE)
+
+
+def capacity_for(n: int) -> int:
+    """Smallest 1024 * 2^m >= n.
+
+    >>> capacity_for(1), capacity_for(3000)
+    (1024, 4096)
+    """
+    cap = _CAP_BASE
+    while cap < n:
+        cap *= 2
+    return cap
+
+
+def pad_rows_np(mat: np.ndarray, rows: int, cols: int,
+                dtype=np.float32) -> np.ndarray:
+    """Zero-pad a host matrix to (rows, cols)."""
+    n, d = mat.shape
+    out = np.zeros((rows, cols), dtype=dtype)
+    out[:n, :d] = mat
+    return out
 
 
 def resolve_device(device) -> torch.device:

@@ -26,9 +26,25 @@ ported: the store never takes it.
 
 ``seg_gather_tiled`` is the port of ``pallas_scan._seg_gather_tiled``
 (``:393-454``): it gathers (d, 128) segments of the tiled-transposed
-layout, for the IVF code tier's exact re-rank (``ops/ivf_scan.py``). On a
-CUDA tensor it runs ``csrc/seg_gather.cu``; on a CPU tensor, its plain
-version.
+layout, for the IVF code tier's exact re-rank (``ops/ivf_scan.py``) and
+the capacity scan's stage 2 (``ops/sq8.sq8_topk_blocked``). On a CUDA
+tensor it runs ``csrc/seg_gather.cu``; on a CPU tensor, its plain version.
+
+Stage 1 over the single-copy layouts of the capacity scan
+(``ops/sq8.sq8_topk_blocked``), all three in ``csrc/segment_minima_tiled.cu``:
+
+- ``segment_minima_tiled`` (K2, ``pallas_scan.py:244-310``) over the tiled
+  layout (n_tiles, d, tile_n) built by :func:`tiled_layout`: K1's minima,
+  (B, N / 128);
+- ``segment_minima_blocked`` (K4, ``:490-544``) over the blocked layout
+  (N / 128, d, 128) built by :func:`blocked_layout`, the tiled layout with
+  tile_n = 128;
+- ``segment_minima_tiled2`` (K5, ``:805-870``): K2's minima step-major,
+  with per-group minima for :func:`topk_segments_stepmajor`.
+
+The JAX package pins ``tile_n == TILE_N`` (``TILE_N // 2`` in its TPU
+split3 mode); the port takes any ``tile_n % 128 == 0`` and works out the
+step and group widths from the ``tile_n`` it is given.
 """
 from __future__ import annotations
 
@@ -43,6 +59,13 @@ from smqtk_indexing_tpu_torch.utils.tracing import trace_span
 
 #: Segment width: rows collapsing to one stage-1 output element.
 SEG = 128
+
+#: Rows per tile of the single-copy tiled layout (``pallas_scan.TILE_N``).
+TILE_N = 4096
+
+#: Tiles per step of ``segment_minima_tiled2``'s step-major output, halved
+#: until it divides the tile count (``pallas_scan.py:827-829``).
+TILES_PER_STEP = 8
 
 #: Metrics with a matmul-form surrogate, served by this path.
 FUSED_METRICS = ("euclidean", "inner_product", "cosine")
@@ -60,6 +83,17 @@ _STAGE1_ENTRY = {torch.float32: "segment_minima_f32",
 #: Launches of the CUDA segment-gather kernel (``seg_gather_tiled``), kept
 #: the same way.
 GATHER_LAUNCHES = 0
+
+#: Launches of ``csrc/segment_minima_tiled.cu`` by each of its wrappers,
+#: kept the same way: ``segment_minima_tiled`` (K2),
+#: ``segment_minima_blocked`` (K4) and ``segment_minima_tiled2`` (K5).
+TILED_LAUNCHES = 0
+BLOCKED_LAUNCHES = 0
+TILED2_LAUNCHES = 0
+
+#: Each database dtype's suffix of the tiled kernels' C entry points.
+_TILED_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16",
+                 torch.int8: "i8"}
 
 #: Cap on the (B, C) f32 score block of ``segment_minima_reference``.
 REFERENCE_BYTES = 1 << 28
@@ -398,3 +432,284 @@ def flat_topk_fused(db: torch.Tensor, db_sq: torch.Tensor,
     with trace_span("fused_scan.stage2"):
         return rerank_segments(db, valid, q, sid, k=k, metric=metric,
                                db_norm=db_norm)
+
+
+def tiled_layout(codes: torch.Tensor, tile_n: int = TILE_N) -> torch.Tensor:
+    """The single-copy tiled-transposed layout: (N, d) rows ->
+    (N / tile_n, d, tile_n), row r at ``[r // tile_n, :, r % tile_n]`` (the
+    JAX package's ``codes.reshape(N // tile_n, tile_n, d).transpose(0, 2,
+    1)``), as a new contiguous tensor.
+
+    :raises ValueError: N is not a multiple of ``tile_n``, or ``tile_n``
+        not of 128.
+    """
+    n, d = codes.shape
+    if tile_n % SEG or n % tile_n:
+        raise ValueError(f"tiled_layout: N={n} and tile_n={tile_n} must be "
+                         f"multiples of tile_n and {SEG}")
+    return codes.reshape(n // tile_n, tile_n, d).transpose(1, 2).contiguous()
+
+
+def blocked_layout(codes: torch.Tensor) -> torch.Tensor:
+    """The segment-blocked layout: (N, d) -> (N / 128, d, 128), the tiled
+    layout with ``tile_n = 128``."""
+    return tiled_layout(codes, SEG)
+
+
+def _check_tiled(db3, db_sq, penalty, q, name: str) -> None:
+    if db3.dim() != 3 or q.dim() != 2 or q.shape[1] != db3.shape[1]:
+        raise ValueError(f"{name}: db3 {tuple(db3.shape)} and q "
+                         f"{tuple(q.shape)} must be (n_tiles, d, tile_n) "
+                         "and (B, d)")
+    n_tiles, _, tile_n = db3.shape
+    if tile_n % SEG:
+        raise ValueError(f"{name}: tile_n={tile_n} is not a multiple of "
+                         f"{SEG}")
+    n = n_tiles * tile_n
+    if db_sq.numel() != n or penalty.numel() != n:
+        raise ValueError(f"{name}: db_sq and penalty must hold N={n} "
+                         "values")
+    if db3.dtype not in _TILED_SUFFIX:
+        raise TypeError(f"{name}: db3 dtype {db3.dtype} is not float32, "
+                        "bfloat16 or int8")
+    if (db_sq.dtype, penalty.dtype, q.dtype) != (torch.float32,) * 3:
+        raise TypeError(f"{name}: db_sq, penalty and q must be float32")
+    devices = {t.device for t in (db3, db_sq, penalty, q)}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: tensors on several devices "
+                         f"{sorted(map(str, devices))}")
+    if db3.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {db3.device}")
+
+
+def step_shape(n_tiles: int, tile_n: int) -> Tuple[int, int, int]:
+    """``segment_minima_tiled2``'s step-major shape
+    (``pallas_scan.py:827-833``): ``t_step`` halves from ``TILES_PER_STEP``
+    until it divides ``n_tiles``; ``G = t_step * tile_n / 128`` segments a
+    step; the groups of ``m2`` are ``bw = 128`` segments wide if 128
+    divides G, else 16.
+
+    :return: (n_steps, G, bw).
+    :raises ValueError: ``bw`` does not divide G.
+    """
+    t_step = TILES_PER_STEP
+    while n_tiles % t_step:
+        t_step //= 2
+    g = t_step * tile_n // SEG
+    bw = 128 if g % 128 == 0 else 16
+    if g % bw:
+        raise ValueError(f"segment_minima_tiled2: G={g} segments a step is "
+                         f"not a multiple of {bw}")
+    return n_tiles // t_step, g, bw
+
+
+def segment_minima_tiled(db3: torch.Tensor, db_sq: torch.Tensor,
+                         penalty: torch.Tensor,
+                         q: torch.Tensor) -> torch.Tensor:
+    """
+    K2: :func:`segment_minima` over the tiled layout.
+
+    :param db3: (n_tiles, d, tile_n) f32, bf16 or int8 (SQ8 codes), tile_n
+        % 128 == 0; row r is ``db3[r // tile_n, :, r % tile_n]``.
+    :param db_sq: (N,) f32 squared norms in row order (``s2`` for codes).
+    :param penalty: (N,) f32, 0 for live rows and +inf for dead ones.
+    :param q: (B, d) f32 queries or the SQ8 fold (rounded to bf16 for a
+        bf16 or int8 database).
+    :return: (B, N // 128) f32 segment minima, in row order.
+    :raises RuntimeError: on CUDA tensors, if the kernel cannot be built
+        or launched. There is no fallback to the plain version.
+    """
+    global TILED_LAUNCHES
+    _check_tiled(db3, db_sq, penalty, q, "segment_minima_tiled")
+    if db3.device.type == "cpu":
+        return segment_minima_tiled_reference(db3, db_sq, penalty, q)
+    n_tiles, _, tile_n = db3.shape
+    nseg = n_tiles * tile_n // SEG
+    out, _ = _tiled_cuda(db3, db_sq, penalty, q, nseg, 1)
+    TILED_LAUNCHES += 1
+    return out[0]
+
+
+def segment_minima_tiled_reference(db3: torch.Tensor, db_sq: torch.Tensor,
+                                   penalty: torch.Tensor,
+                                   q: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of :func:`segment_minima_tiled`: chunks of
+    tiles turned back into rows and scored by
+    :func:`segment_minima_reference`, so no chunk holds more than
+    ``REFERENCE_BYTES`` of scores."""
+    _check_tiled(db3, db_sq, penalty, q, "segment_minima_tiled")
+    n_tiles, d, tile_n = db3.shape
+    b = q.shape[0]
+    db_sq, penalty = db_sq.reshape(-1), penalty.reshape(-1)
+    out = torch.empty((b, n_tiles * tile_n // SEG), dtype=torch.float32,
+                      device=db3.device)
+    step = max(1, REFERENCE_BYTES // (4 * max(b, 1) * tile_n))
+    for t0 in range(0, n_tiles, step):
+        t1 = min(t0 + step, n_tiles)
+        lo, hi = t0 * tile_n, t1 * tile_n
+        rows = db3[t0:t1].transpose(1, 2).reshape(-1, d)
+        out[:, lo // SEG:hi // SEG] = segment_minima_reference(
+            rows, db_sq[lo:hi], penalty[lo:hi], q)
+    return out
+
+
+def segment_minima_blocked(db_blk: torch.Tensor, db_sq: torch.Tensor,
+                           penalty: torch.Tensor,
+                           q: torch.Tensor) -> torch.Tensor:
+    """
+    K4: :func:`segment_minima` over the blocked layout
+    (``pallas_scan.segment_minima_blocked``).
+
+    :param db_blk: (N / 128, d, 128) f32, bf16 or int8.
+    :param db_sq: (N / 128, 128) f32 squared norms (the same blocking).
+    :param penalty: (N / 128, 128) f32, 0 live / +inf dead.
+    :param q: (B, d) f32.
+    :return: (B, N // 128) f32 segment minima.
+    :raises RuntimeError: on CUDA tensors, if the kernel cannot be built
+        or launched. There is no fallback to the plain version.
+    """
+    global BLOCKED_LAUNCHES
+    _check_blocked(db_blk, db_sq, penalty)
+    _check_tiled(db_blk, db_sq, penalty, q, "segment_minima_blocked")
+    if db_blk.device.type == "cpu":
+        return segment_minima_blocked_reference(db_blk, db_sq, penalty, q)
+    out, _ = _tiled_cuda(db_blk, db_sq, penalty, q, db_blk.shape[0], 1)
+    BLOCKED_LAUNCHES += 1
+    return out[0]
+
+
+def _check_blocked(db_blk, db_sq, penalty) -> None:
+    nseg = db_blk.shape[0]
+    if db_blk.dim() != 3 or db_blk.shape[2] != SEG \
+            or db_sq.shape != (nseg, SEG) or penalty.shape != (nseg, SEG):
+        raise ValueError(
+            f"segment_minima_blocked: db_blk {tuple(db_blk.shape)} must be "
+            f"(nseg, d, {SEG}) and db_sq, penalty (nseg, {SEG})")
+
+
+def segment_minima_blocked_reference(db_blk: torch.Tensor,
+                                     db_sq: torch.Tensor,
+                                     penalty: torch.Tensor,
+                                     q: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of :func:`segment_minima_blocked`: the
+    tiled layout's plain version with ``tile_n = 128``."""
+    _check_blocked(db_blk, db_sq, penalty)
+    return segment_minima_tiled_reference(db_blk, db_sq, penalty, q)
+
+
+def segment_minima_tiled2(db3: torch.Tensor, db_sq: torch.Tensor,
+                          penalty: torch.Tensor, q: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """
+    K5: :func:`segment_minima_tiled` step-major, with per-group minima
+    (``pallas_scan.segment_minima_tiled2``).
+
+    With (n_steps, G, bw) from :func:`step_shape`, segment ``s`` of the row
+    order is ``m1[s // G, :, s % G]``, and ``m2[step, :, j]`` is the minimum
+    of ``m1[step, :, j * bw:(j + 1) * bw]``.
+
+    :param db3, db_sq, penalty, q: as :func:`segment_minima_tiled`.
+    :return: (m1 (n_steps, B, G), m2 (n_steps, B, G // bw)) f32.
+    :raises RuntimeError: on CUDA tensors, if the kernel cannot be built
+        or launched. There is no fallback to the plain version.
+    """
+    global TILED2_LAUNCHES
+    _check_tiled(db3, db_sq, penalty, q, "segment_minima_tiled2")
+    if db3.device.type == "cpu":
+        return segment_minima_tiled2_reference(db3, db_sq, penalty, q)
+    n_tiles, _, tile_n = db3.shape
+    _, g, bw = step_shape(n_tiles, tile_n)
+    m1, m2 = _tiled_cuda(db3, db_sq, penalty, q, g, bw)
+    TILED2_LAUNCHES += 1
+    return m1, m2
+
+
+def segment_minima_tiled2_reference(db3: torch.Tensor, db_sq: torch.Tensor,
+                                    penalty: torch.Tensor, q: torch.Tensor
+                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of :func:`segment_minima_tiled2`: K2's
+    plain minima, cut into steps, and their group minima."""
+    n_tiles, _, tile_n = db3.shape
+    n_steps, g, bw = step_shape(n_tiles, tile_n)
+    b = q.shape[0]
+    minima = segment_minima_tiled_reference(db3, db_sq, penalty, q)
+    m1 = minima.view(b, n_steps, g).transpose(0, 1).contiguous()
+    return m1, m1.view(n_steps, b, g // bw, bw).amin(-1)
+
+
+def _tiled_cuda(db3, db_sq, penalty, q, g: int, bw: int):
+    """Launch ``csrc/segment_minima_tiled.cu`` on the current stream: the
+    (B, N / 128) form when ``g`` is N / 128 and ``bw`` 1 (K2, K4), else the
+    step-major pair.
+
+    :return: (out (n_steps, B, g), group minima (n_steps, B, g // bw) or
+        None for ``bw == 1``).
+    """
+    n_tiles, d, tile_n = db3.shape
+    b = q.shape[0]
+    nseg = n_tiles * tile_n // SEG
+    if d % 16:
+        raise ValueError(f"segment_minima_tiled: d={d} is not a multiple of "
+                         "16 (stores pad it with pad_dim)")
+    qk = _q_kernel_dtype(q, db3.dtype).contiguous()
+    for name, t in (("db3", db3), ("db_sq", db_sq), ("penalty", penalty)):
+        if not t.is_contiguous():
+            raise ValueError(f"segment_minima_tiled: {name} is not "
+                             "contiguous")
+    if any(t.data_ptr() % 16 for t in (db3, qk, db_sq, penalty)):
+        raise ValueError("segment_minima_tiled: db3, q, db_sq and penalty "
+                         "must be 16-byte aligned")
+    if -(-b // 128) * (nseg // bw) >= 2 ** 31:
+        raise ValueError("segment_minima_tiled: grid exceeds 2^31 blocks")
+    out = torch.empty((nseg // g, b, g), dtype=torch.float32,
+                      device=db3.device)
+    lib = _kernels.library()
+    suffix = _TILED_SUFFIX[db3.dtype]
+    stream = torch.cuda.current_stream(db3.device).cuda_stream
+    if bw == 1:
+        name = f"segment_minima_tiled_{suffix}"
+        groups = None
+        err = getattr(lib, name)(
+            qk.data_ptr(), db3.data_ptr(), db_sq.data_ptr(),
+            penalty.data_ptr(), out.data_ptr(), b, n_tiles, d, tile_n,
+            db3.device.index, stream)
+    else:
+        name = f"segment_minima_tiled2_{suffix}"
+        groups = torch.empty((nseg // g, b, g // bw), dtype=torch.float32,
+                             device=db3.device)
+        err = getattr(lib, name)(
+            qk.data_ptr(), db3.data_ptr(), db_sq.data_ptr(),
+            penalty.data_ptr(), out.data_ptr(), groups.data_ptr(), b,
+            n_tiles, d, tile_n, g, bw, db3.device.index, stream)
+    _kernels.check(err, name)
+    return out, groups
+
+
+def topk_segments_stepmajor(m1: torch.Tensor, m2: torch.Tensor, s_keep: int
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """
+    Exact top-``s_keep`` smallest segment minima from the step-major pair
+    of :func:`segment_minima_tiled2` (``pallas_scan.py:873-908``): rank the
+    group minima, then refine inside the winning groups. At most
+    ``s_keep`` groups can hold a top-``s_keep`` minimum (each group minimum
+    is itself a segment minimum), so the refinement is exact.
+
+    :return: (values ascending, global segment ids ``step * G + g``), both
+        (B, s_keep) (fewer where there are fewer segments).
+    """
+    s_steps, b, g = m1.shape
+    gb = m2.shape[2]
+    bw = g // gb
+    bm = m2.transpose(0, 1).reshape(b, s_steps * gb)
+    s_eff = min(s_keep, s_steps * gb)
+    _, bidx = topk_smallest(bm, s_eff)                       # (B, s_eff)
+    step = bidx // gb
+    grp = bidx % gb
+    # Each winning group is one contiguous bw-wide row of m1.
+    rowid = (step * b + torch.arange(b, device=m1.device)[:, None]) * gb \
+        + grp
+    cand = m1.reshape(s_steps * b * gb, bw)[rowid].reshape(b, s_eff * bw)
+    seg = ((step * g + grp * bw)[..., None]
+           + torch.arange(bw, device=m1.device)).reshape(b, s_eff * bw)
+    vals, sel = topk_smallest(cand, min(s_keep, s_eff * bw))
+    return vals, torch.gather(seg, 1, sel)

@@ -18,8 +18,10 @@ so a kernel scores int8 codes against ``t`` plus a per-row
 ``s2 = sum(a^2 u^2)`` (``ops/ivf_scan.py``, and ``sq8_topk``'s stage 1
 through the int8 form of K1, ``fused_scan.segment_minima``).
 
-``sq8_topk_blocked`` (the single-copy capacity scan, with the TPU kernels
-K5, K2 and K4) is the next slice of the port.
+``sq8_topk_blocked`` (``sq8.py:310-429``) is the single-copy capacity scan:
+stage 1 over the tiled layout through K5 (``segment_minima_tiled2``) or
+over the blocked layout through K4 (``segment_minima_blocked``). The
+``i8dot`` int8 x int8 stage 1 is not ported yet.
 """
 from __future__ import annotations
 
@@ -30,9 +32,13 @@ import numpy as np
 import torch
 
 from smqtk_indexing_tpu_torch.ops.device import require_full_f32
-from smqtk_indexing_tpu_torch.ops.fused_scan import segment_minima
+from smqtk_indexing_tpu_torch.ops.fused_scan import (
+    SEG, STAGE2_BYTES, seg_gather_tiled, segment_minima,
+    segment_minima_blocked, segment_minima_tiled2, topk_segments_stepmajor,
+    topk_smallest,
+)
 from smqtk_indexing_tpu_torch.ops.scan import (
-    ELEMENTWISE_BYTES, codec_topk, hik_scores,
+    ELEMENTWISE_BYTES, codec_topk, exact_rerank_decoded, hik_scores,
 )
 
 SQ8_METRICS = ("euclidean", "inner_product", "cosine", "hik")
@@ -190,3 +196,124 @@ def sq8_topk(codes: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                       lambda rows: sq8_decode(codes[rows], a, b), valid, q,
                       q_norm, n=n, k=k, metric=metric, chunk=chunk,
                       block=block, row_bytes=9 * d, minima=minima)
+
+
+def blocked_select(codes_blk: torch.Tensor, sq_row: torch.Tensor,
+                   penalty: torch.Tensor, t: torch.Tensor, s_keep: int
+                   ) -> torch.Tensor:
+    """Stage 1 of :func:`sq8_topk_blocked` and its selection: (B, s_keep)
+    ids of the segments with the smallest minima, -1 where the minimum is
+    +inf. Tiled layout: K5 and ``topk_segments_stepmajor``; blocked layout:
+    K4 and ``topk_smallest``."""
+    nseg = codes_blk.shape[0] * codes_blk.shape[2] // SEG
+    if codes_blk.shape[2] != SEG:
+        m1, m2 = segment_minima_tiled2(codes_blk, sq_row, penalty, t)
+        smin, sid = topk_segments_stepmajor(m1, m2, s_keep)
+    else:
+        minima = segment_minima_blocked(codes_blk, sq_row.view(nseg, SEG),
+                                        penalty.view(nseg, SEG), t)
+        smin, sid = topk_smallest(minima, s_keep)
+    return torch.where(torch.isinf(smin), -1, sid)
+
+
+def blocked_candidates(codes_blk: torch.Tensor,
+                       sid: torch.Tensor) -> torch.Tensor:
+    """The kept segments' codes as rows, (B, s_keep * 128, d) int8: (d, 128)
+    column slices gathered by K3 (tiled layout) or whole contiguous blocks
+    by indexing (blocked layout), then transposed to rows."""
+    sid_c = torch.clamp(sid, min=0)
+    if codes_blk.shape[2] != SEG:
+        blk = seg_gather_tiled(codes_blk, sid_c)
+    else:
+        blk = codes_blk[sid_c]
+    bq, s_keep, d, _ = blk.shape
+    return blk.transpose(2, 3).reshape(bq, s_keep * SEG, d)
+
+
+def blocked_rescore(cand: torch.Tensor, sid: torch.Tensor, s2: torch.Tensor,
+                    valid: torch.Tensor, t: torch.Tensor, qb: torch.Tensor,
+                    metric: str, kk: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The f32 surrogate of every candidate row and its best ``kk``: (scores
+    (B, kk) ascending, +inf for dead or empty; indices into the candidate
+    rows). Runs in query blocks under ``STAGE2_BYTES``."""
+    bq, m_rows, d = cand.shape
+    nseg = s2.shape[0] // SEG
+    sid_c = torch.clamp(sid, min=0)
+    alive = ((sid[..., None] >= 0) & valid.view(nseg, SEG)[sid_c]) \
+        .reshape(bq, m_rows)
+    s2_seg = s2.view(nseg, SEG)
+    q_block = max(1, STAGE2_BYTES // (4 * m_rows * d))
+    best_s, sel = [], []
+    for lo in range(0, bq, q_block):
+        hi = min(lo + q_block, bq)
+        ip = (cand[lo:hi].float() * t[lo:hi, None, :]).sum(-1)
+        if metric == "inner_product":
+            sc = -(ip + qb[lo:hi, None])
+        else:
+            sc = s2_seg[sid_c[lo:hi]].reshape(hi - lo, m_rows) - 2.0 * ip
+        sv, si = topk_smallest(torch.where(alive[lo:hi], sc, math.inf), kk)
+        best_s.append(sv)
+        sel.append(si)
+    return torch.cat(best_s), torch.cat(sel)
+
+
+def sq8_topk_blocked(codes_blk: torch.Tensor, a: torch.Tensor,
+                     b: torch.Tensor, s2: torch.Tensor, valid: torch.Tensor,
+                     q: torch.Tensor, *, k: int, metric: str = "euclidean"
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """
+    Exhaustive SQ8 top-k over one resident copy of the codes in a
+    transposed layout (``sq8.py:310-429``, without ``i8dot``): the
+    capacity configuration, with no row-major copy and no mirror. The
+    layout is told by the trailing dim:
+
+    - (n_tiles, d, tile_n), tile_n != 128, **tiled**
+      (``fused_scan.tiled_layout``): stage 1 is K5
+      (``segment_minima_tiled2``) and ``topk_segments_stepmajor``; stage 2
+      gathers (d, 128) column slices with K3 (``seg_gather_tiled``);
+    - (N / 128, d, 128) **blocked** (``fused_scan.blocked_layout``): stage
+      1 is K4 (``segment_minima_blocked``) and ``topk_smallest``; stage 2
+      gathers whole contiguous blocks by indexing.
+
+    Then the k + 16 kept segments' rows are rescored in f32 (the JAX
+    function uses bf16 products there, ``:411-413``), and the best k + 8
+    are decoded and re-ranked exactly (``scan.exact_rerank_decoded``), so
+    distances are exact with respect to the quantized vectors.
+
+    :param codes_blk: int8 codes in the tiled or the blocked layout.
+    :param a, b: (d,) float32 codec scale and offset.
+    :param s2: (N,) float32 ``sum((a u)^2)`` in row order.
+    :param valid: (N,) bool row liveness in row order.
+    :param q: (B, d) float32 queries.
+    :param metric: 'euclidean' or 'inner_product' (the stage-1 surrogate
+        form); ``sq8_topk`` serves the others.
+    :return: (dists (B, k) ascending, row ids (B, k) int64; +inf / -1
+        pads).
+    :raises ValueError: any other metric.
+    """
+    if metric not in ("euclidean", "inner_product"):
+        raise ValueError(
+            "sq8_topk_blocked serves euclidean/inner_product, not "
+            f"{metric!r} (see sq8_topk for the other metrics).")
+    nseg = codes_blk.shape[0] * codes_blk.shape[2] // SEG
+    q = q.float()
+    q_norm = torch.sqrt((q * q).sum(-1))
+    t = (q - b) * a if metric == "euclidean" else q * a
+    qb = (q * b).sum(-1)
+    sq_row = s2 if metric == "euclidean" else torch.zeros_like(s2)
+    # Built once per call: 4 bytes a row (0.4 GB at 100M rows).
+    penalty = torch.where(valid, 0.0, math.inf).to(torch.float32)
+    s_keep = min(k + 16, nseg)
+    sid = blocked_select(codes_blk, sq_row, penalty, t, s_keep)
+    del penalty, sq_row
+    cand = blocked_candidates(codes_blk, sid)
+    kk = min(k + 8, cand.shape[1])
+    best_s, sel = blocked_rescore(cand, sid, s2, valid, t, qb, metric, kk)
+    rows = torch.clamp(sid, min=0)[..., None] * SEG \
+        + torch.arange(SEG, device=q.device)
+    best_r = torch.gather(rows.reshape(q.shape[0], -1), 1, sel)
+    best_r = torch.where(torch.isinf(best_s), -1, best_r)
+    x = torch.gather(cand, 1, sel[..., None].expand(-1, -1, cand.shape[2]))
+    x = x.float() * a + b
+    return exact_rerank_decoded(x, q, q_norm, best_s, best_r, metric, k)

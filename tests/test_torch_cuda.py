@@ -2,8 +2,10 @@
 The port's hand-written kernels on the card (K1 ``segment_minima`` with
 its f32, bf16 and int8 forms, K7 ``ivf_list_scores_tiled``, K6
 ``ivf_list_scores``, K3 ``seg_gather_tiled``, K8
-``ivf_list_scores_tiled_pq``), against their plain PyTorch versions and
-against the port's CPU path, for the flat and the IVF indexes. Every test here is marked
+``ivf_list_scores_tiled_pq``, and K2, K4 and K5 of
+``csrc/segment_minima_tiled.cu``), against their plain PyTorch versions and
+against the port's CPU path, for the flat and the IVF indexes and the
+capacity scan. Every test here is marked
 ``cuda`` and skips without a card. This file imports neither jax nor the
 JAX package's compute, so it runs on a machine with the card and no jax:
 
@@ -278,7 +280,7 @@ def test_tiled_query_ragged_blocks_match_cpu(card, monkeypatch, rerank):
 def test_ivf_index_on_card_matches_cpu(card, storage, dtype, rerank):
     # The card's index loads the CPU index's payload, so both query the
     # same centroids and codec; then both take the same update and removal.
-    from smqtk_indexing_tpu.data.data_element import DataMemoryElement
+    from smqtk_indexing_tpu_torch.data.data_element import DataMemoryElement
     from smqtk_indexing_tpu_torch.models.nn_index.ivf import (
         IvfNearestNeighborsIndex,
     )
@@ -447,7 +449,7 @@ def test_ivf_pq_index_on_card_matches_cpu(card):
     # The 'OPQ16,IVF16,PQ16' residual code tier: the card's index loads the
     # CPU index's payload (centroids, codes, codebooks, rotation), then
     # both take the same update and removal. Exact mode runs K8 and K3.
-    from smqtk_indexing_tpu.data.data_element import DataMemoryElement
+    from smqtk_indexing_tpu_torch.data.data_element import DataMemoryElement
     from smqtk_indexing_tpu_torch.models.nn_index.ivf import (
         IvfNearestNeighborsIndex,
     )
@@ -481,3 +483,111 @@ def test_ivf_pq_index_on_card_matches_cpu(card):
     np.testing.assert_array_equal(gpu._host, cpu._host)
     (u_gpu, d_gpu), (u_cpu, d_cpu) = results
     assert_same_neighbours(u_gpu, d_gpu, u_cpu, d_cpu, rtol=1e-4, atol=1e-4)
+
+
+def _tiled_case(card, dtype, n, tile_n, b, seed):
+    """Stage-1 operands in the tiled layout on the card: (db3, db_sq,
+    penalty, q), dead rows included."""
+    db, sq, pen, q, _ = scan_inputs(n, 128, b, seed=seed)
+    if dtype == "int8":
+        rows = torch.from_numpy(np.clip(np.rint(db * 10), -127, 127)
+                                .astype(np.int8))
+        sq = (rows.float() ** 2).sum(1).numpy()
+    else:
+        rows = torch.from_numpy(db).to(getattr(torch, dtype))
+    return (fused_scan.tiled_layout(rows, tile_n).to(card),
+            torch.from_numpy(sq).to(card), torch.from_numpy(pen).to(card),
+            torch.from_numpy(q).to(card))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_n", [4096, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_tiled_kernels_match_plain_versions(card, dtype, tile_n):
+    # K2, K4 and K5 of csrc/segment_minima_tiled.cu at a ragged query tile
+    # (200 = 128 + 72) over 6 tiles of 4096 (K5: 3 steps of 2 tiles, G = 64,
+    # bw = 16) or 96 tiles of 256 (12 steps of 8 tiles, G = 16, bw = 16).
+    n, b = 24576, 200
+    db3, sq, pen, q = _tiled_case(card, dtype, n, tile_n, b, seed=21)
+    before = (fused_scan.TILED_LAUNCHES, fused_scan.BLOCKED_LAUNCHES,
+              fused_scan.TILED2_LAUNCHES)
+    out = fused_scan.segment_minima_tiled(db3, sq, pen, q)
+    m1, m2 = fused_scan.segment_minima_tiled2(db3, sq, pen, q)
+    blk = fused_scan.blocked_layout(
+        db3.transpose(1, 2).reshape(n, 128))
+    out_blk = fused_scan.segment_minima_blocked(
+        blk, sq.view(-1, 128), pen.view(-1, 128), q)
+    torch.cuda.synchronize()
+    assert (fused_scan.TILED_LAUNCHES, fused_scan.BLOCKED_LAUNCHES,
+            fused_scan.TILED2_LAUNCHES) == tuple(x + 1 for x in before)
+    ref = fused_scan.segment_minima_tiled_reference(db3, sq, pen, q)
+    n_steps, g, bw = fused_scan.step_shape(n // tile_n, tile_n)
+    assert m1.shape == (n_steps, b, g) and m2.shape == (n_steps, b, g // bw)
+    fin = torch.isfinite(ref)
+    scale = ref[fin].abs().max().item()
+    for got in (out, out_blk,
+                m1.transpose(0, 1).reshape(b, -1)):
+        assert torch.equal(torch.isinf(got), torch.isinf(ref))
+        assert (got - ref)[fin].abs().max().item() <= STAGE1_RTOL * scale
+    assert torch.isinf(out[:, 1]).all()
+    # m2 is the minimum of m1 over each group, bit for bit.
+    assert torch.equal(m2, m1.view(n_steps, b, g // bw, bw).amin(-1))
+
+
+@pytest.mark.cuda
+def test_tiled_kernel_wrappers_reject_what_the_kernels_cannot_take(card):
+    db3, sq, pen, q = _tiled_case(card, "int8", 8192, 4096, 8, seed=22)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_scan.segment_minima_tiled(db3.repeat(1, 2, 1)[:, ::2], sq,
+                                        pen, q)
+    with pytest.raises(ValueError, match="several devices"):
+        fused_scan.segment_minima_tiled2(db3, sq.cpu(), pen, q)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        fused_scan.segment_minima_tiled(db3[:, :120].contiguous(), sq, pen,
+                                        q[:, :120].contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["tiled", "blocked"])
+@pytest.mark.parametrize("metric", ["euclidean", "inner_product"])
+def test_sq8_topk_blocked_on_card_matches_cpu(card, metric, layout):
+    from smqtk_indexing_tpu_torch.ops import sq8
+    rng = np.random.default_rng(23)
+    n, d, b, k = 32768, 128, 64, 16
+    mat = rng.random((n, d), dtype=np.float32) * 10
+    a, bb = sq8.sq8_train(mat)
+    codes = torch.from_numpy(sq8.sq8_encode_np(mat, a, bb))
+    q = torch.from_numpy(rng.random((b, d), dtype=np.float32) * 10)
+    valid = torch.ones(n, dtype=torch.bool)
+    valid[500:900] = False
+    a, bb = torch.from_numpy(a), torch.from_numpy(bb)
+    s2, _ = sq8.sq8_row_stats(codes, a, bb)
+    lay = fused_scan.tiled_layout(codes) if layout == "tiled" \
+        else fused_scan.blocked_layout(codes)
+    cpu = (lay, a, bb, s2, valid, q)
+    d_cpu, r_cpu = sq8.sq8_topk_blocked(*cpu, k=k, metric=metric)
+    before = (fused_scan.TILED2_LAUNCHES, fused_scan.BLOCKED_LAUNCHES,
+              fused_scan.GATHER_LAUNCHES)
+    d_gpu, r_gpu = sq8.sq8_topk_blocked(*(t.to(card) for t in cpu), k=k,
+                                        metric=metric)
+    torch.cuda.synchronize()
+    tiled = layout == "tiled"
+    assert (fused_scan.TILED2_LAUNCHES, fused_scan.BLOCKED_LAUNCHES,
+            fused_scan.GATHER_LAUNCHES) == (
+        before[0] + tiled, before[1] + (not tiled), before[2] + tiled)
+    assert_same_neighbours(r_gpu.cpu().numpy(), d_gpu.cpu().numpy(),
+                           r_cpu.numpy(), d_cpu.numpy(), rtol=DIST_RTOL,
+                           atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_capacity_module_on_card_at_a_mini_size(card):
+    from smqtk_indexing_tpu_torch.examples import capacity_100m
+    cap = capacity_100m.build(16, "cuda", seed=0)
+    for batch in (capacity_100m.B, capacity_100m.B_BIG):
+        res = capacity_100m.check(cap, *capacity_100m.scan(cap, batch))
+        assert res["recall_at_10"] == 1.0
+        assert res["planted_to_random_margin"] > 1.0
+    ms = capacity_100m.stages(cap, reps=1)
+    assert set(ms) >= {"k2", "k5", "full"}
+    assert all(v > 0 for v in ms.values())

@@ -12,20 +12,23 @@ import numpy as np
 import pytest
 import torch
 
-from smqtk_indexing_tpu.core.configuration import (
-    configuration_test_helper, from_config_dict,
-)
-from smqtk_indexing_tpu.data.data_element import DataMemoryElement
-from smqtk_indexing_tpu.data.descriptor import DescriptorMemoryElement
-from smqtk_indexing_tpu.data.exceptions import ReadOnlyError
-from smqtk_indexing_tpu.interfaces.nearest_neighbor_index import (
-    NearestNeighborsIndex,
+from smqtk_indexing_tpu.data.data_element import (
+    DataMemoryElement as JaxDataMemoryElement,
 )
 from smqtk_indexing_tpu.models.nn_index import flat as jax_flat
 from smqtk_indexing_tpu.ops.store import VectorStore as JaxVectorStore
+from smqtk_indexing_tpu_torch.core.configuration import (
+    configuration_test_helper, from_config_dict,
+)
+from smqtk_indexing_tpu_torch.data.data_element import DataMemoryElement
+from smqtk_indexing_tpu_torch.data.descriptor import DescriptorMemoryElement
+from smqtk_indexing_tpu_torch.data.exceptions import ReadOnlyError
+from smqtk_indexing_tpu_torch.interfaces.nearest_neighbor_index import (
+    NearestNeighborsIndex,
+)
 from smqtk_indexing_tpu_torch.models.nn_index import flat as port_flat
 from smqtk_indexing_tpu_torch.ops.store import VectorStore
-from tests.test_torch_helpers import assert_same_neighbours
+from tests.test_torch_helpers import assert_same_neighbours, elements_for
 
 torch.set_num_threads(1)
 
@@ -62,12 +65,14 @@ ELEMS, QUERIES, X, Q = _elements()
 
 
 def _flow(index):
-    """build -> update -> remove -> nn_many; (uids, dists) arrays."""
-    index.build_index(ELEMS[:1200])
-    index.update_index(ELEMS[1200:])
+    """build -> update -> remove -> nn_many, with ``index``'s own
+    elements; (uids, dists) arrays."""
+    elems = elements_for(index, ELEMS)
+    index.build_index(elems[:1200])
+    index.update_index(elems[1200:])
     index.remove_from_index(REMOVED)
     assert index.count() == N - len(REMOVED)
-    res = index.nn_many(QUERIES, K)
+    res = index.nn_many(elements_for(index, QUERIES), K)
     return (np.array([[e.uuid() for e in r[0]] for r in res]),
             np.array([r[1] for r in res], dtype=np.float64))
 
@@ -126,18 +131,23 @@ def test_flat_matches_float64_oracle(metric, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
 def test_persisted_payload_loads_across_packages(direction, dtype):
+    # Each package's index reads its own data element.
     src_cls, dst_cls, src_kw, dst_kw = (
         jax_flat.FlatNearestNeighborsIndex,
-        port_flat.FlatNearestNeighborsIndex, {}, {"device": "cpu"})
+        port_flat.FlatNearestNeighborsIndex,
+        {"index_element": JaxDataMemoryElement()}, {"device": "cpu"})
     if direction == "port_to_jax":
-        src_cls, dst_cls, src_kw, dst_kw = dst_cls, src_cls, dst_kw, src_kw
-    elem = DataMemoryElement()
-    src = src_cls(index_element=elem, dtype=dtype, **src_kw)
+        src_cls, dst_cls = dst_cls, src_cls
+        src_kw = {"index_element": DataMemoryElement(), "device": "cpu"}
+        dst_kw = {}
+    src = src_cls(dtype=dtype, **src_kw)
     u_src, d_src = _flow(src)
-    dst = dst_cls(index_element=DataMemoryElement(elem.get_bytes()),
+    dst_elem = DataMemoryElement if direction == "jax_to_port" \
+        else JaxDataMemoryElement
+    dst = dst_cls(index_element=dst_elem(src_kw["index_element"].get_bytes()),
                   dtype=dtype, **dst_kw)
     assert dst.count() == src.count()
-    res = dst.nn_many(QUERIES, K)
+    res = dst.nn_many(elements_for(dst, QUERIES), K)
     u_dst = np.array([[e.uuid() for e in r[0]] for r in res])
     d_dst = np.array([r[1] for r in res], dtype=np.float64)
     assert_same_neighbours(u_dst, d_dst, u_src, d_src, *TOL_VS_JAX[dtype])
@@ -173,16 +183,18 @@ def test_configuration_round_trip():
 
 
 def test_fully_qualified_key_selects_the_port():
-    # Both packages register a FlatNearestNeighborsIndex under the shared
-    # interface, so a bare "type" is ambiguous; the qualified keys are not.
+    # The port has its own interfaces and registry: its get_impls() holds
+    # its own class and not the JAX package's, though both are imported
+    # here, so the qualified key and the bare name select the port and the
+    # JAX package's key matches nothing.
     impls = NearestNeighborsIndex.get_impls()
-    assert {port_flat.FlatNearestNeighborsIndex,
-            jax_flat.FlatNearestNeighborsIndex} <= impls
-    inst = from_config_dict(
-        {"type": PORT_KEY, PORT_KEY: {"device": "cpu"}}, impls)
-    assert type(inst) is port_flat.FlatNearestNeighborsIndex
-    assert type(from_config_dict({"type": JAX_KEY}, impls)) \
-        is jax_flat.FlatNearestNeighborsIndex
+    assert port_flat.FlatNearestNeighborsIndex in impls
+    assert jax_flat.FlatNearestNeighborsIndex not in impls
+    for key in (PORT_KEY, "FlatNearestNeighborsIndex"):
+        inst = from_config_dict({"type": key, key: {"device": "cpu"}}, impls)
+        assert type(inst) is port_flat.FlatNearestNeighborsIndex
+    with pytest.raises(ValueError, match="does not match"):
+        from_config_dict({"type": JAX_KEY}, impls)
 
 
 def test_contract_probes():

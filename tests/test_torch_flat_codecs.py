@@ -17,17 +17,20 @@ import torch
 
 import jax.numpy as jnp
 
-from smqtk_indexing_tpu.data.data_element import DataMemoryElement
-from smqtk_indexing_tpu.data.descriptor import DescriptorMemoryElement
+from smqtk_indexing_tpu.data.data_element import (
+    DataMemoryElement as JaxDataMemoryElement,
+)
 from smqtk_indexing_tpu.models.nn_index import flat as jax_flat
 from smqtk_indexing_tpu.ops import pallas_scan as jax_scan
 from smqtk_indexing_tpu.ops import sq8 as jsq8
 from smqtk_indexing_tpu.ops.store import VectorStore as JaxVectorStore
+from smqtk_indexing_tpu_torch.data.data_element import DataMemoryElement
+from smqtk_indexing_tpu_torch.data.descriptor import DescriptorMemoryElement
 from smqtk_indexing_tpu_torch.models.nn_index import flat as port_flat
 from smqtk_indexing_tpu_torch.ops import fused_scan, opq, pq, sq8
 from smqtk_indexing_tpu_torch.ops.device import pad_rows_np
 from smqtk_indexing_tpu_torch.ops.store import VectorStore
-from tests.test_torch_helpers import assert_same_neighbours
+from tests.test_torch_helpers import assert_same_neighbours, elements_for
 
 torch.set_num_threads(1)
 
@@ -241,7 +244,7 @@ def _elems(x, start=0):
 
 
 def _nn(index, q, k=8):
-    res = index.nn_many(_elems(q, start=10 ** 6), k)
+    res = index.nn_many(elements_for(index, _elems(q, start=10 ** 6)), k)
     return (np.array([[e.uuid() for e in r[0]] for r in res]),
             np.array([r[1] for r in res], dtype=np.float64))
 
@@ -259,7 +262,7 @@ def test_flat_sq8_k1_route_matches_jax(metric):
                                                device="cpu")
     ref = jax_flat.FlatNearestNeighborsIndex(dtype="sq8", metric=metric)
     for index in (port, ref):
-        index.build_index(els)
+        index.build_index(elements_for(index, els))
         index.remove_from_index(list(range(0, 70000, 11)))
     assert port._store._sq8_fused_eligible(metric)
     u_p, d_p = _nn(port, q)
@@ -292,13 +295,13 @@ def test_flat_payload_round_trip(dtype):
     if dtype != "sq8":
         return
     ref = jax_flat.FlatNearestNeighborsIndex(
-        index_element=DataMemoryElement(elem.get_bytes()), dtype=dtype)
+        index_element=JaxDataMemoryElement(elem.get_bytes()), dtype=dtype)
     u_r, d_r = _nn(ref, Q)
     assert_same_neighbours(u_r, d_r, u_a, d_a, *TOL)
-    jelem = DataMemoryElement()
+    jelem = JaxDataMemoryElement()
     jax_src = jax_flat.FlatNearestNeighborsIndex(index_element=jelem,
                                                  dtype=dtype)
-    jax_src.build_index(els[:1500])
+    jax_src.build_index(elements_for(jax_src, els[:1500]))
     dst = port_flat.FlatNearestNeighborsIndex(
         index_element=DataMemoryElement(jelem.get_bytes()), dtype=dtype,
         device="cpu")

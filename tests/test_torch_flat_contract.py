@@ -11,9 +11,9 @@ import numpy as np
 import pytest
 import torch
 
-from smqtk_indexing_tpu.data.data_element import DataMemoryElement
-from smqtk_indexing_tpu.data.descriptor import DescriptorMemoryElement
-from smqtk_indexing_tpu.data.exceptions import ReadOnlyError
+from smqtk_indexing_tpu_torch.data.data_element import DataMemoryElement
+from smqtk_indexing_tpu_torch.data.descriptor import DescriptorMemoryElement
+from smqtk_indexing_tpu_torch.data.exceptions import ReadOnlyError
 from smqtk_indexing_tpu_torch.models.nn_index.flat import (
     FlatNearestNeighborsIndex,
 )

@@ -1,6 +1,6 @@
 """Helpers shared by the port's tests (``tests/test_torch_*.py``); no tests
-of its own. Imports no jax, so the card-only tests can use it on a machine
-without jax."""
+of its own. Importing it imports no jax and nothing of the JAX package, so
+the card-only tests can use it on a machine without jax."""
 import numpy as np
 
 
@@ -35,3 +35,16 @@ def assert_same_neighbours(ids_port, d_port, ids_ref, d_ref, rtol,
         for u in diff:
             assert abs(lookup[u] - kth) <= atol + rtol * abs(kth), \
                 f"query {i}: id {u} at {lookup[u]} is not a tie with {kth}"
+
+
+def elements_for(index, elems):
+    """``elems`` as descriptor elements of ``index``'s own package, with the
+    same uids and vectors: each package's index gets its own elements, built
+    from the same numpy arrays. The JAX package is imported only for a JAX
+    index."""
+    if type(index).__module__.startswith("smqtk_indexing_tpu_torch."):
+        from smqtk_indexing_tpu_torch.data import DescriptorMemoryElement
+    else:
+        from smqtk_indexing_tpu.data import DescriptorMemoryElement
+    return [e if type(e) is DescriptorMemoryElement
+            else DescriptorMemoryElement(e.uuid(), e.vector()) for e in elems]

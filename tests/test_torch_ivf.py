@@ -12,12 +12,15 @@ import numpy as np
 import pytest
 import torch
 
-from smqtk_indexing_tpu.data.data_element import DataMemoryElement
-from smqtk_indexing_tpu.data.descriptor import DescriptorMemoryElement
+from smqtk_indexing_tpu.data.data_element import (
+    DataMemoryElement as JaxDataMemoryElement,
+)
 from smqtk_indexing_tpu.models.nn_index import ivf as jax_ivf
+from smqtk_indexing_tpu_torch.data.data_element import DataMemoryElement
+from smqtk_indexing_tpu_torch.data.descriptor import DescriptorMemoryElement
 from smqtk_indexing_tpu_torch.models.nn_index import ivf as port_ivf
 from smqtk_indexing_tpu_torch.ops import fused_scan, ivf_scan
-from tests.test_torch_helpers import assert_same_neighbours
+from tests.test_torch_helpers import assert_same_neighbours, elements_for
 
 torch.set_num_threads(1)
 
@@ -48,7 +51,8 @@ QUERIES = [DescriptorMemoryElement(("q", i), Q[i]) for i in range(N_Q)]
 
 
 def _result(index, queries=QUERIES, k=K):
-    res = index.nn_many(queries, k)
+    """``nn_many`` with ``index``'s own elements; (uids, dists) arrays."""
+    res = index.nn_many(elements_for(index, queries), k)
     return (np.array([[e.uuid() for e in r[0]] for r in res]),
             np.array([r[1] for r in res], dtype=np.float64))
 
@@ -61,9 +65,9 @@ def _kw(storage, dtype, metric, rerank, nprobe=4):
 def _jax_then_port(storage, dtype, metric, rerank, nprobe=4):
     """Build the JAX index, load its payload into the port; (jax, port)."""
     kw = _kw(storage, dtype, metric, rerank, nprobe)
-    elem = DataMemoryElement()
+    elem = JaxDataMemoryElement()
     ref = jax_ivf.IvfNearestNeighborsIndex(index_element=elem, **kw)
-    ref.build_index(ELEMS)
+    ref.build_index(elements_for(ref, ELEMS))
     port = port_ivf.IvfNearestNeighborsIndex(
         index_element=DataMemoryElement(elem.get_bytes()), device="cpu",
         **kw)
@@ -140,7 +144,7 @@ def test_port_payload_loads_in_jax(storage, dtype, metric, rerank):
     port.build_index(ELEMS)
     port.remove_from_index([3, 4, 5])
     ref = jax_ivf.IvfNearestNeighborsIndex(
-        index_element=DataMemoryElement(elem.get_bytes()), **kw)
+        index_element=JaxDataMemoryElement(elem.get_bytes()), **kw)
     assert ref.count() == port.count() == N - 3
     np.testing.assert_array_equal(np.asarray(ref._centroids_np),
                                   port._centroids_np)

@@ -14,24 +14,27 @@ import numpy as np
 import pytest
 import torch
 
-from smqtk_indexing_tpu.core.configuration import (
-    configuration_test_helper, from_config_dict,
-)
-from smqtk_indexing_tpu.data.data_element import DataMemoryElement
-from smqtk_indexing_tpu.data.descriptor import (
-    DescriptorMemoryElement, MemoryDescriptorSet,
-)
-from smqtk_indexing_tpu.data.exceptions import ReadOnlyError
-from smqtk_indexing_tpu.interfaces.nearest_neighbor_index import (
-    NearestNeighborsIndex,
+from smqtk_indexing_tpu.data.data_element import (
+    DataMemoryElement as JaxDataMemoryElement,
 )
 from smqtk_indexing_tpu.models.nn_index import ivf as jax_ivf
+from smqtk_indexing_tpu_torch.core.configuration import (
+    configuration_test_helper, from_config_dict,
+)
+from smqtk_indexing_tpu_torch.data.data_element import DataMemoryElement
+from smqtk_indexing_tpu_torch.data.descriptor import (
+    DescriptorMemoryElement, MemoryDescriptorSet,
+)
+from smqtk_indexing_tpu_torch.data.exceptions import ReadOnlyError
+from smqtk_indexing_tpu_torch.interfaces.nearest_neighbor_index import (
+    NearestNeighborsIndex,
+)
 from smqtk_indexing_tpu_torch.models.nn_index import ivf as port_ivf
 from smqtk_indexing_tpu_torch.models.nn_index._ivf_matrix import (
     validate_ivf_combination,
 )
 from smqtk_indexing_tpu_torch.ops.ivf_scan import TILE_ROWS
-from tests.test_torch_helpers import assert_same_neighbours
+from tests.test_torch_helpers import assert_same_neighbours, elements_for
 
 torch.set_num_threads(1)
 
@@ -150,9 +153,9 @@ def _both(storage, dtype, rerank, metric="euclidean", residual=False):
     kw = dict(n_lists=16, nprobe=4, random_seed=0, storage=storage,
               dtype=dtype, rerank=rerank, metric=metric,
               pq_residual=residual)
-    elem = DataMemoryElement()
+    elem = JaxDataMemoryElement()
     ref = jax_ivf.IvfNearestNeighborsIndex(index_element=elem, **kw)
-    ref.build_index(MUT[:4000])
+    ref.build_index(elements_for(ref, MUT[:4000]))
     port = port_ivf.IvfNearestNeighborsIndex(
         index_element=DataMemoryElement(elem.get_bytes()), device="cpu",
         **kw)
@@ -162,7 +165,7 @@ def _both(storage, dtype, rerank, metric="euclidean", residual=False):
 def _same_results(port, ref, atol):
     out = []
     for index in (port, ref):
-        res = index.nn_many(MUT_Q, 10)
+        res = index.nn_many(elements_for(index, MUT_Q), 10)
         out.append((np.array([[e.uuid() for e in r[0]] for r in res]),
                     np.array([r[1] for r in res])))
     assert_same_neighbours(out[0][0], out[0][1], out[1][0], out[1][1],
@@ -182,7 +185,7 @@ def test_update_remove_and_compaction_match_jax(storage, dtype, rerank,
     codec = None if port._code_cb is None else port._code_cb.copy()
     atol = 5e-3 if rerank == "score" else None
     for index in (ref, port):
-        index.update_index(MUT[3900:])           # 100 skipped, 1000 new
+        index.update_index(elements_for(index, MUT[3900:]))  # 100 old
     assert port.count() == ref.count() == 5000
     _same_results(port, ref, atol)
     removed = list(range(0, 5000, 3))
@@ -269,33 +272,34 @@ def test_configuration_round_trip():
 
 
 def test_fully_qualified_key_selects_the_port():
-    # Both packages register an IvfNearestNeighborsIndex under the shared
-    # interface, so a bare "type" is ambiguous; the qualified keys are not.
+    # The port's registry holds its own class and not the JAX package's,
+    # though both are imported here: the qualified key and the bare name
+    # select the port, and the JAX package's key matches nothing.
     impls = NearestNeighborsIndex.get_impls()
-    assert {port_ivf.IvfNearestNeighborsIndex,
-            jax_ivf.IvfNearestNeighborsIndex} <= impls
-    inst = from_config_dict(
-        {"type": PORT_KEY, PORT_KEY: {"device": "cpu", "n_lists": 8}},
-        impls)
-    assert type(inst) is port_ivf.IvfNearestNeighborsIndex
-    assert inst.n_lists == 8
-    assert type(from_config_dict({"type": JAX_KEY}, impls)) \
-        is jax_ivf.IvfNearestNeighborsIndex
+    assert port_ivf.IvfNearestNeighborsIndex in impls
+    assert jax_ivf.IvfNearestNeighborsIndex not in impls
+    for key in (PORT_KEY, "IvfNearestNeighborsIndex"):
+        inst = from_config_dict(
+            {"type": key, key: {"device": "cpu", "n_lists": 8}}, impls)
+        assert type(inst) is port_ivf.IvfNearestNeighborsIndex
+        assert inst.n_lists == 8
+    with pytest.raises(ValueError, match="does not match"):
+        from_config_dict({"type": JAX_KEY}, impls)
 
 
 def test_pq_payload_raises_until_the_codec_slice():
     # The codec slice is ported: a JAX PQ code-tier payload loaded by an
     # SQ8 code-tier instance decodes to float rows, which the SQ8 codec
     # then encodes (the JAX package does the same).
-    elem = DataMemoryElement()
+    elem = JaxDataMemoryElement()
     ref = jax_ivf.IvfNearestNeighborsIndex(
         index_element=elem, n_lists=4, nprobe=4, random_seed=0,
         dtype="pq4", storage="code")
-    ref.build_index(CORPUS[:300])
+    ref.build_index(elements_for(ref, CORPUS[:300]))
     kw = dict(n_lists=4, nprobe=4, dtype="sq8", storage="code")
     port = _index(index_element=DataMemoryElement(elem.get_bytes()), **kw)
     jax_sq8 = jax_ivf.IvfNearestNeighborsIndex(
-        index_element=DataMemoryElement(elem.get_bytes()), **kw)
+        index_element=JaxDataMemoryElement(elem.get_bytes()), **kw)
     assert port.count() == jax_sq8.count() == 300
     assert port._host.dtype == np.int8
     np.testing.assert_array_equal(port._host, jax_sq8._host)

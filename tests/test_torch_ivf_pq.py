@@ -16,11 +16,14 @@ import numpy as np
 import pytest
 import torch
 
-from smqtk_indexing_tpu.data.data_element import DataMemoryElement
+from smqtk_indexing_tpu.data.data_element import (
+    DataMemoryElement as JaxDataMemoryElement,
+)
 from smqtk_indexing_tpu.models.nn_index import ivf as jax_ivf
+from smqtk_indexing_tpu_torch.data.data_element import DataMemoryElement
 from smqtk_indexing_tpu_torch.models.nn_index import ivf as port_ivf
 from smqtk_indexing_tpu_torch.ops import ivf_scan
-from tests.test_torch_helpers import assert_same_neighbours
+from tests.test_torch_helpers import assert_same_neighbours, elements_for
 from tests.test_torch_ivf import ELEMS, K, LISTS, N, Q, _result
 
 torch.set_num_threads(1)
@@ -59,11 +62,12 @@ CODE_CELLS = [(dtype, metric, residual)
 @pytest.mark.parametrize("dtype,metric,residual", CODE_CELLS)
 def test_code_tier_matches_jax(dtype, metric, residual):
     kw = _kw("code", dtype, metric, "exact", residual)
-    elem = DataMemoryElement()
+    elem = JaxDataMemoryElement()
     ref = jax_ivf.IvfNearestNeighborsIndex(index_element=elem, **kw)
     # OPQ trains its rotation on every row: one tile of rows keeps the
     # JAX package's training short.
-    ref.build_index(ELEMS if dtype == "pq16" else ELEMS[:N // 2])
+    ref.build_index(elements_for(
+        ref, ELEMS if dtype == "pq16" else ELEMS[:N // 2]))
     port = port_ivf.IvfNearestNeighborsIndex(
         index_element=DataMemoryElement(elem.get_bytes()), device="cpu",
         **kw)
@@ -100,7 +104,7 @@ def test_port_payload_loads_in_jax(dtype, metric, residual):
     port.build_index(ELEMS[:N // 2])
     port.remove_from_index([3, 4, 5])
     ref = jax_ivf.IvfNearestNeighborsIndex(
-        index_element=DataMemoryElement(elem.get_bytes()), **kw)
+        index_element=JaxDataMemoryElement(elem.get_bytes()), **kw)
     assert ref.count() == port.count() == N // 2 - 3
     np.testing.assert_array_equal(np.asarray(ref._code_cb), port._code_cb)
     u_p, d_p = _result(port)
@@ -134,17 +138,17 @@ def test_exhaustive_probe_is_exact_wrt_reconstruction():
                                             ("opq16", True)])
 def test_pq_payload_loaded_by_rows_instance_decodes_to_float(dtype,
                                                              residual):
-    elem = DataMemoryElement()
+    elem = JaxDataMemoryElement()
     ref = jax_ivf.IvfNearestNeighborsIndex(
         index_element=elem, **_kw("code", dtype, "euclidean", "exact",
                                   residual))
-    ref.build_index(ELEMS[:3000])
+    ref.build_index(elements_for(ref, ELEMS[:3000]))
     kw = _kw("rows", "float32", "euclidean", "exact", False)
     port = port_ivf.IvfNearestNeighborsIndex(
         index_element=DataMemoryElement(elem.get_bytes()), device="cpu",
         **kw)
     jax_rows = jax_ivf.IvfNearestNeighborsIndex(
-        index_element=DataMemoryElement(elem.get_bytes()), **kw)
+        index_element=JaxDataMemoryElement(elem.get_bytes()), **kw)
     assert port._host.dtype == np.float32 and port._host.shape[1] == 96
     np.testing.assert_allclose(port._host, np.asarray(jax_rows._host),
                                rtol=1e-5, atol=1e-5)

@@ -12,12 +12,15 @@ import numpy as np
 import pytest
 import torch
 
-from smqtk_indexing_tpu.data.data_element import DataMemoryElement
+from smqtk_indexing_tpu.data.data_element import (
+    DataMemoryElement as JaxDataMemoryElement,
+)
 from smqtk_indexing_tpu.models.nn_index import ivf as jax_ivf
+from smqtk_indexing_tpu_torch.data.data_element import DataMemoryElement
 from smqtk_indexing_tpu_torch.models.nn_index import _ivf_rows
 from smqtk_indexing_tpu_torch.models.nn_index import ivf as port_ivf
 from smqtk_indexing_tpu_torch.ops import opq, pq
-from tests.test_torch_helpers import assert_same_neighbours
+from tests.test_torch_helpers import assert_same_neighbours, elements_for
 from tests.test_torch_ivf import ELEMS, N, _result
 from tests.test_torch_ivf_pq import EXACT_TOL, _kw
 
@@ -32,9 +35,9 @@ ROWS_CELLS = [("pq16", "euclidean", False), ("opq16", "euclidean", False),
 @pytest.mark.parametrize("dtype,metric,residual", ROWS_CELLS)
 def test_rows_tier_matches_jax(monkeypatch, dtype, metric, residual):
     kw = _kw("rows", dtype, metric, "exact", residual)
-    elem = DataMemoryElement()
+    elem = JaxDataMemoryElement()
     ref = jax_ivf.IvfNearestNeighborsIndex(index_element=elem, **kw)
-    ref.build_index(ELEMS)
+    ref.build_index(elements_for(ref, ELEMS))
     cb = np.asarray(ref._pq_cb_dev)
     rot = ref._pq_rot
     seen = []
