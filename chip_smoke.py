@@ -52,10 +52,16 @@ not 0:
    at nprobe=4 on the same vectors, routed to K8 (recall@10 >= 0.75);
 8. flat codecs: ``FlatNearestNeighborsIndex(dtype="sq8")`` over the flat
    phase's vectors, whose stage 1 is K1's int8 form (held against its
-   plain version and float64 at the store's operands), then
-   ``dtype="pq16"``; each top-10 of 128 queries must be the float64
-   top-10 over the store's quantized rows;
-9. capacity scan (``smqtk_indexing_tpu_torch.examples.capacity_100m``):
+   plain version and float64 at the store's operands) and, under
+   ``SMQTK_TPU_SQ8_I8DOT=1``, K1's int8 x int8 form (held bit for bit
+   against its plain version at B=2048, N=2^20; its launches must show the
+   flag took it), then ``dtype="pq16"``; each top-10 of 128 queries must be
+   the float64 top-10 over the store's quantized rows;
+9. the K10 probe (``smqtk_indexing_tpu_torch.tools.probe_int8_mxu``) over
+   16,777,216 x 128 codes made on the card: both arms held against their
+   plain versions (the int8 arm bit for bit), then the probe itself (rank
+   agreement and the pipelined A/B), its 2.1 GB freed after;
+10. capacity scan (``smqtk_indexing_tpu_torch.examples.capacity_100m``):
    100,663,296 x 128 SQ8 codes built on the card in the tiled layout with
    planted truth; K2, K4 and K5 held against their plain versions and
    float64 at B=128 on a 4,194,304-row prefix with dead rows (K5's m2
@@ -64,22 +70,31 @@ not 0:
    on the planted rows 1.0, margin > 1.0, the first 16 queries' top-16
    equal to the plain pipeline's (B=128), three timed batches, the stage
    split and the peak device bytes; last the blocked layout end to end at
-   the prefix (K4), equal to the tiled layout's results.
+   the prefix (K4), equal to the tiled layout's results. The same with
+   ``i8dot=True``: K2, K4 and K5's int8 x int8 forms held bit for bit on
+   the prefix, the scan at B=128 and 256 (recall@10 1.0, margin, equal to
+   the plain pipeline) beside the flag-off numbers, its stage split and
+   the blocked layout at the prefix. Then each K9 variant
+   (``smqtk_indexing_tpu_torch.tools.stage1_analysis``) held against its
+   plain version on the prefix with both query forms, and the K9 sweep
+   (every variant x t_step in {2, 4, 8}) on the resident index.
 
 Each path sets the kernels' launch counts to 0 just before it runs and
 reads them just after. Then a ``{"kernels": [...]}`` line with each
 kernel's launches in its path, its error against its plain version, its
 time and the plain version's, its bound (the larger of its bytes over the
 memory rate and its operations over the peak rate of their type, from
-this run's inputs) and the time of one ``torch.mm`` of the same product
-where there is such a yardstick (K1, K2, K4, K5; the port never calls
-it); and last ``{"ok": true, "device": {...}}``.
+this run's inputs) and the time of one ``torch.mm`` (``torch._int_mm`` for
+the int8 x int8 forms) of the same product where there is such a
+yardstick (K1, K2, K4, K5, K9, K10; the port never calls either); and last
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -123,10 +138,12 @@ RECON_TOL = 1e-4
 CAP_PREFIX_TILES = 1024
 CAP_PLAIN_QUERIES = 16
 #: Peaks of one H100 SXM (NVIDIA's data sheet): device memory bytes/s,
-#: FP32 outside the tensor cores, dense bf16 on the tensor cores (FLOP/s).
+#: FP32 outside the tensor cores, dense bf16 on the tensor cores (FLOP/s),
+#: dense int8 on the tensor cores (operations/s).
 HBM_BYTES_S = 3.35e12
 FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
+INT8_OPS = 1979e12
 
 
 def emit(phase: str, **fields) -> None:
@@ -170,23 +187,39 @@ _COUNTERS = ("LAUNCHES", "GATHER_LAUNCHES", "TILED_LAUNCHES",
              "BLOCKED_LAUNCHES", "TILED2_LAUNCHES")
 
 
+def _count_dicts():
+    """The launch-count dicts of the kernels, with the prefix of their
+    names in :func:`read_counts`."""
+    from smqtk_indexing_tpu_torch.ops import fused_scan, ivf_scan
+    from smqtk_indexing_tpu_torch.tools import probe_int8_mxu, stage1_analysis
+    return (("", ivf_scan.LAUNCHES), ("i8i8:", fused_scan.I8DOT_LAUNCHES),
+            ("scan_minima:", probe_int8_mxu.LAUNCHES),
+            ("stage1_variant:", stage1_analysis.LAUNCHES))
+
+
 def reset_counts() -> None:
     """Set every kernel's launch count to 0."""
-    from smqtk_indexing_tpu_torch.ops import fused_scan, ivf_scan
+    from smqtk_indexing_tpu_torch.ops import fused_scan
     for name in _COUNTERS:
         setattr(fused_scan, name, 0)
-    for name in ivf_scan.LAUNCHES:
-        ivf_scan.LAUNCHES[name] = 0
+    for _, counts in _count_dicts():
+        for name in counts:
+            counts[name] = 0
 
 
 def read_counts() -> dict:
-    from smqtk_indexing_tpu_torch.ops import fused_scan, ivf_scan
-    return {"segment_minima": fused_scan.LAUNCHES,
-            "seg_gather_tiled": fused_scan.GATHER_LAUNCHES,
-            "segment_minima_tiled": fused_scan.TILED_LAUNCHES,
-            "segment_minima_blocked": fused_scan.BLOCKED_LAUNCHES,
-            "segment_minima_tiled2": fused_scan.TILED2_LAUNCHES,
-            **ivf_scan.LAUNCHES}
+    """Every kernel's launch count; the int8 x int8 forms as
+    ``i8i8:<wrapper>``, K10's arms as ``scan_minima:<arm>`` and K9's
+    variants as ``stage1_variant:<variant>``."""
+    from smqtk_indexing_tpu_torch.ops import fused_scan
+    out = {"segment_minima": fused_scan.LAUNCHES,
+           "seg_gather_tiled": fused_scan.GATHER_LAUNCHES,
+           "segment_minima_tiled": fused_scan.TILED_LAUNCHES,
+           "segment_minima_blocked": fused_scan.BLOCKED_LAUNCHES,
+           "segment_minima_tiled2": fused_scan.TILED2_LAUNCHES}
+    for prefix, counts in _count_dicts():
+        out.update({prefix + name: n for name, n in counts.items()})
+    return out
 
 
 def bound(nbytes: float, flops: float, peak: float) -> dict:
@@ -200,14 +233,17 @@ def bound(nbytes: float, flops: float, peak: float) -> dict:
 
 
 def stage1_bound(b: int, n: int, d: int, esize: int, out_elems: int,
-                 exact_f32: bool) -> dict:
-    """K1, K2, K4, K5: the database, its row stats and penalty, the
-    queries and the f32 outputs once; 2 B N d FLOP, at the FP32 rate for
-    an f32 database (only FFMA keeps those products exact) and at the bf16
-    tensor-core rate for a bf16 or int8 one (its products with the
-    bf16-rounded query are exact there)."""
-    return bound(n * d * esize + 8 * n + 4 * b * d + 4 * out_elems,
-                 2.0 * b * n * d, FP32_FLOPS if exact_f32 else BF16_FLOPS)
+                 exact_f32: bool = False, int8_query: bool = False) -> dict:
+    """K1, K2, K4, K5, K10: the database, its row stats and penalty, the
+    queries and the f32 outputs once; 2 B N d operations, at the FP32 rate
+    for an f32 database (only FFMA keeps those products exact), at the
+    int8 tensor-core rate for an int8 query over int8 codes, and at the
+    bf16 tensor-core rate otherwise (a bf16 or int8 database's products
+    with the bf16-rounded query are exact there)."""
+    peak = FP32_FLOPS if exact_f32 else INT8_OPS if int8_query \
+        else BF16_FLOPS
+    return bound(n * d * esize + 8 * n + (1 if int8_query else 4) * b * d
+                 + 4 * out_elems, 2.0 * b * n * d, peak)
 
 
 def distinct_positions(base, lo, hi, width: int, size: int):
@@ -224,11 +260,14 @@ def distinct_positions(base, lo, hi, width: int, size: int):
 
 
 def library_mm(a, b_t, reps: int = 3) -> float:
-    """Mean ms of one ``torch.mm`` of the same product as a stage-1 kernel
-    (the yardstick ``library_ms``; the port never calls it)."""
+    """Mean ms of one ``torch.mm`` of the same product as a stage-1 kernel,
+    or of one ``torch._int_mm`` (int32 out) for int8 operands (the
+    yardstick ``library_ms``; the port never calls either)."""
     import torch
 
     def fn():
+        if a.dtype == torch.int8:
+            return torch._int_mm(a, b_t)
         return torch.mm(a, b_t)
     fn()                                                   # warm-up
     ms = cuda_ms(fn, reps)
@@ -255,30 +294,47 @@ def plain_kernels():
             setattr(sq8, name, fn)
 
 
-def hold(name: str, kernel, plain, f64, smi: str, reps=(10, 3),
-         q_axis: int = 0, **info):
+def hold(name: str, kernel, plain, smi: str, *, compare: str, f64=None,
+         reps=(10, 3), q_axis: int = 0, **info):
     """
-    Hold a kernel against its plain version (all queries) and float64 (the
-    first N_ORACLE queries, along ``q_axis`` of the output), and time both
-    with CUDA events as plain, kernel, kernel, plain. ``f64()`` returns
-    (exact scores, the sum of the absolute terms of each score), or None
-    for a copy, which must be bit-equal. Raises on disagreement.
+    Hold a kernel against its plain version (all queries) and time both
+    with CUDA events as plain, kernel, kernel, plain. ``compare`` is the
+    test, which raises on disagreement:
+
+    - ``"equal"``: bit for bit (a copy, or exact integer products);
+    - ``"f64"``: within REL_TOL of the largest sum of absolute terms, of
+      the plain version and of float64 on the first N_ORACLE queries along
+      ``q_axis`` of the output; ``f64()`` returns (exact scores, the sum of
+      the absolute terms of each score);
+    - ``"plain"``: within REL_TOL of the plain version's largest magnitude
+      (a probe's variant with no float64 form);
+    - ``"plain_bf16"``: as ``"plain"``, plus 2^-8 of each value (scores
+      rounded to bf16 after f32 sums in another order may take the
+      neighbouring bf16).
 
     :return: (max |kernel - plain|, mean kernel ms, mean plain ms).
     """
     import torch
+    if compare not in ("equal", "f64", "plain", "plain_bf16") \
+            or (compare == "f64") != (f64 is not None):
+        raise ValueError(f"hold {name}: compare={compare!r} with f64={f64}")
     ref = plain()
     out = kernel()
     torch.cuda.synchronize()
-    if f64 is None:
+    inf_match = bool(torch.equal(torch.isinf(ref), torch.isinf(out)))
+    fin = torch.isfinite(ref)
+    diff = (out - ref)[fin].abs()
+    err = diff.max().item() if diff.numel() else 0.0
+    f64_err = None
+    if compare == "equal":
         ok = bool(torch.equal(out, ref))
-        err = f64_err = 0.0 if ok else float("inf")
         tol = 0.0
-        inf_match = True
+    elif compare != "f64":
+        tol = REL_TOL * ref[fin].abs().max().item()
+        allowed = tol + (2.0 ** -8 * ref[fin].abs()
+                         if compare == "plain_bf16" else 0.0)
+        ok = inf_match and bool((diff <= allowed).all())
     else:
-        inf_match = bool(torch.equal(torch.isinf(ref), torch.isinf(out)))
-        fin = torch.isfinite(ref)
-        err = (out - ref)[fin].abs().max().item()
         exact, mag = f64()
         fin64 = torch.isfinite(exact)
         f64_err = (out.narrow(q_axis, 0, N_ORACLE).double()
@@ -286,13 +342,14 @@ def hold(name: str, kernel, plain, f64, smi: str, reps=(10, 3),
         tol = REL_TOL * mag[fin64].max().item()
         ok = inf_match and err <= tol and f64_err <= tol
         del exact, mag
+    del diff, fin
     plain(), kernel()                                      # warm-up
     t_plain = [cuda_ms(plain, reps[1])]
     t_kernel = [cuda_ms(kernel, reps[0]), cuda_ms(kernel, reps[0])]
     t_plain.append(cuda_ms(plain, reps[1]))
-    emit("kernel", kernel=name, max_abs_err=err, f64_max_abs_err=f64_err,
-         tol=tol, inf_match=inf_match, ms=t_kernel, plain_ms=t_plain,
-         card=smi, ok=ok, **info)
+    emit("kernel", kernel=name, compare=compare, max_abs_err=err,
+         f64_max_abs_err=f64_err, tol=tol, inf_match=inf_match,
+         ms=t_kernel, plain_ms=t_plain, card=smi, ok=ok, **info)
     if not ok:
         raise RuntimeError(f"{name} disagrees with its plain version")
     del ref, out
@@ -600,7 +657,7 @@ def ivf_phases(smi: str, dev) -> list:
     k7 = hold("ivf_list_scores_tiled",
               lambda: ivf_scan.ivf_list_scores_tiled(*k7_args),
               lambda: ivf_scan.ivf_list_scores_tiled_reference(*k7_args),
-              lambda: _f64_tiled(*k7_args), smi,
+              smi, compare="f64", f64=lambda: _f64_tiled(*k7_args),
               shape=[IVF_BATCH, ti.shape[1], ivf_scan.W_TILED],
               live_slots=int((hi > lo).sum()))
     # K3 on the winner segments the exact re-rank gathers: the top k + 8
@@ -615,7 +672,8 @@ def ivf_phases(smi: str, dev) -> list:
               lambda: fused_scan.seg_gather_tiled(index._dev3, sid),
               lambda: fused_scan.seg_gather_tiled_reference(index._dev3,
                                                             sid),
-              None, smi, shape=list(sid.shape) + [d_pad, fused_scan.SEG])
+              smi, compare="equal",
+              shape=list(sid.shape) + [d_pad, fused_scan.SEG])
     # K3 reads each distinct segment once and writes every gathered one.
     seg_bytes = d_pad * fused_scan.SEG * index._dev3.element_size()
     k3_bound = bound(torch.unique(sid).numel() * seg_bytes
@@ -689,7 +747,8 @@ def ivf_phases(smi: str, dev) -> list:
             "ivf_list_scores",
             lambda: ivf_scan.ivf_list_scores(*k6_args),
             lambda: ivf_scan.ivf_list_scores_reference(*k6_args),
-            lambda: _f64_rows(*k6_args), smi, dtype=dtype,
+            smi, compare="f64", f64=lambda: _f64_rows(*k6_args),
+            dtype=dtype,
             shape=[IVF_BATCH, n_probe, ivf_scan.L_MAX],
             live_slots=int((hi > lo).sum())))
         del k6_args, t, a, starts, lo, hi
@@ -889,7 +948,7 @@ def ivf_pq_phases(smi: str, dev) -> list:
     k8 = hold("ivf_list_scores_tiled_pq",
               lambda: ivf_scan.ivf_list_scores_tiled_pq(*k8_args),
               lambda: ivf_scan.ivf_list_scores_tiled_pq_reference(*k8_args),
-              lambda: _f64_tiled_pq(*k8_args), smi,
+              smi, compare="f64", f64=lambda: _f64_tiled_pq(*k8_args),
               shape=[IVF_BATCH, ti.shape[1], ivf_scan.W_TILED],
               m_sub=int(index._dev3.shape[1]),
               live_slots=int((hi > lo).sum()))
@@ -997,10 +1056,11 @@ def ivf_pq_phases(smi: str, dev) -> list:
         k3_launches
 
 
-def flat_codec_phases(smi: str, dev) -> dict:
-    """Phase 8: the flat SQ8 store (K1's int8 form) and the flat PQ16
-    store over the flat phase's vectors; returns the kernels line's row of
-    K1's int8 form."""
+def flat_codec_phases(smi: str, dev) -> list:
+    """Phase 8: the flat SQ8 store (K1's int8 form, and its int8 x int8
+    form under ``SMQTK_TPU_SQ8_I8DOT=1``) and the flat PQ16 store over the
+    flat phase's vectors; returns the kernels line's rows of K1's int8 and
+    int8 x int8 forms."""
     import torch
     from smqtk_indexing_tpu_torch.data import DescriptorMemoryElement
     from smqtk_indexing_tpu_torch.models.nn_index.flat import (
@@ -1008,14 +1068,27 @@ def flat_codec_phases(smi: str, dev) -> dict:
     )
     from smqtk_indexing_tpu_torch.ops import fused_scan
     from smqtk_indexing_tpu_torch.ops.pq import _dequant, pq_prep_queries
-    from smqtk_indexing_tpu_torch.ops.sq8 import sq8_decode
+    from smqtk_indexing_tpu_torch.ops.sq8 import _i8dot_q, sq8_decode
 
     data, queries = flat_data()
     elems = [DescriptorMemoryElement(i, data[i]) for i in range(N_MAIN)]
     q_elems = [DescriptorMemoryElement(("q", i), queries[i])
                for i in range(BATCH)]
     truth = oracle_topk(data, queries[:N_ORACLE], K, "euclidean")
-    row = None
+    rows_out = []
+
+    def batches(index):
+        """A warm-up and three timed ``nn_many`` batches: (results of the
+        last, seconds of each, launch counts of the three)."""
+        index.nn_many(q_elems, K)                          # warm-up
+        reset_counts()
+        batch_s = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            res = index.nn_many(q_elems, K)
+            batch_s.append(time.perf_counter() - t0)
+        return res, batch_s, read_counts()
+
     for dtype in ("sq8", "pq16"):
         index = FlatNearestNeighborsIndex(dtype=dtype, device="cuda")
         t0 = time.perf_counter()
@@ -1041,17 +1114,39 @@ def flat_codec_phases(smi: str, dev) -> dict:
                 mag = store._dev_sq.max().double() \
                     + 2.0 * (tb.abs() @ u.abs().T).max()
                 return exact, torch.full_like(exact, mag.item())
-            row = hold("segment_minima_i8",
-                       lambda: fused_scan.segment_minima(*k1_args),
-                       lambda: fused_scan.segment_minima_reference(
-                           *k1_args), f64, smi,
-                       shape=[BATCH] + list(store._dev.shape))
             n_i8, d_i8 = store._dev.shape
-            i8_bound = stage1_bound(BATCH, n_i8, d_i8, 1,
-                                    BATCH * n_i8 // 128, exact_f32=False)
-            i8_library_ms = library_mm(t.to(torch.bfloat16),
-                                       store._dev.to(torch.bfloat16).T)
-            del k1_args, t, penalty, qd
+            shape = [BATCH, n_i8, d_i8]
+            err, ms, plain_ms = hold(
+                "segment_minima_i8", lambda: fused_scan.segment_minima(
+                    *k1_args), lambda: fused_scan.segment_minima_reference(
+                    *k1_args), smi, compare="f64", f64=f64, shape=shape)
+            rows_out.append({
+                "name": "segment_minima_i8", "route": "cuda",
+                "source": "smqtk_indexing_tpu_torch/csrc/segment_minima.cu",
+                "replaces": "smqtk_indexing_tpu/ops/pallas_scan.py:173",
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                **stage1_bound(BATCH, n_i8, d_i8, 1, BATCH * n_i8 // 128),
+                "library_ms": library_mm(t.to(torch.bfloat16),
+                                         store._dev.to(torch.bfloat16).T),
+                "shape": shape})
+            # Its int8 x int8 form on the operands the store's i8dot
+            # makes: the fold quantised with one scale g, the stats / g.
+            t_i8, sq_i8 = _i8dot_q(t, store._dev_sq)
+            k1_i8_args = (store._dev, sq_i8, penalty, t_i8)
+            err, ms, plain_ms = hold(
+                "segment_minima_i8i8", lambda: fused_scan.segment_minima(
+                    *k1_i8_args), lambda: fused_scan.segment_minima_reference(
+                    *k1_i8_args), smi, compare="equal", shape=shape)
+            rows_out.append({
+                "name": "segment_minima_i8i8", "route": "cuda",
+                "source": "smqtk_indexing_tpu_torch/csrc/segment_minima.cu",
+                "replaces": "smqtk_indexing_tpu/ops/pallas_scan.py:173",
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                **stage1_bound(BATCH, n_i8, d_i8, 1, BATCH * n_i8 // 128,
+                               int8_query=True),
+                "library_ms": library_mm(t_i8, store._dev.T),
+                "shape": shape})
+            del k1_args, k1_i8_args, t, t_i8, sq_i8, penalty, qd
             x64 = sq8_decode(store._dev, store._sq8_a, store._sq8_b).double()
             q64 = torch.from_numpy(queries[:N_ORACLE]).to(dev).double()
         else:
@@ -1059,50 +1154,143 @@ def flat_codec_phases(smi: str, dev) -> dict:
             x64 = _dequant(store._dev, store._pq_cb_dev).double()
             q64 = torch.from_numpy(pq_prep_queries(
                 queries[:N_ORACLE], perm, rot)).to(dev).double()
-        index.nn_many(q_elems, K)                          # warm-up
-        reset_counts()
-        batch_s = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            res = index.nn_many(q_elems, K)
-            batch_s.append(time.perf_counter() - t0)
-        counts = read_counts()
         rows, ref_d = topk64(x64, q64, K, valid=store._dev_valid)
         del x64, q64
-        same_topk([[e.uuid() for e in r[0]] for r in res[:N_ORACLE]],
-                  np.array([r[1] for r in res[:N_ORACLE]]),
-                  np.array(store._row2uid, dtype=object)[rows], ref_d,
-                  f"flat {dtype}")
-        rec = recall([[e.uuid() for e in r[0]] for r in res[:N_ORACLE]],
-                     truth)
-        emit("main", path=f"flat {dtype}", n=N_MAIN, d=DIM, batch=BATCH,
-             k=K, build_s=build_s, batch_s=batch_s,
-             qps=BATCH / statistics.median(batch_s),
-             recall_at_10_vs_raw=rec,
-             equals_f64_over_quantized_rows=True, launches=counts,
-             card=smi)
+        ref_uids = np.array(store._row2uid, dtype=object)[rows]
+        runs = [("", {})]
         if dtype == "sq8":
-            i8_launches = counts["segment_minima"]
-            if i8_launches == 0:
-                raise RuntimeError("the flat sq8 path never launched "
-                                   "segment_minima_i8")
+            runs.append((", SMQTK_TPU_SQ8_I8DOT=1",
+                         {"SMQTK_TPU_SQ8_I8DOT": "1"}))
+        for tag, env in runs:
+            os.environ.update(env)
+            try:
+                res, batch_s, counts = batches(index)
+            finally:
+                for key in env:
+                    del os.environ[key]
+            same_topk([[e.uuid() for e in r[0]] for r in res[:N_ORACLE]],
+                      np.array([r[1] for r in res[:N_ORACLE]]), ref_uids,
+                      ref_d, f"flat {dtype}{tag}")
+            rec = recall([[e.uuid() for e in r[0]] for r in res[:N_ORACLE]],
+                         truth)
+            emit("main", path=f"flat {dtype}{tag}", n=N_MAIN, d=DIM,
+                 batch=BATCH, k=K, build_s=build_s, batch_s=batch_s,
+                 qps=BATCH / statistics.median(batch_s),
+                 recall_at_10_vs_raw=rec,
+                 equals_f64_over_quantized_rows=True, launches=counts,
+                 card=smi)
+            if dtype != "sq8":
+                continue
+            name = "i8i8:segment_minima" if env else "segment_minima"
+            other = "segment_minima" if env else "i8i8:segment_minima"
+            if counts[name] == 0 or counts[other] != 0:
+                raise RuntimeError(f"flat sq8{tag}: stage 1 did not take "
+                                   f"its form ({name}: {counts[name]}, "
+                                   f"{other}: {counts[other]})")
+            rows_out[1 if env else 0]["launches"] = counts[name]
         del index, res, store
         torch.cuda.empty_cache()
-    err, ms, plain_ms = row
-    return {"name": "segment_minima_i8", "route": "cuda",
-            "source": "smqtk_indexing_tpu_torch/csrc/segment_minima.cu",
-            "replaces": "smqtk_indexing_tpu/ops/pallas_scan.py:173",
-            "launches": i8_launches, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, **i8_bound, "library_ms": i8_library_ms,
-            "shape": [BATCH, n_i8, d_i8]}
+    return rows_out
+
+
+def probe_phase(smi: str, dev) -> list:
+    """Phase 9: the K10 probe; returns the kernels line's rows of its two
+    arms."""
+    import torch
+    from smqtk_indexing_tpu_torch.tools import probe_int8_mxu as k10
+
+    t0 = time.perf_counter()
+    inputs = k10.make_inputs(dev)
+    torch.cuda.synchronize()
+    db_t, sq, pen, g = inputs["db_t"], inputs["sq"], inputs["pen"], \
+        inputs["g"]
+    d, n = db_t.shape
+    b = inputs["q_i8"].shape[0]
+    emit("k10 inputs", rows=n, d=d, batch=b, g=g,
+         seconds=time.perf_counter() - t0, card=smi)
+
+    def f64_bf16():
+        """The bf16 arm's minima in float64 for the first N_ORACLE queries
+        on the kernel's operands, and the largest sum of absolute terms."""
+        qq = inputs["q_bf"][:N_ORACLE].double()
+        exact = torch.empty((N_ORACLE, n // 128), dtype=torch.float64,
+                            device=dev)
+        mag = 0.0
+        step = 1 << 20
+        for lo in range(0, n, step):
+            u = db_t[:, lo:lo + step].double()
+            s = sq[lo:lo + step].double()
+            exact[:, lo // 128:(lo + step) // 128] = (
+                (s - 2.0 * (qq @ u)) + pen[lo:lo + step].double()) \
+                .view(N_ORACLE, -1, 128).amin(-1)
+            mag = max(mag, (s.max() + 2.0 * (qq.abs() @ u.abs()).max())
+                      .item())
+            del u
+        return exact, torch.full_like(exact, mag)
+
+    rows = []
+    for arm, q, int8dot, f64 in (("int8dot", inputs["q_i8"], True, None),
+                                 ("bf16", inputs["q_bf"], False, f64_bf16)):
+        args = (db_t, sq, pen, q, g)
+        err, ms, plain_ms = hold(
+            f"scan_minima {arm}",
+            lambda: k10.scan_minima(*args, int8dot=int8dot),
+            lambda: k10.scan_minima_reference(*args, int8dot=int8dot),
+            smi, compare="equal" if int8dot else "f64", f64=f64,
+            reps=(10, 2), shape=[b, n, d])
+        lib = (q, db_t) if int8dot \
+            else (q.to(torch.bfloat16), db_t.to(torch.bfloat16))
+        rows.append({
+            "name": f"scan_minima_{arm}", "route": "cuda",
+            "source": "smqtk_indexing_tpu_torch/csrc/segment_minima_tiled.cu",
+            "replaces": "tools/probe_int8_mxu.py:65",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            **stage1_bound(b, n, d, 1, b * n // 128, int8_query=int8dot),
+            "library_ms": library_mm(*lib), "shape": [b, n, d]})
+        del lib
+        torch.cuda.empty_cache()
+    reset_counts()
+    res = k10.run(inputs)
+    counts = read_counts()
+    emit("main", path="k10 probe, tools/probe_int8_mxu", rows=n, d=d,
+         batch=b, **res, launches=counts, card=smi)
+    for row in rows:
+        arm = row["name"].split("_")[-1]
+        row["launches"] = counts[f"scan_minima:{arm}"]
+        if row["launches"] == 0:
+            raise RuntimeError(f"the K10 probe never launched its {arm} arm")
+    del inputs, db_t, sq, pen
+    torch.cuda.empty_cache()
+    return rows
+
+
+def k9_bound(variant: str, b: int, n: int, d: int, out_elems: int,
+             int8_query: bool, tile_n: int) -> dict:
+    """A K9 variant's bound: what its function needs. full and bf16min
+    need K2's bytes and products; folded no penalty; nomin only the first
+    tile_n / 128 rows of each tile; nodot only each row's first byte and
+    no products."""
+    q_bytes = (1 if int8_query else 4) * b * d
+    peak = INT8_OPS if int8_query else BF16_FLOPS
+    if variant == "nodot":
+        return bound(n + 8 * n + 4 * out_elems, 0.0, peak)
+    if variant == "nomin":
+        rows = n // tile_n * (tile_n // 128)
+        return bound(rows * (d + 8) + q_bytes + 4 * out_elems,
+                     2.0 * b * rows * d, peak)
+    stats = 4 * n if variant == "folded" else 8 * n
+    return bound(n * d + stats + q_bytes + 4 * out_elems, 2.0 * b * n * d,
+                 peak)
 
 
 def capacity_phases(smi: str, dev) -> list:
-    """Phase 9: the 100M-row SQ8 capacity scan; returns the kernels line's
-    rows of K2, K4 and K5 and the K3 launches."""
+    """Phase 10: the 100M-row SQ8 capacity scan, flag off and with
+    ``i8dot``, and the K9 probe on it; returns the kernels line's rows of
+    K2, K4, K5 (both forms) and K9, and the K3 launches."""
     import torch
     from smqtk_indexing_tpu_torch.examples import capacity_100m as capm
     from smqtk_indexing_tpu_torch.ops import fused_scan, sq8
+    from smqtk_indexing_tpu_torch.tools import stage1_analysis as k9
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1115,7 +1303,7 @@ def capacity_phases(smi: str, dev) -> list:
          resident_bytes=torch.cuda.memory_allocated(dev),
          peak_device_bytes=torch.cuda.max_memory_allocated(dev), card=smi)
 
-    # -- K2, K4, K5 on a prefix, B=128, with dead rows --------------------
+    # -- K2, K4, K5 (both forms) and K9 on a prefix, B=128, dead rows ------
     b = capm.B
     n_p = CAP_PREFIX_TILES * fused_scan.TILE_N
     db3 = cap.codes[:CAP_PREFIX_TILES]
@@ -1127,6 +1315,7 @@ def capacity_phases(smi: str, dev) -> list:
     pen[::1009] = math.inf
     t = (cap.queries[:b] - cap.b) * cap.a
     tb = t.to(torch.bfloat16)
+    t_i8, sq_i8 = sq8._i8dot_q(t, sq)
     n_steps, g, bw = fused_scan.step_shape(CAP_PREFIX_TILES,
                                            fused_scan.TILE_N)
 
@@ -1154,159 +1343,238 @@ def capacity_phases(smi: str, dev) -> list:
         return (exact.view(b, n_steps, g).transpose(0, 1),
                 mag.view(b, n_steps, g).transpose(0, 1))
 
-    blk_sq, blk_pen = sq.view(-1, 128), pen.view(-1, 128)
     shape = [b, n_p, d]
-    k2 = hold("segment_minima_tiled",
-              lambda: fused_scan.segment_minima_tiled(db3, sq, pen, t),
-              lambda: fused_scan.segment_minima_tiled_reference(
-                  db3, sq, pen, t), f64, smi, shape=shape)
-    k4 = hold("segment_minima_blocked",
-              lambda: fused_scan.segment_minima_blocked(blk, blk_sq,
-                                                        blk_pen, t),
-              lambda: fused_scan.segment_minima_blocked_reference(
-                  blk, blk_sq, blk_pen, t), f64, smi, shape=shape)
-    k5 = hold("segment_minima_tiled2",
-              lambda: fused_scan.segment_minima_tiled2(db3, sq, pen, t)[0],
-              lambda: fused_scan.segment_minima_tiled2_reference(
-                  db3, sq, pen, t)[0], f64_steps, smi, q_axis=1,
-              shape=shape, steps=[n_steps, g, bw])
-    m1, m2 = fused_scan.segment_minima_tiled2(db3, sq, pen, t)
-    _, m2_plain = fused_scan.segment_minima_tiled2_reference(db3, sq, pen, t)
-    group_min = bool(torch.equal(
-        m2, m1.view(n_steps, b, g // bw, bw).amin(-1)))
-    inf_match = bool(torch.equal(torch.isinf(m2), torch.isinf(m2_plain)))
-    fin = torch.isfinite(m2_plain)
-    m2_err = (m2 - m2_plain)[fin].abs().max().item()
-    emit("kernel", kernel="segment_minima_tiled2, m2",
-         equals_group_min_of_m1=group_min, inf_match=inf_match,
-         max_abs_err=m2_err, card=smi)
-    # A group minimum moves no further than the minima it is taken over.
-    if not (group_min and inf_match and m2_err <= k5[0]):
-        raise RuntimeError("segment_minima_tiled2: m2 is not the group "
-                           "minimum of m1")
-    del m1, m2, m2_plain
+    held = {}
+    for form, qq, sqq, compare, f64_flat, f64_step in (
+            ("", t, sq, "f64", f64, f64_steps),
+            (" i8i8", t_i8, sq_i8, "equal", None, None)):
+        blk_sq, blk_pen = sqq.view(-1, 128), pen.view(-1, 128)
+        held["segment_minima_tiled" + form] = hold(
+            "segment_minima_tiled" + form,
+            lambda: fused_scan.segment_minima_tiled(db3, sqq, pen, qq),
+            lambda: fused_scan.segment_minima_tiled_reference(
+                db3, sqq, pen, qq), smi, compare=compare, f64=f64_flat,
+            shape=shape)
+        held["segment_minima_blocked" + form] = hold(
+            "segment_minima_blocked" + form,
+            lambda: fused_scan.segment_minima_blocked(blk, blk_sq, blk_pen,
+                                                      qq),
+            lambda: fused_scan.segment_minima_blocked_reference(
+                blk, blk_sq, blk_pen, qq), smi, compare=compare,
+            f64=f64_flat, shape=shape)
+        held["segment_minima_tiled2" + form] = hold(
+            "segment_minima_tiled2" + form,
+            lambda: fused_scan.segment_minima_tiled2(db3, sqq, pen, qq)[0],
+            lambda: fused_scan.segment_minima_tiled2_reference(
+                db3, sqq, pen, qq)[0], smi, compare=compare, f64=f64_step,
+            q_axis=1, shape=shape, steps=[n_steps, g, bw])
+        m1, m2 = fused_scan.segment_minima_tiled2(db3, sqq, pen, qq)
+        _, m2_plain = fused_scan.segment_minima_tiled2_reference(db3, sqq,
+                                                                 pen, qq)
+        group_min = bool(torch.equal(
+            m2, m1.view(n_steps, b, g // bw, bw).amin(-1)))
+        inf_match = bool(torch.equal(torch.isinf(m2), torch.isinf(m2_plain)))
+        fin = torch.isfinite(m2_plain)
+        m2_err = (m2 - m2_plain)[fin].abs().max().item()
+        emit("kernel", kernel="segment_minima_tiled2" + form + ", m2",
+             equals_group_min_of_m1=group_min, inf_match=inf_match,
+             max_abs_err=m2_err, card=smi)
+        # A group minimum moves no further than the minima it is taken over.
+        if not (group_min and inf_match
+                and m2_err <= held["segment_minima_tiled2" + form][0]):
+            raise RuntimeError("segment_minima_tiled2: m2 is not the group "
+                               "minimum of m1")
+        del m1, m2, m2_plain
     library_ms = library_mm(tb, rows.to(torch.bfloat16).T, 10)
+    library_i8_ms = library_mm(t_i8, rows.T, 10)
     out_seg = b * n_p // 128
-    flat_bound = stage1_bound(b, n_p, d, 1, out_seg, exact_f32=False)
-    step_bound = stage1_bound(b, n_p, d, 1, out_seg + out_seg // bw,
-                              exact_f32=False)
+    bounds = {}
+    for form, int8_query in (("", False), (" i8i8", True)):
+        flat_bound = stage1_bound(b, n_p, d, 1, out_seg,
+                                  int8_query=int8_query)
+        bounds["segment_minima_tiled" + form] = flat_bound
+        bounds["segment_minima_blocked" + form] = flat_bound
+        bounds["segment_minima_tiled2" + form] = stage1_bound(
+            b, n_p, d, 1, out_seg + out_seg // bw, int8_query=int8_query)
+
+    # K9's variants on the prefix, 8 tiles a step, both query forms.
+    k9_held = {}
+    for variant in k9.LAUNCHES:
+        for query, qq, sqq in (("bf16", t, sq), ("int8", t_i8, sq_i8)):
+            k9_held[variant, query] = hold(
+                f"stage1_variant {variant} {query}",
+                lambda: k9.run_variant(db3, sqq, pen, qq, variant=variant,
+                                       t_step=8),
+                lambda: k9.run_variant_reference(db3, sqq, pen, qq,
+                                                 variant=variant, t_step=8),
+                smi, compare="equal" if query == "int8" or variant == "nodot"
+                else "plain_bf16" if variant == "bf16min" else "plain",
+                shape=shape, t_step=8)
     del rows
     torch.cuda.empty_cache()
 
-    # -- sq8_topk_blocked at full scale -----------------------------------
-    k5_launches = k3_launches = k2_launches = 0
+    # -- sq8_topk_blocked at full scale, flag off and i8dot -----------------
+    launches = {}
     _, g_c, bw_c = fused_scan.step_shape(capm.N_TILES, fused_scan.TILE_N)
-    for batch in (capm.B, capm.B_BIG):
-        capm.scan(cap, batch)                              # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        reset_counts()
-        batch_s = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            dists, found = capm.scan(cap, batch)
+    for i8dot in (False, True):
+        form = ":i8i8" if i8dot else ""
+        pre = "i8i8:" if i8dot else ""
+        for batch in (capm.B, capm.B_BIG):
+            capm.scan(cap, batch, i8dot=i8dot)             # warm-up
             torch.cuda.synchronize()
-            batch_s.append(time.perf_counter() - t0)
-        counts = read_counts()
-        peak = torch.cuda.max_memory_allocated(dev)
-        k5_launches += counts["segment_minima_tiled2"]
-        k3_launches += counts["seg_gather_tiled"]
-        res = capm.check(cap, dists, found)
-        well_formed = (tuple(dists.shape) == (batch, capm.K)
-                       and bool(torch.isfinite(dists).all())
-                       and bool((found >= 0).all())
-                       and bool((dists[:, 1:] >= dists[:, :-1]).all()))
-        plain = {}
-        if batch == capm.B:
-            # The plain pipeline (kernels swapped for their plain versions)
-            # on the first queries: the same top-k within near ties.
-            q16 = cap.queries[:CAP_PLAIN_QUERIES]
-            t0 = time.perf_counter()
-            with plain_kernels():
-                d_p, r_p = sq8.sq8_topk_blocked(
-                    cap.codes, cap.a, cap.b, cap.s2, cap.valid, q16,
-                    k=capm.K)
-            torch.cuda.synchronize()
-            same_topk(found[:CAP_PLAIN_QUERIES].cpu().numpy(),
-                      dists[:CAP_PLAIN_QUERIES].cpu().numpy(),
-                      r_p.cpu().numpy(),
-                      d_p.cpu().numpy().astype(np.float64),
-                      "capacity scan against the plain pipeline")
-            plain = {"equals_plain_pipeline_queries": CAP_PLAIN_QUERIES,
-                     "plain_pipeline_s": time.perf_counter() - t0}
-        reset_counts()
-        ms = capm.stages(cap, batch, reps=3)
-        k2_launches += read_counts()["segment_minima_tiled"]
-        cap_bound = stage1_bound(batch, n, d, 1,
-                                 batch * (n // 128) * (1 + 1 / bw_c),
-                                 exact_f32=False)
-        med = statistics.median(batch_s)
-        emit("main", path="capacity scan, sq8_topk_blocked, tiled",
-             rows=n, d=d, batch=batch, k=capm.K, batch_s=batch_s,
-             batch_ms=1e3 * med, qps=batch / med, **res, **plain,
-             well_formed=well_formed, stages_ms=ms,
-             k5_bound_ms=cap_bound["bound_ms"],
-             k5_bound_by=cap_bound["bound_by"],
-             k5_share_of_bound=cap_bound["bound_ms"] / ms["k5"],
-             launches=counts, peak_device_bytes=peak, card=smi)
-        if not (well_formed and res["recall_at_10"] == 1.0
-                and res["planted_to_random_margin"] > 1.0):
-            raise RuntimeError(f"capacity scan B={batch}: wrong results")
-        del dists, found
-    torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_counts()
+            batch_s = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                dists, found = capm.scan(cap, batch, i8dot=i8dot)
+                torch.cuda.synchronize()
+                batch_s.append(time.perf_counter() - t0)
+            counts = read_counts()
+            peak = torch.cuda.max_memory_allocated(dev)
+            for key in ("segment_minima_tiled2", "seg_gather_tiled"):
+                name = (pre if key != "seg_gather_tiled" else "") + key
+                launches[name] = launches.get(name, 0) + counts[name]
+            res = capm.check(cap, dists, found)
+            well_formed = (tuple(dists.shape) == (batch, capm.K)
+                           and bool(torch.isfinite(dists).all())
+                           and bool((found >= 0).all())
+                           and bool((dists[:, 1:] >= dists[:, :-1]).all()))
+            plain = {}
+            if batch == capm.B:
+                # The plain pipeline (kernels swapped for their plain
+                # versions) on the first queries: the same top-k within
+                # near ties.
+                q16 = cap.queries[:CAP_PLAIN_QUERIES]
+                t0 = time.perf_counter()
+                with plain_kernels():
+                    d_p, r_p = sq8.sq8_topk_blocked(
+                        cap.codes, cap.a, cap.b, cap.s2, cap.valid, q16,
+                        k=capm.K, i8dot=i8dot)
+                torch.cuda.synchronize()
+                same_topk(found[:CAP_PLAIN_QUERIES].cpu().numpy(),
+                          dists[:CAP_PLAIN_QUERIES].cpu().numpy(),
+                          r_p.cpu().numpy(),
+                          d_p.cpu().numpy().astype(np.float64),
+                          "capacity scan against the plain pipeline")
+                plain = {"equals_plain_pipeline_queries": CAP_PLAIN_QUERIES,
+                         "plain_pipeline_s": time.perf_counter() - t0}
+            reset_counts()
+            ms = capm.stages(cap, batch, reps=3, i8dot=i8dot)
+            name = pre + "segment_minima_tiled"
+            launches[name] = launches.get(name, 0) + read_counts()[name]
+            cap_bound = stage1_bound(batch, n, d, 1,
+                                     batch * (n // 128) * (1 + 1 / bw_c),
+                                     int8_query=i8dot)
+            med = statistics.median(batch_s)
+            emit("main", path="capacity scan, sq8_topk_blocked, tiled"
+                 + (", i8dot" if i8dot else ""), rows=n, d=d, batch=batch,
+                 k=capm.K, i8dot=i8dot, batch_s=batch_s,
+                 batch_ms=1e3 * med, qps=batch / med, **res, **plain,
+                 well_formed=well_formed, stages_ms=ms,
+                 k5_bound_ms=cap_bound["bound_ms"],
+                 k5_bound_by=cap_bound["bound_by"],
+                 k5_share_of_bound=cap_bound["bound_ms"] / ms["k5"],
+                 launches=counts, peak_device_bytes=peak, card=smi)
+            if not (well_formed and res["recall_at_10"] == 1.0
+                    and res["planted_to_random_margin"] > 1.0):
+                raise RuntimeError(f"capacity scan B={batch}{form}: wrong "
+                                   "results")
+            del dists, found
+        torch.cuda.empty_cache()
 
-    # -- the blocked layout end to end, at the prefix (K4) -----------------
-    valid_p = pen == 0
-    q = cap.queries[:b]
+        # The blocked layout end to end, at the prefix (K4).
+        valid_p = pen == 0
+        q = cap.queries[:b]
+        reset_counts()
+        t0 = time.perf_counter()
+        d_blk, r_blk = sq8.sq8_topk_blocked(blk, cap.a, cap.b, sq, valid_p,
+                                            q, k=capm.K, i8dot=i8dot)
+        torch.cuda.synchronize()
+        blk_s = time.perf_counter() - t0
+        counts = read_counts()
+        launches[pre + "segment_minima_blocked"] = \
+            counts[pre + "segment_minima_blocked"]
+        d_til, r_til = sq8.sq8_topk_blocked(db3, cap.a, cap.b, sq, valid_p,
+                                            q, k=capm.K, i8dot=i8dot)
+        same_topk(r_blk.cpu().numpy(), d_blk.cpu().numpy(),
+                  r_til.cpu().numpy(), d_til.cpu().numpy().astype(np.float64),
+                  "blocked layout against the tiled layout")
+        live_only = bool(valid_p[r_blk].all())
+        emit("main", path="capacity scan, sq8_topk_blocked, blocked, prefix"
+             + (", i8dot" if i8dot else ""), rows=n_p, d=d, batch=b,
+             k=capm.K, batch_s=[blk_s], equals_tiled_layout=True,
+             dead_rows_excluded=live_only, launches=counts, card=smi)
+        if not live_only:
+            raise RuntimeError("blocked layout: a dead row was returned")
+
+    # -- the K9 sweep on the resident index ------------------------------
+    t_c = (cap.queries[:capm.B] - cap.b) * cap.a
+    pen_c = torch.zeros(n, device=dev)
+    emit("stage1_ideal", rows=n, batch=capm.B, **k9.ideal(n, capm.B),
+         card=smi)
     reset_counts()
     t0 = time.perf_counter()
-    d_blk, r_blk = sq8.sq8_topk_blocked(blk, cap.a, cap.b, sq, valid_p, q,
-                                        k=capm.K)
-    torch.cuda.synchronize()
-    blk_s = time.perf_counter() - t0
+    sweep = k9.sweep(cap.codes, cap.s2, pen_c, t_c)
+    t_i8_c, sq_i8_c = sq8._i8dot_q(t_c, cap.s2)
+    sweep += k9.sweep(cap.codes, sq_i8_c, pen_c, t_i8_c,
+                      variants=("full", "nomin", "nodot"), t_steps=(8,))
     counts = read_counts()
-    k4_launches = counts["segment_minima_blocked"]
-    d_til, r_til = sq8.sq8_topk_blocked(db3, cap.a, cap.b, sq, valid_p, q,
-                                        k=capm.K)
-    same_topk(r_blk.cpu().numpy(), d_blk.cpu().numpy(), r_til.cpu().numpy(),
-              d_til.cpu().numpy().astype(np.float64),
-              "blocked layout against the tiled layout")
-    live_only = bool(valid_p[r_blk].all())
-    emit("main", path="capacity scan, sq8_topk_blocked, blocked, prefix",
-         rows=n_p, d=d, batch=b, k=capm.K, batch_s=[blk_s],
-         equals_tiled_layout=True, dead_rows_excluded=live_only,
-         launches=counts, card=smi)
-    if not live_only:
-        raise RuntimeError("blocked layout: a dead row was returned")
-    for name, count in (("segment_minima_tiled2", k5_launches),
-                        ("seg_gather_tiled", k3_launches),
-                        ("segment_minima_tiled", k2_launches),
-                        ("segment_minima_blocked", k4_launches)):
+    emit("main", path="k9 sweep, tools/stage1_analysis", rows=n,
+         batch=capm.B, seconds=time.perf_counter() - t0, launches=counts,
+         card=smi)
+    del t_i8_c, sq_i8_c, pen_c
+    for name, count in launches.items():
         if count == 0:
             raise RuntimeError(f"the capacity paths never launched {name}")
     del cap, blk, db3, pen, valid_p
     torch.cuda.empty_cache()
+
+    out = []
     src = "smqtk_indexing_tpu_torch/csrc/segment_minima_tiled.cu"
-    common = {"route": "cuda", "source": src, "library_ms": library_ms,
-              "shape": shape}
-    return [
-        {"name": "segment_minima_tiled", **common,
-         "replaces": "smqtk_indexing_tpu/ops/pallas_scan.py:246",
-         "launches": k2_launches, "max_abs_err": k2[0], "ms": k2[1],
-         "plain_ms": k2[2], **flat_bound},
-        {"name": "segment_minima_blocked", **common,
-         "replaces": "smqtk_indexing_tpu/ops/pallas_scan.py:491",
-         "launches": k4_launches, "max_abs_err": k4[0], "ms": k4[1],
-         "plain_ms": k4[2], **flat_bound},
-        {"name": "segment_minima_tiled2", **common,
-         "replaces": "smqtk_indexing_tpu/ops/pallas_scan.py:807",
-         "launches": k5_launches, "max_abs_err": k5[0], "ms": k5[1],
-         "plain_ms": k5[2], **step_bound},
-    ], k3_launches
+    replaces = {"segment_minima_tiled": 246, "segment_minima_blocked": 491,
+                "segment_minima_tiled2": 807}
+    for form, pre in (("", ""), (" i8i8", "i8i8:")):
+        for name, line in replaces.items():
+            err, ms, plain_ms = held[name + form]
+            out.append({
+                "name": name + form.replace(" ", "_"), "route": "cuda",
+                "source": src,
+                "replaces": f"smqtk_indexing_tpu/ops/pallas_scan.py:{line}",
+                "launches": launches[pre + name], "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms, **bounds[name + form],
+                "library_ms": library_i8_ms if pre else library_ms,
+                "shape": shape})
+    by_metric = {r["metric"]: r["value"] for r in sweep
+                 if r["query"] == "bf16"}
+    for variant in k9.LAUNCHES:
+        err_bf, ms, plain_ms = k9_held[variant, "bf16"]
+        err_i8, ms_i8, plain_i8 = k9_held[variant, "int8"]
+        out.append({
+            "name": f"stage1_variant_{variant}", "route": "cuda",
+            "source": "smqtk_indexing_tpu_torch/csrc/stage1_variants.cu",
+            "replaces": "tools/stage1_analysis.py:166",
+            "launches": counts[f"stage1_variant:{variant}"],
+            "max_abs_err": max(err_bf, err_i8), "ms": ms,
+            "plain_ms": plain_ms,
+            **k9_bound(variant, b, n_p, d, out_seg, False,
+                       fused_scan.TILE_N),
+            "library_ms": None if variant == "nodot" else library_ms,
+            "shape": shape, "int8_query_ms": ms_i8,
+            "int8_query_plain_ms": plain_i8,
+            "capacity_ms": by_metric[f"stage1_{variant}_t8_ms"]})
+        if out[-1]["launches"] == 0:
+            raise RuntimeError(f"the K9 sweep never launched {variant}")
+    return out, launches["seg_gather_tiled"]
 
 
 def main() -> None:
+    # The runs with the flag off must not inherit the int8 x int8 switch
+    # from the caller: the store reads it per query, the capacity example
+    # once at import. The phases that want it set it themselves.
+    os.environ.pop("SMQTK_TPU_SQ8_I8DOT", None)
     import torch
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device "
                          "(torch.cuda.is_available() is False)")
@@ -1353,8 +1621,11 @@ def main() -> None:
             row["launches"] += k3_launches
     kernels += k8_rows
     t0 = time.perf_counter()
-    kernels.insert(1, flat_codec_phases(smi, dev))
+    kernels[1:1] = flat_codec_phases(smi, dev)
     emit("seconds", of="flat codec phases", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    kernels += probe_phase(smi, dev)
+    emit("seconds", of="k10 probe phase", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
     cap_rows, cap_k3 = capacity_phases(smi, dev)
     emit("seconds", of="capacity phases", seconds=time.perf_counter() - t0)
@@ -1365,6 +1636,7 @@ def main() -> None:
     if any(mod is not None and (name == "jax" or name.startswith("jax."))
            for name, mod in sys.modules.items()):
         raise RuntimeError("jax was imported")
+    emit("seconds", of="whole script", seconds=time.perf_counter() - t_start)
 
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

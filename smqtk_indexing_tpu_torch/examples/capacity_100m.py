@@ -19,13 +19,17 @@ construction: recall@10 against them must be 1.0 and the gap between the
 
 prints one JSON line for the build, one a batch size (128 and 256: queries/s,
 recall@10 and margin) and one for the stage split. The functions are what
-``chip_smoke.py`` calls.
+``chip_smoke.py`` calls. ``SMQTK_TPU_SQ8_I8DOT=1`` in the environment at
+import runs stage 1 int8 x int8 (the JAX example's switch,
+``examples/capacity_100m.py:60``); ``scan`` and ``stages`` also take it as
+an argument.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import math
+import os
 import time
 from typing import NamedTuple
 
@@ -37,8 +41,8 @@ from smqtk_indexing_tpu_torch.ops.fused_scan import (
     TILE_N, segment_minima_tiled, segment_minima_tiled2,
 )
 from smqtk_indexing_tpu_torch.ops.sq8 import (
-    blocked_candidates, blocked_rescore, blocked_select, sq8_encode_np,
-    sq8_topk_blocked,
+    _i8dot_q, blocked_candidates, blocked_rescore, blocked_select,
+    sq8_encode_np, sq8_topk_blocked,
 )
 
 #: Tiles of 4096 rows: 100,663,296 rows, the JAX example's N.
@@ -55,6 +59,8 @@ SIGMA = 0.05
 PLANT_OFFSET = 131
 #: Tiles generated at a time: the build's f32 temporaries stay near 128 MB.
 BUILD_TILES = 64
+#: Stage 1 int8 x int8 (``sq8_topk_blocked(i8dot=True)``) by default.
+I8DOT = os.environ.get("SMQTK_TPU_SQ8_I8DOT") == "1"
 
 
 class Capacity(NamedTuple):
@@ -125,11 +131,11 @@ def build(n_tiles: int = N_TILES, device="cuda", seed: int = 0) -> Capacity:
                     torch.from_numpy(queries).to(dev), truth)
 
 
-def scan(cap: Capacity, batch: int = B, k: int = K):
+def scan(cap: Capacity, batch: int = B, k: int = K, i8dot: bool = I8DOT):
     """``sq8_topk_blocked`` over the first ``batch`` queries: (dists (batch,
     k), rows (batch, k))."""
     return sq8_topk_blocked(cap.codes, cap.a, cap.b, cap.s2, cap.valid,
-                            cap.queries[:batch], k=k)
+                            cap.queries[:batch], k=k, i8dot=i8dot)
 
 
 def check(cap: Capacity, dists: torch.Tensor, rows: torch.Tensor) -> dict:
@@ -155,13 +161,15 @@ def _cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def stages(cap: Capacity, batch: int = B, reps: int = 3) -> dict:
+def stages(cap: Capacity, batch: int = B, reps: int = 3,
+           i8dot: bool = I8DOT) -> dict:
     """
     Milliseconds of the scan's stages, each with the ones before it
     (``tools/profile_100m.py:86-166``), timed with CUDA events after one
     warm-up call: K2 alone, K5 alone, K5 + the step-major selection, + the
     K3 gather of the candidates, + the f32 rescore, and the whole
-    ``sq8_topk_blocked``.
+    ``sq8_topk_blocked``. With ``i8dot`` the stage-1 kernels take the int8
+    query (its quantisation is inside "k2" and "k5").
 
     :raises ValueError: the index is not on a CUDA device.
     """
@@ -174,8 +182,14 @@ def stages(cap: Capacity, batch: int = B, reps: int = 3) -> dict:
     pen = torch.where(cap.valid, 0.0, math.inf).to(torch.float32)
     s_keep = K + 16
 
+    def stage1(kernel):
+        if not i8dot:
+            return kernel(cap.codes, cap.s2, pen, t)
+        t_i8, sq_i8 = _i8dot_q(t, cap.s2)
+        return kernel(cap.codes, sq_i8, pen, t_i8)
+
     def select():
-        return blocked_select(cap.codes, cap.s2, pen, t, s_keep)
+        return blocked_select(cap.codes, cap.s2, pen, t, s_keep, i8dot)
 
     def rescore():
         sid = select()
@@ -183,12 +197,12 @@ def stages(cap: Capacity, batch: int = B, reps: int = 3) -> dict:
                                cap.s2, cap.valid, t, qb, "euclidean", K + 8)
 
     fns = {
-        "k2": lambda: segment_minima_tiled(cap.codes, cap.s2, pen, t),
-        "k5": lambda: segment_minima_tiled2(cap.codes, cap.s2, pen, t),
+        "k2": lambda: stage1(segment_minima_tiled),
+        "k5": lambda: stage1(segment_minima_tiled2),
         "k5+select": select,
         "k5+select+gather": lambda: blocked_candidates(cap.codes, select()),
         "k5+select+gather+rescore": rescore,
-        "full": lambda: scan(cap, batch),
+        "full": lambda: scan(cap, batch, i8dot=i8dot),
     }
     out = {}
     for name, fn in fns.items():
@@ -222,6 +236,7 @@ def main(argv=None) -> None:
         dt = (time.perf_counter() - t0) / args.reps
         res = check(cap, dists, rows)
         print(json.dumps({"phase": "scan", "batch": batch, "k": K,
+                          "i8dot": I8DOT,
                           "batch_ms": dt * 1e3, "queries_per_s": batch / dt,
                           **res}), flush=True)
     if cap.codes.is_cuda:

@@ -33,20 +33,21 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("segment_minima.cu", "segment_minima_tiled.cu",
-           "ivf_list_scores.cu", "ivf_list_scores_tiled.cu",
-           "ivf_list_scores_tiled_pq.cu", "seg_gather.cu")
+           "stage1_variants.cu", "ivf_list_scores.cu",
+           "ivf_list_scores_tiled.cu", "ivf_list_scores_tiled_pq.cu",
+           "seg_gather.cu")
 #: Headers the sources include; hashed with them.
-HEADERS = ("scan_loads.cuh",)
+HEADERS = ("scan_loads.cuh", "tiled_minima.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                      "-Xptxas", "-v")
 
 
-def _args(n_ptr: int, n_int64: int) -> list:
+def _args(n_ptr: int, n_int64: int, n_float: int = 0) -> list:
     """ctypes argtypes of an entry point: its pointers, its int64 sizes,
-    then the device index and the stream."""
+    its f32 scalars, then the device index and the stream."""
     return ([ctypes.c_void_p] * n_ptr + [ctypes.c_int64] * n_int64
-            + [ctypes.c_int, ctypes.c_void_p])
+            + [ctypes.c_float] * n_float + [ctypes.c_int, ctypes.c_void_p])
 
 
 #: C entry points -> argtypes; each returns a cudaError_t.
@@ -55,6 +56,7 @@ _ENTRY_POINTS = {
     "segment_minima_f32": _args(5, 3),
     "segment_minima_bf16": _args(5, 3),
     "segment_minima_i8": _args(5, 3),
+    "segment_minima_i8i8": _args(5, 3),
     # (q, db3, db_sq, penalty, out, n_queries, n_tiles, dim, tile_n)
     "segment_minima_tiled_f32": _args(5, 4),
     "segment_minima_tiled_bf16": _args(5, 4),
@@ -64,6 +66,16 @@ _ENTRY_POINTS = {
     "segment_minima_tiled2_f32": _args(6, 6),
     "segment_minima_tiled2_bf16": _args(6, 6),
     "segment_minima_tiled2_i8": _args(6, 6),
+    # The int8 x int8 forms, with the f32 scale of the products last:
+    # (q, db3, db_sq, penalty, out, n_queries, n_tiles, dim, tile_n, scale)
+    "segment_minima_tiled_i8i8": _args(5, 4, 1),
+    # (q, db3, db_sq, penalty, m1, m2, n_queries, n_tiles, dim, tile_n, g,
+    #  bw, scale)
+    "segment_minima_tiled2_i8i8": _args(6, 6, 1),
+    # (q, db3, db_sq, penalty, out, n_queries, n_tiles, dim, tile_n, g,
+    #  variant)
+    "stage1_variant_i8": _args(5, 6),
+    "stage1_variant_i8i8": _args(5, 6),
     # (t, a, db, starts, lo, hi, out, n_queries, n_probe, dim, win)
     "ivf_list_scores_f32": _args(7, 4),
     "ivf_list_scores_bf16": _args(7, 4),

@@ -13,6 +13,16 @@ CPU tensor, its plain PyTorch version ``segment_minima_reference``. The
 database is f32, bf16 or int8; the int8 form is the flat SQ8 store's
 stage 1 over its row-major codes (``ops/sq8.sq8_topk``).
 
+Every stage-1 function here also takes an int8 query over an int8
+database: the ``i8dot`` int8 x int8 form (``pallas_scan._tile_ip``,
+``:53-61``; the caller quantised the query with one scale and divided the
+row stats by it, ``ops/sq8._i8dot_q``). The products are summed exactly
+(int32 ``__dp4a`` on the card; f32 in the plain versions, where every
+partial sum is an integer below 2^24 at d = 128), then the same f32
+epilogue ``(db_sq - 2 ip) + penalty`` applies, so the kernels and the plain
+versions agree bit for bit. Those launches count in ``I8DOT_LAUNCHES``, so
+a run shows which form stage 1 took.
+
 Stage 2 (``pallas_scan.py:619-700``, the f32 form): the top ``s_keep``
 segments by minimum, a gather of their rows, exact per-metric distances
 in the difference form, and the final top-k. Exactness of the
@@ -95,6 +105,11 @@ TILED2_LAUNCHES = 0
 _TILED_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16",
                  torch.int8: "i8"}
 
+#: Launches of the int8 x int8 forms (an int8 query over int8 codes), by
+#: wrapper, kept the same way; they do not count in the counts above.
+I8DOT_LAUNCHES = {"segment_minima": 0, "segment_minima_tiled": 0,
+                  "segment_minima_blocked": 0, "segment_minima_tiled2": 0}
+
 #: Cap on the (B, C) f32 score block of ``segment_minima_reference``.
 REFERENCE_BYTES = 1 << 28
 
@@ -104,13 +119,43 @@ STAGE2_BYTES = 1 << 28
 
 
 def _q_kernel_dtype(q: torch.Tensor, db_dtype: torch.dtype) -> torch.Tensor:
-    """Stage-1 query operand, f32: rounded to bf16 first for a bf16 or
-    int8 database (``pallas_scan._q_kernel_dtype``, ``:85-99``), so that
-    every product of a bf16 value with a bf16 value or an int8 code is
-    exact in f32."""
+    """Stage-1 query operand (``pallas_scan._q_kernel_dtype``, ``:85-99``):
+    an int8 query as it is (the int8 x int8 form), else f32, rounded to
+    bf16 first for a bf16 or int8 database, so that every product of a
+    bf16 value with a bf16 value or an int8 code is exact in f32.
+
+    :raises ValueError: an int8 query over a database that is not int8.
+    """
+    if q.dtype == torch.int8:
+        if db_dtype != torch.int8:
+            raise ValueError("int8 queries require an int8 (SQ8-coded) "
+                             f"database; got db dtype {db_dtype}")
+        return q
     if db_dtype in (torch.bfloat16, torch.int8):
         return q.to(torch.bfloat16).float()
     return q.float()
+
+
+def _check_query(q: torch.Tensor, db_dtype: torch.dtype, name: str) -> None:
+    """The query is f32, or int8 over an int8 database."""
+    if q.dtype not in (torch.float32, torch.int8):
+        raise TypeError(f"{name}: q must be float32 (or int8 over int8 "
+                        f"codes), not {q.dtype}")
+    _q_kernel_dtype(q[:0], db_dtype)
+
+
+def _count(wrapper: str, q: torch.Tensor) -> None:
+    """Add one launch of ``wrapper``'s kernel: to ``I8DOT_LAUNCHES`` for an
+    int8 query, else to the wrapper's own count."""
+    global TILED_LAUNCHES, BLOCKED_LAUNCHES, TILED2_LAUNCHES
+    if q.dtype == torch.int8:
+        I8DOT_LAUNCHES[wrapper] += 1
+    elif wrapper == "segment_minima_tiled":
+        TILED_LAUNCHES += 1
+    elif wrapper == "segment_minima_blocked":
+        BLOCKED_LAUNCHES += 1
+    else:
+        TILED2_LAUNCHES += 1
 
 
 def _check_stage1(db, db_sq, penalty, q) -> None:
@@ -126,9 +171,9 @@ def _check_stage1(db, db_sq, penalty, q) -> None:
     if db.dtype not in _STAGE1_ENTRY:
         raise TypeError(f"segment_minima: db dtype {db.dtype} is not "
                         "float32, bfloat16 or int8")
-    if (db_sq.dtype, penalty.dtype, q.dtype) != (torch.float32,) * 3:
-        raise TypeError("segment_minima: db_sq, penalty and q must be "
-                        "float32")
+    if (db_sq.dtype, penalty.dtype) != (torch.float32,) * 2:
+        raise TypeError("segment_minima: db_sq and penalty must be float32")
+    _check_query(q, db.dtype, "segment_minima")
 
 
 def segment_minima(db: torch.Tensor, db_sq: torch.Tensor,
@@ -142,7 +187,8 @@ def segment_minima(db: torch.Tensor, db_sq: torch.Tensor,
         ``sum((a u)^2)`` for SQ8 codes).
     :param penalty: (N,) f32, 0 for live rows and +inf for dead ones.
     :param q: (B, d) f32 queries, or the SQ8 fold ``(q - b) a`` (rounded
-        to bf16 for a bf16 or int8 database).
+        to bf16 for a bf16 or int8 database), or that fold quantised to
+        int8 over int8 codes (the int8 x int8 form).
     :return: (B, N // 128) f32 segment minima.
     :raises RuntimeError: on CUDA tensors, if the kernel cannot be built
         or launched. There is no fallback to the plain version.
@@ -169,7 +215,8 @@ def segment_minima_reference(db: torch.Tensor, db_sq: torch.Tensor,
     _check_stage1(db, db_sq, penalty, q)
     n = db.shape[0]
     b = q.shape[0]
-    qk = _q_kernel_dtype(q, db.dtype)
+    # An int8 query's products are integers below 2^24: exact in f32.
+    qk = _q_kernel_dtype(q, db.dtype).float()
     require_full_f32(qk)
     out = torch.empty((b, n // SEG), dtype=torch.float32, device=db.device)
     rows = max(SEG, REFERENCE_BYTES // (4 * max(b, 1)) // SEG * SEG)
@@ -185,6 +232,7 @@ def _segment_minima_cuda(db, db_sq, penalty, q) -> torch.Tensor:
     """Launch ``csrc/segment_minima.cu`` on the current stream."""
     global LAUNCHES
     _check_stage1(db, db_sq, penalty, q)
+    i8i8 = q.dtype == torch.int8
     n, d = db.shape
     b = q.shape[0]
     if d % 128:
@@ -200,13 +248,16 @@ def _segment_minima_cuda(db, db_sq, penalty, q) -> torch.Tensor:
         raise ValueError("segment_minima: grid exceeds 2^31 blocks")
     out = torch.empty((b, n // SEG), dtype=torch.float32, device=db.device)
     lib = _kernels.library()
-    name = _STAGE1_ENTRY[db.dtype]
+    name = "segment_minima_i8i8" if i8i8 else _STAGE1_ENTRY[db.dtype]
     stream = torch.cuda.current_stream(db.device).cuda_stream
     err = getattr(lib, name)(
         qk.data_ptr(), db.data_ptr(), db_sq.data_ptr(), penalty.data_ptr(),
         out.data_ptr(), b, n, d, db.device.index, stream)
     _kernels.check(err, name)
-    LAUNCHES += 1
+    if i8i8:
+        I8DOT_LAUNCHES["segment_minima"] += 1
+    else:
+        LAUNCHES += 1
     return out
 
 
@@ -456,7 +507,9 @@ def blocked_layout(codes: torch.Tensor) -> torch.Tensor:
     return tiled_layout(codes, SEG)
 
 
-def _check_tiled(db3, db_sq, penalty, q, name: str) -> None:
+def check_tiled(db3, db_sq, penalty, q, name: str) -> None:
+    """The shapes, dtypes and device that the tiled layout's stage-1
+    functions take; ``name`` heads the error."""
     if db3.dim() != 3 or q.dim() != 2 or q.shape[1] != db3.shape[1]:
         raise ValueError(f"{name}: db3 {tuple(db3.shape)} and q "
                          f"{tuple(q.shape)} must be (n_tiles, d, tile_n) "
@@ -472,8 +525,9 @@ def _check_tiled(db3, db_sq, penalty, q, name: str) -> None:
     if db3.dtype not in _TILED_SUFFIX:
         raise TypeError(f"{name}: db3 dtype {db3.dtype} is not float32, "
                         "bfloat16 or int8")
-    if (db_sq.dtype, penalty.dtype, q.dtype) != (torch.float32,) * 3:
-        raise TypeError(f"{name}: db_sq, penalty and q must be float32")
+    if (db_sq.dtype, penalty.dtype) != (torch.float32,) * 2:
+        raise TypeError(f"{name}: db_sq and penalty must be float32")
+    _check_query(q, db3.dtype, name)
     devices = {t.device for t in (db3, db_sq, penalty, q)}
     if len(devices) != 1:
         raise ValueError(f"{name}: tensors on several devices "
@@ -514,19 +568,19 @@ def segment_minima_tiled(db3: torch.Tensor, db_sq: torch.Tensor,
     :param db_sq: (N,) f32 squared norms in row order (``s2`` for codes).
     :param penalty: (N,) f32, 0 for live rows and +inf for dead ones.
     :param q: (B, d) f32 queries or the SQ8 fold (rounded to bf16 for a
-        bf16 or int8 database).
+        bf16 or int8 database), or int8 over int8 codes (the int8 x int8
+        form).
     :return: (B, N // 128) f32 segment minima, in row order.
     :raises RuntimeError: on CUDA tensors, if the kernel cannot be built
         or launched. There is no fallback to the plain version.
     """
-    global TILED_LAUNCHES
-    _check_tiled(db3, db_sq, penalty, q, "segment_minima_tiled")
+    check_tiled(db3, db_sq, penalty, q, "segment_minima_tiled")
     if db3.device.type == "cpu":
         return segment_minima_tiled_reference(db3, db_sq, penalty, q)
     n_tiles, _, tile_n = db3.shape
     nseg = n_tiles * tile_n // SEG
-    out, _ = _tiled_cuda(db3, db_sq, penalty, q, nseg, 1)
-    TILED_LAUNCHES += 1
+    out, _ = tiled_cuda(db3, db_sq, penalty, q, nseg, 1)
+    _count("segment_minima_tiled", q)
     return out[0]
 
 
@@ -537,7 +591,7 @@ def segment_minima_tiled_reference(db3: torch.Tensor, db_sq: torch.Tensor,
     tiles turned back into rows and scored by
     :func:`segment_minima_reference`, so no chunk holds more than
     ``REFERENCE_BYTES`` of scores."""
-    _check_tiled(db3, db_sq, penalty, q, "segment_minima_tiled")
+    check_tiled(db3, db_sq, penalty, q, "segment_minima_tiled")
     n_tiles, d, tile_n = db3.shape
     b = q.shape[0]
     db_sq, penalty = db_sq.reshape(-1), penalty.reshape(-1)
@@ -563,18 +617,17 @@ def segment_minima_blocked(db_blk: torch.Tensor, db_sq: torch.Tensor,
     :param db_blk: (N / 128, d, 128) f32, bf16 or int8.
     :param db_sq: (N / 128, 128) f32 squared norms (the same blocking).
     :param penalty: (N / 128, 128) f32, 0 live / +inf dead.
-    :param q: (B, d) f32.
+    :param q: (B, d) f32, or int8 over int8 codes.
     :return: (B, N // 128) f32 segment minima.
     :raises RuntimeError: on CUDA tensors, if the kernel cannot be built
         or launched. There is no fallback to the plain version.
     """
-    global BLOCKED_LAUNCHES
     _check_blocked(db_blk, db_sq, penalty)
-    _check_tiled(db_blk, db_sq, penalty, q, "segment_minima_blocked")
+    check_tiled(db_blk, db_sq, penalty, q, "segment_minima_blocked")
     if db_blk.device.type == "cpu":
         return segment_minima_blocked_reference(db_blk, db_sq, penalty, q)
-    out, _ = _tiled_cuda(db_blk, db_sq, penalty, q, db_blk.shape[0], 1)
-    BLOCKED_LAUNCHES += 1
+    out, _ = tiled_cuda(db_blk, db_sq, penalty, q, db_blk.shape[0], 1)
+    _count("segment_minima_blocked", q)
     return out[0]
 
 
@@ -613,14 +666,13 @@ def segment_minima_tiled2(db3: torch.Tensor, db_sq: torch.Tensor,
     :raises RuntimeError: on CUDA tensors, if the kernel cannot be built
         or launched. There is no fallback to the plain version.
     """
-    global TILED2_LAUNCHES
-    _check_tiled(db3, db_sq, penalty, q, "segment_minima_tiled2")
+    check_tiled(db3, db_sq, penalty, q, "segment_minima_tiled2")
     if db3.device.type == "cpu":
         return segment_minima_tiled2_reference(db3, db_sq, penalty, q)
     n_tiles, _, tile_n = db3.shape
     _, g, bw = step_shape(n_tiles, tile_n)
-    m1, m2 = _tiled_cuda(db3, db_sq, penalty, q, g, bw)
-    TILED2_LAUNCHES += 1
+    m1, m2 = tiled_cuda(db3, db_sq, penalty, q, g, bw)
+    _count("segment_minima_tiled2", q)
     return m1, m2
 
 
@@ -637,20 +689,37 @@ def segment_minima_tiled2_reference(db3: torch.Tensor, db_sq: torch.Tensor,
     return m1, m1.view(n_steps, b, g // bw, bw).amin(-1)
 
 
-def _tiled_cuda(db3, db_sq, penalty, q, g: int, bw: int):
-    """Launch ``csrc/segment_minima_tiled.cu`` on the current stream: the
-    (B, N / 128) form when ``g`` is N / 128 and ``bw`` 1 (K2, K4), else the
-    step-major pair.
+def tiled_cuda(db3, db_sq, penalty, q, g: int, bw: int, *,
+               scale: float = 1.0, variant: Optional[int] = None):
+    """Launch the kernels of ``csrc/tiled_minima.cuh`` on the current
+    stream: the one launcher of K2, K4, K5 and K9, which share them. The
+    caller has run :func:`check_tiled` and counts the launch.
+
+    - ``variant`` None (``csrc/segment_minima_tiled.cu``): the (B, N / 128)
+      form when ``g`` is N / 128 and ``bw`` 1 (K2, K4), else the step-major
+      pair (K5); the int8 x int8 form for an int8 query, its products times
+      ``scale``.
+    - ``variant`` one of the header's ``Variant`` values
+      (``csrc/stage1_variants.cu``, K9): that epilogue over int8 codes into
+      the step-major (n_steps, B, g) layout; ``bw`` is 1 and the products
+      are not scaled.
+
+    The kernels read an int8 query as it is, else an f32 one (rounded to
+    bf16 first for a bf16 or int8 database).
 
     :return: (out (n_steps, B, g), group minima (n_steps, B, g // bw) or
         None for ``bw == 1``).
+    :raises ValueError: the kernels cannot take these tensors.
     """
     n_tiles, d, tile_n = db3.shape
     b = q.shape[0]
     nseg = n_tiles * tile_n // SEG
-    if d % 16:
+    depth = 32 if q.dtype == torch.int8 else 16
+    if d % depth:
         raise ValueError(f"segment_minima_tiled: d={d} is not a multiple of "
-                         "16 (stores pad it with pad_dim)")
+                         f"{depth} (stores pad it with pad_dim)")
+    if variant is not None and (db3.dtype != torch.int8 or bw != 1):
+        raise ValueError("the stage-1 variants take int8 codes and bw 1")
     qk = _q_kernel_dtype(q, db3.dtype).contiguous()
     for name, t in (("db3", db3), ("db_sq", db_sq), ("penalty", penalty)):
         if not t.is_contiguous():
@@ -664,15 +733,24 @@ def _tiled_cuda(db3, db_sq, penalty, q, g: int, bw: int):
     out = torch.empty((nseg // g, b, g), dtype=torch.float32,
                       device=db3.device)
     lib = _kernels.library()
-    suffix = _TILED_SUFFIX[db3.dtype]
+    i8i8 = qk.dtype == torch.int8
+    suffix = "i8i8" if i8i8 else _TILED_SUFFIX[db3.dtype]
+    scale_arg = (float(scale),) if i8i8 else ()
     stream = torch.cuda.current_stream(db3.device).cuda_stream
-    if bw == 1:
+    if variant is not None:
+        name = f"stage1_variant_{suffix}"
+        groups = None
+        err = getattr(lib, name)(
+            qk.data_ptr(), db3.data_ptr(), db_sq.data_ptr(),
+            penalty.data_ptr(), out.data_ptr(), b, n_tiles, d, tile_n, g,
+            variant, db3.device.index, stream)
+    elif bw == 1:
         name = f"segment_minima_tiled_{suffix}"
         groups = None
         err = getattr(lib, name)(
             qk.data_ptr(), db3.data_ptr(), db_sq.data_ptr(),
             penalty.data_ptr(), out.data_ptr(), b, n_tiles, d, tile_n,
-            db3.device.index, stream)
+            *scale_arg, db3.device.index, stream)
     else:
         name = f"segment_minima_tiled2_{suffix}"
         groups = torch.empty((nseg // g, b, g // bw), dtype=torch.float32,
@@ -680,7 +758,7 @@ def _tiled_cuda(db3, db_sq, penalty, q, g: int, bw: int):
         err = getattr(lib, name)(
             qk.data_ptr(), db3.data_ptr(), db_sq.data_ptr(),
             penalty.data_ptr(), out.data_ptr(), groups.data_ptr(), b,
-            n_tiles, d, tile_n, g, bw, db3.device.index, stream)
+            n_tiles, d, tile_n, g, bw, *scale_arg, db3.device.index, stream)
     _kernels.check(err, name)
     return out, groups
 

@@ -20,8 +20,14 @@ through the int8 form of K1, ``fused_scan.segment_minima``).
 
 ``sq8_topk_blocked`` (``sq8.py:310-429``) is the single-copy capacity scan:
 stage 1 over the tiled layout through K5 (``segment_minima_tiled2``) or
-over the blocked layout through K4 (``segment_minima_blocked``). The
-``i8dot`` int8 x int8 stage 1 is not ported yet.
+over the blocked layout through K4 (``segment_minima_blocked``).
+
+Both kernel routes take ``i8dot`` (``sq8.py:136-147, 253-257, 368-374``):
+stage 1 runs int8 x int8, the query fold quantised to int8 with one
+global scale g and the row stats divided by g (``_i8dot_q``), through the
+int8-query forms of K1, K4 and K5. The minima come back divided by g, a
+positive per-batch rescale that changes no ranking and keeps the +inf of
+dead rows; stage 2 and the exact re-rank rescore from the unscaled fold.
 """
 from __future__ import annotations
 
@@ -120,18 +126,34 @@ def sq8_build_store(host: np.ndarray, valid_mask: np.ndarray, capacity: int,
     return a_dev, b_dev, codes_dev, s2, nrm
 
 
+def _i8dot_q(t: torch.Tensor, sq_row: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The int8 x int8 stage 1's operands (``sq8.py:136-147``, bit for
+    bit): the query fold quantised to int8 with ONE global scale
+    ``g = max(max|t| / 127, 1e-30)`` across the batch (round half to even,
+    clipped to +-127), and the stage-1 row stats divided by g. The
+    kernels' integer products then rank as g * (sq / g - 2 <t_i8, u>), a
+    positive rescale of the surrogate with ~2^-8 relative rounding, the
+    order of the bf16 query's.
+
+    :return: (t_i8 (B, d) int8, sq_row / g)."""
+    g = torch.clamp(t.abs().max() / 127.0, min=1e-30)
+    t_i8 = torch.clamp(torch.round(t / g), -127, 127).to(torch.int8)
+    return t_i8, sq_row / g
+
+
 def sq8_topk(codes: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
              s2: torch.Tensor, nrm: torch.Tensor, valid: torch.Tensor,
              q: torch.Tensor, *, k: int, metric: str = "euclidean",
-             chunk: int = DEFAULT_CHUNK, fused: bool = False
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
+             chunk: int = DEFAULT_CHUNK, fused: bool = False,
+             i8dot: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """
-    Exhaustive top-k over an SQ8-coded database (``sq8.py:150-307``,
-    without ``i8dot``): the surrogate scores of the int8 codes against the
-    query fold, a k + 8 margin, and an exact re-rank of the winners from
-    dequantized f32 rows, so distances are exact with respect to the
-    quantized vectors. Selection runs in f32; the JAX package's streamed
-    path ranks with bf16 products (``sq8.py:127-133``).
+    Exhaustive top-k over an SQ8-coded database (``sq8.py:150-307``): the
+    surrogate scores of the int8 codes against the query fold, a k + 8
+    margin, and an exact re-rank of the winners from dequantized f32 rows,
+    so distances are exact with respect to the quantized vectors.
+    Selection runs in f32; the JAX package's streamed path ranks with bf16
+    products (``sq8.py:127-133``).
 
     :param codes: (N, d) int8 codes (rows past the live set zero).
     :param a, b: (d,) float32 codec scale and offset.
@@ -142,7 +164,13 @@ def sq8_topk(codes: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     :param fused: run stage 1 through K1's int8 form over the row-major
         codes (euclidean and inner_product, N > ``chunk``): the query fold
         rounds to bf16 there, as on the TPU; stage 2 rescores in f32.
+    :param i8dot: with ``fused``, run that stage 1 int8 x int8
+        (:func:`_i8dot_q`, K1's int8-query form); stage 2 is unchanged.
+        Without ``fused`` it changes nothing, as in the JAX function,
+        whose streamed stage 1 ignores it (``sq8.py:237-262``).
     :return: (dists (B, k) ascending, rows (B, k) int64; +inf / -1 pads).
+    :raises ValueError: ``fused`` with another metric than euclidean or
+        inner_product.
     """
     if metric not in SQ8_METRICS:
         raise ValueError(
@@ -188,7 +216,11 @@ def sq8_topk(codes: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         # <q, b> (a per-query constant) changes no selection.
         penalty = torch.where(valid, 0.0, math.inf).to(torch.float32)
         sq_row = s2 if metric == "euclidean" else torch.zeros_like(s2)
-        minima = segment_minima(codes, sq_row, penalty, t)
+        t_k = t
+        if i8dot:
+            # The minima come back divided by g: only their ranking is used.
+            t_k, sq_row = _i8dot_q(t, sq_row)
+        minima = segment_minima(codes, sq_row, penalty, t_k)
     block = chunk if metric != "hik" else \
         max(128, ELEMENTWISE_BYTES // (4 * max(q.shape[0], 1) * d)
             // 128 * 128)
@@ -199,13 +231,16 @@ def sq8_topk(codes: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
 
 
 def blocked_select(codes_blk: torch.Tensor, sq_row: torch.Tensor,
-                   penalty: torch.Tensor, t: torch.Tensor, s_keep: int
-                   ) -> torch.Tensor:
+                   penalty: torch.Tensor, t: torch.Tensor, s_keep: int,
+                   i8dot: bool = False) -> torch.Tensor:
     """Stage 1 of :func:`sq8_topk_blocked` and its selection: (B, s_keep)
     ids of the segments with the smallest minima, -1 where the minimum is
     +inf. Tiled layout: K5 and ``topk_segments_stepmajor``; blocked layout:
-    K4 and ``topk_smallest``."""
+    K4 and ``topk_smallest``. ``i8dot``: stage 1 int8 x int8
+    (:func:`_i8dot_q`)."""
     nseg = codes_blk.shape[0] * codes_blk.shape[2] // SEG
+    if i8dot:
+        t, sq_row = _i8dot_q(t, sq_row)
     if codes_blk.shape[2] != SEG:
         m1, m2 = segment_minima_tiled2(codes_blk, sq_row, penalty, t)
         smin, sid = topk_segments_stepmajor(m1, m2, s_keep)
@@ -260,13 +295,14 @@ def blocked_rescore(cand: torch.Tensor, sid: torch.Tensor, s2: torch.Tensor,
 
 def sq8_topk_blocked(codes_blk: torch.Tensor, a: torch.Tensor,
                      b: torch.Tensor, s2: torch.Tensor, valid: torch.Tensor,
-                     q: torch.Tensor, *, k: int, metric: str = "euclidean"
+                     q: torch.Tensor, *, k: int, metric: str = "euclidean",
+                     i8dot: bool = False
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """
     Exhaustive SQ8 top-k over one resident copy of the codes in a
-    transposed layout (``sq8.py:310-429``, without ``i8dot``): the
-    capacity configuration, with no row-major copy and no mirror. The
-    layout is told by the trailing dim:
+    transposed layout (``sq8.py:310-429``): the capacity configuration,
+    with no row-major copy and no mirror. The layout is told by the
+    trailing dim:
 
     - (n_tiles, d, tile_n), tile_n != 128, **tiled**
       (``fused_scan.tiled_layout``): stage 1 is K5
@@ -288,6 +324,8 @@ def sq8_topk_blocked(codes_blk: torch.Tensor, a: torch.Tensor,
     :param q: (B, d) float32 queries.
     :param metric: 'euclidean' or 'inner_product' (the stage-1 surrogate
         form); ``sq8_topk`` serves the others.
+    :param i8dot: run stage 1 int8 x int8 (:func:`_i8dot_q`, the
+        int8-query forms of K5 and K4); the rescore is unchanged.
     :return: (dists (B, k) ascending, row ids (B, k) int64; +inf / -1
         pads).
     :raises ValueError: any other metric.
@@ -305,7 +343,7 @@ def sq8_topk_blocked(codes_blk: torch.Tensor, a: torch.Tensor,
     # Built once per call: 4 bytes a row (0.4 GB at 100M rows).
     penalty = torch.where(valid, 0.0, math.inf).to(torch.float32)
     s_keep = min(k + 16, nseg)
-    sid = blocked_select(codes_blk, sq_row, penalty, t, s_keep)
+    sid = blocked_select(codes_blk, sq_row, penalty, t, s_keep, i8dot)
     del penalty, sq_row
     cand = blocked_candidates(codes_blk, sid)
     kk = min(k + 8, cand.shape[1])

@@ -23,7 +23,9 @@ routing of ``store.py:479-545``):
 - float32 / bfloat16, hik, chi_square -> ``ops/scan.flat_topk``.
 - sq8 -> ``ops/sq8.sq8_topk``; euclidean and inner_product at a capacity
   past one 65,536-row block (and a multiple of 4096) run its stage 1
-  through K1's int8 form over the row-major codes.
+  through K1's int8 form over the row-major codes, or, with
+  ``SMQTK_TPU_SQ8_I8DOT=1`` in the environment at query time (the JAX
+  store's switch, same name), through K1's int8 x int8 form.
 - pq<M> / opq<M> -> ``ops/pq.pq_topk`` over codec-grid queries. hik is
   refused under OPQ (a rotation does not preserve it).
 
@@ -36,6 +38,7 @@ its rows), so a query holds the store lock while it reads them.
 from __future__ import annotations
 
 import io
+import os
 import threading
 from typing import Hashable, List, Optional, Sequence, Tuple
 
@@ -383,11 +386,16 @@ class VectorStore:
                     self._to_dev(pq_prep_queries(q_pad, perm, rot)),
                     k=k_eff, metric=metric)
             elif self._dtype_name == "sq8":
+                fused = self._sq8_fused_eligible(metric)
+                # The JAX store's opt-in int8 x int8 stage 1
+                # (store.py:504-514), read per query so that a toggle
+                # takes effect at the next call.
+                i8dot = (fused and os.environ.get("SMQTK_TPU_SQ8_I8DOT")
+                         == "1")
                 dists, rows = sq8_topk(
                     self._dev, self._sq8_a, self._sq8_b, self._dev_sq,
                     self._dev_norm, self._dev_valid, qd, k=k_eff,
-                    metric=metric,
-                    fused=self._sq8_fused_eligible(metric))
+                    metric=metric, fused=fused, i8dot=i8dot)
             elif metric in FUSED_METRICS:
                 if metric == "cosine" and self._cos_mirror is None:
                     self._cos_mirror = normalized_rows(

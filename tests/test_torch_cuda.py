@@ -2,10 +2,11 @@
 The port's hand-written kernels on the card (K1 ``segment_minima`` with
 its f32, bf16 and int8 forms, K7 ``ivf_list_scores_tiled``, K6
 ``ivf_list_scores``, K3 ``seg_gather_tiled``, K8
-``ivf_list_scores_tiled_pq``, and K2, K4 and K5 of
-``csrc/segment_minima_tiled.cu``), against their plain PyTorch versions and
-against the port's CPU path, for the flat and the IVF indexes and the
-capacity scan. Every test here is marked
+``ivf_list_scores_tiled_pq``, K2, K4 and K5 of
+``csrc/segment_minima_tiled.cu``, the int8 x int8 forms of K1, K2, K4 and
+K5, and the probes K10 and K9 of ``smqtk_indexing_tpu_torch/tools/``),
+against their plain PyTorch versions and against the port's CPU path, for
+the flat and the IVF indexes and the capacity scan. Every test here is marked
 ``cuda`` and skips without a card. This file imports neither jax nor the
 JAX package's compute, so it runs on a machine with the card and no jax:
 
@@ -590,4 +591,225 @@ def test_capacity_module_on_card_at_a_mini_size(card):
         assert res["planted_to_random_margin"] > 1.0
     ms = capacity_100m.stages(cap, reps=1)
     assert set(ms) >= {"k2", "k5", "full"}
+    assert all(v > 0 for v in ms.values())
+
+
+# ---------------------------------------------------------------------------
+# The int8 x int8 (i8dot) forms of K1, K2, K4 and K5, and the probes K10 and
+# K9 (smqtk_indexing_tpu_torch/tools/)
+# ---------------------------------------------------------------------------
+
+def _i8i8_case(card, n, b, seed):
+    """int8 codes (N, 128) with stats, dead rows, a wholly dead segment,
+    and an int8 query with its stats divided by g, on the card."""
+    from smqtk_indexing_tpu_torch.ops import sq8
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(-127, 128, size=(n, 128)).astype(np.int8)
+    a = (rng.random(128) * 0.02).astype(np.float32)
+    s2 = ((codes.astype(np.float64) * a) ** 2).sum(1).astype(np.float32)
+    pen = np.where(rng.random(n) < 0.02, np.inf, 0.0).astype(np.float32)
+    pen[128:256] = np.inf
+    t = (rng.normal(size=(b, 128)) * a).astype(np.float32)
+    q, sq = sq8._i8dot_q(torch.from_numpy(t), torch.from_numpy(s2))
+    return [x.to(card) for x in (torch.from_numpy(codes), sq,
+                                 torch.from_numpy(pen), q)]
+
+
+@pytest.mark.cuda
+def test_k1_i8i8_is_bit_equal_to_plain_version(card):
+    codes, sq, pen, q = _i8i8_case(card, 8192, 200, seed=31)
+    before = dict(fused_scan.I8DOT_LAUNCHES), fused_scan.LAUNCHES
+    out = fused_scan.segment_minima(codes, sq, pen, q)
+    torch.cuda.synchronize()
+    assert fused_scan.I8DOT_LAUNCHES["segment_minima"] \
+        == before[0]["segment_minima"] + 1
+    assert fused_scan.LAUNCHES == before[1]
+    ref = fused_scan.segment_minima_reference(codes, sq, pen, q)
+    assert torch.isinf(out[:, 1]).all()
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_n", [4096, 256])
+def test_tiled_i8i8_kernels_are_bit_equal_to_plain_versions(card, tile_n):
+    # K2, K4, K5 with an int8 query at a ragged query tile (200 = 128 + 72)
+    # over 6 tiles of 4096 or 96 tiles of 256.
+    n, b = 24576, 200
+    codes, sq, pen, q = _i8i8_case(card, n, b, seed=32)
+    db3 = fused_scan.tiled_layout(codes, tile_n)
+    blk = fused_scan.blocked_layout(codes)
+    before = (dict(fused_scan.I8DOT_LAUNCHES), fused_scan.TILED_LAUNCHES,
+              fused_scan.BLOCKED_LAUNCHES, fused_scan.TILED2_LAUNCHES)
+    out = fused_scan.segment_minima_tiled(db3, sq, pen, q)
+    m1, m2 = fused_scan.segment_minima_tiled2(db3, sq, pen, q)
+    out_blk = fused_scan.segment_minima_blocked(blk, sq.view(-1, 128),
+                                                pen.view(-1, 128), q)
+    torch.cuda.synchronize()
+    assert before[1:] == (fused_scan.TILED_LAUNCHES,
+                          fused_scan.BLOCKED_LAUNCHES,
+                          fused_scan.TILED2_LAUNCHES)
+    for name in ("segment_minima_tiled", "segment_minima_blocked",
+                 "segment_minima_tiled2"):
+        assert fused_scan.I8DOT_LAUNCHES[name] == before[0][name] + 1
+    ref = fused_scan.segment_minima_tiled_reference(db3, sq, pen, q)
+    assert torch.isinf(ref[:, 1]).all()
+    n_steps, g, bw = fused_scan.step_shape(n // tile_n, tile_n)
+    for got in (out, out_blk, m1.transpose(0, 1).reshape(b, -1)):
+        assert torch.equal(got, ref)
+    assert torch.equal(m2, m1.view(n_steps, b, g // bw, bw).amin(-1))
+
+
+@pytest.mark.cuda
+def test_i8i8_wrappers_and_refused_launches_raise(card):
+    from smqtk_indexing_tpu_torch.ops import _kernels
+    codes, sq, pen, q = _i8i8_case(card, 4096, 8, seed=33)
+    with pytest.raises(ValueError, match="int8 queries"):
+        fused_scan.segment_minima(codes.float(), sq, pen, q)
+    db3 = fused_scan.tiled_layout(codes[:, :112].contiguous())
+    with pytest.raises(ValueError, match="multiple of 32"):
+        fused_scan.segment_minima_tiled(db3, sq, pen,
+                                        q[:, :112].contiguous())
+    # A launch the kernel refuses (tile_n not a multiple of 128) returns
+    # its error, and the wrapper's check raises.
+    out = torch.empty((8, 32), device=card)
+    lib = _kernels.library()
+    err = lib.segment_minima_tiled_i8i8(
+        q.data_ptr(), codes.data_ptr(), sq.data_ptr(), pen.data_ptr(),
+        out.data_ptr(), 8, 1, 128, 4000, 1.0, card.index or 0,
+        torch.cuda.current_stream().cuda_stream)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _kernels.check(err, "segment_minima_tiled_i8i8")
+    err = lib.stage1_variant_i8(
+        q.float().data_ptr(), codes.data_ptr(), sq.data_ptr(),
+        pen.data_ptr(), out.data_ptr(), 8, 1, 128, 4096, 32, 9,
+        card.index or 0, torch.cuda.current_stream().cuda_stream)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _kernels.check(err, "stage1_variant_i8")
+
+
+@pytest.mark.cuda
+def test_k10_arms_match_plain_version(card):
+    from smqtk_indexing_tpu_torch.tools import probe_int8_mxu as k10
+    inputs = k10.make_inputs("cuda", n=65536, b=130, seed=3)
+    args = (inputs["db_t"], inputs["sq"], inputs["pen"])
+    before = dict(k10.LAUNCHES)
+    out = k10.scan_minima(*args, inputs["q_i8"], inputs["g"], int8dot=True)
+    ref = k10.scan_minima_reference(*args, inputs["q_i8"], inputs["g"],
+                                    int8dot=True)
+    assert torch.equal(out, ref)
+    out = k10.scan_minima(*args, inputs["q_bf"], inputs["g"], int8dot=False)
+    ref = k10.scan_minima_reference(*args, inputs["q_bf"], inputs["g"],
+                                    int8dot=False)
+    torch.cuda.synchronize()
+    assert k10.LAUNCHES == {"int8dot": before["int8dot"] + 1,
+                            "bf16": before["bf16"] + 1}
+    scale = ref.abs().max().item()
+    assert (out - ref).abs().max().item() <= STAGE1_RTOL * scale
+    res = k10.run(inputs, reps=1, depth=2)
+    assert 0.0 <= res["overlap_min"] <= res["overlap_mean"] <= 1.0
+    assert res["int8dot_ms"] > 0 and res["bf16_ms"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("query", ["int8", "bf16"])
+def test_k9_variants_match_plain_versions(card, query):
+    from smqtk_indexing_tpu_torch.tools import stage1_analysis as k9
+    codes, sq, pen, q = _i8i8_case(card, 6 * 4096, 200, seed=34)
+    if query == "bf16":
+        q = torch.from_numpy(np.random.default_rng(35).normal(
+            size=(200, 128)).astype(np.float32)).to(card)
+    db3 = fused_scan.tiled_layout(codes)
+    for variant in k9.VARIANTS:
+        before = dict(k9.LAUNCHES)
+        out = k9.run_variant(db3, sq, pen, q, variant=variant, t_step=4)
+        torch.cuda.synchronize()
+        ran = k9.SAME_AS.get(variant, variant)
+        assert k9.LAUNCHES[ran] == before[ran] + 1
+        ref = k9.run_variant_reference(db3, sq, pen, q, variant=variant,
+                                       t_step=4)
+        assert out.shape == ref.shape == (3, 200, 64)
+        assert torch.equal(torch.isinf(out), torch.isinf(ref)), variant
+        if query == "int8" or variant == "nodot":
+            assert torch.equal(out, ref), variant
+            continue
+        fin = torch.isfinite(ref)
+        err = (out - ref)[fin].abs()
+        tol = STAGE1_RTOL * ref[fin].abs().max().item()
+        if variant == "bf16min":
+            # f32 sums in another order may round to the neighbouring bf16.
+            tol = tol + 2.0 ** -8 * ref[fin].abs()
+        assert (err <= tol).all(), variant
+    with pytest.raises(ValueError, match="CUDA"):
+        k9.sweep(db3.cpu(), sq.cpu(), pen.cpu(), q.cpu())
+    rows = k9.sweep(db3, sq, pen, q, reps=1, variants=("full", "staged"),
+                    t_steps=(2,))
+    assert rows[1]["same_as"] == "full" and rows[0]["value"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["tiled", "blocked"])
+def test_sq8_topk_blocked_i8dot_on_card_matches_cpu(card, layout):
+    from smqtk_indexing_tpu_torch.ops import sq8
+    rng = np.random.default_rng(36)
+    n, d, b, k = 32768, 128, 64, 16
+    mat = rng.random((n, d), dtype=np.float32) * 10
+    a, bb = sq8.sq8_train(mat)
+    codes = torch.from_numpy(sq8.sq8_encode_np(mat, a, bb))
+    q = torch.from_numpy(rng.random((b, d), dtype=np.float32) * 10)
+    valid = torch.ones(n, dtype=torch.bool)
+    valid[500:900] = False
+    a, bb = torch.from_numpy(a), torch.from_numpy(bb)
+    s2, _ = sq8.sq8_row_stats(codes, a, bb)
+    lay = fused_scan.tiled_layout(codes) if layout == "tiled" \
+        else fused_scan.blocked_layout(codes)
+    cpu = (lay, a, bb, s2, valid, q)
+    d_cpu, r_cpu = sq8.sq8_topk_blocked(*cpu, k=k, i8dot=True)
+    name = "segment_minima_tiled2" if layout == "tiled" \
+        else "segment_minima_blocked"
+    before = fused_scan.I8DOT_LAUNCHES[name]
+    d_gpu, r_gpu = sq8.sq8_topk_blocked(*(t.to(card) for t in cpu), k=k,
+                                        i8dot=True)
+    torch.cuda.synchronize()
+    assert fused_scan.I8DOT_LAUNCHES[name] == before + 1
+    assert_same_neighbours(r_gpu.cpu().numpy(), d_gpu.cpu().numpy(),
+                           r_cpu.numpy(), d_cpu.numpy(), rtol=DIST_RTOL,
+                           atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_flat_sq8_i8dot_flag_on_card_matches_cpu(card, monkeypatch):
+    rng = np.random.default_rng(37)
+    x = rng.random((70000, 48), dtype=np.float32)
+    els = [DescriptorMemoryElement(i, x[i]) for i in range(70000)]
+    monkeypatch.setenv("SMQTK_TPU_SQ8_I8DOT", "1")
+    results = []
+    for device in ("cuda", "cpu"):
+        index = FlatNearestNeighborsIndex(dtype="sq8", device=device)
+        index.build_index(els)
+        index.remove_from_index(list(range(0, 70000, 9)))
+        before = fused_scan.I8DOT_LAUNCHES["segment_minima"]
+        res = index.nn_many(els[1:200:4], 10)
+        assert (fused_scan.I8DOT_LAUNCHES["segment_minima"] > before) \
+            == (device == "cuda")
+        results.append((np.array([[e.uuid() for e in r[0]] for r in res]),
+                        np.array([r[1] for r in res])))
+    (u_gpu, d_gpu), (u_cpu, d_cpu) = results
+    assert_same_neighbours(u_gpu, d_gpu, u_cpu, d_cpu, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_capacity_module_i8dot_on_card_at_a_mini_size(card):
+    from smqtk_indexing_tpu_torch.examples import capacity_100m
+    cap = capacity_100m.build(16, "cuda", seed=0)
+    before = dict(fused_scan.I8DOT_LAUNCHES)
+    for batch in (capacity_100m.B, capacity_100m.B_BIG):
+        res = capacity_100m.check(cap, *capacity_100m.scan(cap, batch,
+                                                           i8dot=True))
+        assert res["recall_at_10"] == 1.0
+        assert res["planted_to_random_margin"] > 1.0
+    assert fused_scan.I8DOT_LAUNCHES["segment_minima_tiled2"] \
+        == before["segment_minima_tiled2"] + 2
+    ms = capacity_100m.stages(cap, reps=1, i8dot=True)
+    assert fused_scan.I8DOT_LAUNCHES["segment_minima_tiled"] \
+        > before["segment_minima_tiled"]
     assert all(v > 0 for v in ms.values())

@@ -115,6 +115,10 @@ def _imported_modules(path):
 
 def test_no_port_file_imports_the_jax_package():
     assert "smqtk_indexing_tpu_torch/ops/sq8.py" in _NO_JAX_PACKAGE
+    assert "smqtk_indexing_tpu_torch/tools/probe_int8_mxu.py" \
+        in _NO_JAX_PACKAGE
+    assert "smqtk_indexing_tpu_torch/tools/stage1_analysis.py" \
+        in _NO_JAX_PACKAGE
     bad = [(path, mod) for path in _NO_JAX_PACKAGE
            for mod in _imported_modules(path)
            if mod == "smqtk_indexing_tpu"
@@ -145,7 +149,8 @@ def test_port_runs_with_jax_blocked(tmp_path):
                 "models.nn_index._ivf_persist",
                 "models.nn_index._ivf_matrix", "ops.fused_scan", "ops.ivf",
                 "ops.ivf_scan", "ops.kmeans", "ops.sq8", "ops.pq",
-                "ops.opq", "ops.store"):
+                "ops.opq", "ops.store", "tools.probe_int8_mxu",
+                "tools.stage1_analysis", "examples.capacity_100m"):
         assert "smqtk_indexing_tpu_torch." + mod in out["modules"]
     assert out["loaded_jax"] == []
     assert out["flat"] == [[0, 1, 2, 3], [0.0] * 4]
