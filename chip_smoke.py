@@ -10,20 +10,24 @@ not 0:
 
 0. card: the card's name and power limit from ``nvidia-smi``;
 1. build: the hand-written kernels compiled with ``nvcc`` for sm_90a, one
-   ``nvcc`` a source, all at once, then linked into one library;
+   ``nvcc`` a source, all at once, then linked into one library; the
+   count of HGMMA (tensor-core) instructions in K1's bf16 and int8-code
+   kernels, read with ``cuobjdump -sass``, must not be 0;
 2. flat kernels: K1 (``segment_minima``) against its plain PyTorch version
    at the flat path's shapes (B=2048 queries, N=1,048,576 rows, d=128; f32
-   and bf16, with dead rows), timed with CUDA events as plain, kernel,
-   kernel, plain; plus the selection, stage-2 and whole
-   ``flat_topk_fused`` times at the same shapes;
+   with dead rows, and the bf16 form on the tensor cores, also against
+   float64), timed with CUDA events as plain, kernel, kernel, plain; the
+   bf16 and int8-code forms at d=1024 the same way; plus the selection,
+   stage-2 and whole ``flat_topk_fused`` times at the f32 shapes;
 3. flat path: ``FlatNearestNeighborsIndex(device="cuda")`` over 1,000,000
    x 128 SIFT1M-shaped vectors (uniform * 218, seed 0, as ``bench.py``
    makes them), through ``build_index`` / ``nn_many`` with 2048 held-out
    queries at k=10, with the per-batch host-clock split of ``nn_many``
    into ``store.knn`` and result assembly (from the tracing spans);
    self-queries must return themselves and recall@10 against a float64
-   oracle must be 1.0. Then smaller builds for inner_product, cosine and
-   bfloat16;
+   oracle must be 1.0. Then smaller builds for inner_product and cosine,
+   and ``dtype="bfloat16"`` at the full size (K1's bf16 form;
+   recall@10 against float64 over the bf16 rows must be 1.0);
 4. IVF serving line: ``IvfNearestNeighborsIndex(n_lists=4096, nprobe=4,
    dtype="sq8", storage="code", rerank="score", device="cuda")`` over
    1,000,000 x 96 clustered Deep1M-shaped vectors (``bench.py``'s recipe,
@@ -52,7 +56,8 @@ not 0:
    at nprobe=4 on the same vectors, routed to K8 (recall@10 >= 0.75);
 8. flat codecs: ``FlatNearestNeighborsIndex(dtype="sq8")`` over the flat
    phase's vectors, whose stage 1 is K1's int8 form (held against its
-   plain version and float64 at the store's operands) and, under
+   plain version and float64 at the store's operands; timed batches with
+   their span split) and, under
    ``SMQTK_TPU_SQ8_I8DOT=1``, K1's int8 x int8 form (held bit for bit
    against its plain version at B=2048, N=2^20; its launches must show the
    flag took it), then ``dtype="pq16"``; each top-10 of 128 queries must be
@@ -365,15 +370,96 @@ def flat_data():
     return data, queries
 
 
-def flat_phases(smi: str, dev) -> dict:
-    """Phases 2 and 3; returns K1's row of the kernels line."""
+def split_of_spans(names) -> dict:
+    """Mean host-clock ms a call of each tracing span since the last
+    ``COUNTERS.reset()``."""
+    from smqtk_indexing_tpu_torch.utils.tracing import COUNTERS
+    spans = COUNTERS.snapshot()
+    return {name: 1e3 * spans[f"span.{name}.seconds"]
+            / spans[f"span.{name}.calls"]
+            for name in names if spans.get(f"span.{name}.calls")}
+
+
+def flat_batches(index, q_elems, n_batches: int):
+    """A warm-up and ``n_batches`` timed ``nn_many(q_elems, K)`` batches:
+    (results of the last, seconds of each, their host-clock split by the
+    tracing spans, the kernels' launch counts in them). ``store.knn``
+    copies its results back, so its span holds the device work; the
+    assembly is host work only."""
+    from smqtk_indexing_tpu_torch.utils.tracing import COUNTERS
+    index.nn_many(q_elems, K)                              # warm-up
+    reset_counts()
+    COUNTERS.reset()
+    batch_s = []
+    for _ in range(n_batches):
+        t0 = time.perf_counter()
+        res = index.nn_many(q_elems, K)
+        batch_s.append(time.perf_counter() - t0)
+    return res, batch_s, split_of_spans(
+        ("flat.query", "store.knn", "flat.assemble")), read_counts()
+
+
+def k1_f64(db_sq, penalty, q, x):
+    """``hold``'s float64 check of K1's bf16 and int8-code forms on the
+    first N_ORACLE queries: (exact minima, largest sum of absolute terms
+    |db_sq| + 2 |q| . |x| of each segment), with the query rounded to bf16
+    as the kernel takes it."""
+    import torch
+
+    def f64():
+        q64 = q[:N_ORACLE].to(torch.bfloat16).double()
+        x64 = x.double()
+        exact = ((db_sq.double() - 2.0 * (q64 @ x64.T))
+                 + penalty.double()).view(N_ORACLE, -1, 128).amin(-1)
+        mag = (db_sq.double().abs() + 2.0 * (q64.abs() @ x64.abs().T)) \
+            .view(N_ORACLE, -1, 128).amax(-1)
+        return exact, mag
+    return f64
+
+
+def k1_wide(smi: str, dev, dim: int = 1024) -> None:
+    """K1's bf16 and int8-code forms at B=2048, N=2^20 and a large d (the
+    query streams through the kernel's ring), held against their plain
+    versions and float64; "kernel" lines only."""
+    import torch
+    from smqtk_indexing_tpu_torch.ops import fused_scan
+    n = 1 << 20
+    g = torch.Generator(device=dev).manual_seed(1)
+    penalty = torch.where(torch.rand(n, generator=g, device=dev) < 0.01,
+                          float("inf"), 0.0)
+    for name in ("segment_minima_bf16", "segment_minima_i8"):
+        if name == "segment_minima_bf16":
+            x = (torch.rand((n, dim), generator=g, device=dev) * 218.0) \
+                .to(torch.bfloat16)
+            q = torch.rand((BATCH, dim), generator=g, device=dev) * 218.0
+            db_sq = x.float().pow(2).sum(-1)
+        else:
+            x = torch.randint(-128, 128, (n, dim), generator=g, device=dev,
+                              dtype=torch.int8)
+            a = torch.rand(dim, generator=g, device=dev) * 0.02 + 0.001
+            q = torch.randn((BATCH, dim), generator=g, device=dev) * a * 60
+            db_sq = (x.float() * a).pow(2).sum(-1)
+        args = (x, db_sq, penalty, q)
+        lib_ms = library_mm(q.to(torch.bfloat16), x.to(torch.bfloat16).T)
+        hold(name, lambda: fused_scan.segment_minima(*args),
+             lambda: fused_scan.segment_minima_reference(*args), smi,
+             compare="f64", f64=k1_f64(db_sq, penalty, q, x),
+             reps=(5, 1), shape=[BATCH, n, dim], library_ms=lib_ms,
+             **stage1_bound(BATCH, n, dim, x.element_size(),
+                            BATCH * n // 128))
+        del x, q, db_sq, args
+        torch.cuda.empty_cache()
+
+
+def flat_phases(smi: str, dev) -> list:
+    """Phases 2 and 3; returns K1's f32 and bf16 rows of the kernels
+    line."""
     import torch
     from smqtk_indexing_tpu_torch.data import DescriptorMemoryElement
     from smqtk_indexing_tpu_torch.models.nn_index.flat import (
         FlatNearestNeighborsIndex,
     )
     from smqtk_indexing_tpu_torch.ops import fused_scan
-    from smqtk_indexing_tpu_torch.utils.tracing import COUNTERS
 
     # -- 2. kernels vs plain versions at the main path's shapes ----------
     n_pad = 1 << 20
@@ -385,50 +471,55 @@ def flat_phases(smi: str, dev) -> dict:
     valid = ~dead
     penalty = torch.where(dead, float("inf"), 0.0)
     db_sq = (db * db).sum(-1)
-    kernel_rows = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        x = db.to(dtype)
 
-        def plain():
-            return fused_scan.segment_minima_reference(x, db_sq, penalty, q)
+    def plain():
+        return fused_scan.segment_minima_reference(db, db_sq, penalty, q)
 
-        def kernel():
-            return fused_scan.segment_minima(x, db_sq, penalty, q)
+    def kernel():
+        return fused_scan.segment_minima(db, db_sq, penalty, q)
 
-        ref = plain()
-        out = kernel()
-        torch.cuda.synchronize()
-        inf_match = bool(torch.equal(torch.isinf(ref), torch.isinf(out)))
-        fin = torch.isfinite(ref)
-        max_abs_err = (out - ref)[fin].abs().max().item()
-        scale = ref[fin].abs().max().item()
-        # Independent check: the first N_ORACLE queries in float64, on the
-        # operands the kernel sees (bf16-rounded query for a bf16 db).
-        q64 = q[:N_ORACLE].to(dtype).double()
-        exact = ((db_sq.double() - 2.0 * (q64 @ x.double().T))
-                 + penalty.double()).view(N_ORACLE, -1, 128).amin(-1)
-        f64_err = (out[:N_ORACLE].double() - exact)[fin[:N_ORACLE]] \
-            .abs().max().item()
-        del q64, exact
-        plain(), kernel()                                  # warm-up
-        t_plain = [cuda_ms(plain, 10)]
-        t_kernel = [cuda_ms(kernel, 10), cuda_ms(kernel, 10)]
-        t_plain.append(cuda_ms(plain, 10))
-        name = str(dtype).replace("torch.", "")
-        ok = (inf_match and max_abs_err <= REL_TOL * scale
-              and f64_err <= REL_TOL * scale)
-        emit("kernel", kernel="segment_minima", dtype=name,
-             shape=[BATCH, n_pad, DIM], max_abs_err=max_abs_err,
-             f64_max_abs_err=f64_err, score_scale=scale,
-             tol=REL_TOL * scale, inf_match=inf_match,
-             ms=t_kernel, plain_ms=t_plain, card=smi, ok=ok)
-        if not ok:
-            raise RuntimeError(f"segment_minima {name} disagrees with its "
-                               "plain version")
-        kernel_rows[name] = (max_abs_err, statistics.mean(t_kernel),
-                             statistics.mean(t_plain))
-        if dtype == torch.float32:
-            k1_library_ms = library_mm(q, db.T)
+    ref = plain()
+    out = kernel()
+    torch.cuda.synchronize()
+    inf_match = bool(torch.equal(torch.isinf(ref), torch.isinf(out)))
+    fin = torch.isfinite(ref)
+    max_abs_err = (out - ref)[fin].abs().max().item()
+    scale = ref[fin].abs().max().item()
+    # Independent check: the first N_ORACLE queries in float64.
+    q64 = q[:N_ORACLE].double()
+    exact = ((db_sq.double() - 2.0 * (q64 @ db.double().T))
+             + penalty.double()).view(N_ORACLE, -1, 128).amin(-1)
+    f64_err = (out[:N_ORACLE].double() - exact)[fin[:N_ORACLE]] \
+        .abs().max().item()
+    del q64, exact, ref, out, fin
+    plain(), kernel()                                      # warm-up
+    t_plain = [cuda_ms(plain, 10)]
+    t_kernel = [cuda_ms(kernel, 10), cuda_ms(kernel, 10)]
+    t_plain.append(cuda_ms(plain, 10))
+    ok = (inf_match and max_abs_err <= REL_TOL * scale
+          and f64_err <= REL_TOL * scale)
+    emit("kernel", kernel="segment_minima", dtype="float32",
+         shape=[BATCH, n_pad, DIM], max_abs_err=max_abs_err,
+         f64_max_abs_err=f64_err, score_scale=scale,
+         tol=REL_TOL * scale, inf_match=inf_match,
+         ms=t_kernel, plain_ms=t_plain, card=smi, ok=ok)
+    if not ok:
+        raise RuntimeError("segment_minima float32 disagrees with its plain "
+                           "version")
+    f32_k1 = (max_abs_err, statistics.mean(t_kernel),
+              statistics.mean(t_plain))
+    k1_library_ms = library_mm(q, db.T)
+    # The bf16 form on the tensor cores, on the bf16-rounded rows.
+    xb = db.to(torch.bfloat16)
+    bf16_k1 = hold(
+        "segment_minima_bf16",
+        lambda: fused_scan.segment_minima(xb, db_sq, penalty, q),
+        lambda: fused_scan.segment_minima_reference(xb, db_sq, penalty, q),
+        smi, compare="f64", f64=k1_f64(db_sq, penalty, q, xb),
+        shape=[BATCH, n_pad, DIM])
+    bf16_library_ms = library_mm(q.to(torch.bfloat16), xb.T)
+    del xb
+    k1_wide(smi, dev)
     # Stage 2 (plain PyTorch) and the segment selection at the same shapes.
     minima = fused_scan.segment_minima(db, db_sq, penalty, q)
     s_keep = fused_scan.segments_kept(K, n_pad)
@@ -443,9 +534,9 @@ def flat_phases(smi: str, dev) -> dict:
     fused_ms = cuda_ms(lambda: fused_scan.flat_topk_fused(
         db, db_sq, valid, q, k=K), 10)
     emit("stages", shape=[BATCH, n_pad, DIM], k=K,
-         stage1_ms=kernel_rows["float32"][1], select_ms=select_ms,
+         stage1_ms=f32_k1[1], select_ms=select_ms,
          stage2_ms=stage2_ms, flat_topk_fused_ms=fused_ms, card=smi)
-    del db, q, dead, valid, penalty, db_sq, minima, sid, x, ref, out
+    del db, q, dead, valid, penalty, db_sq, minima, sid
     torch.cuda.empty_cache()
 
     # -- 3. main path through the public API ------------------------------
@@ -455,26 +546,13 @@ def flat_phases(smi: str, dev) -> dict:
                for i in range(BATCH)]
     truth = oracle_topk(data, queries[:N_ORACLE], K, "euclidean")
 
-    reset_counts()
     torch.cuda.reset_peak_memory_stats(dev)
     index = FlatNearestNeighborsIndex(metric="euclidean", device="cuda")
     t0 = time.perf_counter()
     index.build_index(elems)
     build_s = time.perf_counter() - t0
-    index.nn_many(q_elems, K)                              # warm-up
-    batch_s = []
-    COUNTERS.reset()
-    for _ in range(5):
-        t0 = time.perf_counter()
-        res = index.nn_many(q_elems, K)
-        batch_s.append(time.perf_counter() - t0)
-    # Host-clock split of those batches, from the spans. store.knn copies
-    # its results back, so its span holds the device work; the assembly
-    # is host work only.
-    spans = COUNTERS.snapshot()
-    split_ms = {name: 1e3 * spans[f"span.{name}.seconds"]
-                / spans[f"span.{name}.calls"]
-                for name in ("flat.query", "store.knn", "flat.assemble")}
+    res, batch_s, split_ms, counts = flat_batches(index, q_elems, 5)
+    f32_launches = counts["segment_minima"]
     found = [[e.uuid() for e in r[0]] for r in res[:N_ORACLE]]
     rec = recall(found, truth)
     self_res = index.nn_many(elems[:BATCH], K)
@@ -484,7 +562,7 @@ def flat_phases(smi: str, dev) -> dict:
     emit("main", metric="euclidean", dtype="float32", n=N_MAIN, d=DIM,
          batch=BATCH, k=K, build_s=build_s, batch_s=batch_s,
          qps=BATCH / statistics.median(batch_s), split_ms=split_ms,
-         recall_at_10=rec,
+         recall_at_10=rec, launches=f32_launches,
          self_queries_ok=self_ok, finite=finite,
          peak_device_bytes=torch.cuda.max_memory_allocated(dev), card=smi)
     if not (self_ok and finite and rec == 1.0):
@@ -494,39 +572,61 @@ def flat_phases(smi: str, dev) -> dict:
     small = data[:N_SMALL]
     small_elems = elems[:N_SMALL]
     q_small = q_elems[:B_SMALL]
-    bf16_rows = torch.from_numpy(small).to(torch.bfloat16).float().numpy()
-    for metric, dtype, rows in (("inner_product", "float32", small),
-                                ("cosine", "float32", small),
-                                ("euclidean", "bfloat16", bf16_rows)):
-        index = FlatNearestNeighborsIndex(metric=metric, dtype=dtype,
-                                          device="cuda")
+    for metric in ("inner_product", "cosine"):
+        index = FlatNearestNeighborsIndex(metric=metric, device="cuda")
         t0 = time.perf_counter()
         index.build_index(small_elems)
         build_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         res = index.nn_many(q_small, K)
         query_s = time.perf_counter() - t0
-        truth = oracle_topk(rows, queries[:B_SMALL], K, metric)
+        truth = oracle_topk(small, queries[:B_SMALL], K, metric)
         rec = recall([[e.uuid() for e in r[0]] for r in res], truth)
-        emit("main", metric=metric, dtype=dtype, n=N_SMALL, d=DIM,
+        emit("main", metric=metric, dtype="float32", n=N_SMALL, d=DIM,
              batch=B_SMALL, k=K, build_s=build_s, first_batch_s=query_s,
              recall_at_10=rec, card=smi)
         if rec != 1.0:
-            raise RuntimeError(f"{metric}/{dtype}: recall {rec} != 1.0")
+            raise RuntimeError(f"{metric}: recall {rec} != 1.0")
         del index
-    launches = read_counts()["segment_minima"]
-    if launches == 0:
-        raise RuntimeError("the flat path never launched segment_minima")
-    err, ms, plain_ms = kernel_rows["float32"]
-    return {"name": "segment_minima", "route": "cuda",
-            "source": "smqtk_indexing_tpu_torch/csrc/segment_minima.cu",
-            "replaces": "smqtk_indexing_tpu/ops/pallas_scan.py:173",
-            "launches": launches,
-            "max_abs_err": max(err, kernel_rows["bfloat16"][0]),
-            "ms": ms, "plain_ms": plain_ms,
-            **stage1_bound(BATCH, n_pad, DIM, 4, BATCH * n_pad // 128,
-                           exact_f32=True),
-            "library_ms": k1_library_ms, "shape": [BATCH, n_pad, DIM]}
+    # The flat bf16 path at the main path's size: K1's bf16 form on the
+    # tensor cores; recall@10 against float64 over the bf16 rows.
+    bf16_data = torch.from_numpy(data).to(torch.bfloat16).float().numpy()
+    index = FlatNearestNeighborsIndex(metric="euclidean", dtype="bfloat16",
+                                      device="cuda")
+    t0 = time.perf_counter()
+    index.build_index(elems)
+    build_s = time.perf_counter() - t0
+    res, batch_s, split_ms, counts = flat_batches(index, q_elems, 3)
+    truth = oracle_topk(bf16_data, queries[:N_ORACLE], K, "euclidean")
+    rec = recall([[e.uuid() for e in r[0]] for r in res[:N_ORACLE]], truth)
+    bf16_launches = counts["segment_minima"]
+    emit("main", metric="euclidean", dtype="bfloat16", n=N_MAIN, d=DIM,
+         batch=BATCH, k=K, build_s=build_s, batch_s=batch_s,
+         qps=BATCH / statistics.median(batch_s), split_ms=split_ms,
+         recall_at_10=rec, launches=bf16_launches, card=smi)
+    if rec != 1.0:
+        raise RuntimeError(f"flat bfloat16: recall {rec} != 1.0")
+    del index, res, bf16_data
+    if f32_launches == 0 or bf16_launches == 0:
+        raise RuntimeError("the flat path never launched segment_minima "
+                           f"(f32 {f32_launches}, bf16 {bf16_launches})")
+    err, ms, plain_ms = f32_k1
+    source = "smqtk_indexing_tpu_torch/csrc/"
+    return [{"name": "segment_minima", "route": "cuda",
+             "source": source + "segment_minima.cu",
+             "replaces": "smqtk_indexing_tpu/ops/pallas_scan.py:173",
+             "launches": f32_launches, "max_abs_err": err,
+             "ms": ms, "plain_ms": plain_ms,
+             **stage1_bound(BATCH, n_pad, DIM, 4, BATCH * n_pad // 128,
+                            exact_f32=True),
+             "library_ms": k1_library_ms, "shape": [BATCH, n_pad, DIM]},
+            {"name": "segment_minima_bf16", "route": "cuda",
+             "source": source + "segment_minima_wgmma.cu",
+             "replaces": "smqtk_indexing_tpu/ops/pallas_scan.py:173",
+             "launches": bf16_launches, "max_abs_err": bf16_k1[0],
+             "ms": bf16_k1[1], "plain_ms": bf16_k1[2],
+             **stage1_bound(BATCH, n_pad, DIM, 2, BATCH * n_pad // 128),
+             "library_ms": bf16_library_ms, "shape": [BATCH, n_pad, DIM]}]
 
 
 def ivf_data():
@@ -1077,18 +1177,6 @@ def flat_codec_phases(smi: str, dev) -> list:
     truth = oracle_topk(data, queries[:N_ORACLE], K, "euclidean")
     rows_out = []
 
-    def batches(index):
-        """A warm-up and three timed ``nn_many`` batches: (results of the
-        last, seconds of each, launch counts of the three)."""
-        index.nn_many(q_elems, K)                          # warm-up
-        reset_counts()
-        batch_s = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            res = index.nn_many(q_elems, K)
-            batch_s.append(time.perf_counter() - t0)
-        return res, batch_s, read_counts()
-
     for dtype in ("sq8", "pq16"):
         index = FlatNearestNeighborsIndex(dtype=dtype, device="cuda")
         t0 = time.perf_counter()
@@ -1104,25 +1192,18 @@ def flat_codec_phases(smi: str, dev) -> list:
             t = (qd - store._sq8_b) * store._sq8_a
             penalty = torch.where(store._dev_valid, 0.0, float("inf"))
             k1_args = (store._dev, store._dev_sq, penalty, t)
-
-            def f64():
-                tb = t[:N_ORACLE].to(torch.bfloat16).double()
-                u = store._dev.double()
-                exact = (store._dev_sq.double()[None] - 2.0 * (tb @ u.T)
-                         + penalty.double()[None]) \
-                    .view(N_ORACLE, -1, fused_scan.SEG).amin(-1)
-                mag = store._dev_sq.max().double() \
-                    + 2.0 * (tb.abs() @ u.abs().T).max()
-                return exact, torch.full_like(exact, mag.item())
             n_i8, d_i8 = store._dev.shape
             shape = [BATCH, n_i8, d_i8]
             err, ms, plain_ms = hold(
                 "segment_minima_i8", lambda: fused_scan.segment_minima(
                     *k1_args), lambda: fused_scan.segment_minima_reference(
-                    *k1_args), smi, compare="f64", f64=f64, shape=shape)
+                    *k1_args), smi, compare="f64",
+                f64=k1_f64(store._dev_sq, penalty, t, store._dev),
+                shape=shape)
             rows_out.append({
                 "name": "segment_minima_i8", "route": "cuda",
-                "source": "smqtk_indexing_tpu_torch/csrc/segment_minima.cu",
+                "source":
+                    "smqtk_indexing_tpu_torch/csrc/segment_minima_wgmma.cu",
                 "replaces": "smqtk_indexing_tpu/ops/pallas_scan.py:173",
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 **stage1_bound(BATCH, n_i8, d_i8, 1, BATCH * n_i8 // 128),
@@ -1164,7 +1245,8 @@ def flat_codec_phases(smi: str, dev) -> list:
         for tag, env in runs:
             os.environ.update(env)
             try:
-                res, batch_s, counts = batches(index)
+                res, batch_s, split_ms, counts = flat_batches(
+                    index, q_elems, 3)
             finally:
                 for key in env:
                     del os.environ[key]
@@ -1175,7 +1257,7 @@ def flat_codec_phases(smi: str, dev) -> list:
                          truth)
             emit("main", path=f"flat {dtype}{tag}", n=N_MAIN, d=DIM,
                  batch=BATCH, k=K, build_s=build_s, batch_s=batch_s,
-                 qps=BATCH / statistics.median(batch_s),
+                 qps=BATCH / statistics.median(batch_s), split_ms=split_ms,
                  recall_at_10_vs_raw=rec,
                  equals_f64_over_quantized_rows=True, launches=counts,
                  card=smi)
@@ -1568,6 +1650,28 @@ def capacity_phases(smi: str, dev) -> list:
     return out, launches["seg_gather_tiled"]
 
 
+def hgmma_counts(kernels_mod) -> dict:
+    """HGMMA (tensor-core) instructions in the SASS of K1's bf16 and int8
+    kernels (every variant of ``segment_minima_wgmma_kernel``), read with
+    the toolkit's ``cuobjdump`` from the built library."""
+    from pathlib import Path
+    cuobjdump = Path(kernels_mod.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass", str(kernels_mod.library_path())],
+        capture_output=True, text=True, check=True, timeout=300).stdout
+    # Mangled template arguments: It = uint16_t (bf16), Ia = int8_t.
+    counts = {"segment_minima_bf16": 0, "segment_minima_i8": 0}
+    func = ""
+    for line in sass.splitlines():
+        if "Function :" in line:
+            func = line.split("Function :", 1)[1].strip()
+        elif "HGMMA" in line and "segment_minima_wgmma_kernelIt" in func:
+            counts["segment_minima_bf16"] += 1
+        elif "HGMMA" in line and "segment_minima_wgmma_kernelIa" in func:
+            counts["segment_minima_i8"] += 1
+    return counts
+
+
 def main() -> None:
     # The runs with the flag off must not inherit the int8 x int8 switch
     # from the caller: the store reads it per query, the capacity example
@@ -1604,11 +1708,14 @@ def main() -> None:
     _kernels.library()
     ptxas = [ln.strip() for ln in info["log"].splitlines()
              if "registers" in ln or "spill" in ln]
+    hgmma = hgmma_counts(_kernels)
     emit("build", seconds=time.perf_counter() - t0, nvcc=info["cmd"],
-         ptxas=ptxas)
+         ptxas=ptxas, hgmma=hgmma)
+    if not all(hgmma.values()):
+        raise RuntimeError(f"K1's wgmma kernels hold no HGMMA: {hgmma}")
 
     t0 = time.perf_counter()
-    kernels = [flat_phases(smi, dev)]
+    kernels = flat_phases(smi, dev)
     emit("seconds", of="flat phases", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
     kernels += ivf_phases(smi, dev)
@@ -1621,7 +1728,7 @@ def main() -> None:
             row["launches"] += k3_launches
     kernels += k8_rows
     t0 = time.perf_counter()
-    kernels[1:1] = flat_codec_phases(smi, dev)
+    kernels[2:2] = flat_codec_phases(smi, dev)
     emit("seconds", of="flat codec phases", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
     kernels += probe_phase(smi, dev)

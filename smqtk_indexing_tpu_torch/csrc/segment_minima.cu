@@ -1,5 +1,7 @@
 // Stage 1 of the exact flat kNN scan: per-128-row segment minima of the L2
-// surrogate, written by hand for Hopper (sm_90a).
+// surrogate, written by hand for Hopper (sm_90a). This file holds its f32
+// form and its int8 x int8 form; the bf16 and int8-code forms run on the
+// tensor cores in segment_minima_wgmma.cu.
 //
 // Replaces the TPU kernel smqtk_indexing_tpu/ops/pallas_scan.py
 // segment_minima -> _scan_kernel (2-D branch, :102-241). It computes
@@ -7,30 +9,27 @@
 //     out[b, s] = min over r in [128 s, 128 s + 128) of
 //                 (db_sq[r] - 2 <q_b, x_r>) + penalty[r]
 //
-// for q (B, d) f32, db (N, d) row-major f32, bf16 or int8, db_sq and
-// penalty (N,) f32 (penalty = +inf on dead rows), out (B, N / 128) f32. The
-// (B, N) score matrix never reaches device memory: each block keeps its
-// scores in registers and writes one minimum per query and segment.
+// for q (B, d) f32, db (N, d) row-major f32, db_sq and penalty (N,) f32
+// (penalty = +inf on dead rows), out (B, N / 128) f32. The (B, N) score
+// matrix never reaches device memory: each block keeps its scores in
+// registers and writes one minimum per query and segment.
 //
-// The int8 form is the flat SQ8 store's stage 1 (smqtk_indexing_tpu/ops/
-// sq8.py:237-259): db holds the row-major codes u, q the codec fold
-// t = (q - b) a, db_sq the rows' sum((a u)^2). The TPU kernel reads a
-// transposed int8 mirror; this one reads the row-major codes the store
-// already holds, so no mirror and no extra byte per dim. Its int8 x int8
-// form (segment_minima_i8i8, below the f32 kernel) is the i8dot stage 1
-// (sq8.py:253-257, the TPU kernel's int8 x int8 -> int32 dot in _tile_ip,
-// pallas_scan.py:53-61): the query fold quantised to int8 with one scale
-// and db_sq divided by it. Its products are bounded at this shape by
-// 2 B N d = 5.5e11 integer operations, 0.28 ms at the card's 1,979 TOPS
-// int8 tensor-core rate; it uses __dp4a on the CUDA cores instead (see
-// that kernel's note).
+// The int8 x int8 form (segment_minima_i8i8, below the f32 kernel) is the
+// flat SQ8 store's i8dot stage 1 (smqtk_indexing_tpu/ops/sq8.py:253-257,
+// the TPU kernel's int8 x int8 -> int32 dot in _tile_ip,
+// pallas_scan.py:53-61): db holds the row-major codes, q the codec fold
+// quantised to int8 with one scale, db_sq the rows' stats divided by it.
+// Its products are bounded at the flat shape by 2 B N d = 5.5e11 integer
+// operations, 0.28 ms at the card's 1,979 TOPS int8 tensor-core rate; it
+// uses __dp4a on the CUDA cores instead (see that kernel's note).
 //
-// What bounds it on an H100: at the main path's shapes (B = 2048,
-// N = 1,048,576, d = 128) the products are 2 B N d = 5.5e11 FLOP, about
-// 8 ms at the card's 67 TFLOP/s FP32 (non-tensor-core) peak, while the
-// database is 512 MB, about 0.16 ms at 3.35 TB/s even if read once per
-// 128-query tile. FFMA throughput bounds it, so the design is a classic
-// register-tiled FP32 GEMM whose epilogue is the segment minimum:
+// What bounds the f32 form on an H100: at the main path's shapes
+// (B = 2048, N = 1,048,576, d = 128) the products are 2 B N d = 5.5e11
+// FLOP, about 8 ms at the card's 67 TFLOP/s FP32 (non-tensor-core) peak,
+// while the database is 512 MB, about 0.16 ms at 3.35 TB/s even if read
+// once per 128-query tile. FFMA throughput bounds it, and only FFMA keeps
+// f32 products exact, so the design is a classic register-tiled FP32 GEMM
+// whose epilogue is the segment minimum:
 //
 // - One block of 256 threads owns a tile of 128 queries x 128 rows (one
 //   segment). Each thread owns an 8 x 8 micro-tile of scores in registers
@@ -40,10 +39,7 @@
 // - The depth d is walked in chunks of 16, staged through 16 KB of shared
 //   memory with coalesced 16-byte global loads; shared memory does not grow
 //   with d.
-// - Accumulation is full f32 FFMA: no TF32, no tensor cores. A bf16 or
-//   int8 database is widened to f32 as it is staged; the wrapper rounds
-//   the query to bf16 first, so every product of a bf16 value with a bf16
-//   value or an int8 code is exact in f32, as on the TPU's matrix unit.
+// - Accumulation is full f32 FFMA: no TF32, no tensor cores.
 // - Each query's minimum over its segment is reduced in registers across
 //   the thread's 8 rows, then across the 16 threads of the half-warp that
 //   share the query with warp shuffles.
@@ -68,9 +64,9 @@ constexpr int kDepth = 16;     // depth of one shared-memory stage
 constexpr int kThreads = 256;
 constexpr int kPad = 4;        // keeps rows 16-byte aligned
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-segment_minima_kernel(const float* __restrict__ q, const T* __restrict__ db,
+segment_minima_kernel(const float* __restrict__ q,
+                      const float* __restrict__ db,
                       const float* __restrict__ db_sq,
                       const float* __restrict__ penalty,
                       float* __restrict__ out, int64_t n_queries,
@@ -91,7 +87,7 @@ segment_minima_kernel(const float* __restrict__ q, const T* __restrict__ db,
   const int lcol = (t % 2) * 8;
   const bool q_live = q0 + lrow < n_queries;
   const float* q_src = q + (q_live ? q0 + lrow : 0) * dim + lcol;
-  const T* x_src = db + (r0 + lrow) * dim + lcol;
+  const float* x_src = db + (r0 + lrow) * dim + lcol;
 
   float acc[8][8];
 #pragma unroll
@@ -260,8 +256,7 @@ segment_minima_i8i8_kernel(const int8_t* __restrict__ q,
   }
 }
 
-template <typename T>
-int launch(const float* q, const T* db, const float* db_sq,
+int launch(const float* q, const float* db, const float* db_sq,
            const float* penalty, float* out, int64_t n_queries,
            int64_t n_rows, int64_t dim, int device, cudaStream_t stream) {
   // This library carries its own CUDA runtime: select the tensors' device
@@ -271,8 +266,8 @@ int launch(const float* q, const T* db, const float* db_sq,
   const int64_t n_qtiles = (n_queries + kTileB - 1) / kTileB;
   const int64_t n_blocks = n_qtiles * (n_rows / kSeg);
   if (n_blocks > 0) {
-    segment_minima_kernel<T><<<dim3(static_cast<unsigned>(n_blocks)),
-                               kThreads, 0, stream>>>(
+    segment_minima_kernel<<<dim3(static_cast<unsigned>(n_blocks)), kThreads,
+                            0, stream>>>(
         q, db, db_sq, penalty, out, n_queries, n_rows, dim, n_qtiles);
   }
   return static_cast<int>(cudaGetLastError());
@@ -308,38 +303,11 @@ extern "C" int segment_minima_f32(const void* q, const void* db,
                                   void* out, int64_t n_queries,
                                   int64_t n_rows, int64_t dim, int device,
                                   void* stream) {
-  return launch<float>(static_cast<const float*>(q),
-                       static_cast<const float*>(db),
-                       static_cast<const float*>(db_sq),
-                       static_cast<const float*>(penalty),
-                       static_cast<float*>(out), n_queries, n_rows, dim,
-                       device, static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int segment_minima_bf16(const void* q, const void* db,
-                                   const void* db_sq, const void* penalty,
-                                   void* out, int64_t n_queries,
-                                   int64_t n_rows, int64_t dim, int device,
-                                   void* stream) {
-  return launch<uint16_t>(static_cast<const float*>(q),
-                          static_cast<const uint16_t*>(db),
-                          static_cast<const float*>(db_sq),
-                          static_cast<const float*>(penalty),
-                          static_cast<float*>(out), n_queries, n_rows, dim,
-                          device, static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int segment_minima_i8(const void* q, const void* db,
-                                 const void* db_sq, const void* penalty,
-                                 void* out, int64_t n_queries,
-                                 int64_t n_rows, int64_t dim, int device,
-                                 void* stream) {
-  return launch<int8_t>(static_cast<const float*>(q),
-                        static_cast<const int8_t*>(db),
-                        static_cast<const float*>(db_sq),
-                        static_cast<const float*>(penalty),
-                        static_cast<float*>(out), n_queries, n_rows, dim,
-                        device, static_cast<cudaStream_t>(stream));
+  return launch(static_cast<const float*>(q), static_cast<const float*>(db),
+                static_cast<const float*>(db_sq),
+                static_cast<const float*>(penalty), static_cast<float*>(out),
+                n_queries, n_rows, dim, device,
+                static_cast<cudaStream_t>(stream));
 }
 
 // The int8 x int8 form: q (n_queries, dim) int8, db (n_rows, dim) int8.

@@ -32,12 +32,13 @@ from typing import Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("segment_minima.cu", "segment_minima_tiled.cu",
+SOURCES = ("segment_minima.cu", "segment_minima_wgmma.cu",
+           "segment_minima_tiled.cu",
            "stage1_variants.cu", "ivf_list_scores.cu",
            "ivf_list_scores_tiled.cu", "ivf_list_scores_tiled_pq.cu",
            "seg_gather.cu")
 #: Headers the sources include; hashed with them.
-HEADERS = ("scan_loads.cuh", "tiled_minima.cuh")
+HEADERS = ("scan_loads.cuh", "tiled_minima.cuh", "wgmma.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                      "-Xptxas", "-v")
@@ -52,7 +53,9 @@ def _args(n_ptr: int, n_int64: int, n_float: int = 0) -> list:
 
 #: C entry points -> argtypes; each returns a cudaError_t.
 _ENTRY_POINTS = {
-    # (q, db, db_sq, penalty, out, n_queries, n_rows, dim)
+    # (q, db, db_sq, penalty, out, n_queries, n_rows, dim): q f32 over an
+    # f32 db, int8 over int8 codes (i8i8), bf16 over a bf16 db or int8
+    # codes (the wgmma forms, segment_minima_wgmma.cu)
     "segment_minima_f32": _args(5, 3),
     "segment_minima_bf16": _args(5, 3),
     "segment_minima_i8": _args(5, 3),

@@ -9,8 +9,10 @@ an explicit ``torch.device`` everywhere, the kernel tier read from where
 the tensors live, and full-f32 matrix products on the card.
 
 ``stage1_precision`` / ``SMQTK_TPU_STAGE1`` (``ops/device.py:80-94``) is not
-ported: the port's stage 1 is exact f32 FFMA (``csrc/segment_minima.cu``),
-so there is no reduced-precision mode to choose.
+ported: the port's stage 1 has no reduced-precision mode to choose. An f32
+database runs exact f32 FFMA (``csrc/segment_minima.cu``); a bf16 database
+or int8 codes run the tensor cores on exact bf16 products with f32 sums
+(``csrc/segment_minima_wgmma.cu``), as the TPU kernel runs them.
 """
 from __future__ import annotations
 

@@ -6,22 +6,28 @@ there is no Pallas here).
 
 Stage 1, ``segment_minima``: per query, the minimum of the L2 surrogate
 ``||x||^2 - 2<q,x> + penalty`` over every 128-row segment, so the (B, N)
-score matrix never reaches memory. On a CUDA tensor it runs the
-hand-written Hopper kernel ``csrc/segment_minima.cu`` (the port of
-``pallas_scan.segment_minima`` -> ``_scan_kernel``, ``:102-241``); on a
-CPU tensor, its plain PyTorch version ``segment_minima_reference``. The
-database is f32, bf16 or int8; the int8 form is the flat SQ8 store's
-stage 1 over its row-major codes (``ops/sq8.sq8_topk``).
+score matrix never reaches memory. On a CUDA tensor it runs a
+hand-written Hopper kernel (the port of ``pallas_scan.segment_minima`` ->
+``_scan_kernel``, ``:102-241``); on a CPU tensor, its plain PyTorch
+version ``segment_minima_reference``. The database is f32, bf16 or int8;
+the int8 form is the flat SQ8 store's stage 1 over its row-major codes
+(``ops/sq8.sq8_topk``). An f32 database runs ``csrc/segment_minima.cu``,
+exact f32 FFMA on the CUDA cores (only FFMA keeps f32 products exact). A
+bf16 database or int8 codes run ``csrc/segment_minima_wgmma.cu`` on the
+tensor cores (``wgmma``, bf16 x bf16 -> f32) with the query rounded to
+bf16, as the TPU kernel runs them on its matrix unit: every product of a
+bf16 value with a bf16 value or an int8 code is exact, and only the order
+and rounding of the f32 sums differ from the plain version.
 
 Every stage-1 function here also takes an int8 query over an int8
 database: the ``i8dot`` int8 x int8 form (``pallas_scan._tile_ip``,
 ``:53-61``; the caller quantised the query with one scale and divided the
 row stats by it, ``ops/sq8._i8dot_q``). The products are summed exactly
-(int32 ``__dp4a`` on the card; f32 in the plain versions, where every
-partial sum is an integer below 2^24 at d = 128), then the same f32
-epilogue ``(db_sq - 2 ip) + penalty`` applies, so the kernels and the plain
-versions agree bit for bit. Those launches count in ``I8DOT_LAUNCHES``, so
-a run shows which form stage 1 took.
+(int32 ``__dp4a`` on the card's CUDA cores; f32 in the plain versions,
+where every partial sum is an integer below 2^24 at d = 128), then the
+same f32 epilogue ``(db_sq - 2 ip) + penalty`` applies, so the kernels and
+the plain versions agree bit for bit. Those launches count in
+``I8DOT_LAUNCHES``, so a run shows which form stage 1 took.
 
 Stage 2 (``pallas_scan.py:619-700``, the f32 form): the top ``s_keep``
 segments by minimum, a gather of their rows, exact per-metric distances
@@ -119,10 +125,12 @@ STAGE2_BYTES = 1 << 28
 
 
 def _q_kernel_dtype(q: torch.Tensor, db_dtype: torch.dtype) -> torch.Tensor:
-    """Stage-1 query operand (``pallas_scan._q_kernel_dtype``, ``:85-99``):
-    an int8 query as it is (the int8 x int8 form), else f32, rounded to
-    bf16 first for a bf16 or int8 database, so that every product of a
-    bf16 value with a bf16 value or an int8 code is exact in f32.
+    """Stage-1 query operand of the plain versions
+    (``pallas_scan._q_kernel_dtype``, ``:85-99``): an int8 query as it is
+    (the int8 x int8 form), else f32, rounded to bf16 first for a bf16 or
+    int8 database, so that every product of a bf16 value with a bf16 value
+    or an int8 code is exact in f32. The kernels of those two forms take
+    the same rounded query as a bf16 tensor (:func:`_segment_minima_cuda`).
 
     :raises ValueError: an int8 query over a database that is not int8.
     """
@@ -229,7 +237,9 @@ def segment_minima_reference(db: torch.Tensor, db_sq: torch.Tensor,
 
 
 def _segment_minima_cuda(db, db_sq, penalty, q) -> torch.Tensor:
-    """Launch ``csrc/segment_minima.cu`` on the current stream."""
+    """Launch ``csrc/segment_minima.cu`` (f32 database, int8 x int8) or
+    ``csrc/segment_minima_wgmma.cu`` (bf16 database or int8 codes, with
+    the query as bf16) on the current stream."""
     global LAUNCHES
     _check_stage1(db, db_sq, penalty, q)
     i8i8 = q.dtype == torch.int8
@@ -238,12 +248,17 @@ def _segment_minima_cuda(db, db_sq, penalty, q) -> torch.Tensor:
     if d % 128:
         raise ValueError(f"segment_minima: d={d} is not a multiple of 128 "
                          "(stores pad it with pad_dim)")
-    qk = _q_kernel_dtype(q, db.dtype).contiguous()
+    if i8i8 or db.dtype == torch.float32:
+        qk = q.contiguous()
+    else:
+        # The bf16-rounded query of _q_kernel_dtype, as the wgmma operand.
+        qk = q.to(torch.bfloat16).contiguous()
     for name, t in (("db", db), ("db_sq", db_sq), ("penalty", penalty)):
         if not t.is_contiguous():
             raise ValueError(f"segment_minima: {name} is not contiguous")
-    if any(t.data_ptr() % 16 for t in (db, qk)):
-        raise ValueError("segment_minima: db and q must be 16-byte aligned")
+    if any(t.data_ptr() % 16 for t in (db, qk, db_sq, penalty)):
+        raise ValueError("segment_minima: db, q, db_sq and penalty must be "
+                         "16-byte aligned")
     if -(-b // 128) * (n // SEG) >= 2 ** 31:
         raise ValueError("segment_minima: grid exceeds 2^31 blocks")
     out = torch.empty((b, n // SEG), dtype=torch.float32, device=db.device)

@@ -1,7 +1,7 @@
 """
 The port's hand-written kernels on the card (K1 ``segment_minima`` with
-its f32, bf16 and int8 forms, K7 ``ivf_list_scores_tiled``, K6
-``ivf_list_scores``, K3 ``seg_gather_tiled``, K8
+its f32 form and its bf16 and int8-code forms on the tensor cores, K7
+``ivf_list_scores_tiled``, K6 ``ivf_list_scores``, K3 ``seg_gather_tiled``, K8
 ``ivf_list_scores_tiled_pq``, K2, K4 and K5 of
 ``csrc/segment_minima_tiled.cu``, the int8 x int8 forms of K1, K2, K4 and
 K5, and the probes K10 and K9 of ``smqtk_indexing_tpu_torch/tools/``),
@@ -28,8 +28,11 @@ from tests.test_torch_helpers import (
 
 torch.set_num_threads(1)
 
-#: Kernel vs plain version: both sum exact f32 (or bf16 x bf16) products
-#: in f32, so they differ by rounding only.
+#: K1 vs its plain version and float64: every form's products are exact
+#: (f32 FFMA; bf16 x bf16 or bf16 x int8 on the tensor cores), summed in
+#: f32 in different orders, so each (query, segment) minimum agrees within
+#: STAGE1_RTOL of the largest sum of absolute terms |db_sq| + 2 |q| . |x|
+#: over the segment's rows.
 STAGE1_RTOL = 1e-5
 #: Distances, card vs CPU: exact f32 formulas in different orders.
 DIST_RTOL = 1e-5
@@ -41,6 +44,27 @@ def card():
         pytest.skip("needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
+
+
+def _assert_stage1(out, ref, db, sq, pen, q):
+    """K1's output against its plain version ``ref`` and float64 on the
+    operands the kernel sees (the bf16-rounded query over a bf16 or int8
+    database), within STAGE1_RTOL of each segment's largest sum of
+    absolute terms; +inf where float64 has it."""
+    qk = q.double() if db.dtype == torch.float32 \
+        else q.to(torch.bfloat16).double()
+    x = db.double()
+    b, n = q.shape[0], db.shape[0]
+    exact = ((sq.double() - 2.0 * (qk @ x.T)) + pen.double()) \
+        .view(b, n // 128, 128).amin(-1)
+    mag = (sq.double().abs() + 2.0 * (qk.abs() @ x.abs().T)) \
+        .view(b, n // 128, 128).amax(-1)
+    assert torch.equal(torch.isinf(out), torch.isinf(exact))
+    assert torch.equal(torch.isinf(ref), torch.isinf(exact))
+    fin = torch.isfinite(exact)
+    tol = STAGE1_RTOL * mag[fin]
+    assert ((out.double() - exact)[fin].abs() <= tol).all()
+    assert ((out.double() - ref.double())[fin].abs() <= tol).all()
 
 
 @pytest.mark.cuda
@@ -57,11 +81,63 @@ def test_kernel_matches_plain_version(card, dtype):
     assert fused_scan.LAUNCHES == before + 1
     ref = fused_scan.segment_minima_reference(*args)
     assert fused_scan.LAUNCHES == before + 1
-    assert torch.equal(torch.isinf(out), torch.isinf(ref))
     assert torch.isinf(out[:, 1]).all()
-    fin = torch.isfinite(ref)
-    scale = ref[fin].abs().max().item()
-    assert (out - ref)[fin].abs().max().item() <= STAGE1_RTOL * scale
+    _assert_stage1(out, ref, *args)
+
+
+def _wgmma_inputs(b, n, d, dtype, card, seed):
+    """K1's bf16 or int8-code operands: dead rows, rows 128-255 dead (one
+    wholly dead segment, when n > 128), and for int8 codes rows of -128
+    and of 127."""
+    rng = np.random.default_rng(seed)
+    pen = np.where(rng.random(n) < 0.03, np.inf, 0.0).astype(np.float32)
+    pen[128:256] = np.inf
+    if dtype == "int8":
+        codes = rng.integers(-128, 128, size=(n, d)).astype(np.int8)
+        codes[0] = -128
+        codes[min(1, n - 1)] = 127
+        codes[n // 2] = -128
+        a = (rng.random(d) * 0.02 + 0.001).astype(np.float32)
+        sq = ((codes.astype(np.float64) * a) ** 2).sum(1).astype(np.float32)
+        q = (rng.normal(size=(b, d)) * a * 60).astype(np.float32)
+        db = torch.from_numpy(codes).to(card)
+    else:
+        x = (rng.normal(size=(n, d)) * 3).astype(np.float32)
+        db = torch.from_numpy(x).to(card, torch.bfloat16)
+        sq = np.einsum("ij,ij->i", x, x).astype(np.float32)
+        q = (rng.normal(size=(b, d)) * 3).astype(np.float32)
+    return (db, torch.from_numpy(sq).to(card), torch.from_numpy(pen).to(card),
+            torch.from_numpy(q).to(card))
+
+
+#: K1's wgmma forms: (B, N, d). The strip is 32 segments, so N = 128 * 40
+#: and 128 * 36 leave a ragged last strip; B = 1, 65 and 200 ragged query
+#: tiles; d = 512 takes the 128-query resident tile, d = 1024 streams the
+#: query through the ring.
+WGMMA_CASES = {"one_block": (64, 128, 128),
+               "b1": (1, 128 * 40, 128),
+               "b65": (65, 128 * 40, 128),
+               "b200": (200, 128 * 40, 128),
+               "d256": (200, 128 * 36, 256),
+               "d512": (200, 128 * 36, 512),
+               "d1024": (200, 128 * 36, 1024)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("case", list(WGMMA_CASES))
+def test_k1_wgmma_forms_match_plain_and_f64(card, case, dtype):
+    b, n, d = WGMMA_CASES[case]
+    args = _wgmma_inputs(b, n, d, dtype, card, seed=len(case) * 7 + b)
+    before = fused_scan.LAUNCHES
+    out = fused_scan.segment_minima(*args)
+    torch.cuda.synchronize()
+    assert fused_scan.LAUNCHES == before + 1
+    assert out.shape == (b, n // 128)
+    ref = fused_scan.segment_minima_reference(*args)
+    if n > 256:
+        assert torch.isinf(out[:, 1]).all()
+    _assert_stage1(out, ref, *args)
 
 
 @pytest.mark.cuda
@@ -413,13 +489,8 @@ def test_k1_int8_matches_plain_version(card):
     torch.cuda.synchronize()
     assert fused_scan.LAUNCHES == before + 1
     ref = fused_scan.segment_minima_reference(*args)
-    assert torch.equal(torch.isinf(out), torch.isinf(ref))
     assert torch.isinf(out[:, 1]).all()
-    fin = torch.isfinite(ref)
-    scale = (args[1].max() + 2.0 * (args[3].abs().to(torch.bfloat16)
-                                    .float() @ args[0].abs().float().T)
-             .max()).item()
-    assert (out - ref)[fin].abs().max().item() <= STAGE1_RTOL * scale
+    _assert_stage1(out, ref, *args)
 
 
 @pytest.mark.cuda
