@@ -11,8 +11,10 @@ not 0:
 0. card: the card's name and power limit from ``nvidia-smi``;
 1. build: the hand-written kernels compiled with ``nvcc`` for sm_90a, one
    ``nvcc`` a source, all at once, then linked into one library; the
-   count of HGMMA (tensor-core) instructions in K1's bf16 and int8-code
-   kernels, read with ``cuobjdump -sass``, must not be 0;
+   count of HGMMA (tensor-core) instructions in each instantiation of the
+   two wgmma kernels (K1's bf16 and int8-code forms; K2 / K4 / K5 over
+   int8 codes), read with ``cuobjdump -sass``, must not be 0, and ptxas
+   must report no spill in the tiled one;
 2. flat kernels: K1 (``segment_minima``) against its plain PyTorch version
    at the flat path's shapes (B=2048 queries, N=1,048,576 rows, d=128; f32
    with dead rows, and the bf16 form on the tensor cores, also against
@@ -69,12 +71,14 @@ not 0:
 10. capacity scan (``smqtk_indexing_tpu_torch.examples.capacity_100m``):
    100,663,296 x 128 SQ8 codes built on the card in the tiled layout with
    planted truth; K2, K4 and K5 held against their plain versions and
-   float64 at B=128 on a 4,194,304-row prefix with dead rows (K5's m2
-   must be the group minimum of its m1, bit for bit); then
+   float64 at B=128 on a 4,194,304-row prefix with dead rows (their int8
+   -code, float-query form on the tensor cores; K5's m2 must be the group
+   minimum of its m1, bit for bit); then
    ``sq8_topk_blocked`` at full scale, B=128 and B=256, k=16: recall@10
    on the planted rows 1.0, margin > 1.0, the first 16 queries' top-16
-   equal to the plain pipeline's (B=128), three timed batches, the stage
-   split and the peak device bytes; last the blocked layout end to end at
+   equal to the plain pipeline's (B=128), three timed batches (whose K5
+   launches must all take the tensor-core form), the stage split and the
+   peak device bytes; last the blocked layout end to end at
    the prefix (K4), equal to the tiled layout's results. The same with
    ``i8dot=True``: K2, K4 and K5's int8 x int8 forms held bit for bit on
    the prefix, the scan at B=128 and 256 (recall@10 1.0, margin, equal to
@@ -91,7 +95,10 @@ time and the plain version's, its bound (the larger of its bytes over the
 memory rate and its operations over the peak rate of their type, from
 this run's inputs) and the time of one ``torch.mm`` (``torch._int_mm`` for
 the int8 x int8 forms) of the same product where there is such a
-yardstick (K1, K2, K4, K5, K9, K10; the port never calls either); and last
+yardstick (K1, K2, K4, K5, K9, K10; the port never calls either); K5's
+rows also carry its capacity ms at B=128 and 256, and its tensor-core row
+``k9_full_ms`` (the FFMA kernel over the same codes and query in this
+run: K9's ``full``, step-major at 8 tiles a step, no m2); and last
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -188,16 +195,12 @@ def recall(found, truth) -> float:
     return hits / truth.size
 
 
-_COUNTERS = ("LAUNCHES", "GATHER_LAUNCHES", "TILED_LAUNCHES",
-             "BLOCKED_LAUNCHES", "TILED2_LAUNCHES")
-
-
 def _count_dicts():
-    """The launch-count dicts of the kernels, with the prefix of their
-    names in :func:`read_counts`."""
-    from smqtk_indexing_tpu_torch.ops import fused_scan, ivf_scan
+    """The launch-count dicts of the kernels other than ``fused_scan``'s,
+    with the prefix of their names in :func:`read_counts`."""
+    from smqtk_indexing_tpu_torch.ops import ivf_scan
     from smqtk_indexing_tpu_torch.tools import probe_int8_mxu, stage1_analysis
-    return (("", ivf_scan.LAUNCHES), ("i8i8:", fused_scan.I8DOT_LAUNCHES),
+    return (("", ivf_scan.LAUNCHES),
             ("scan_minima:", probe_int8_mxu.LAUNCHES),
             ("stage1_variant:", stage1_analysis.LAUNCHES))
 
@@ -205,23 +208,18 @@ def _count_dicts():
 def reset_counts() -> None:
     """Set every kernel's launch count to 0."""
     from smqtk_indexing_tpu_torch.ops import fused_scan
-    for name in _COUNTERS:
-        setattr(fused_scan, name, 0)
-    for _, counts in _count_dicts():
+    for counts in (fused_scan.LAUNCHES,) + tuple(
+            c for _, c in _count_dicts()):
         for name in counts:
             counts[name] = 0
 
 
 def read_counts() -> dict:
-    """Every kernel's launch count; the int8 x int8 forms as
-    ``i8i8:<wrapper>``, K10's arms as ``scan_minima:<arm>`` and K9's
-    variants as ``stage1_variant:<variant>``."""
+    """Every kernel's launch count: ``fused_scan``'s as ``<wrapper>:<form>``
+    (form ``ffma``, ``wgmma``, ``i8i8`` or ``copy``), K10's arms as
+    ``scan_minima:<arm>``, K9's variants as ``stage1_variant:<variant>``."""
     from smqtk_indexing_tpu_torch.ops import fused_scan
-    out = {"segment_minima": fused_scan.LAUNCHES,
-           "seg_gather_tiled": fused_scan.GATHER_LAUNCHES,
-           "segment_minima_tiled": fused_scan.TILED_LAUNCHES,
-           "segment_minima_blocked": fused_scan.BLOCKED_LAUNCHES,
-           "segment_minima_tiled2": fused_scan.TILED2_LAUNCHES}
+    out = {f"{w}:{f}": n for (w, f), n in fused_scan.LAUNCHES.items()}
     for prefix, counts in _count_dicts():
         out.update({prefix + name: n for name, n in counts.items()})
     return out
@@ -552,7 +550,7 @@ def flat_phases(smi: str, dev) -> list:
     index.build_index(elems)
     build_s = time.perf_counter() - t0
     res, batch_s, split_ms, counts = flat_batches(index, q_elems, 5)
-    f32_launches = counts["segment_minima"]
+    f32_launches = counts["segment_minima:ffma"]
     found = [[e.uuid() for e in r[0]] for r in res[:N_ORACLE]]
     rec = recall(found, truth)
     self_res = index.nn_many(elems[:BATCH], K)
@@ -599,7 +597,7 @@ def flat_phases(smi: str, dev) -> list:
     res, batch_s, split_ms, counts = flat_batches(index, q_elems, 3)
     truth = oracle_topk(bf16_data, queries[:N_ORACLE], K, "euclidean")
     rec = recall([[e.uuid() for e in r[0]] for r in res[:N_ORACLE]], truth)
-    bf16_launches = counts["segment_minima"]
+    bf16_launches = counts["segment_minima:wgmma"]
     emit("main", metric="euclidean", dtype="bfloat16", n=N_MAIN, d=DIM,
          batch=BATCH, k=K, build_s=build_s, batch_s=batch_s,
          qps=BATCH / statistics.median(batch_s), split_ms=split_ms,
@@ -813,7 +811,7 @@ def ivf_phases(smi: str, dev) -> list:
     if rec_exact < rec - 0.01:
         raise RuntimeError(f"rerank=exact: recall@10 {rec_exact} < score "
                            f"mode's {rec} - 0.01")
-    k3_launches = counts["seg_gather_tiled"]
+    k3_launches = counts["seg_gather_tiled:copy"]
     del index, res
     torch.cuda.empty_cache()
 
@@ -1072,7 +1070,7 @@ def ivf_pq_phases(smi: str, dev) -> list:
         raise RuntimeError(f"ivf-pq code tier: recall@10 {rec} < "
                            f"{PQ_RECALL_FLOOR}")
     k8_launches = counts["ivf_list_scores_tiled_pq"]
-    k3_launches = counts["seg_gather_tiled"]
+    k3_launches = counts["seg_gather_tiled:copy"]
     if k3_launches == 0:
         raise RuntimeError("the PQ exact re-rank never launched "
                            "seg_gather_tiled")
@@ -1102,7 +1100,7 @@ def ivf_pq_phases(smi: str, dev) -> list:
     ex_s = time.perf_counter() - t0
     counts = read_counts()
     k8_launches += counts["ivf_list_scores_tiled_pq"]
-    k3_launches += counts["seg_gather_tiled"]
+    k3_launches += counts["seg_gather_tiled:copy"]
     _checked(res, truth, N_ORACLE)
     x64, prep = _pq_recon64(index, dev)
     rows, ref_d = topk64(x64, prep(q_pad[:N_ORACLE]), K)
@@ -1263,8 +1261,8 @@ def flat_codec_phases(smi: str, dev) -> list:
                  card=smi)
             if dtype != "sq8":
                 continue
-            name = "i8i8:segment_minima" if env else "segment_minima"
-            other = "segment_minima" if env else "i8i8:segment_minima"
+            name = "segment_minima:i8i8" if env else "segment_minima:wgmma"
+            other = "segment_minima:wgmma" if env else "segment_minima:i8i8"
             if counts[name] == 0 or counts[other] != 0:
                 raise RuntimeError(f"flat sq8{tag}: stage 1 did not take "
                                    f"its form ({name}: {counts[name]}, "
@@ -1324,7 +1322,9 @@ def probe_phase(smi: str, dev) -> list:
             else (q.to(torch.bfloat16), db_t.to(torch.bfloat16))
         rows.append({
             "name": f"scan_minima_{arm}", "route": "cuda",
-            "source": "smqtk_indexing_tpu_torch/csrc/segment_minima_tiled.cu",
+            "source": "smqtk_indexing_tpu_torch/csrc/" + (
+                "segment_minima_tiled.cu" if int8dot
+                else "segment_minima_tiled_wgmma.cu"),
             "replaces": "tools/probe_int8_mxu.py:65",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             **stage1_bound(b, n, d, 1, b * n // 128, int8_query=int8dot),
@@ -1497,10 +1497,10 @@ def capacity_phases(smi: str, dev) -> list:
 
     # -- sq8_topk_blocked at full scale, flag off and i8dot -----------------
     launches = {}
+    cap_k5_ms = {}
     _, g_c, bw_c = fused_scan.step_shape(capm.N_TILES, fused_scan.TILE_N)
     for i8dot in (False, True):
-        form = ":i8i8" if i8dot else ""
-        pre = "i8i8:" if i8dot else ""
+        form = "i8i8" if i8dot else "wgmma"
         for batch in (capm.B, capm.B_BIG):
             capm.scan(cap, batch, i8dot=i8dot)             # warm-up
             torch.cuda.synchronize()
@@ -1514,9 +1514,15 @@ def capacity_phases(smi: str, dev) -> list:
                 batch_s.append(time.perf_counter() - t0)
             counts = read_counts()
             peak = torch.cuda.max_memory_allocated(dev)
-            for key in ("segment_minima_tiled2", "seg_gather_tiled"):
-                name = (pre if key != "seg_gather_tiled" else "") + key
+            for name in (f"segment_minima_tiled2:{form}",
+                         "seg_gather_tiled:copy"):
                 launches[name] = launches.get(name, 0) + counts[name]
+            # Every K5 launch of the three batches took this form.
+            k5_forms = {f: counts[f"segment_minima_tiled2:{f}"]
+                        for f in ("ffma", "wgmma", "i8i8")}
+            if k5_forms[form] != 3 or sum(k5_forms.values()) != 3:
+                raise RuntimeError(f"capacity scan B={batch}: K5 launches "
+                                   f"{k5_forms}, not 3 of {form}")
             res = capm.check(cap, dists, found)
             well_formed = (tuple(dists.shape) == (batch, capm.K)
                            and bool(torch.isfinite(dists).all())
@@ -1543,7 +1549,8 @@ def capacity_phases(smi: str, dev) -> list:
                          "plain_pipeline_s": time.perf_counter() - t0}
             reset_counts()
             ms = capm.stages(cap, batch, reps=3, i8dot=i8dot)
-            name = pre + "segment_minima_tiled"
+            cap_k5_ms[form, batch] = ms["k5"]
+            name = f"segment_minima_tiled:{form}"
             launches[name] = launches.get(name, 0) + read_counts()[name]
             cap_bound = stage1_bound(batch, n, d, 1,
                                      batch * (n // 128) * (1 + 1 / bw_c),
@@ -1560,8 +1567,8 @@ def capacity_phases(smi: str, dev) -> list:
                  launches=counts, peak_device_bytes=peak, card=smi)
             if not (well_formed and res["recall_at_10"] == 1.0
                     and res["planted_to_random_margin"] > 1.0):
-                raise RuntimeError(f"capacity scan B={batch}{form}: wrong "
-                                   "results")
+                raise RuntimeError(f"capacity scan B={batch} ({form}): "
+                                   "wrong results")
             del dists, found
         torch.cuda.empty_cache()
 
@@ -1575,8 +1582,8 @@ def capacity_phases(smi: str, dev) -> list:
         torch.cuda.synchronize()
         blk_s = time.perf_counter() - t0
         counts = read_counts()
-        launches[pre + "segment_minima_blocked"] = \
-            counts[pre + "segment_minima_blocked"]
+        launches[f"segment_minima_blocked:{form}"] = \
+            counts[f"segment_minima_blocked:{form}"]
         d_til, r_til = sq8.sq8_topk_blocked(db3, cap.a, cap.b, sq, valid_p,
                                             q, k=capm.K, i8dot=i8dot)
         same_topk(r_blk.cpu().numpy(), d_blk.cpu().numpy(),
@@ -1613,20 +1620,31 @@ def capacity_phases(smi: str, dev) -> list:
     torch.cuda.empty_cache()
 
     out = []
-    src = "smqtk_indexing_tpu_torch/csrc/segment_minima_tiled.cu"
+    src = "smqtk_indexing_tpu_torch/csrc/"
     replaces = {"segment_minima_tiled": 246, "segment_minima_blocked": 491,
                 "segment_minima_tiled2": 807}
-    for form, pre in (("", ""), (" i8i8", "i8i8:")):
+    # K5's row also carries the FFMA kernel over the same codes and query
+    # in this call: K9's full variant (K5's products and minima,
+    # step-major at 8 tiles a step, no m2).
+    k9_full_ms = k9_held["full", "bf16"][1]
+    for form, kernel in (("", "wgmma"), (" i8i8", "i8i8")):
         for name, line in replaces.items():
             err, ms, plain_ms = held[name + form]
-            out.append({
+            row = {
                 "name": name + form.replace(" ", "_"), "route": "cuda",
-                "source": src,
+                "source": src + ("segment_minima_tiled_wgmma.cu" if form == ""
+                                 else "segment_minima_tiled.cu"),
                 "replaces": f"smqtk_indexing_tpu/ops/pallas_scan.py:{line}",
-                "launches": launches[pre + name], "max_abs_err": err,
+                "launches": launches[f"{name}:{kernel}"], "max_abs_err": err,
                 "ms": ms, "plain_ms": plain_ms, **bounds[name + form],
-                "library_ms": library_i8_ms if pre else library_ms,
-                "shape": shape})
+                "library_ms": library_i8_ms if form else library_ms,
+                "shape": shape}
+            if name == "segment_minima_tiled2":
+                if not form:
+                    row["k9_full_ms"] = k9_full_ms
+                row["capacity_ms"] = [cap_k5_ms[kernel, capm.B],
+                                      cap_k5_ms[kernel, capm.B_BIG]]
+            out.append(row)
     by_metric = {r["metric"]: r["value"] for r in sweep
                  if r["query"] == "bf16"}
     for variant in k9.LAUNCHES:
@@ -1647,20 +1665,30 @@ def capacity_phases(smi: str, dev) -> list:
             "capacity_ms": by_metric[f"stage1_{variant}_t8_ms"]})
         if out[-1]["launches"] == 0:
             raise RuntimeError(f"the K9 sweep never launched {variant}")
-    return out, launches["seg_gather_tiled"]
+    return out, launches["seg_gather_tiled:copy"]
+
+
+#: The instantiations of the tiled wgmma kernel, by the mangled template
+#: arguments <kMTiles, kStreamQ>.
+TILED_WGMMA = {"ILi1ELb0E": "segment_minima_tiled_i8 (128 resident)",
+               "ILi2ELb0E": "segment_minima_tiled_i8 (256 resident)",
+               "ILi1ELb1E": "segment_minima_tiled_i8 (128 streamed)"}
 
 
 def hgmma_counts(kernels_mod) -> dict:
-    """HGMMA (tensor-core) instructions in the SASS of K1's bf16 and int8
-    kernels (every variant of ``segment_minima_wgmma_kernel``), read with
-    the toolkit's ``cuobjdump`` from the built library."""
+    """HGMMA (tensor-core) instructions in the SASS of the wgmma kernels:
+    K1's bf16 and int8 forms (every variant of
+    ``segment_minima_wgmma_kernel``) and each instantiation of the tiled
+    layout's ``tiled_minima_wgmma_kernel``, read with the toolkit's
+    ``cuobjdump`` from the built library."""
     from pathlib import Path
     cuobjdump = Path(kernels_mod.nvcc()).with_name("cuobjdump")
     sass = subprocess.run(
         [str(cuobjdump), "-sass", str(kernels_mod.library_path())],
         capture_output=True, text=True, check=True, timeout=300).stdout
     # Mangled template arguments: It = uint16_t (bf16), Ia = int8_t.
-    counts = {"segment_minima_bf16": 0, "segment_minima_i8": 0}
+    counts = {"segment_minima_bf16": 0, "segment_minima_i8": 0,
+              **dict.fromkeys(TILED_WGMMA.values(), 0)}
     func = ""
     for line in sass.splitlines():
         if "Function :" in line:
@@ -1669,7 +1697,25 @@ def hgmma_counts(kernels_mod) -> dict:
             counts["segment_minima_bf16"] += 1
         elif "HGMMA" in line and "segment_minima_wgmma_kernelIa" in func:
             counts["segment_minima_i8"] += 1
+        elif "HGMMA" in line and "tiled_minima_wgmma_kernel" in func:
+            for args, name in TILED_WGMMA.items():
+                if "tiled_minima_wgmma_kernel" + args in func:
+                    counts[name] += 1
     return counts
+
+
+def ptxas_spills(log: str, kernel: str) -> dict:
+    """Spill bytes (stores and loads) of each entry function whose mangled
+    name holds ``kernel``, from the build's ``ptxas -v`` lines."""
+    out, func = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            func = line.split("'")[1]
+        elif "spill stores" in line and func and kernel in func:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            out[func] = nums[1] + nums[2]     # stack, stores, loads
+    return out
 
 
 def main() -> None:
@@ -1709,10 +1755,13 @@ def main() -> None:
     ptxas = [ln.strip() for ln in info["log"].splitlines()
              if "registers" in ln or "spill" in ln]
     hgmma = hgmma_counts(_kernels)
+    spills = ptxas_spills(info["log"], "tiled_minima_wgmma_kernel")
     emit("build", seconds=time.perf_counter() - t0, nvcc=info["cmd"],
-         ptxas=ptxas, hgmma=hgmma)
+         ptxas=ptxas, hgmma=hgmma, tiled_wgmma_spill_bytes=spills)
     if not all(hgmma.values()):
-        raise RuntimeError(f"K1's wgmma kernels hold no HGMMA: {hgmma}")
+        raise RuntimeError(f"a wgmma kernel holds no HGMMA: {hgmma}")
+    if len(spills) != len(TILED_WGMMA) or any(spills.values()):
+        raise RuntimeError(f"the tiled wgmma kernel spills: {spills}")
 
     t0 = time.perf_counter()
     kernels = flat_phases(smi, dev)

@@ -1,9 +1,15 @@
-// Widening loads shared by the stage-1 scan kernels (segment_minima.cu,
-// segment_minima_tiled.cu): eight consecutive f32, bf16 or int8 values,
-// read with one or two vector loads and widened exactly to f32. The
-// pointer is aligned to the load's width (16 bytes for f32 and bf16, 8 for
-// int8); the callers' wrappers check the base pointers and the strides
-// keep every load aligned.
+// Widening loads and byte shuffles shared by the stage-1 scan kernels:
+//
+// - load8 (segment_minima.cu, tiled_minima.cuh): eight consecutive f32,
+//   bf16 or int8 values, read with one or two vector loads and widened
+//   exactly to f32. The pointer is aligned to the load's width (16 bytes
+//   for f32 and bf16, 8 for int8); the callers' wrappers check the base
+//   pointers and the strides keep every load aligned.
+// - transpose4x4 (tiled_minima.cuh, segment_minima_tiled_wgmma.cu): a
+//   4 x 4 byte transpose of int8 codes in registers.
+// - codes_to_bf16x2 (segment_minima_wgmma.cu,
+//   segment_minima_tiled_wgmma.cu): two int8 codes widened exactly to one
+//   bf16x2 word for the tensor cores.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -46,6 +52,34 @@ __device__ __forceinline__ void load8(const int8_t* __restrict__ p,
           static_cast<int8_t>((words[i] >> (8 * j)) & 0xffu));
     }
   }
+}
+
+// 4 words w[i], each holding 4 consecutive rows (byte j = row j) of dim i,
+// become 4 words o[j], each holding 4 consecutive dims (byte i = dim i) of
+// row j: a 4 x 4 byte transpose. __byte_perm(x, y, s) picks result byte n
+// from the 8 bytes {x, y} by nibble n of s.
+__device__ __forceinline__ void transpose4x4(const uint32_t (&w)[4],
+                                             uint32_t (&o)[4]) {
+  const uint32_t t0 = __byte_perm(w[0], w[1], 0x5140);  // w0.b0 w1.b0 w0.b1 w1.b1
+  const uint32_t t1 = __byte_perm(w[2], w[3], 0x5140);  // w2.b0 w3.b0 w2.b1 w3.b1
+  const uint32_t t2 = __byte_perm(w[0], w[1], 0x7362);  // w0.b2 w1.b2 w0.b3 w1.b3
+  const uint32_t t3 = __byte_perm(w[2], w[3], 0x7362);  // w2.b2 w3.b2 w2.b3 w3.b3
+  o[0] = __byte_perm(t0, t1, 0x5410);  // w0.b0 w1.b0 w2.b0 w3.b0
+  o[1] = __byte_perm(t0, t1, 0x7632);  // w0.b1 w1.b1 w2.b1 w3.b1
+  o[2] = __byte_perm(t2, t3, 0x5410);  // w0.b2 w1.b2 w2.b2 w3.b2
+  o[3] = __byte_perm(t2, t3, 0x7632);  // w0.b3 w1.b3 w2.b3 w3.b3
+}
+
+// Two int8 codes (bytes k and k + 1 of w, already XORed with 0x80) as one
+// bf16x2 word, exactly: 0x4B0000uu is the f32 2^23 + uu, and less
+// 2^23 + 128 it is the signed code, whose top 16 bits are its bf16.
+__device__ __forceinline__ uint32_t codes_to_bf16x2(uint32_t w, int k) {
+  const float lo = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540 | k)) -
+                   8388736.0f;
+  const float hi =
+      __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540 | (k + 1))) -
+      8388736.0f;
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
 }
 
 }  // namespace

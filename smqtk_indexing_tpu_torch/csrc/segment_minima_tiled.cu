@@ -2,7 +2,10 @@
 // of the L2 surrogate over the tiled-transposed layout, with an optional
 // second output of per-group minima, written by hand for Hopper (sm_90a).
 // The kernels themselves are in tiled_minima.cuh (layout, outputs, both
-// product forms); this file holds the production entry points.
+// product forms); this file holds the production entry points of the f32
+// and bf16 databases and of the int8 x int8 form. Int8 codes with a float
+// query (the capacity scan's own form) run on the tensor cores instead:
+// segment_minima_tiled_wgmma.cu holds their entry points.
 //
 // Replaces three TPU kernels of smqtk_indexing_tpu/ops/pallas_scan.py:
 //
@@ -11,8 +14,8 @@
 //   (N/128, d, 128) blocked layout is the tiled layout with tile_n = 128;
 // - K5 segment_minima_tiled2 -> _scan_kernel_tiled2 (:758-870);
 //
-// each in the TPU kernel's two product forms (_tile_ip, :50-82): an f32,
-// bf16 or int8 database against an f32 (bf16-rounded) query, and the
+// each in the TPU kernel's two product forms (_tile_ip, :50-82): an f32
+// or bf16 database against an f32 (bf16-rounded) query, and the
 // int8 x int8 form of the i8dot stage 1 (int8 codes against an int8
 // query; smqtk_indexing_tpu/ops/sq8.py:368-374). The int8 x int8 entries
 // also serve the int8 arm of the K10 probe (tools/probe_int8_mxu.py:65,
@@ -45,9 +48,9 @@
 #include "tiled_minima.cuh"
 
 // Shape contract (checked by the Python wrapper): db3 (n_tiles, dim,
-// tile_n) with tile_n % 128 == 0 and dim % 16 == 0 (dim % 32 == 0 for the
-// int8 x int8 form); q (n_queries, dim) f32 (int8 for the int8 x int8
-// form); db_sq and penalty (n_tiles * tile_n,) f32; all contiguous and
+// tile_n) f32 or bf16 (int8 for the int8 x int8 form) with tile_n % 128
+// == 0 and dim % 16 == 0 (dim % 32 == 0 for the int8 x int8 form); q
+// (n_queries, dim) f32 (int8 for the int8 x int8 form); db_sq and penalty (n_tiles * tile_n,) f32; all contiguous and
 // 16-byte aligned on CUDA device `device`. The (B, N / 128) form (K2, K4)
 // writes out (n_queries, N / 128); the step-major form (K5) writes m1
 // (N / 128 / g, n_queries, g) and m2 (N / 128 / g, n_queries, g / bw),
@@ -74,7 +77,6 @@
 
 SEGMENT_MINIMA_TILED(f32, float)
 SEGMENT_MINIMA_TILED(bf16, uint16_t)
-SEGMENT_MINIMA_TILED(i8, int8_t)
 
 // The int8 x int8 form: scores (db_sq - 2 (float(<q, x>) * scale)) +
 // penalty; the production i8dot passes scale = 1.

@@ -1,0 +1,448 @@
+// Stage 1 of the single-copy SQ8 capacity scan over the tiled-transposed
+// layout, with its products on Hopper's tensor cores (wgmma, sm_90a): the
+// int8-code, float-query form of K2, K4 and K5 (and of the K10 probe's
+// bf16 arm, which calls K2's entry point). The f32 and bf16 databases and
+// the int8 x int8 forms stay on tiled_minima.cuh's kernels, as does the K9
+// probe (stage1_variants.cu).
+//
+// Replaces the TPU kernels of smqtk_indexing_tpu/ops/pallas_scan.py:
+// K2 segment_minima_tiled -> _scan_kernel, 3-D branch (:244-310); K4
+// segment_minima_blocked -> _blocked_kernel (:490-544), the tiled layout
+// with tile_n = 128; K5 segment_minima_tiled2 -> _scan_kernel_tiled2
+// (:758-870); each in the product form of _tile_ip (:62-63), where the int8
+// tile is cast to bf16 and multiplied on the matrix unit. It computes
+// tiled_minima.cuh's function:
+//
+//     m[b, s] = min over r in [128 s, 128 s + 128) of
+//               (db_sq[r] - 2 <q_b, x_r>) + penalty[r]
+//
+// for db3 (n_tiles, d, tile_n) int8 codes (row r at db3[r / tile_n][.][r
+// % tile_n]), q (B, d) bf16 (the query rounded to bf16 by the wrapper),
+// db_sq and penalty (N,) f32 (penalty = +inf on dead rows), written as
+// out1[(s / G) * B * G + b * G + s % G] (G = N / 128: K2's and K4's (B, N /
+// 128); G = t_step * tile_n / 128: K5's step-major m1) and, when out2 is
+// given (K5), m2[(s / G) * B * (G / bw) + b * (G / bw) + (s % G) / bw], the
+// minimum over each group of bw consecutive segments. Every product of a
+// bf16 value and an int8 code is exact in f32, so the tensor cores change
+// nothing but the order and rounding of the f32 sums.
+//
+// What bounds it on an H100, at the capacity configuration (N =
+// 100,663,296, d = 128): 12.9 GB of codes and 0.8 GB of db_sq and penalty
+// must move, 4.1 ms at 3.35 TB/s; the products are 2 B N d = 3.3e12 at B =
+// 128 (3.3 ms at bf16's 989 TFLOP/s) and 6.6e12 at B = 256 (6.7 ms). So
+// the bytes and the products bound it about equally; the design reads
+// every code byte from memory once and keeps the tensor cores fed:
+//
+// - A block of two warpgroups (256 threads) owns 128 queries (kMTiles = 1,
+//   B <= 128) or 256 (kMTiles = 2), resident in shared memory as the A
+//   operand, and walks a strip of consecutive segments: whole groups of bw
+//   segments (K5), or kStrip segments when bw = 1 (K2, K4). At B = 128 and
+//   256 one block column covers the batch, so every code leaves memory
+//   once. Wider batches take more query tiles, numbered fastest, so the
+//   blocks that read one strip run together and find it in L2. A strip
+//   ends at the last segment.
+// - The tiled layout is MN-major for wgmma's B (K = dims, N = rows: a
+//   segment is 128 contiguous codes in each dimension row), and wgmma
+//   takes int8 only K-major, so the staging transposes in registers into
+//   wgmma.cuh's K-major 128-byte swizzle. Thread (warp w, lane l) owns dims
+//   8 o .. 8 o + 7 of a 64-dim K-chunk, o = l % 4 + 4 (w % 2), and rows
+//   4 p .. 4 p + 3 of the segment, p = l / 4 + 8 (w / 2). It loads them as 8
+//   words, one a dim (a warp's load covers 4 dims x 32 contiguous bytes:
+//   whole sectors), transposes the two 4 x 4 byte blocks with transpose4x4,
+//   widens each code exactly to bf16 (codes_to_bf16x2) and stores one
+//   16-byte piece a row at swizzle_offset(row, o). Each 8 consecutive lanes
+//   then store to the 8 distinct piece positions of the swizzle, so a
+//   store takes the least shared-memory wavefronts.
+// - The codes are read into registers one step ahead and stored into the
+//   two-stage ring while the step's wgmma run, so staging overlaps the
+//   products; the epilogue does not (it follows the last K-chunk of each
+//   segment, as K1's: the fold and quad reduction of wgmma_minima.cuh).
+//   Each segment's db_sq and penalty arrive in shared memory by cp.async
+//   one segment ahead, so the epilogue waits on no device-memory load.
+// - Widths: any d % 16 == 0. The last K-chunk's dims past d are staged as
+//   zeros in both operands (the query by cp.async zero-fill). The query
+//   tile stays resident while it fits beside the ring (d <= 384 at 256
+//   queries, d <= 768 at 128), else its K-chunks stream through the ring.
+// - At kMTiles = 1 with a resident query a block needs at most 128
+//   registers a thread and 67 KB of shared memory at d = 128, so two
+//   blocks share an SM and one's epilogue runs under the other's products.
+// - Queries past B read the last query and are never written. Every
+//   global offset is 64-bit: N d passes 2^31 at capacity.
+//
+// The kernel allocates nothing and launches on the caller's stream. The C
+// entry points return cudaGetLastError() after the launch.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "wgmma_minima.cuh"
+
+namespace {
+
+constexpr int kStages = 2;      // ring depth
+constexpr int kStrip = 32;      // segments a block walks when bw = 1
+constexpr int kCodeWords = 8;   // words a thread loads a step: 8 dims x 4 rows
+constexpr int kRowQuads = 8;    // row quads of a warp: 32 rows
+constexpr int kDimOctets = 4;   // dim octets of a warp: 32 dims
+constexpr int kStatsSlotBytes = 2 * kSeg * 4;  // a segment's db_sq, penalty
+
+template <int kMTiles, bool kStreamQ>
+__host__ __device__ constexpr int stage_bytes() {
+  return kDbStageBytes + (kStreamQ ? q_rows<kMTiles>() * kSwizzleBytes : 0);
+}
+
+// Dynamic shared memory: the ring, the resident query tile, two segments'
+// stats, and 1 KB to align the start to a swizzle atom.
+template <int kMTiles, bool kStreamQ>
+int64_t smem_bytes(int64_t dim) {
+  const int64_t n_chunks = (dim + kChunk - 1) / kChunk;
+  const int64_t q_res =
+      kStreamQ ? 0 : q_rows<kMTiles>() * n_chunks * kSwizzleBytes;
+  return kAtomBytes + kStages * stage_bytes<kMTiles, kStreamQ>() + q_res +
+         2 * kStatsSlotBytes;
+}
+
+// Segments a block walks: whole groups, at least kStrip segments where a
+// group is narrower.
+inline int64_t strip_segments(int64_t bw) {
+  return bw >= kStrip ? bw : bw * (kStrip / bw);
+}
+
+template <int kMTiles, bool kStreamQ>
+__global__ void __launch_bounds__(kThreads,
+                                  kMTiles == 1 && !kStreamQ ? 2 : 1)
+tiled_minima_wgmma_kernel(const uint16_t* __restrict__ q,
+                          const int8_t* __restrict__ db3,
+                          const float* __restrict__ db_sq,
+                          const float* __restrict__ penalty,
+                          float* __restrict__ out1, float* __restrict__ out2,
+                          int64_t n_queries, int64_t n_seg, int64_t dim,
+                          int64_t tile_n, int64_t g, int64_t bw,
+                          int64_t strip, int64_t n_qtiles) {
+  constexpr int kQRows = q_rows<kMTiles>();
+  constexpr int kQChunkBytes = kQRows * kSwizzleBytes;
+  constexpr int kStageBytes = stage_bytes<kMTiles, kStreamQ>();
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int lane = tid & 31;
+  const int warp = (tid >> 5) & 3;  // warp of the warpgroup
+  const int64_t q0 = (blockIdx.x % n_qtiles) * kQRows;
+  const int64_t seg0 = (blockIdx.x / n_qtiles) * strip;
+  const int64_t nseg_t = tile_n / kSeg;
+  const int n_chunks = static_cast<int>((dim + kChunk - 1) / kChunk);
+  const int n_segs =
+      static_cast<int>(n_seg - seg0 < strip ? n_seg - seg0 : strip);
+  const int n_steps = n_segs * n_chunks;
+
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t ring = (raw + kAtomBytes - 1) & ~uint32_t(kAtomBytes - 1);
+  uint8_t* const ring_ptr = smem_raw + (ring - raw);
+  const uint32_t q_res = ring + kStages * kStageBytes;
+  const uint32_t stats =
+      q_res + (kStreamQ ? 0 : kQChunkBytes * n_chunks);
+  const float* const stats_ptr =
+      reinterpret_cast<const float*>(smem_raw + (stats - raw));
+
+  // Step t is K-chunk t % n_chunks of segment seg0 + t / n_chunks.
+  auto q_row = [&](int c) {
+    return [=](int r) {
+      // Rows past the batch read its last query; they are never written.
+      const int64_t qr = q0 + r < n_queries ? q0 + r : n_queries - 1;
+      return q + qr * dim + c * kChunk;
+    };
+  };
+  // Live 8-dim pieces of K-chunk c.
+  auto live_pieces = [&](int c) {
+    const int64_t left = (dim - c * kChunk) / 8;
+    return static_cast<int>(left < 8 ? left : 8);
+  };
+  // db_sq and penalty of the strip's segment j into stats slot j % 2
+  // (db_sq's 128 values, then penalty's): 16 bytes a thread of the first
+  // two warps.
+  auto copy_stats = [&](int j) {
+    if (tid < 2 * 32 && j < n_segs) {
+      const float* src = (tid < 32 ? db_sq : penalty) + (seg0 + j) * kSeg +
+                         4 * (tid & 31);
+      cp_async16(stats + (j & 1) * kStatsSlotBytes + 16 * tid, src);
+    }
+  };
+
+  // This thread's dim octet o and row quad p of every step (see the top).
+  // The codes of the next step to load: K-chunk ld_c of the segment whose
+  // row quad starts at ld_src, segment ld_col of its tile.
+  const int o = (lane % kDimOctets) + kDimOctets * ((tid >> 5) & 1);
+  const int p = (lane / kDimOctets) + kRowQuads * (tid >> 6);
+  int ld_c = 0;
+  int64_t ld_col = seg0 % nseg_t;
+  const int8_t* ld_src = db3 + (seg0 / nseg_t) * dim * tile_n +
+                         ld_col * kSeg + 4 * p;
+  uint32_t words[kCodeWords];
+  auto load_codes = [&]() {
+    const int64_t k0 = ld_c * kChunk + 8 * o;
+    const bool live = k0 < dim;  // d % 16 == 0: an octet is whole
+#pragma unroll
+    for (int i = 0; i < kCodeWords; ++i) {
+      words[i] = live ? __ldg(reinterpret_cast<const unsigned int*>(
+                            ld_src + (k0 + i) * tile_n))
+                      : 0u;
+    }
+    if (++ld_c == n_chunks) {
+      ld_c = 0;
+      if (++ld_col == nseg_t) {  // the next tile's first segment
+        ld_col = 0;
+        ld_src += dim * tile_n - (nseg_t - 1) * kSeg;
+      } else {
+        ld_src += kSeg;
+      }
+    }
+  };
+  auto store_codes = [&](int t) {
+    uint8_t* stage = ring_ptr + (t % kStages) * kStageBytes;
+    const uint32_t lo[4] = {words[0] ^ 0x80808080u, words[1] ^ 0x80808080u,
+                            words[2] ^ 0x80808080u, words[3] ^ 0x80808080u};
+    const uint32_t hi[4] = {words[4] ^ 0x80808080u, words[5] ^ 0x80808080u,
+                            words[6] ^ 0x80808080u, words[7] ^ 0x80808080u};
+    uint32_t a[4], b[4];
+    transpose4x4(lo, a);  // a[j]: dims 0-3 of row 4 p + j
+    transpose4x4(hi, b);  // b[j]: dims 4-7
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      uint4 v;
+      v.x = codes_to_bf16x2(a[j], 0);
+      v.y = codes_to_bf16x2(a[j], 2);
+      v.z = codes_to_bf16x2(b[j], 0);
+      v.w = codes_to_bf16x2(b[j], 2);
+      *reinterpret_cast<uint4*>(stage + swizzle_offset(4 * p + j, o)) = v;
+    }
+  };
+
+  float acc[kMTiles][64];
+#pragma unroll
+  for (int i = 0; i < kMTiles; ++i) {
+#pragma unroll
+    for (int j = 0; j < 64; ++j) acc[i][j] = 0.0f;
+  }
+  float gmin[kMTiles][2];
+#pragma unroll
+  for (int i = 0; i < kMTiles; ++i) {
+    gmin[i][0] = gmin[i][1] = __int_as_float(0x7f800000);  // +inf
+  }
+
+  // Prologue: the resident query tile (or step 0's query chunk) and the
+  // first segment's stats, then the codes of step 0 staged and those of
+  // step 1 in registers.
+  if constexpr (!kStreamQ) {
+    for (int c = 0; c < n_chunks; ++c) {
+      copy_chunk<kQRows>(q_res + c * kQChunkBytes, q_row(c), tid,
+                         live_pieces(c));
+    }
+  } else {
+    copy_chunk<kQRows>(ring + kDbStageBytes, q_row(0), tid, live_pieces(0));
+  }
+  copy_stats(0);
+  cp_async_commit();
+  load_codes();
+  store_codes(0);
+  if (n_steps > 1) load_codes();
+  cp_async_wait<0>();
+
+  // Step t is K-chunk c of the strip's segment j; the epilogue writes
+  // out1's (step, ., gi) and, after each group of bw segments, out2's
+  // (step, ., gq).
+  int c = 0, j = 0;
+  int64_t step = seg0 / g, gi = seg0 % g, gq = gi / bw, gpos = 0;
+  for (int t = 0; t < n_steps; ++t) {
+    if (c == n_chunks - 1) {
+      // Segment j's stats (copied one segment ahead) are in; the next
+      // segment's may still be on their way.
+      if (n_chunks == 1) {
+        cp_async_wait<0>();
+      } else {
+        cp_async_wait<1>();
+      }
+    }
+    fence_proxy_async();
+    __syncthreads();  // step t's operands are in; step t - 1's wgmma done
+    const uint32_t stage = ring + (t % kStages) * kStageBytes;
+    if (c == 0) copy_stats(j + 1);  // its slot was read by segment j - 1
+    if constexpr (kStreamQ) {
+      if (t + 1 < n_steps) {
+        const int c1 = c + 1 == n_chunks ? 0 : c + 1;
+        copy_chunk<kQRows>(ring + ((t + 1) % kStages) * kStageBytes +
+                               kDbStageBytes,
+                           q_row(c1), tid, live_pieces(c1));
+      }
+    }
+    if (kStreamQ || c == 0) cp_async_commit();
+    const uint32_t a_tile = (kStreamQ ? stage + kDbStageBytes
+                                      : q_res + c * kQChunkBytes) +
+                            wg * kMTiles * kMTile * kSwizzleBytes;
+#pragma unroll
+    for (int i = 0; i < kMTiles; ++i) {
+#pragma unroll
+      for (int e = 0; e < 64; ++e) fence_operand(acc[i][e]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < kChunk / 16; ++k) {
+      const uint64_t b_desc = smem_desc(stage + k * kK16Bytes);
+#pragma unroll
+      for (int i = 0; i < kMTiles; ++i) {
+        const uint64_t a_desc =
+            smem_desc(a_tile + i * kMTile * kSwizzleBytes + k * kK16Bytes);
+        wgmma_m64n128k16_bf16(acc[i], a_desc, b_desc, (c | k) != 0);
+      }
+    }
+    wgmma_commit();
+    // Stage step t + 1 into the other stage (read by step t - 1, done)
+    // while the products run.
+    if (t + 1 < n_steps) {
+      store_codes(t + 1);
+      if (t + 2 < n_steps) load_codes();
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < kMTiles; ++i) {
+#pragma unroll
+      for (int e = 0; e < 64; ++e) fence_operand(acc[i][e]);
+    }
+    if constexpr (kStreamQ) cp_async_wait<0>();
+    if (++c < n_chunks) continue;
+
+    // Epilogue of segment j: this thread's columns 8 jj + 2 (lane % 4) + e
+    // of query rows 16 warp + lane / 4 + 8 h of each tile, its stats from
+    // shared memory.
+    const float* sq = stats_ptr + (j & 1) * (kStatsSlotBytes / 4) +
+                      2 * (lane & 3);
+    float m[kMTiles][2];
+    fold_minima<kMTiles>(acc, [&](int jj) {
+      const float2 a = *reinterpret_cast<const float2*>(sq + 8 * jj);
+      const float2 b = *reinterpret_cast<const float2*>(sq + kSeg + 8 * jj);
+      return make_float4(a.x, a.y, b.x, b.y);
+    }, m);
+    const bool group_end = out2 != nullptr && ++gpos == bw;
+#pragma unroll
+    for (int i = 0; i < kMTiles; ++i) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float v = quad_min(m[i][h]);
+        const int64_t qi = q0 + (wg * kMTiles + i) * kMTile + warp * 16 +
+                           (lane >> 2) + 8 * h;
+        const bool write = (lane & 3) == 0 && qi < n_queries;
+        if (write) out1[(step * n_queries + qi) * g + gi] = v;
+        gmin[i][h] = fminf(gmin[i][h], v);
+        if (group_end) {
+          if (write) {
+            out2[(step * n_queries + qi) * (g / bw) + gq] = gmin[i][h];
+          }
+          gmin[i][h] = __int_as_float(0x7f800000);
+        }
+      }
+    }
+    if (group_end) {
+      gpos = 0;
+      ++gq;
+    }
+    if (++gi == g) {  // the next step of the output
+      gi = 0;
+      gq = 0;
+      ++step;
+    }
+    c = 0;
+    ++j;
+  }
+}
+
+template <int kMTiles, bool kStreamQ>
+int launch_variant(const uint16_t* q, const int8_t* db3, const float* db_sq,
+                   const float* penalty, float* out1, float* out2,
+                   int64_t n_queries, int64_t n_seg, int64_t dim,
+                   int64_t tile_n, int64_t g, int64_t bw,
+                   cudaStream_t stream) {
+  auto kernel = tiled_minima_wgmma_kernel<kMTiles, kStreamQ>;
+  const int64_t smem = smem_bytes<kMTiles, kStreamQ>(dim);
+  const cudaError_t set = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const int64_t strip = strip_segments(bw);
+  const int64_t n_qtiles = (n_queries + q_rows<kMTiles>() - 1) /
+                           q_rows<kMTiles>();
+  const int64_t n_blocks = n_qtiles * ((n_seg + strip - 1) / strip);
+  if (n_blocks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_blocks > 0) {
+    kernel<<<dim3(static_cast<unsigned>(n_blocks)), kThreads,
+             static_cast<size_t>(smem), stream>>>(
+        q, db3, db_sq, penalty, out1, out2, n_queries, n_seg, dim, tile_n, g,
+        bw, strip, n_qtiles);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Picks the block: 256 resident queries for B > 128 while they fit beside
+// the ring, else 128 resident, else 128 streamed with the codes.
+int launch(const void* q, const void* db3, const void* db_sq,
+           const void* penalty, void* out1, void* out2, int64_t n_queries,
+           int64_t n_tiles, int64_t dim, int64_t tile_n, int64_t g,
+           int64_t bw, int device, void* stream) {
+  // This library carries its own CUDA runtime: select the tensors' device
+  // in it before launching on the caller's stream.
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const int64_t n_seg = n_tiles * (tile_n / kSeg);
+  if (tile_n <= 0 || tile_n % kSeg || dim <= 0 || dim % 16 || g <= 0 ||
+      bw <= 0 || n_seg % g || g % bw) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto* qh = static_cast<const uint16_t*>(q);
+  const auto* x = static_cast<const int8_t*>(db3);
+  const auto* sq = static_cast<const float*>(db_sq);
+  const auto* pen = static_cast<const float*>(penalty);
+  auto* o1 = static_cast<float*>(out1);
+  auto* o2 = static_cast<float*>(out2);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (n_queries > q_rows<1>() && smem_bytes<2, false>(dim) <= kMaxSmem) {
+    return launch_variant<2, false>(qh, x, sq, pen, o1, o2, n_queries, n_seg,
+                                    dim, tile_n, g, bw, s);
+  }
+  if (smem_bytes<1, false>(dim) <= kMaxSmem) {
+    return launch_variant<1, false>(qh, x, sq, pen, o1, o2, n_queries, n_seg,
+                                    dim, tile_n, g, bw, s);
+  }
+  return launch_variant<1, true>(qh, x, sq, pen, o1, o2, n_queries, n_seg,
+                                 dim, tile_n, g, bw, s);
+}
+
+}  // namespace
+
+// Shape contract (checked by the Python wrapper): db3 (n_tiles, dim,
+// tile_n) int8 with tile_n % 128 == 0 and dim % 16 == 0; q (n_queries,
+// dim) bf16; db_sq and penalty (n_tiles * tile_n,) f32; all contiguous and
+// 16-byte aligned on CUDA device `device`. The (B, N / 128) form (K2, K4)
+// writes out (n_queries, N / 128); the step-major form (K5) writes m1
+// (N / 128 / g, n_queries, g) and m2 (N / 128 / g, n_queries, g / bw),
+// with g dividing N / 128 and bw dividing g.
+extern "C" int segment_minima_tiled_i8(const void* q, const void* db3,
+                                       const void* db_sq, const void* penalty,
+                                       void* out, int64_t n_queries,
+                                       int64_t n_tiles, int64_t dim,
+                                       int64_t tile_n, int device,
+                                       void* stream) {
+  return launch(q, db3, db_sq, penalty, out, nullptr, n_queries, n_tiles, dim,
+                tile_n, n_tiles * (tile_n / kSeg), 1, device, stream);
+}
+
+extern "C" int segment_minima_tiled2_i8(const void* q, const void* db3,
+                                        const void* db_sq,
+                                        const void* penalty, void* m1,
+                                        void* m2, int64_t n_queries,
+                                        int64_t n_tiles, int64_t dim,
+                                        int64_t tile_n, int64_t g,
+                                        int64_t bw, int device,
+                                        void* stream) {
+  return launch(q, db3, db_sq, penalty, m1, m2, n_queries, n_tiles, dim,
+                tile_n, g, bw, device, stream);
+}

@@ -54,6 +54,10 @@
 //   step; overlapping a segment's epilogue with the next one's products is
 //   later work.
 //
+// The block geometry, the query staging, the widening and the epilogue's
+// fold and quad reduction are shared with the tiled layout's kernel
+// (segment_minima_tiled_wgmma.cu) through wgmma_minima.cuh.
+//
 // The kernel allocates nothing and launches on the caller's stream. The C
 // entry points return cudaGetLastError() after the launch.
 
@@ -61,24 +65,12 @@
 
 #include <cstdint>
 
-#include "wgmma.cuh"
+#include "wgmma_minima.cuh"
 
 namespace {
 
-constexpr int kSeg = 128;       // rows per segment: wgmma's N
-constexpr int kChunk = 64;      // dims per K-chunk: one swizzled row
-constexpr int kMTile = 64;      // queries per wgmma: its M
-constexpr int kThreads = 256;   // two warpgroups
 constexpr int kStages = 4;      // ring depth
 constexpr int kStrip = 32;      // segments a block walks
-constexpr int kDbStageBytes = kSeg * kSwizzleBytes;  // 16 KB
-constexpr int kMaxSmem = 232448;                     // 227 KB a block
-
-// Queries a block owns with kMTiles tiles per warpgroup.
-template <int kMTiles>
-__host__ __device__ constexpr int q_rows() {
-  return 2 * kMTile * kMTiles;
-}
 
 template <int kMTiles, bool kStreamQ>
 __host__ __device__ constexpr int stage_bytes() {
@@ -92,33 +84,6 @@ int64_t smem_bytes(int64_t dim) {
   const int64_t q_res =
       kStreamQ ? 0 : q_rows<kMTiles>() * (dim / kChunk) * kSwizzleBytes;
   return kAtomBytes + kStages * stage_bytes<kMTiles, kStreamQ>() + q_res;
-}
-
-// Two int8 codes (bytes k and k + 1 of w, already XORed with 0x80) as one
-// bf16x2 word, exactly: 0x4B0000uu is the f32 2^23 + uu, and less
-// 2^23 + 128 it is the signed code, whose top 16 bits are its bf16.
-__device__ __forceinline__ uint32_t codes_to_bf16x2(uint32_t w, int k) {
-  const float lo = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540 | k)) -
-                   8388736.0f;
-  const float hi =
-      __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540 | (k + 1))) -
-      8388736.0f;
-  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
-}
-
-// Copies one 64-dim K-chunk of `rows` rows (row r reads src_row(r)) into a
-// swizzled tile at shared address dst: 8 cp.async pieces a row.
-template <int kRows, typename RowPtr>
-__device__ __forceinline__ void copy_chunk(uint32_t dst, RowPtr src_row,
-                                           int tid) {
-  static_assert(kRows * 8 % kThreads == 0, "whole pieces a thread");
-#pragma unroll
-  for (int j = 0; j < kRows * 8 / kThreads; ++j) {
-    const int i = tid + j * kThreads;
-    const int r = i >> 3;
-    const int p = i & 7;
-    cp_async16(dst + swizzle_offset(r, p), src_row(r) + p * 8);
-  }
 }
 
 template <typename T, int kMTiles, bool kStreamQ>
@@ -168,9 +133,10 @@ segment_minima_wgmma_kernel(const uint16_t* __restrict__ q,
   auto issue = [&](int t) {
     if (t >= n_steps) return;
     const uint32_t stage = ring + (t % kStages) * kStageBytes;
-    if constexpr (!kInt8) copy_chunk<kSeg>(stage, db_row(t), tid);
+    if constexpr (!kInt8) copy_chunk<kSeg>(stage, db_row(t), tid, 8);
     if constexpr (kStreamQ) {
-      copy_chunk<kQRows>(stage + kDbStageBytes, q_row(t % n_chunks), tid);
+      copy_chunk<kQRows>(stage + kDbStageBytes, q_row(t % n_chunks), tid,
+                            8);
     }
   };
 
@@ -217,7 +183,7 @@ segment_minima_wgmma_kernel(const uint16_t* __restrict__ q,
   // query tile joins step 0's group), then int8 steps 0 and 1.
   if constexpr (!kStreamQ) {
     for (int c = 0; c < n_chunks; ++c) {
-      copy_chunk<kQRows>(q_res + c * kQChunkBytes, q_row(c), tid);
+      copy_chunk<kQRows>(q_res + c * kQChunkBytes, q_row(c), tid, 8);
     }
   }
 #pragma unroll
@@ -277,33 +243,18 @@ segment_minima_wgmma_kernel(const uint16_t* __restrict__ q,
     const int64_t seg = seg0 + t / n_chunks;
     const int64_t r0 = seg * kSeg + 2 * (lane & 3);
     float m[kMTiles][2];
-#pragma unroll
-    for (int i = 0; i < kMTiles; ++i) {
-      m[i][0] = m[i][1] = __int_as_float(0x7f800000);  // +inf
-    }
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    fold_minima<kMTiles>(acc, [&](int j) {
+      // float2 loads of db_sq and penalty match the column pairs.
       const float2 sq = __ldg(reinterpret_cast<const float2*>(db_sq + r0 + 8 * j));
       const float2 pen =
           __ldg(reinterpret_cast<const float2*>(penalty + r0 + 8 * j));
-#pragma unroll
-      for (int i = 0; i < kMTiles; ++i) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          m[i][h] = fminf(m[i][h],
-                          (sq.x - 2.0f * acc[i][4 * j + 2 * h]) + pen.x);
-          m[i][h] = fminf(m[i][h],
-                          (sq.y - 2.0f * acc[i][4 * j + 2 * h + 1]) + pen.y);
-        }
-      }
-    }
+      return make_float4(sq.x, sq.y, pen.x, pen.y);
+    }, m);
 #pragma unroll
     for (int i = 0; i < kMTiles; ++i) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        float v = m[i][h];
-        v = fminf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-        v = fminf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+        const float v = quad_min(m[i][h]);
         const int64_t qi = q0 + (wg * kMTiles + i) * kMTile + warp * 16 +
                            (lane >> 2) + 8 * h;
         if ((lane & 3) == 0 && qi < n_queries) out[qi * n_seg + seg] = v;

@@ -1,6 +1,9 @@
-// The stage-1 scan over the tiled-transposed layout, shared by the
-// production kernels (segment_minima_tiled.cu: K2, K4, K5) and the stage-1
-// variant probe (stage1_variants.cu: K9). Each kernel takes the epilogue
+// The stage-1 scan over the tiled-transposed layout on the CUDA cores,
+// shared by the production kernels (segment_minima_tiled.cu: K2, K4, K5
+// over f32 and bf16 databases, and their int8 x int8 form) and the stage-1
+// variant probe (stage1_variants.cu: K9). Int8 codes with a float query
+// run on the tensor cores in production (segment_minima_tiled_wgmma.cu);
+// here they still serve K9. Each kernel takes the epilogue
 // variant as a template parameter, so a variant differs from production
 // only in its epilogue (or, for kNoDot, in skipping the products).
 //
@@ -53,7 +56,8 @@
 // dim. Each thread therefore loads a 4-dim x 4-row block as 4 words (one
 // per dim; a warp's 32 loads of one dim are 128 contiguous bytes, fully
 // coalesced) and transposes the 4 x 4 bytes in registers with six
-// __byte_perm (PRMT) before its one 16-byte shared-memory store. The
+// __byte_perm (PRMT; transpose4x4 in scan_loads.cuh) before its one
+// 16-byte shared-memory store. The
 // alternative, storing bytes and re-packing on every read, would put the
 // byte shuffles in the inner loop, which reads each staged word 16 times;
 // transposing once at staging costs 6 PRMT per 16 bytes loaded. A stage is
@@ -285,22 +289,6 @@ tiled_minima_kernel(const float* __restrict__ q, const T* __restrict__ db3,
   if (out2 != nullptr) {
     group_epilogue(gmin, out2, group, q0, n_queries, g, bw, tx, ty);
   }
-}
-
-// 4 words w[i], each holding 4 consecutive rows (byte j = row j) of dim i,
-// become 4 words o[j], each holding 4 consecutive dims (byte i = dim i) of
-// row j: a 4 x 4 byte transpose. __byte_perm(x, y, s) picks result byte n
-// from the 8 bytes {x, y} by nibble n of s.
-__device__ __forceinline__ void transpose4x4(const uint32_t (&w)[4],
-                                             uint32_t (&o)[4]) {
-  const uint32_t t0 = __byte_perm(w[0], w[1], 0x5140);  // w0.b0 w1.b0 w0.b1 w1.b1
-  const uint32_t t1 = __byte_perm(w[2], w[3], 0x5140);  // w2.b0 w3.b0 w2.b1 w3.b1
-  const uint32_t t2 = __byte_perm(w[0], w[1], 0x7362);  // w0.b2 w1.b2 w0.b3 w1.b3
-  const uint32_t t3 = __byte_perm(w[2], w[3], 0x7362);  // w2.b2 w3.b2 w2.b3 w3.b3
-  o[0] = __byte_perm(t0, t1, 0x5410);  // w0.b0 w1.b0 w2.b0 w3.b0
-  o[1] = __byte_perm(t0, t1, 0x7632);  // w0.b1 w1.b1 w2.b1 w3.b1
-  o[2] = __byte_perm(t2, t3, 0x5410);  // w0.b2 w1.b2 w2.b2 w3.b2
-  o[3] = __byte_perm(t2, t3, 0x7632);  // w0.b3 w1.b3 w2.b3 w3.b3
 }
 
 template <int V>

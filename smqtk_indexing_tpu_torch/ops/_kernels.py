@@ -33,12 +33,13 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("segment_minima.cu", "segment_minima_wgmma.cu",
-           "segment_minima_tiled.cu",
+           "segment_minima_tiled.cu", "segment_minima_tiled_wgmma.cu",
            "stage1_variants.cu", "ivf_list_scores.cu",
            "ivf_list_scores_tiled.cu", "ivf_list_scores_tiled_pq.cu",
            "seg_gather.cu")
 #: Headers the sources include; hashed with them.
-HEADERS = ("scan_loads.cuh", "tiled_minima.cuh", "wgmma.cuh")
+HEADERS = ("scan_loads.cuh", "tiled_minima.cuh", "wgmma.cuh",
+           "wgmma_minima.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                      "-Xptxas", "-v")
@@ -60,7 +61,9 @@ _ENTRY_POINTS = {
     "segment_minima_bf16": _args(5, 3),
     "segment_minima_i8": _args(5, 3),
     "segment_minima_i8i8": _args(5, 3),
-    # (q, db3, db_sq, penalty, out, n_queries, n_tiles, dim, tile_n)
+    # (q, db3, db_sq, penalty, out, n_queries, n_tiles, dim, tile_n): q
+    # f32 over an f32 or bf16 db3 (FFMA), bf16 over int8 codes (the wgmma
+    # form, segment_minima_tiled_wgmma.cu)
     "segment_minima_tiled_f32": _args(5, 4),
     "segment_minima_tiled_bf16": _args(5, 4),
     "segment_minima_tiled_i8": _args(5, 4),

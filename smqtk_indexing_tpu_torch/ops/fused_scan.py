@@ -26,8 +26,9 @@ row stats by it, ``ops/sq8._i8dot_q``). The products are summed exactly
 (int32 ``__dp4a`` on the card's CUDA cores; f32 in the plain versions,
 where every partial sum is an integer below 2^24 at d = 128), then the
 same f32 epilogue ``(db_sq - 2 ip) + penalty`` applies, so the kernels and
-the plain versions agree bit for bit. Those launches count in
-``I8DOT_LAUNCHES``, so a run shows which form stage 1 took.
+the plain versions agree bit for bit. :data:`LAUNCHES` counts each
+wrapper's launches by the form its kernel took, so a run shows which form
+stage 1 took.
 
 Stage 2 (``pallas_scan.py:619-700``, the f32 form): the top ``s_keep``
 segments by minimum, a gather of their rows, exact per-metric distances
@@ -47,7 +48,11 @@ the capacity scan's stage 2 (``ops/sq8.sq8_topk_blocked``). On a CUDA
 tensor it runs ``csrc/seg_gather.cu``; on a CPU tensor, its plain version.
 
 Stage 1 over the single-copy layouts of the capacity scan
-(``ops/sq8.sq8_topk_blocked``), all three in ``csrc/segment_minima_tiled.cu``:
+(``ops/sq8.sq8_topk_blocked``); over int8 codes with a float query (the
+capacity scan's own form) all three run ``csrc/segment_minima_tiled_wgmma.cu``
+on the tensor cores (``wgmma``) with the query rounded to bf16, over an f32
+or bf16 database f32 FFMA, and the int8 x int8 form ``__dp4a``
+(``csrc/segment_minima_tiled.cu``, ``csrc/tiled_minima.cuh``):
 
 - ``segment_minima_tiled`` (K2, ``pallas_scan.py:244-310``) over the tiled
   layout (n_tiles, d, tile_n) built by :func:`tiled_layout`: K1's minima,
@@ -86,35 +91,44 @@ TILES_PER_STEP = 8
 #: Metrics with a matmul-form surrogate, served by this path.
 FUSED_METRICS = ("euclidean", "inner_product", "cosine")
 
-#: Launches of the CUDA stage-1 kernel in this process, every database
-#: dtype. The wrapper adds one where it launches the kernel and nowhere
-#: else.
-LAUNCHES = 0
-
 #: The stage-1 kernel's C entry point for each database dtype.
 _STAGE1_ENTRY = {torch.float32: "segment_minima_f32",
                  torch.bfloat16: "segment_minima_bf16",
                  torch.int8: "segment_minima_i8"}
 
-#: Launches of the CUDA segment-gather kernel (``seg_gather_tiled``), kept
-#: the same way.
-GATHER_LAUNCHES = 0
-
-#: Launches of ``csrc/segment_minima_tiled.cu`` by each of its wrappers,
-#: kept the same way: ``segment_minima_tiled`` (K2),
-#: ``segment_minima_blocked`` (K4) and ``segment_minima_tiled2`` (K5).
-TILED_LAUNCHES = 0
-BLOCKED_LAUNCHES = 0
-TILED2_LAUNCHES = 0
-
 #: Each database dtype's suffix of the tiled kernels' C entry points.
 _TILED_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16",
                  torch.int8: "i8"}
 
-#: Launches of the int8 x int8 forms (an int8 query over int8 codes), by
-#: wrapper, kept the same way; they do not count in the counts above.
-I8DOT_LAUNCHES = {"segment_minima": 0, "segment_minima_tiled": 0,
-                  "segment_minima_blocked": 0, "segment_minima_tiled2": 0}
+#: The form of the kernel each stage-1 C entry point launches, by the
+#: source that defines it: ``ffma`` (``segment_minima.cu``,
+#: ``segment_minima_tiled.cu``, ``stage1_variants.cu``), ``wgmma`` (a bf16
+#: query on the tensor cores: ``segment_minima_wgmma.cu``,
+#: ``segment_minima_tiled_wgmma.cu``) or ``i8i8`` (an int8 query,
+#: ``__dp4a``). The launchers choose the entry point, take its form from
+#: here and give the query in the form's operand type.
+_ENTRY_FORM = {
+    "segment_minima_f32": "ffma", "segment_minima_bf16": "wgmma",
+    "segment_minima_i8": "wgmma", "segment_minima_i8i8": "i8i8",
+    **{f"{entry}_{suffix}": form
+       for entry in ("segment_minima_tiled", "segment_minima_tiled2")
+       for suffix, form in (("f32", "ffma"), ("bf16", "ffma"),
+                            ("i8", "wgmma"), ("i8i8", "i8i8"))},
+    "stage1_variant_i8": "ffma", "stage1_variant_i8i8": "i8i8"}
+
+#: The stage-1 wrappers: K1, K2, K4, K5.
+_STAGE1_WRAPPERS = ("segment_minima", "segment_minima_tiled",
+                    "segment_minima_blocked", "segment_minima_tiled2")
+
+#: Launches of this module's CUDA kernels in this process, by (wrapper,
+#: form). A stage-1 wrapper's form is ``ffma`` (f32 FFMA on the CUDA
+#: cores), ``wgmma`` (bf16 products on the tensor cores) or ``i8i8`` (an
+#: int8 query over int8 codes, ``__dp4a``); ``seg_gather_tiled``'s is
+#: ``copy``. Each wrapper adds one where it launches its kernel and
+#: nowhere else.
+LAUNCHES = {**{(w, f): 0 for w in _STAGE1_WRAPPERS
+               for f in ("ffma", "wgmma", "i8i8")},
+            ("seg_gather_tiled", "copy"): 0}
 
 #: Cap on the (B, C) f32 score block of ``segment_minima_reference``.
 REFERENCE_BYTES = 1 << 28
@@ -152,18 +166,14 @@ def _check_query(q: torch.Tensor, db_dtype: torch.dtype, name: str) -> None:
     _q_kernel_dtype(q[:0], db_dtype)
 
 
-def _count(wrapper: str, q: torch.Tensor) -> None:
-    """Add one launch of ``wrapper``'s kernel: to ``I8DOT_LAUNCHES`` for an
-    int8 query, else to the wrapper's own count."""
-    global TILED_LAUNCHES, BLOCKED_LAUNCHES, TILED2_LAUNCHES
-    if q.dtype == torch.int8:
-        I8DOT_LAUNCHES[wrapper] += 1
-    elif wrapper == "segment_minima_tiled":
-        TILED_LAUNCHES += 1
-    elif wrapper == "segment_minima_blocked":
-        BLOCKED_LAUNCHES += 1
-    else:
-        TILED2_LAUNCHES += 1
+def _query_operand(q: torch.Tensor, db_dtype: torch.dtype,
+                   form: str) -> torch.Tensor:
+    """The query as the kernel of ``form`` reads it: the bf16-rounded
+    query of :func:`_q_kernel_dtype` as a bf16 tensor for ``wgmma``, else
+    that function's f32 (or int8) query; contiguous."""
+    if form == "wgmma":
+        return q.to(torch.bfloat16).contiguous()
+    return _q_kernel_dtype(q, db_dtype).contiguous()
 
 
 def _check_stage1(db, db_sq, penalty, q) -> None:
@@ -240,22 +250,19 @@ def _segment_minima_cuda(db, db_sq, penalty, q) -> torch.Tensor:
     """Launch ``csrc/segment_minima.cu`` (f32 database, int8 x int8) or
     ``csrc/segment_minima_wgmma.cu`` (bf16 database or int8 codes, with
     the query as bf16) on the current stream."""
-    global LAUNCHES
     _check_stage1(db, db_sq, penalty, q)
-    i8i8 = q.dtype == torch.int8
     n, d = db.shape
     b = q.shape[0]
     if d % 128:
         raise ValueError(f"segment_minima: d={d} is not a multiple of 128 "
                          "(stores pad it with pad_dim)")
-    if i8i8 or db.dtype == torch.float32:
-        qk = q.contiguous()
-    else:
-        # The bf16-rounded query of _q_kernel_dtype, as the wgmma operand.
-        qk = q.to(torch.bfloat16).contiguous()
-    for name, t in (("db", db), ("db_sq", db_sq), ("penalty", penalty)):
+    name = ("segment_minima_i8i8" if q.dtype == torch.int8
+            else _STAGE1_ENTRY[db.dtype])
+    form = _ENTRY_FORM[name]
+    qk = _query_operand(q, db.dtype, form)
+    for what, t in (("db", db), ("db_sq", db_sq), ("penalty", penalty)):
         if not t.is_contiguous():
-            raise ValueError(f"segment_minima: {name} is not contiguous")
+            raise ValueError(f"segment_minima: {what} is not contiguous")
     if any(t.data_ptr() % 16 for t in (db, qk, db_sq, penalty)):
         raise ValueError("segment_minima: db, q, db_sq and penalty must be "
                          "16-byte aligned")
@@ -263,16 +270,12 @@ def _segment_minima_cuda(db, db_sq, penalty, q) -> torch.Tensor:
         raise ValueError("segment_minima: grid exceeds 2^31 blocks")
     out = torch.empty((b, n // SEG), dtype=torch.float32, device=db.device)
     lib = _kernels.library()
-    name = "segment_minima_i8i8" if i8i8 else _STAGE1_ENTRY[db.dtype]
     stream = torch.cuda.current_stream(db.device).cuda_stream
     err = getattr(lib, name)(
         qk.data_ptr(), db.data_ptr(), db_sq.data_ptr(), penalty.data_ptr(),
         out.data_ptr(), b, n, d, db.device.index, stream)
     _kernels.check(err, name)
-    if i8i8:
-        I8DOT_LAUNCHES["segment_minima"] += 1
-    else:
-        LAUNCHES += 1
+    LAUNCHES["segment_minima", form] += 1
     return out
 
 
@@ -332,7 +335,6 @@ def seg_gather_tiled_reference(db3: torch.Tensor,
 
 def _seg_gather_cuda(db3: torch.Tensor, sid: torch.Tensor) -> torch.Tensor:
     """Launch ``csrc/seg_gather.cu`` on the current stream."""
-    global GATHER_LAUNCHES
     if not db3.is_contiguous():
         raise ValueError("seg_gather_tiled: db3 is not contiguous")
     esize = db3.element_size()
@@ -351,7 +353,7 @@ def _seg_gather_cuda(db3: torch.Tensor, sid: torch.Tensor) -> torch.Tensor:
                                out.data_ptr(), flat.shape[0], d, tile_n,
                                esize, db3.device.index, stream)
     _kernels.check(err, "seg_gather_tiled")
-    GATHER_LAUNCHES += 1
+    LAUNCHES["seg_gather_tiled", "copy"] += 1
     return out.reshape(*sid.shape, d, SEG)
 
 
@@ -594,8 +596,8 @@ def segment_minima_tiled(db3: torch.Tensor, db_sq: torch.Tensor,
         return segment_minima_tiled_reference(db3, db_sq, penalty, q)
     n_tiles, _, tile_n = db3.shape
     nseg = n_tiles * tile_n // SEG
-    out, _ = tiled_cuda(db3, db_sq, penalty, q, nseg, 1)
-    _count("segment_minima_tiled", q)
+    out, _, form = tiled_cuda(db3, db_sq, penalty, q, nseg, 1)
+    LAUNCHES["segment_minima_tiled", form] += 1
     return out[0]
 
 
@@ -641,8 +643,8 @@ def segment_minima_blocked(db_blk: torch.Tensor, db_sq: torch.Tensor,
     check_tiled(db_blk, db_sq, penalty, q, "segment_minima_blocked")
     if db_blk.device.type == "cpu":
         return segment_minima_blocked_reference(db_blk, db_sq, penalty, q)
-    out, _ = tiled_cuda(db_blk, db_sq, penalty, q, db_blk.shape[0], 1)
-    _count("segment_minima_blocked", q)
+    out, _, form = tiled_cuda(db_blk, db_sq, penalty, q, db_blk.shape[0], 1)
+    LAUNCHES["segment_minima_blocked", form] += 1
     return out[0]
 
 
@@ -686,8 +688,8 @@ def segment_minima_tiled2(db3: torch.Tensor, db_sq: torch.Tensor,
         return segment_minima_tiled2_reference(db3, db_sq, penalty, q)
     n_tiles, _, tile_n = db3.shape
     _, g, bw = step_shape(n_tiles, tile_n)
-    m1, m2 = tiled_cuda(db3, db_sq, penalty, q, g, bw)
-    _count("segment_minima_tiled2", q)
+    m1, m2, form = tiled_cuda(db3, db_sq, penalty, q, g, bw)
+    LAUNCHES["segment_minima_tiled2", form] += 1
     return m1, m2
 
 
@@ -706,24 +708,27 @@ def segment_minima_tiled2_reference(db3: torch.Tensor, db_sq: torch.Tensor,
 
 def tiled_cuda(db3, db_sq, penalty, q, g: int, bw: int, *,
                scale: float = 1.0, variant: Optional[int] = None):
-    """Launch the kernels of ``csrc/tiled_minima.cuh`` on the current
-    stream: the one launcher of K2, K4, K5 and K9, which share them. The
-    caller has run :func:`check_tiled` and counts the launch.
+    """Launch a stage-1 kernel over the tiled layout on the current
+    stream: the one launcher of K2, K4, K5, K9 and K10. The caller has run
+    :func:`check_tiled` and counts the launch.
 
-    - ``variant`` None (``csrc/segment_minima_tiled.cu``): the (B, N / 128)
-      form when ``g`` is N / 128 and ``bw`` 1 (K2, K4), else the step-major
-      pair (K5); the int8 x int8 form for an int8 query, its products times
-      ``scale``.
-    - ``variant`` one of the header's ``Variant`` values
+    - ``variant`` None: the (B, N / 128) form when ``g`` is N / 128 and
+      ``bw`` 1 (K2, K4), else the step-major pair (K5). Over int8 codes
+      with a float query, ``csrc/segment_minima_tiled_wgmma.cu`` (the
+      tensor cores, the query as bf16); for an int8 query, the int8 x int8
+      form, its products times ``scale``; over an f32 or bf16 database,
+      FFMA (both ``csrc/segment_minima_tiled.cu``).
+    - ``variant`` one of ``csrc/tiled_minima.cuh``'s ``Variant`` values
       (``csrc/stage1_variants.cu``, K9): that epilogue over int8 codes into
-      the step-major (n_steps, B, g) layout; ``bw`` is 1 and the products
-      are not scaled.
+      the step-major (n_steps, B, g) layout, FFMA or int8 x int8; ``bw`` is
+      1 and the products are not scaled.
 
-    The kernels read an int8 query as it is, else an f32 one (rounded to
-    bf16 first for a bf16 or int8 database).
+    The FFMA kernels read an f32 query (rounded to bf16 first for a bf16
+    or int8 database), the int8 x int8 ones an int8 query as it is.
 
     :return: (out (n_steps, B, g), group minima (n_steps, B, g // bw) or
-        None for ``bw == 1``).
+        None for ``bw == 1``, the form of the entry point it launched:
+        ``ffma``, ``wgmma`` or ``i8i8``, from :data:`_ENTRY_FORM`).
     :raises ValueError: the kernels cannot take these tensors.
     """
     n_tiles, d, tile_n = db3.shape
@@ -735,10 +740,16 @@ def tiled_cuda(db3, db_sq, penalty, q, g: int, bw: int, *,
                          f"{depth} (stores pad it with pad_dim)")
     if variant is not None and (db3.dtype != torch.int8 or bw != 1):
         raise ValueError("the stage-1 variants take int8 codes and bw 1")
-    qk = _q_kernel_dtype(q, db3.dtype).contiguous()
-    for name, t in (("db3", db3), ("db_sq", db_sq), ("penalty", penalty)):
+    i8i8 = q.dtype == torch.int8
+    suffix = "i8i8" if i8i8 else _TILED_SUFFIX[db3.dtype]
+    name = (f"stage1_variant_{suffix}" if variant is not None
+            else f"segment_minima_tiled_{suffix}" if bw == 1
+            else f"segment_minima_tiled2_{suffix}")
+    form = _ENTRY_FORM[name]
+    qk = _query_operand(q, db3.dtype, form)
+    for what, t in (("db3", db3), ("db_sq", db_sq), ("penalty", penalty)):
         if not t.is_contiguous():
-            raise ValueError(f"segment_minima_tiled: {name} is not "
+            raise ValueError(f"segment_minima_tiled: {what} is not "
                              "contiguous")
     if any(t.data_ptr() % 16 for t in (db3, qk, db_sq, penalty)):
         raise ValueError("segment_minima_tiled: db3, q, db_sq and penalty "
@@ -748,26 +759,21 @@ def tiled_cuda(db3, db_sq, penalty, q, g: int, bw: int, *,
     out = torch.empty((nseg // g, b, g), dtype=torch.float32,
                       device=db3.device)
     lib = _kernels.library()
-    i8i8 = qk.dtype == torch.int8
-    suffix = "i8i8" if i8i8 else _TILED_SUFFIX[db3.dtype]
     scale_arg = (float(scale),) if i8i8 else ()
     stream = torch.cuda.current_stream(db3.device).cuda_stream
     if variant is not None:
-        name = f"stage1_variant_{suffix}"
         groups = None
         err = getattr(lib, name)(
             qk.data_ptr(), db3.data_ptr(), db_sq.data_ptr(),
             penalty.data_ptr(), out.data_ptr(), b, n_tiles, d, tile_n, g,
             variant, db3.device.index, stream)
     elif bw == 1:
-        name = f"segment_minima_tiled_{suffix}"
         groups = None
         err = getattr(lib, name)(
             qk.data_ptr(), db3.data_ptr(), db_sq.data_ptr(),
             penalty.data_ptr(), out.data_ptr(), b, n_tiles, d, tile_n,
             *scale_arg, db3.device.index, stream)
     else:
-        name = f"segment_minima_tiled2_{suffix}"
         groups = torch.empty((nseg // g, b, g // bw), dtype=torch.float32,
                              device=db3.device)
         err = getattr(lib, name)(
@@ -775,7 +781,7 @@ def tiled_cuda(db3, db_sq, penalty, q, g: int, bw: int, *,
             penalty.data_ptr(), out.data_ptr(), groups.data_ptr(), b,
             n_tiles, d, tile_n, g, bw, *scale_arg, db3.device.index, stream)
     _kernels.check(err, name)
-    return out, groups
+    return out, groups, form
 
 
 def topk_segments_stepmajor(m1: torch.Tensor, m2: torch.Tensor, s_keep: int

@@ -47,6 +47,30 @@ def flat_data(n: int, d: int, batch: int):
     return data, queries
 
 
+def reset_k1_launches(fused_scan) -> None:
+    """Set K1's launch counts in ``fused_scan`` to 0: the (wrapper, form)
+    dict ``LAUNCHES`` of this package, or the int ``LAUNCHES`` and the
+    ``I8DOT_LAUNCHES`` dict of a checkout from before that dict, which
+    ``--root`` may import."""
+    if isinstance(fused_scan.LAUNCHES, dict):
+        fused_scan.LAUNCHES.update(dict.fromkeys(fused_scan.LAUNCHES, 0))
+        return
+    fused_scan.LAUNCHES = 0
+    i8dot = getattr(fused_scan, "I8DOT_LAUNCHES", {})
+    if "segment_minima" in i8dot:
+        i8dot["segment_minima"] = 0
+
+
+def k1_launches(fused_scan) -> int:
+    """K1's launches in ``fused_scan`` over every form, in either of the
+    forms of :func:`reset_k1_launches`."""
+    if isinstance(fused_scan.LAUNCHES, dict):
+        return sum(n for (w, _), n in fused_scan.LAUNCHES.items()
+                   if w == "segment_minima")
+    i8dot = getattr(fused_scan, "I8DOT_LAUNCHES", {})
+    return fused_scan.LAUNCHES + i8dot.get("segment_minima", 0)
+
+
 def time_batches(index, q_elems, n_batches: int) -> list:
     """A warm-up and ``n_batches`` timed ``nn_many(q_elems, K)`` batches,
     each after ``gc.collect()``: one dict a batch with its ms, the ms of
@@ -55,7 +79,7 @@ def time_batches(index, q_elems, n_batches: int) -> list:
     from smqtk_indexing_tpu_torch.ops import fused_scan
     from smqtk_indexing_tpu_torch.utils.tracing import COUNTERS
     index.nn_many(q_elems, K)                              # warm-up
-    fused_scan.LAUNCHES = 0
+    reset_k1_launches(fused_scan)
     out = []
     for _ in range(n_batches):
         gc.collect()
@@ -101,7 +125,7 @@ def main(argv: Optional[list] = None) -> dict:
     index.build_index(elems)
     build_s = time.perf_counter() - t0
     batches = time_batches(index, q_elems, args.batches)
-    launches = fused_scan.LAUNCHES
+    launches = k1_launches(fused_scan)
     result = {"package": smqtk_indexing_tpu_torch.__file__,
               "dtype": args.dtype, "n": args.n, "d": D,
               "batch": args.batch, "k": K, "build_s": build_s,

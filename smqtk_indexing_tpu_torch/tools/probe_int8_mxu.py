@@ -85,9 +85,9 @@ def scan_minima(db_t: torch.Tensor, sq: torch.Tensor, pen: torch.Tensor,
     if db_t.device.type == "cpu":
         return scan_minima_reference(db_t, sq, pen, q, g, int8dot=int8dot)
     nseg = db_t.shape[1] // SEG
-    out, _ = fused_scan.tiled_cuda(db_t[None], sq.reshape(-1),
-                                   pen.reshape(-1), qk, nseg, 1,
-                                   scale=float(g))
+    out, _, _ = fused_scan.tiled_cuda(db_t[None], sq.reshape(-1),
+                                      pen.reshape(-1), qk, nseg, 1,
+                                      scale=float(g))
     LAUNCHES["int8dot" if int8dot else "bf16"] += 1
     return out[0]
 

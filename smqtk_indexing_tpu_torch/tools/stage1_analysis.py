@@ -116,8 +116,9 @@ def run_variant(db3: torch.Tensor, db_sq: torch.Tensor,
     if kv == KERNEL_VARIANT["nomin"] and tile_n > SEG * SEG:
         raise ValueError(f"run_variant: nomin takes tile_n <= {SEG * SEG}")
     g = steps(n_tiles, t_step) * tile_n // SEG
-    out, _ = fused_scan.tiled_cuda(db3, db_sq.reshape(-1),
-                                   penalty.reshape(-1), q, g, 1, variant=kv)
+    out, _, _ = fused_scan.tiled_cuda(db3, db_sq.reshape(-1),
+                                      penalty.reshape(-1), q, g, 1,
+                                      variant=kv)
     LAUNCHES[SAME_AS.get(variant, variant)] += 1
     return out
 

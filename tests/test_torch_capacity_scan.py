@@ -90,12 +90,12 @@ def test_segment_minima_tiled_matches_jax(dtype):
     ref = jax_scan.segment_minima_tiled(
         _jax(db3, dtype), jnp.asarray(sq)[None], jnp.asarray(pen)[None],
         jnp.asarray(q), interpret=True, precision="highest")
-    before = fused_scan.TILED_LAUNCHES
+    before = dict(fused_scan.LAUNCHES)
     out = fused_scan.segment_minima_tiled(
         fused_scan.tiled_layout(_torch(rows, dtype)), torch.from_numpy(sq),
         torch.from_numpy(pen), torch.from_numpy(q))
     # The plain version on CPU tensors is not a kernel launch.
-    assert fused_scan.TILED_LAUNCHES == before
+    assert fused_scan.LAUNCHES == before
     _assert_minima(out, ref)
     assert np.isinf(out.numpy()[:, 1]).all()
     # The same minima as K1 over the row-major rows.
@@ -114,12 +114,12 @@ def test_segment_minima_blocked_matches_jax(dtype):
     ref = jax_scan.segment_minima_blocked(
         _jax(blk, dtype), jnp.asarray(sq).reshape(nseg, 128),
         jnp.asarray(pen).reshape(nseg, 128), jnp.asarray(q), interpret=True)
-    before = fused_scan.BLOCKED_LAUNCHES
+    before = dict(fused_scan.LAUNCHES)
     out = fused_scan.segment_minima_blocked(
         fused_scan.blocked_layout(_torch(rows, dtype)),
         torch.from_numpy(sq).view(nseg, 128),
         torch.from_numpy(pen).view(nseg, 128), torch.from_numpy(q))
-    assert fused_scan.BLOCKED_LAUNCHES == before
+    assert fused_scan.LAUNCHES == before
     _assert_minima(out, ref)
     with pytest.raises(ValueError, match="nseg"):
         fused_scan.segment_minima_blocked(
@@ -147,9 +147,9 @@ STEP_CASES = [(4096, 32, 16), (8192, 64, 16), (16384, 128, 128)]
 def test_segment_minima_tiled2_matches_jax(n, g, bw):
     db3, m1_ref, m2_ref, (sq, pen, q) = _stepmajor_case(n)
     assert fused_scan.step_shape(n // 4096, 4096) == (1, g, bw)
-    before = fused_scan.TILED2_LAUNCHES
+    before = dict(fused_scan.LAUNCHES)
     m1, m2 = fused_scan.segment_minima_tiled2(db3, sq, pen, q)
-    assert fused_scan.TILED2_LAUNCHES == before
+    assert fused_scan.LAUNCHES == before
     assert m1.shape == (1, B, g) and m2.shape == (1, B, g // bw)
     _assert_minima(m1, m1_ref)
     _assert_minima(m2, m2_ref)
@@ -224,14 +224,11 @@ def test_sq8_topk_blocked_matches_jax_and_sq8_topk(metric, layout):
         jnp.asarray(blk.numpy()), jnp.asarray(a), jnp.asarray(b),
         jnp.asarray(s2.numpy()), jnp.asarray(valid), jnp.asarray(q), k=k,
         metric=metric, interpret=True)
-    launches = (fused_scan.TILED2_LAUNCHES, fused_scan.BLOCKED_LAUNCHES,
-                fused_scan.GATHER_LAUNCHES)
+    launches = dict(fused_scan.LAUNCHES)
     args = (torch.from_numpy(a), torch.from_numpy(b), s2,
             torch.from_numpy(valid), torch.from_numpy(q))
     d_port, r_port = sq8.sq8_topk_blocked(blk, *args, k=k, metric=metric)
-    assert launches == (fused_scan.TILED2_LAUNCHES,
-                        fused_scan.BLOCKED_LAUNCHES,
-                        fused_scan.GATHER_LAUNCHES)
+    assert launches == fused_scan.LAUNCHES
     assert r_port.dtype == torch.int64 and r_port.shape == (B, k)
     assert valid[r_port.numpy()].all()
     assert_same_neighbours(r_port.numpy(), d_port.numpy(), np.asarray(r_ref),

@@ -2,8 +2,9 @@
 The port's hand-written kernels on the card (K1 ``segment_minima`` with
 its f32 form and its bf16 and int8-code forms on the tensor cores, K7
 ``ivf_list_scores_tiled``, K6 ``ivf_list_scores``, K3 ``seg_gather_tiled``, K8
-``ivf_list_scores_tiled_pq``, K2, K4 and K5 of
-``csrc/segment_minima_tiled.cu``, the int8 x int8 forms of K1, K2, K4 and
+``ivf_list_scores_tiled_pq``, K2, K4 and K5 over int8 codes on the tensor
+cores (``csrc/segment_minima_tiled_wgmma.cu``) and over f32 and bf16
+(``csrc/segment_minima_tiled.cu``), the int8 x int8 forms of K1, K2, K4 and
 K5, and the probes K10 and K9 of ``smqtk_indexing_tpu_torch/tools/``),
 against their plain PyTorch versions and against the port's CPU path, for
 the flat and the IVF indexes and the capacity scan. Every test here is marked
@@ -13,6 +14,8 @@ JAX package's compute, so it runs on a machine with the card and no jax:
     python -m pytest --noconftest -p no:cacheprovider -q -m cuda \\
         tests/test_torch_cuda.py
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -46,6 +49,13 @@ def card():
     return torch.device("cuda")
 
 
+def _launched(before: dict) -> dict:
+    """The launches of ``fused_scan``'s kernels since ``before`` (a copy
+    of ``fused_scan.LAUNCHES``), by (wrapper, form)."""
+    return {key: n - before[key] for key, n in fused_scan.LAUNCHES.items()
+            if n != before[key]}
+
+
 def _assert_stage1(out, ref, db, sq, pen, q):
     """K1's output against its plain version ``ref`` and float64 on the
     operands the kernel sees (the bf16-rounded query over a bf16 or int8
@@ -75,12 +85,13 @@ def test_kernel_matches_plain_version(card, dtype):
     args = (torch.from_numpy(db).to(card, getattr(torch, dtype)),
             torch.from_numpy(sq).to(card), torch.from_numpy(pen).to(card),
             torch.from_numpy(q).to(card))
-    before = fused_scan.LAUNCHES
+    before = dict(fused_scan.LAUNCHES)
     out = fused_scan.segment_minima(*args)
     torch.cuda.synchronize()
-    assert fused_scan.LAUNCHES == before + 1
+    form = "ffma" if dtype == "float32" else "wgmma"
+    assert _launched(before) == {("segment_minima", form): 1}
     ref = fused_scan.segment_minima_reference(*args)
-    assert fused_scan.LAUNCHES == before + 1
+    assert _launched(before) == {("segment_minima", form): 1}
     assert torch.isinf(out[:, 1]).all()
     _assert_stage1(out, ref, *args)
 
@@ -129,10 +140,10 @@ WGMMA_CASES = {"one_block": (64, 128, 128),
 def test_k1_wgmma_forms_match_plain_and_f64(card, case, dtype):
     b, n, d = WGMMA_CASES[case]
     args = _wgmma_inputs(b, n, d, dtype, card, seed=len(case) * 7 + b)
-    before = fused_scan.LAUNCHES
+    before = dict(fused_scan.LAUNCHES)
     out = fused_scan.segment_minima(*args)
     torch.cuda.synchronize()
-    assert fused_scan.LAUNCHES == before + 1
+    assert _launched(before) == {("segment_minima", "wgmma"): 1}
     assert out.shape == (b, n // 128)
     ref = fused_scan.segment_minima_reference(*args)
     if n > 256:
@@ -186,9 +197,12 @@ def test_flat_index_on_card_matches_cpu(card, dtype):
         index.build_index(els[:2500])
         index.update_index(els[2500:])
         index.remove_from_index(list(range(0, 3000, 7)))
-        before = fused_scan.LAUNCHES
+        before = dict(fused_scan.LAUNCHES)
         res = index.nn_many(els[1:40:2], 5)
-        assert (fused_scan.LAUNCHES > before) == (device == "cuda")
+        launched = _launched(before)
+        assert bool(launched) == (device == "cuda")
+        form = "ffma" if dtype == "float32" else "wgmma"
+        assert set(launched) <= {("segment_minima", form)}
         results.append(res)
     for r_gpu, r_cpu in zip(*results):
         assert [e.uuid() for e in r_gpu[0]] == [e.uuid() for e in r_cpu[0]]
@@ -306,10 +320,10 @@ def test_k3_is_bit_equal_to_plain_version(card, dtype):
     sid = torch.from_numpy(rng.integers(0, 96, size=(7, 18)))
     sid[0, :2] = torch.tensor([0, 95])
     db3, sid = db3.to(card), sid.to(card)
-    before = fused_scan.GATHER_LAUNCHES
+    before = dict(fused_scan.LAUNCHES)
     out = fused_scan.seg_gather_tiled(db3, sid)
     torch.cuda.synchronize()
-    assert fused_scan.GATHER_LAUNCHES == before + 1
+    assert _launched(before) == {("seg_gather_tiled", "copy"): 1}
     assert torch.equal(out, fused_scan.seg_gather_tiled_reference(db3, sid))
 
 
@@ -484,10 +498,10 @@ def test_k1_int8_matches_plain_version(card):
     pen[128:256] = np.inf
     t = (rng.normal(size=(b, d)) * a).astype(np.float32)
     args = [torch.from_numpy(x).to(card) for x in (codes, s2, pen, t)]
-    before = fused_scan.LAUNCHES
+    before = dict(fused_scan.LAUNCHES)
     out = fused_scan.segment_minima(*args)
     torch.cuda.synchronize()
-    assert fused_scan.LAUNCHES == before + 1
+    assert _launched(before) == {("segment_minima", "wgmma"): 1}
     ref = fused_scan.segment_minima_reference(*args)
     assert torch.isinf(out[:, 1]).all()
     _assert_stage1(out, ref, *args)
@@ -507,9 +521,11 @@ def test_flat_sq8_on_card_matches_cpu(card, metric):
                                           device=device)
         index.build_index(els)
         index.remove_from_index(list(range(0, 70000, 9)))
-        before = fused_scan.LAUNCHES
+        before = dict(fused_scan.LAUNCHES)
         res = index.nn_many(els[1:200:4], 10)
-        assert (fused_scan.LAUNCHES > before) == (device == "cuda")
+        launched = _launched(before)
+        assert bool(launched) == (device == "cuda")
+        assert set(launched) <= {("segment_minima", "wgmma")}
         results.append((np.array([[e.uuid() for e in r[0]] for r in res]),
                         np.array([r[1] for r in res])))
     (u_gpu, d_gpu), (u_cpu, d_cpu) = results
@@ -544,17 +560,23 @@ def test_ivf_pq_index_on_card_matches_cpu(card):
         index.update_index(els[5000:])
         index.remove_from_index(list(range(0, 6000, 7)))
         before = dict(ivf_scan.LAUNCHES)
-        gathers = fused_scan.GATHER_LAUNCHES
+        gathers = fused_scan.LAUNCHES["seg_gather_tiled", "copy"]
         res = index.nn_many(els[1:40:2], 10)
         on_card = index is gpu
         assert (ivf_scan.LAUNCHES["ivf_list_scores_tiled_pq"]
                 > before["ivf_list_scores_tiled_pq"]) == on_card
-        assert (fused_scan.GATHER_LAUNCHES > gathers) == on_card
+        assert (fused_scan.LAUNCHES["seg_gather_tiled", "copy"]
+                > gathers) == on_card
         results.append((np.array([[e.uuid() for e in r[0]] for r in res]),
                         np.array([r[1] for r in res])))
     np.testing.assert_array_equal(gpu._host, cpu._host)
     (u_gpu, d_gpu), (u_cpu, d_cpu) = results
     assert_same_neighbours(u_gpu, d_gpu, u_cpu, d_cpu, rtol=1e-4, atol=1e-4)
+
+
+#: The wrappers of the tiled layout's stage 1: K2, K4, K5.
+TILED_WRAPPERS = ("segment_minima_tiled", "segment_minima_blocked",
+                  "segment_minima_tiled2")
 
 
 def _tiled_case(card, dtype, n, tile_n, b, seed):
@@ -581,8 +603,7 @@ def test_tiled_kernels_match_plain_versions(card, dtype, tile_n):
     # bw = 16) or 96 tiles of 256 (12 steps of 8 tiles, G = 16, bw = 16).
     n, b = 24576, 200
     db3, sq, pen, q = _tiled_case(card, dtype, n, tile_n, b, seed=21)
-    before = (fused_scan.TILED_LAUNCHES, fused_scan.BLOCKED_LAUNCHES,
-              fused_scan.TILED2_LAUNCHES)
+    before = dict(fused_scan.LAUNCHES)
     out = fused_scan.segment_minima_tiled(db3, sq, pen, q)
     m1, m2 = fused_scan.segment_minima_tiled2(db3, sq, pen, q)
     blk = fused_scan.blocked_layout(
@@ -590,8 +611,8 @@ def test_tiled_kernels_match_plain_versions(card, dtype, tile_n):
     out_blk = fused_scan.segment_minima_blocked(
         blk, sq.view(-1, 128), pen.view(-1, 128), q)
     torch.cuda.synchronize()
-    assert (fused_scan.TILED_LAUNCHES, fused_scan.BLOCKED_LAUNCHES,
-            fused_scan.TILED2_LAUNCHES) == tuple(x + 1 for x in before)
+    form = "wgmma" if dtype == "int8" else "ffma"
+    assert _launched(before) == {(w, form): 1 for w in TILED_WRAPPERS}
     ref = fused_scan.segment_minima_tiled_reference(db3, sq, pen, q)
     n_steps, g, bw = fused_scan.step_shape(n // tile_n, tile_n)
     assert m1.shape == (n_steps, b, g) and m2.shape == (n_steps, b, g // bw)
@@ -604,6 +625,99 @@ def test_tiled_kernels_match_plain_versions(card, dtype, tile_n):
     assert torch.isinf(out[:, 1]).all()
     # m2 is the minimum of m1 over each group, bit for bit.
     assert torch.equal(m2, m1.view(n_steps, b, g // bw, bw).amin(-1))
+
+
+def _wgmma_tiled_inputs(card, b, n_tiles, tile_n, d, seed):
+    """int8 codes in the tiled layout, their row stats, dead rows and a
+    wholly dead segment (rows 128-255), rows of -128 and of 127, and a
+    float query, on the card: (rows (N, d), db3, db_sq, penalty, q)."""
+    db, sq, pen, q = _wgmma_inputs(b, n_tiles * tile_n, d, "int8", card,
+                                   seed)
+    return db, fused_scan.tiled_layout(db, tile_n), sq, pen, q
+
+
+#: The tiled wgmma kernel's cases, (B, n_tiles, tile_n, d): queries past
+#: one 64-query tile, at a ragged 128 and 256, and over several query
+#: tiles (300); dims with a K-chunk tail (16, 48, 144); one segment a tile
+#: (tile_n 128) and 32 (4096). K4 takes tile_n = 128, K5 tile_n = 4096
+#: over 6 tiles (2 a step, bw 16) or 12 (4 a step, bw 128).
+TILED_B = [1, 64, 127, 128, 200, 256, 300]
+TILED_D = [16, 48, 128, 144]
+
+
+@pytest.mark.cuda
+def test_tiled_wgmma_one_block(card):
+    # One block: 64 queries, one segment, d = 128 (K2's entry point).
+    rows, db3, sq, pen, q = _wgmma_tiled_inputs(card, 64, 1, 128, 128,
+                                                seed=40)
+    before = dict(fused_scan.LAUNCHES)
+    out = fused_scan.segment_minima_tiled(db3, sq, pen, q)
+    torch.cuda.synchronize()
+    assert _launched(before) == {("segment_minima_tiled", "wgmma"): 1}
+    ref = fused_scan.segment_minima_tiled_reference(db3, sq, pen, q)
+    _assert_stage1(out, ref, rows, sq, pen, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", TILED_D)
+@pytest.mark.parametrize("tile_n", [128, 4096])
+@pytest.mark.parametrize("b", TILED_B)
+def test_k2_wgmma_matches_plain_and_f64(card, b, tile_n, d):
+    n_tiles = 40 if tile_n == 128 else 3
+    rows, db3, sq, pen, q = _wgmma_tiled_inputs(card, b, n_tiles, tile_n, d,
+                                                seed=b + d + tile_n)
+    before = dict(fused_scan.LAUNCHES)
+    out = fused_scan.segment_minima_tiled(db3, sq, pen, q)
+    torch.cuda.synchronize()
+    assert _launched(before) == {("segment_minima_tiled", "wgmma"): 1}
+    assert out.shape == (b, n_tiles * tile_n // 128)
+    assert torch.isinf(out[:, 1]).all()
+    ref = fused_scan.segment_minima_tiled_reference(db3, sq, pen, q)
+    _assert_stage1(out, ref, rows, sq, pen, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", TILED_D)
+@pytest.mark.parametrize("b", TILED_B)
+def test_k4_wgmma_matches_plain_and_f64(card, b, d):
+    # 200 segments: the last strip of 32 holds 8.
+    rows, _, sq, pen, q = _wgmma_tiled_inputs(card, b, 200, 128, d,
+                                              seed=2 * b + d)
+    blk = fused_scan.blocked_layout(rows)
+    args = (blk, sq.view(-1, 128), pen.view(-1, 128), q)
+    before = dict(fused_scan.LAUNCHES)
+    out = fused_scan.segment_minima_blocked(*args)
+    torch.cuda.synchronize()
+    assert _launched(before) == {("segment_minima_blocked", "wgmma"): 1}
+    assert torch.isinf(out[:, 1]).all()
+    ref = fused_scan.segment_minima_blocked_reference(*args)
+    _assert_stage1(out, ref, rows, sq, pen, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_tiles", [6, 12])
+@pytest.mark.parametrize("d", TILED_D)
+@pytest.mark.parametrize("b", TILED_B)
+def test_k5_wgmma_matches_plain_and_f64(card, b, d, n_tiles):
+    rows, db3, sq, pen, q = _wgmma_tiled_inputs(card, b, n_tiles, 4096, d,
+                                                seed=3 * b + d + n_tiles)
+    n_steps, g, bw = fused_scan.step_shape(n_tiles, 4096)
+    assert bw == (16 if n_tiles == 6 else 128)
+    pen[g * 128 * (n_steps - 1):g * 128 * (n_steps - 1) + 128 * bw] = \
+        math.inf                       # a wholly dead group in the last step
+    before = dict(fused_scan.LAUNCHES)
+    m1, m2 = fused_scan.segment_minima_tiled2(db3, sq, pen, q)
+    torch.cuda.synchronize()
+    assert _launched(before) == {("segment_minima_tiled2", "wgmma"): 1}
+    assert m1.shape == (n_steps, b, g) and m2.shape == (n_steps, b, g // bw)
+    ref1, ref2 = fused_scan.segment_minima_tiled2_reference(db3, sq, pen, q)
+    _assert_stage1(m1.transpose(0, 1).reshape(b, -1),
+                   ref1.transpose(0, 1).reshape(b, -1), rows, sq, pen, q)
+    # m2 is the minimum of m1 over each group, bit for bit, +inf where the
+    # plain version has it.
+    assert torch.equal(m2, m1.view(n_steps, b, g // bw, bw).amin(-1))
+    assert torch.equal(torch.isinf(m2), torch.isinf(ref2))
+    assert torch.isinf(m2[-1, :, 0]).all()
 
 
 @pytest.mark.cuda
@@ -638,15 +752,13 @@ def test_sq8_topk_blocked_on_card_matches_cpu(card, metric, layout):
         else fused_scan.blocked_layout(codes)
     cpu = (lay, a, bb, s2, valid, q)
     d_cpu, r_cpu = sq8.sq8_topk_blocked(*cpu, k=k, metric=metric)
-    before = (fused_scan.TILED2_LAUNCHES, fused_scan.BLOCKED_LAUNCHES,
-              fused_scan.GATHER_LAUNCHES)
+    before = dict(fused_scan.LAUNCHES)
     d_gpu, r_gpu = sq8.sq8_topk_blocked(*(t.to(card) for t in cpu), k=k,
                                         metric=metric)
     torch.cuda.synchronize()
-    tiled = layout == "tiled"
-    assert (fused_scan.TILED2_LAUNCHES, fused_scan.BLOCKED_LAUNCHES,
-            fused_scan.GATHER_LAUNCHES) == (
-        before[0] + tiled, before[1] + (not tiled), before[2] + tiled)
+    assert _launched(before) == (
+        {("segment_minima_tiled2", "wgmma"): 1, ("seg_gather_tiled", "copy"): 1}
+        if layout == "tiled" else {("segment_minima_blocked", "wgmma"): 1})
     assert_same_neighbours(r_gpu.cpu().numpy(), d_gpu.cpu().numpy(),
                            r_cpu.numpy(), d_cpu.numpy(), rtol=DIST_RTOL,
                            atol=1e-5)
@@ -656,10 +768,13 @@ def test_sq8_topk_blocked_on_card_matches_cpu(card, metric, layout):
 def test_capacity_module_on_card_at_a_mini_size(card):
     from smqtk_indexing_tpu_torch.examples import capacity_100m
     cap = capacity_100m.build(16, "cuda", seed=0)
+    before = dict(fused_scan.LAUNCHES)
     for batch in (capacity_100m.B, capacity_100m.B_BIG):
         res = capacity_100m.check(cap, *capacity_100m.scan(cap, batch))
         assert res["recall_at_10"] == 1.0
         assert res["planted_to_random_margin"] > 1.0
+    # K5 took the tensor-core form at both batches.
+    assert _launched(before)[("segment_minima_tiled2", "wgmma")] == 2
     ms = capacity_100m.stages(cap, reps=1)
     assert set(ms) >= {"k2", "k5", "full"}
     assert all(v > 0 for v in ms.values())
@@ -689,12 +804,10 @@ def _i8i8_case(card, n, b, seed):
 @pytest.mark.cuda
 def test_k1_i8i8_is_bit_equal_to_plain_version(card):
     codes, sq, pen, q = _i8i8_case(card, 8192, 200, seed=31)
-    before = dict(fused_scan.I8DOT_LAUNCHES), fused_scan.LAUNCHES
+    before = dict(fused_scan.LAUNCHES)
     out = fused_scan.segment_minima(codes, sq, pen, q)
     torch.cuda.synchronize()
-    assert fused_scan.I8DOT_LAUNCHES["segment_minima"] \
-        == before[0]["segment_minima"] + 1
-    assert fused_scan.LAUNCHES == before[1]
+    assert _launched(before) == {("segment_minima", "i8i8"): 1}
     ref = fused_scan.segment_minima_reference(codes, sq, pen, q)
     assert torch.isinf(out[:, 1]).all()
     assert torch.equal(out, ref)
@@ -709,19 +822,13 @@ def test_tiled_i8i8_kernels_are_bit_equal_to_plain_versions(card, tile_n):
     codes, sq, pen, q = _i8i8_case(card, n, b, seed=32)
     db3 = fused_scan.tiled_layout(codes, tile_n)
     blk = fused_scan.blocked_layout(codes)
-    before = (dict(fused_scan.I8DOT_LAUNCHES), fused_scan.TILED_LAUNCHES,
-              fused_scan.BLOCKED_LAUNCHES, fused_scan.TILED2_LAUNCHES)
+    before = dict(fused_scan.LAUNCHES)
     out = fused_scan.segment_minima_tiled(db3, sq, pen, q)
     m1, m2 = fused_scan.segment_minima_tiled2(db3, sq, pen, q)
     out_blk = fused_scan.segment_minima_blocked(blk, sq.view(-1, 128),
                                                 pen.view(-1, 128), q)
     torch.cuda.synchronize()
-    assert before[1:] == (fused_scan.TILED_LAUNCHES,
-                          fused_scan.BLOCKED_LAUNCHES,
-                          fused_scan.TILED2_LAUNCHES)
-    for name in ("segment_minima_tiled", "segment_minima_blocked",
-                 "segment_minima_tiled2"):
-        assert fused_scan.I8DOT_LAUNCHES[name] == before[0][name] + 1
+    assert _launched(before) == {(w, "i8i8"): 1 for w in TILED_WRAPPERS}
     ref = fused_scan.segment_minima_tiled_reference(db3, sq, pen, q)
     assert torch.isinf(ref[:, 1]).all()
     n_steps, g, bw = fused_scan.step_shape(n // tile_n, tile_n)
@@ -837,11 +944,11 @@ def test_sq8_topk_blocked_i8dot_on_card_matches_cpu(card, layout):
     d_cpu, r_cpu = sq8.sq8_topk_blocked(*cpu, k=k, i8dot=True)
     name = "segment_minima_tiled2" if layout == "tiled" \
         else "segment_minima_blocked"
-    before = fused_scan.I8DOT_LAUNCHES[name]
+    before = fused_scan.LAUNCHES[name, "i8i8"]
     d_gpu, r_gpu = sq8.sq8_topk_blocked(*(t.to(card) for t in cpu), k=k,
                                         i8dot=True)
     torch.cuda.synchronize()
-    assert fused_scan.I8DOT_LAUNCHES[name] == before + 1
+    assert fused_scan.LAUNCHES[name, "i8i8"] == before + 1
     assert_same_neighbours(r_gpu.cpu().numpy(), d_gpu.cpu().numpy(),
                            r_cpu.numpy(), d_cpu.numpy(), rtol=DIST_RTOL,
                            atol=1e-5)
@@ -858,9 +965,9 @@ def test_flat_sq8_i8dot_flag_on_card_matches_cpu(card, monkeypatch):
         index = FlatNearestNeighborsIndex(dtype="sq8", device=device)
         index.build_index(els)
         index.remove_from_index(list(range(0, 70000, 9)))
-        before = fused_scan.I8DOT_LAUNCHES["segment_minima"]
+        before = fused_scan.LAUNCHES["segment_minima", "i8i8"]
         res = index.nn_many(els[1:200:4], 10)
-        assert (fused_scan.I8DOT_LAUNCHES["segment_minima"] > before) \
+        assert (fused_scan.LAUNCHES["segment_minima", "i8i8"] > before) \
             == (device == "cuda")
         results.append((np.array([[e.uuid() for e in r[0]] for r in res]),
                         np.array([r[1] for r in res])))
@@ -872,15 +979,13 @@ def test_flat_sq8_i8dot_flag_on_card_matches_cpu(card, monkeypatch):
 def test_capacity_module_i8dot_on_card_at_a_mini_size(card):
     from smqtk_indexing_tpu_torch.examples import capacity_100m
     cap = capacity_100m.build(16, "cuda", seed=0)
-    before = dict(fused_scan.I8DOT_LAUNCHES)
+    before = dict(fused_scan.LAUNCHES)
     for batch in (capacity_100m.B, capacity_100m.B_BIG):
         res = capacity_100m.check(cap, *capacity_100m.scan(cap, batch,
                                                            i8dot=True))
         assert res["recall_at_10"] == 1.0
         assert res["planted_to_random_margin"] > 1.0
-    assert fused_scan.I8DOT_LAUNCHES["segment_minima_tiled2"] \
-        == before["segment_minima_tiled2"] + 2
+    assert _launched(before)[("segment_minima_tiled2", "i8i8")] == 2
     ms = capacity_100m.stages(cap, reps=1, i8dot=True)
-    assert fused_scan.I8DOT_LAUNCHES["segment_minima_tiled"] \
-        > before["segment_minima_tiled"]
+    assert _launched(before)[("segment_minima_tiled", "i8i8")] > 0
     assert all(v > 0 for v in ms.values())

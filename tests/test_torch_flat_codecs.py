@@ -80,7 +80,7 @@ def test_k1_int8_plain_version_matches_pallas():
     ref = np.asarray(jax_scan.segment_minima(
         jnp.asarray(codes).T, jnp.asarray(s2)[None], jnp.asarray(pen)[None],
         jnp.asarray(t), interpret=True))
-    before = fused_scan.LAUNCHES
+    before = dict(fused_scan.LAUNCHES)
     out = fused_scan.segment_minima(_t(codes), _t(s2), _t(pen),
                                     _t(t)).numpy()
     assert fused_scan.LAUNCHES == before
@@ -126,7 +126,7 @@ def test_sq8_topk_matches_float64_and_jax(metric, route):
     np.testing.assert_allclose(s2.numpy(), np.asarray(js2), rtol=1e-5)
     q_pad = pad_rows_np(q, q.shape[0], d_pad)
     chunk = 65536 if route == "single" else 2048
-    before = fused_scan.LAUNCHES
+    before = dict(fused_scan.LAUNCHES)
     d_p, r_p = sq8.sq8_topk(codes, a, b, s2, nrm, _t(valid), _t(q_pad), k=k,
                             metric=metric, chunk=chunk,
                             fused=route == "fused")

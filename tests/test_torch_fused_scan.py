@@ -36,7 +36,7 @@ def test_segment_minima_matches_jax(dtype):
         jnp.asarray(db, dtype=getattr(jnp, dtype)).T,
         jnp.asarray(sq)[None, :], jnp.asarray(pen)[None, :],
         jnp.asarray(q), interpret=True, precision="highest"))
-    before = fused_scan.LAUNCHES
+    before = dict(fused_scan.LAUNCHES)
     out = fused_scan.segment_minima(
         _torch_db(db, dtype), torch.from_numpy(sq), torch.from_numpy(pen),
         torch.from_numpy(q)).numpy()

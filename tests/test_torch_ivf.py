@@ -170,9 +170,9 @@ def test_exhaustive_code_tier_is_exact_on_the_codes():
         device="cpu", **_kw("code", "sq8", "euclidean", "exact",
                             nprobe=LISTS))
     port.build_index(ELEMS)
-    before = fused_scan.GATHER_LAUNCHES
+    before = dict(fused_scan.LAUNCHES)
     u_p, d_p = _result(port)
-    assert fused_scan.GATHER_LAUNCHES == before
+    assert fused_scan.LAUNCHES == before
     decoded = np.stack([port._row_vector(i)
                         for i in range(port._host.shape[0])])
     uids = np.array(port._row2uid)

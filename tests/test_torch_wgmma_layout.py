@@ -1,7 +1,8 @@
 """
-A numpy model of the shared-memory layout that K1's ``wgmma`` kernel
-(``csrc/segment_minima_wgmma.cu``) stages and that its descriptors ask the
-tensor cores to read (``csrc/wgmma.cuh``). It checks, with no card:
+A numpy model of the shared-memory layout that the ``wgmma`` kernels of
+K1 (``csrc/segment_minima_wgmma.cu``) and of K2 / K4 / K5
+(``csrc/segment_minima_tiled_wgmma.cu``) stage and that their descriptors
+ask the tensor cores to read (``csrc/wgmma.cuh``). It checks, with no card:
 
 - that the ``cp.async`` staging map (db rows, query rows) and the int8
   widening map are bijections onto their 128-byte-swizzle tiles;
@@ -11,7 +12,13 @@ tensor cores to read (``csrc/wgmma.cuh``). It checks, with no card:
   the query tile resident or streamed through the ring;
 - the shared-memory plan (which variant each d takes, tile alignment),
   the accumulator fragment the epilogue reduces, and the exact int8 ->
-  bf16 widening.
+  bf16 widening;
+- for the tiled kernel: the tiled addresses each thread loads, that the
+  register transpose, the widening and the swizzled store put code (row
+  r, dim k) where the k16 descriptors read B[k][r], with the tail past d
+  zero, that the stores are free of bank conflicts, that the strips,
+  groups and step-major offsets write each output once, and its
+  shared-memory plan.
 
 The hardware's side of the model is the PTX ISA's K-major 128-byte swizzle
 layout: an operand row r, K offset kk of a k16 step lies at the logical
@@ -39,8 +46,14 @@ def _constants(name: str) -> dict:
 
 
 H = _constants("wgmma.cuh")
-K = _constants("segment_minima_wgmma.cu")
+#: The geometry both wgmma kernels share, then each kernel's own.
+SHARED = _constants("wgmma_minima.cuh")
+K = {**SHARED, **_constants("segment_minima_wgmma.cu")}
+T = {**SHARED, **_constants("segment_minima_tiled_wgmma.cu")}
 KERNEL_SRC = (CSRC / "segment_minima_wgmma.cu").read_text()
+SHARED_SRC = (CSRC / "wgmma_minima.cuh").read_text()
+LOADS_SRC = (CSRC / "scan_loads.cuh").read_text()
+TILED_SRC = (CSRC / "segment_minima_tiled_wgmma.cu").read_text()
 
 #: The PTX ISA's geometry of a K-major operand with 128-byte swizzle: rows
 #: of 128 bytes, 8-row core groups, bf16 values, 16-byte pieces.
@@ -232,8 +245,10 @@ def test_accumulator_fragment_and_quad_reduction():
         lanes = set(owner[row] % 32)
         quads = {lane // 4 for lane in lanes}
         assert len(lanes) == 4 and len(quads) == 1   # xor 1 and 2 suffice
-    assert "__shfl_xor_sync(0xffffffffu, v, 1)" in KERNEL_SRC
-    assert "__shfl_xor_sync(0xffffffffu, v, 2)" in KERNEL_SRC
+    assert "__shfl_xor_sync(0xffffffffu, v, 1)" in SHARED_SRC
+    assert "__shfl_xor_sync(0xffffffffu, v, 2)" in SHARED_SRC
+    for src in (KERNEL_SRC, TILED_SRC):
+        assert "quad_min(m[i][h])" in src and "fold_minima<kMTiles>" in src
 
 
 def _byte_perm(x: int, y: int, s: int) -> int:
@@ -246,23 +261,398 @@ def _byte_perm(x: int, y: int, s: int) -> int:
     return out
 
 
-def test_int8_codes_widen_exactly_to_bf16():
-    fn = KERNEL_SRC[KERNEL_SRC.index("codes_to_bf16x2(uint32_t w"):]
+def _widen_fn():
+    """``scan_loads.cuh``'s codes_to_bf16x2, read from the source: (w, k)
+    -> the bf16x2 word of bytes k and k + 1 of w (already XORed with
+    0x80)."""
+    fn = LOADS_SRC[LOADS_SRC.index("codes_to_bf16x2(uint32_t w"):]
     fn = fn[:fn.index("\n}")]
     magic = int(re.search(r"0x([0-9A-F]{8})u", fn).group(1), 16)
     offset = float(re.search(r"([0-9.]+)f;", fn).group(1))
     sel = int(re.search(r"0x(75\d0) \| k\)", fn).group(1), 16)
     pack = int(re.search(r"0x(7632)\)", fn).group(1), 16)
-    assert "0x80808080u" in KERNEL_SRC
+
+    def widen(w: int, k: int) -> int:
+        fl = np.array([_byte_perm(w, magic, sel | (k + i)) for i in (0, 1)],
+                      np.uint32).view(np.float32) - np.float32(offset)
+        return _byte_perm(int(fl.view(np.uint32)[0]),
+                          int(fl.view(np.uint32)[1]), pack)
+    return widen
+
+
+def test_int8_codes_widen_exactly_to_bf16():
+    widen = _widen_fn()
+    for src in (KERNEL_SRC, TILED_SRC):
+        assert "0x80808080u" in src
     codes = np.arange(-128, 128, dtype=np.int64)
-    want = torch.from_numpy(codes.astype(np.float32)).to(torch.bfloat16) \
-        .view(torch.int16).numpy().astype(np.uint16)
+    want = _bf16_bits(codes)
     for lo in range(0, 256, 2):
         w = ((int(codes[lo]) & 0xFF) | ((int(codes[lo + 1]) & 0xFF) << 8)) \
             ^ 0x8080
-        fl = np.array([_byte_perm(w, magic, sel | k) for k in (0, 1)],
-                      np.uint32).view(np.float32) - np.float32(offset)
-        word = _byte_perm(int(fl.view(np.uint32)[0]),
-                          int(fl.view(np.uint32)[1]), pack)
+        word = widen(w, 0)
         assert word & 0xFFFF == want[lo]
         assert word >> 16 == want[lo + 1]
+        assert widen(w << 16, 2) == word
+
+
+def _bf16_bits(codes: np.ndarray) -> np.ndarray:
+    """The bf16 bit patterns of integer codes."""
+    return torch.from_numpy(np.asarray(codes, np.float32)) \
+        .to(torch.bfloat16).view(torch.int16).numpy().astype(np.uint16)
+
+
+# -- the tiled layout's kernel (segment_minima_tiled_wgmma.cu) -------------
+
+#: The thread map, the load addresses, the strip and the output offsets
+#: as the kernel writes them; the model below restates each.
+TILED_LINES = (
+    "const int o = (lane % kDimOctets) + kDimOctets * ((tid >> 5) & 1);",
+    "const int p = (lane / kDimOctets) + kRowQuads * (tid >> 6);",
+    "int64_t ld_col = seg0 % nseg_t;",
+    "const int8_t* ld_src = db3 + (seg0 / nseg_t) * dim * tile_n +\n"
+    "                         ld_col * kSeg + 4 * p;",
+    "const int64_t k0 = ld_c * kChunk + 8 * o;",
+    "const bool live = k0 < dim;",
+    "ld_src + (k0 + i) * tile_n",
+    "if (++ld_c == n_chunks) {",
+    "if (++ld_col == nseg_t) {",
+    "ld_src += dim * tile_n - (nseg_t - 1) * kSeg;",
+    "ld_src += kSeg;",
+    "transpose4x4(lo, a);",
+    "transpose4x4(hi, b);",
+    "v.x = codes_to_bf16x2(a[j], 0);",
+    "v.y = codes_to_bf16x2(a[j], 2);",
+    "v.z = codes_to_bf16x2(b[j], 0);",
+    "v.w = codes_to_bf16x2(b[j], 2);",
+    "stage + swizzle_offset(4 * p + j, o)",
+    "const uint64_t b_desc = smem_desc(stage + k * kK16Bytes);",
+    "return bw >= kStrip ? bw : bw * (kStrip / bw);",
+    "int64_t step = seg0 / g, gi = seg0 % g, gq = gi / bw, gpos = 0;",
+    "const bool group_end = out2 != nullptr && ++gpos == bw;",
+    "out1[(step * n_queries + qi) * g + gi] = v;",
+    "out2[(step * n_queries + qi) * (g / bw) + gq] = gmin[i][h];",
+    "if (group_end) {\n      gpos = 0;\n      ++gq;\n    }",
+    "if (++gi == g) {  // the next step of the output\n      gi = 0;\n"
+    "      gq = 0;\n      ++step;\n    }",
+    "cp_async16(stats + (j & 1) * kStatsSlotBytes + 16 * tid, src);",
+    "const float* src = (tid < 32 ? db_sq : penalty) + (seg0 + j) * kSeg +\n"
+    "                         4 * (tid & 31);",
+    "const int64_t qr = q0 + r < n_queries ? q0 + r : n_queries - 1;",
+    "const int64_t left = (dim - c * kChunk) / 8;",
+)
+
+
+def test_tiled_kernel_source_matches_the_model():
+    for line in TILED_LINES:
+        assert line in TILED_SRC, line
+    assert T["kThreads"] == 256 and T["kSeg"] == 128 and T["kChunk"] == 64
+    # 8 dims x 4 rows a thread covers one 64-dim x 128-row K-chunk.
+    assert T["kCodeWords"] * 4 * T["kThreads"] == T["kChunk"] * T["kSeg"]
+    assert T["kRowQuads"] * T["kDimOctets"] == 32
+
+
+def tiled_thread(tid: int):
+    """(dim octet o, row quad p) of thread tid."""
+    lane = tid & 31
+    o = lane % T["kDimOctets"] + T["kDimOctets"] * ((tid >> 5) & 1)
+    p = lane // T["kDimOctets"] + T["kRowQuads"] * (tid >> 6)
+    return o, p
+
+
+def tiled_loads(seg: int, c: int, tid: int, dim: int, tile_n: int):
+    """The flat db3 offsets of thread tid's words for K-chunk c of segment
+    seg, and whether they are live (else zeros)."""
+    o, p = tiled_thread(tid)
+    nseg_t = tile_n // T["kSeg"]
+    k0 = c * T["kChunk"] + 8 * o
+    src = (seg // nseg_t) * dim * tile_n + (seg % nseg_t) * T["kSeg"] + 4 * p
+    return [src + (k0 + i) * tile_n for i in range(T["kCodeWords"])], \
+        k0 < dim
+
+
+def walk_loads(seg0: int, n_steps: int, tid: int, dim: int, tile_n: int):
+    """load_codes called once a step from the strip's first segment, with
+    its running pointer: the offsets and liveness of each step."""
+    o, p = tiled_thread(tid)
+    nseg_t = tile_n // T["kSeg"]
+    n_chunks = -(-dim // T["kChunk"])
+    ld_c, ld_col = 0, seg0 % nseg_t
+    ld_src = (seg0 // nseg_t) * dim * tile_n + ld_col * T["kSeg"] + 4 * p
+    out = []
+    for _ in range(n_steps):
+        k0 = ld_c * T["kChunk"] + 8 * o
+        out.append(([ld_src + (k0 + i) * tile_n
+                     for i in range(T["kCodeWords"])], k0 < dim))
+        ld_c += 1
+        if ld_c == n_chunks:
+            ld_c = 0
+            ld_col += 1
+            if ld_col == nseg_t:
+                ld_col = 0
+                ld_src += dim * tile_n - (nseg_t - 1) * T["kSeg"]
+            else:
+                ld_src += T["kSeg"]
+    return out
+
+
+@pytest.mark.parametrize("dim", [48, 144])
+@pytest.mark.parametrize("tile_n", list(TILED_SHAPES_ALL := (128, 4096)))
+def test_tiled_running_load_pointer_walks_the_strip(tile_n, dim):
+    # A strip that starts mid-tile and crosses tile ends: each step's
+    # loads are those of its (segment, K-chunk).
+    nseg_t = tile_n // T["kSeg"]
+    n_chunks = -(-dim // T["kChunk"])
+    seg0 = nseg_t + nseg_t // 2
+    n_steps = (2 * nseg_t + 3) * n_chunks
+    for tid in (0, 37, 255):
+        for t, got in enumerate(walk_loads(seg0, n_steps, tid, dim, tile_n)):
+            assert got == tiled_loads(seg0 + t // n_chunks, t % n_chunks,
+                                      tid, dim, tile_n)
+
+
+def _transpose_fn():
+    """``scan_loads.cuh``'s transpose4x4, run from its __byte_perm lines."""
+    fn = LOADS_SRC[LOADS_SRC.index("void transpose4x4("):]
+    fn = fn[:fn.index("\n}")]
+    stmts = re.findall(r"(?:const uint32_t )?(\w+(?:\[\d\])?) = __byte_perm"
+                       r"\((\w+(?:\[\d\])?), (\w+(?:\[\d\])?), "
+                       r"0x([0-9A-Fa-f]+)\);", fn)
+    assert len(stmts) == 8
+
+    def transpose(w):
+        env = {f"w[{i}]": int(w[i]) for i in range(4)}
+        for dst, x, y, sel in stmts:
+            env[dst] = _byte_perm(env[x], env[y], int(sel, 16))
+        return [env[f"o[{j}]"] for j in range(4)]
+    return transpose
+
+
+def hw_addresses(desc: int, rows: int) -> np.ndarray:
+    """:func:`hw_address` for every (row, kk) of a k16 step: (rows, 16)."""
+    r = np.arange(rows)[:, None]
+    kk = np.arange(16)[None, :]
+    start = (desc & 0x3FFF) << 4
+    sbo = ((desc >> 32) & 0x3FFF) << 4
+    assert desc >> 62 == 1 and (desc >> 49) & 7 == 0
+    logical = (start + (r // HW_CORE_ROWS) * sbo
+               + (r % HW_CORE_ROWS) * HW_ROW_BYTES + kk * HW_ELEM_BYTES)
+    return logical ^ (((logical >> 7) & 7) << 4)
+
+
+#: Bytes of one staged K-chunk of codes: 128 rows of 64 bf16.
+TILED_STAGE = T["kSeg"] * H["kSwizzleBytes"]
+
+#: (tile_n, n_tiles) of the tiled cases: one and several segments a tile.
+TILED_SHAPES = {128: 5, 4096: 3}
+TILED_DIMS = [16, 48, 128, 144]
+
+
+def _tiled_case(tile_n: int, where: str, dim: int):
+    """(db3 codes (n_tiles, dim, tile_n) int8, segment)."""
+    n_tiles = TILED_SHAPES[tile_n]
+    rng = np.random.default_rng(tile_n + dim)
+    db3 = rng.integers(-128, 128, size=(n_tiles, dim, tile_n)).astype(np.int8)
+    db3[0, 0, :4] = (-128, 127, 0, -1)
+    n_seg = n_tiles * tile_n // T["kSeg"]
+    seg = {"first": 0, "middle": n_seg // 2 + 1, "last": n_seg - 1}[where]
+    return db3, seg
+
+
+@pytest.mark.parametrize("dim", TILED_DIMS)
+@pytest.mark.parametrize("where", ["first", "middle", "last"])
+@pytest.mark.parametrize("tile_n", list(TILED_SHAPES))
+def test_tiled_loads_cover_each_code_of_a_chunk_once(tile_n, where, dim):
+    db3, seg = _tiled_case(tile_n, where, dim)
+    n_tiles = db3.shape[0]
+    nseg_t = tile_n // T["kSeg"]
+    for c in range(-(-dim // T["kChunk"])):
+        seen = np.zeros((T["kSeg"], T["kChunk"]), np.int64)
+        for tid in range(T["kThreads"]):
+            o, p = tiled_thread(tid)
+            offs, live = tiled_loads(seg, c, tid, dim, tile_n)
+            if not live:
+                continue
+            for i, off in enumerate(offs):
+                assert off % 4 == 0 and 0 <= off <= db3.size - 4
+                t, k, col = np.unravel_index(off, db3.shape)
+                # One word: rows 4 p .. 4 p + 3 of the segment, dim i of
+                # the thread's octet.
+                assert t == seg // nseg_t and k == c * T["kChunk"] + 8 * o + i
+                assert col == (seg % nseg_t) * T["kSeg"] + 4 * p
+                seen[4 * p:4 * p + 4, 8 * o + i] += 1
+        live_dims = min(T["kChunk"], dim - c * T["kChunk"])
+        assert (seen[:, :live_dims] == 1).all()
+        assert (seen[:, live_dims:] == 0).all()
+        assert n_tiles * nseg_t > seg
+    # Each warp's load of word i reads whole 32-byte sectors: 4 dims x 32
+    # contiguous bytes.
+    for w in range(T["kThreads"] // 32):
+        for i in range(T["kCodeWords"]):
+            addrs = [tiled_loads(seg, 0, 32 * w + lane, 4096, 4096)[0][i]
+                     for lane in range(32)]
+            sectors = {a // 32 for a in addrs}
+            assert len(sectors) == 4
+            assert sorted(addrs) == sorted(
+                s * 32 + b for s in sectors for b in range(0, 32, 4))
+
+
+@pytest.mark.parametrize("dim", TILED_DIMS)
+@pytest.mark.parametrize("where", ["first", "middle", "last"])
+@pytest.mark.parametrize("tile_n", list(TILED_SHAPES))
+def test_tiled_staging_feeds_each_k16_descriptor_its_codes(tile_n, where,
+                                                           dim):
+    db3, seg = _tiled_case(tile_n, where, dim)
+    flat = db3.view(np.uint8).reshape(-1)
+    transpose, widen = _transpose_fn(), _widen_fn()
+    rows = seg * T["kSeg"] + np.arange(T["kSeg"])
+    # Code (row r of the segment, dim k) in row order.
+    seg_codes = db3[rows // tile_n, :, rows % tile_n]          # (128, dim)
+    stage = 3 * H["kAtomBytes"]        # any 1024-byte-aligned stage
+    for c in range(-(-dim // T["kChunk"])):
+        smem = np.full(stage + TILED_STAGE, 0xAB, np.uint8)
+        writes = np.zeros(TILED_STAGE // 16, np.int64)
+        for tid in range(T["kThreads"]):
+            o, p = tiled_thread(tid)
+            offs, live = tiled_loads(seg, c, tid, dim, tile_n)
+            words = [int.from_bytes(flat[a:a + 4].tobytes(), "little")
+                     if live else 0 for a in offs]
+            lo = transpose([w ^ 0x80808080 for w in words[:4]])
+            hi = transpose([w ^ 0x80808080 for w in words[4:]])
+            for j in range(4):
+                v = np.array([widen(lo[j], 0), widen(lo[j], 2),
+                              widen(hi[j], 0), widen(hi[j], 2)], np.uint32)
+                off = swizzle_offset(4 * p + j, o)
+                smem[stage + off:stage + off + 16] = v.view(np.uint8)
+                writes[off // 16] += 1
+        assert (writes == 1).all()             # a bijection onto the stage
+        view = smem.view(np.uint16)
+        for k in range(T["kChunk"] // 16):
+            desc = smem_desc(stage + k * H["kK16Bytes"])
+            got = view[hw_addresses(desc, T["kSeg"]) // 2]     # (128, 16)
+            dims = c * T["kChunk"] + 16 * k + np.arange(16)
+            want = np.zeros((T["kSeg"], 16), np.uint16)
+            live = dims < dim
+            want[:, live] = _bf16_bits(seg_codes[:, dims[live]])
+            np.testing.assert_array_equal(got, want)   # B[k][r], tail 0
+
+
+def test_tiled_code_stores_are_free_of_bank_conflicts():
+    # A 16-byte store is served a quarter-warp at a time: each 8
+    # consecutive lanes must hit the 8 distinct 16-byte bank groups.
+    for j in range(4):
+        for tid0 in range(0, T["kThreads"], 8):
+            groups = set()
+            for tid in range(tid0, tid0 + 8):
+                o, p = tiled_thread(tid)
+                groups.add((swizzle_offset(4 * p + j, o) % 128) // 16)
+            assert len(groups) == 8
+
+
+def tiled_plan(n_queries: int, dim: int):
+    """(m_tiles, stream_q, bytes) of the tiled kernel's launch choice."""
+    n_chunks = -(-dim // T["kChunk"])
+
+    def total(m_tiles, stream):
+        q_chunk = 2 * T["kMTile"] * m_tiles * H["kSwizzleBytes"]
+        stage = TILED_STAGE + (q_chunk if stream else 0)
+        return (H["kAtomBytes"] + T["kStages"] * stage
+                + (0 if stream else q_chunk * n_chunks)
+                + 2 * T["kSeg"] * 4 * 2)         # two segments' stats
+    if n_queries > 2 * T["kMTile"] and total(2, False) <= T["kMaxSmem"]:
+        return 2, False, total(2, False)
+    if total(1, False) <= T["kMaxSmem"]:
+        return 1, False, total(1, False)
+    return 1, True, total(1, True)
+
+
+@pytest.mark.parametrize("dim", TILED_DIMS + [384, 768, 1024])
+@pytest.mark.parametrize("n_queries", [128, 256])
+def test_tiled_shared_memory_plan_fits(n_queries, dim):
+    m_tiles, stream, total = tiled_plan(n_queries, dim)
+    assert total <= T["kMaxSmem"]
+    assert stream == (dim > 768)
+    assert m_tiles == (2 if n_queries > 128 and dim <= 384 else 1)
+    if dim in TILED_DIMS:
+        assert not stream and m_tiles == n_queries // 128
+    if n_queries <= 128 and dim <= 320:
+        # Two blocks share an SM (228 KB, 1 KB reserved a block).
+        assert 2 * (total + 1024) <= 233472
+    assert "n_queries > q_rows<1>() && smem_bytes<2, false>(dim)" \
+        in TILED_SRC
+
+
+def tiled_outputs(m: np.ndarray, g: int, bw: int, has_out2: bool,
+                  m_tiles: int):
+    """The kernel's grid, strips, epilogue and group minima over segment
+    minima m (B, n_seg): (out1, writes of each out1 slot, out2, writes of
+    each out2 slot)."""
+    n_queries, n_seg = m.shape
+    strip = bw if bw >= T["kStrip"] else bw * (T["kStrip"] // bw)
+    q_rows = 2 * T["kMTile"] * m_tiles
+    n_qtiles = -(-n_queries // q_rows)
+    n_blocks = n_qtiles * -(-n_seg // strip)
+    out1 = np.full(n_seg * n_queries, np.nan)
+    out2 = np.full(n_seg // bw * n_queries, np.nan)
+    n1 = np.zeros(out1.size, np.int64)
+    n2 = np.zeros(out2.size, np.int64)
+    for blk in range(n_blocks):
+        q0 = (blk % n_qtiles) * q_rows
+        seg0 = (blk // n_qtiles) * strip
+        qi = q0 + np.arange(q_rows)
+        live = qi < n_queries
+        gmin = np.full(q_rows, np.inf)
+        step, gi = divmod(seg0, g)
+        gq, gpos = gi // bw, 0
+        for seg in range(seg0, min(seg0 + strip, n_seg)):
+            assert (step, gi) == (seg // g, seg % g)
+            assert gq == seg % g // bw or not has_out2   # read with out2
+            v = m[np.minimum(qi, n_queries - 1), seg]
+            idx = (step * n_queries + qi[live]) * g + gi
+            out1[idx] = v[live]
+            n1[idx] += 1
+            gmin = np.minimum(gmin, v)
+            gpos += has_out2
+            if has_out2 and gpos == bw:
+                idx = (step * n_queries + qi[live]) * (g // bw) + gq
+                out2[idx] = gmin[live]
+                n2[idx] += 1
+                gmin[:] = np.inf
+                gpos, gq = 0, gq + 1
+            gi += 1
+            if gi == g:
+                gi, gq, step = 0, 0, step + 1
+    return out1, n1, out2, n2
+
+
+#: (kernel, n_tiles, tile_n): K5 at bw 128 and 16 (12 and 6 tiles, not
+#: multiples of 8, so 4 and 2 tiles a step), K2 over 12 tiles, K4 over 200
+#: segments (a ragged last strip).
+OUTPUT_CASES = {"k5_bw128": (12, 4096), "k5_bw16": (6, 4096),
+                "k2": (12, 4096), "k4": (200, 128)}
+
+
+@pytest.mark.parametrize("n_queries", [1, 128, 200, 256, 300])
+@pytest.mark.parametrize("case", list(OUTPUT_CASES))
+def test_tiled_outputs_are_each_written_once(case, n_queries):
+    from smqtk_indexing_tpu_torch.ops.fused_scan import step_shape
+    n_tiles, tile_n = OUTPUT_CASES[case]
+    n_seg = n_tiles * tile_n // T["kSeg"]
+    if case.startswith("k5"):
+        n_steps, g, bw = step_shape(n_tiles, tile_n)
+        assert n_tiles % 8 and bw == int(case[len("k5_bw"):])
+    else:
+        n_steps, g, bw = 1, n_seg, 1
+    m_tiles, _, _ = tiled_plan(n_queries, 128)
+    m = np.random.default_rng(n_queries).random((n_queries, n_seg))
+    out1, n1, out2, n2 = tiled_outputs(m, g, bw, case.startswith("k5"),
+                                       m_tiles)
+    assert (n1 == 1).all()
+    m1 = m.reshape(n_queries, n_steps, g).transpose(1, 0, 2)
+    np.testing.assert_array_equal(out1.reshape(n_steps, n_queries, g), m1)
+    if case.startswith("k5"):
+        assert (n2 == 1).all()
+        np.testing.assert_array_equal(
+            out2.reshape(n_steps, n_queries, g // bw),
+            m1.reshape(n_steps, n_queries, g // bw, bw).min(-1))
+    else:
+        assert not n2.any()
