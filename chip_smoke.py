@@ -11,10 +11,11 @@ not 0:
 0. card: the card's name and power limit from ``nvidia-smi``;
 1. build: the hand-written kernels compiled with ``nvcc`` for sm_90a, one
    ``nvcc`` a source, all at once, then linked into one library; the
-   count of HGMMA (tensor-core) instructions in each instantiation of the
-   two wgmma kernels (K1's bf16 and int8-code forms; K2 / K4 / K5 over
-   int8 codes), read with ``cuobjdump -sass``, must not be 0, and ptxas
-   must report no spill in the tiled one;
+   count of tensor-core instructions in each instantiation of the two
+   wgmma kernels (K1's bf16, int8-code and int8 x int8 forms; K2 / K4 / K5
+   over int8 codes with a bf16 and with an int8 query), read with
+   ``cuobjdump -sass`` (HGMMA for the bf16 products, IGMMA for the int8
+   ones), must not be 0, and ptxas must report no spill in any of them;
 2. flat kernels: K1 (``segment_minima``) against its plain PyTorch version
    at the flat path's shapes (B=2048 queries, N=1,048,576 rows, d=128; f32
    with dead rows, and the bf16 form on the tensor cores, also against
@@ -60,10 +61,11 @@ not 0:
    phase's vectors, whose stage 1 is K1's int8 form (held against its
    plain version and float64 at the store's operands; timed batches with
    their span split) and, under
-   ``SMQTK_TPU_SQ8_I8DOT=1``, K1's int8 x int8 form (held bit for bit
-   against its plain version at B=2048, N=2^20; its launches must show the
-   flag took it), then ``dtype="pq16"``; each top-10 of 128 queries must be
-   the float64 top-10 over the store's quantized rows;
+   ``SMQTK_TPU_SQ8_I8DOT=1``, K1's int8 x int8 form on ``wgmma`` s8 (held
+   bit for bit against its plain version at B=2048, N=2^20; every K1
+   launch of the flag's batches must take it), then ``dtype="pq16"``; each
+   top-10 of 128 queries must be the float64 top-10 over the store's
+   quantized rows;
 9. the K10 probe (``smqtk_indexing_tpu_torch.tools.probe_int8_mxu``) over
    16,777,216 x 128 codes made on the card: both arms held against their
    plain versions (the int8 arm bit for bit), then the probe itself (rank
@@ -82,8 +84,9 @@ not 0:
    the prefix (K4), equal to the tiled layout's results. The same with
    ``i8dot=True``: K2, K4 and K5's int8 x int8 forms held bit for bit on
    the prefix, the scan at B=128 and 256 (recall@10 1.0, margin, equal to
-   the plain pipeline) beside the flag-off numbers, its stage split and
-   the blocked layout at the prefix. Then each K9 variant
+   the plain pipeline; every K5 launch ``wgmma_s8``) beside the flag-off
+   numbers, its stage split and the blocked layout at the prefix. Then
+   each K9 variant
    (``smqtk_indexing_tpu_torch.tools.stage1_analysis``) held against its
    plain version on the prefix with both query forms, and the K9 sweep
    (every variant x t_step in {2, 4, 8}) on the resident index.
@@ -93,13 +96,14 @@ reads them just after. Then a ``{"kernels": [...]}`` line with each
 kernel's launches in its path, its error against its plain version, its
 time and the plain version's, its bound (the larger of its bytes over the
 memory rate and its operations over the peak rate of their type, from
-this run's inputs) and the time of one ``torch.mm`` (``torch._int_mm`` for
-the int8 x int8 forms) of the same product where there is such a
-yardstick (K1, K2, K4, K5, K9, K10; the port never calls either); K5's
-rows also carry its capacity ms at B=128 and 256, and its tensor-core row
-``k9_full_ms`` (the FFMA kernel over the same codes and query in this
-run: K9's ``full``, step-major at 8 tiles a step, no m2); and last
-``{"ok": true, "device": {...}}``.
+this run's inputs) and the time of one PyTorch call of the same function
+where there is one (``torch.mm``, or ``torch._int_mm`` for the int8 x int8
+forms: K1, K2, K4, K5, K9, K10; K3's gather as one advanced indexing of
+the tiled codes; the port never calls any of them); K5's rows also carry
+its capacity ms at B=128 and 256, and ``k9_full_ms``: the CUDA-core kernel
+over the same codes and query in this run (K9's ``full``, step-major at 8
+tiles a step, no m2: FFMA beside the bf16-query row, ``__dp4a`` beside the
+int8 x int8 row); and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -216,7 +220,7 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     """Every kernel's launch count: ``fused_scan``'s as ``<wrapper>:<form>``
-    (form ``ffma``, ``wgmma``, ``i8i8`` or ``copy``), K10's arms as
+    (form ``ffma``, ``wgmma``, ``wgmma_s8`` or ``copy``), K10's arms as
     ``scan_minima:<arm>``, K9's variants as ``stage1_variant:<variant>``."""
     from smqtk_indexing_tpu_torch.ops import fused_scan
     out = {f"{w}:{f}": n for (w, f), n in fused_scan.LAUNCHES.items()}
@@ -273,6 +277,28 @@ def library_mm(a, b_t, reps: int = 3) -> float:
             return torch._int_mm(a, b_t)
         return torch.mm(a, b_t)
     fn()                                                   # warm-up
+    ms = cuda_ms(fn, reps)
+    torch.cuda.empty_cache()
+    return ms
+
+
+def library_gather(db3, sid, reps: int = 10) -> float:
+    """Mean ms of K3's gather as one PyTorch call: the tiled codes viewed
+    as (n_tiles, d, tile_n / 128, 128), indexed by each segment's (tile,
+    column block), which gives (B, s_keep, d, 128) (the yardstick
+    ``library_ms``; the port never calls it). Raises unless it equals
+    the kernel's output."""
+    import torch
+    from smqtk_indexing_tpu_torch.ops import fused_scan
+    n_tiles, d, tile_n = db3.shape
+    nseg_t = tile_n // fused_scan.SEG
+    view = db3.view(n_tiles, d, nseg_t, fused_scan.SEG)
+    sid = sid.long()
+
+    def fn():
+        return view[sid // nseg_t, :, sid % nseg_t]
+    if not torch.equal(fn(), fused_scan.seg_gather_tiled(db3, sid)):
+        raise RuntimeError("K3's library gather disagrees with the kernel")
     ms = cuda_ms(fn, reps)
     torch.cuda.empty_cache()
     return ms
@@ -776,6 +802,7 @@ def ivf_phases(smi: str, dev) -> list:
     seg_bytes = d_pad * fused_scan.SEG * index._dev3.element_size()
     k3_bound = bound(torch.unique(sid).numel() * seg_bytes
                      + sid.numel() * (seg_bytes + 8), 0.0, FP32_FLOPS)
+    k3_library_ms = library_gather(index._dev3, sid)
     del scores, sel, rows, k7_args, t, ti, c0, lo, hi
 
     index_bytes = torch.cuda.memory_allocated(dev)
@@ -895,7 +922,7 @@ def ivf_phases(smi: str, dev) -> list:
          "source": "smqtk_indexing_tpu_torch/csrc/seg_gather.cu",
          "replaces": "smqtk_indexing_tpu/ops/pallas_scan.py:406",
          "launches": k3_launches, "max_abs_err": k3[0], "ms": k3[1],
-         "plain_ms": k3[2], **k3_bound, "library_ms": None},
+         "plain_ms": k3[2], **k3_bound, "library_ms": k3_library_ms},
         {"name": "ivf_list_scores", "route": "cuda",
          "source": "smqtk_indexing_tpu_torch/csrc/ivf_list_scores.cu",
          "replaces": "smqtk_indexing_tpu/ops/pallas_ivf.py:128",
@@ -1218,7 +1245,8 @@ def flat_codec_phases(smi: str, dev) -> list:
                     *k1_i8_args), smi, compare="equal", shape=shape)
             rows_out.append({
                 "name": "segment_minima_i8i8", "route": "cuda",
-                "source": "smqtk_indexing_tpu_torch/csrc/segment_minima.cu",
+                "source":
+                    "smqtk_indexing_tpu_torch/csrc/segment_minima_wgmma.cu",
                 "replaces": "smqtk_indexing_tpu/ops/pallas_scan.py:173",
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 **stage1_bound(BATCH, n_i8, d_i8, 1, BATCH * n_i8 // 128,
@@ -1261,12 +1289,14 @@ def flat_codec_phases(smi: str, dev) -> list:
                  card=smi)
             if dtype != "sq8":
                 continue
-            name = "segment_minima:i8i8" if env else "segment_minima:wgmma"
-            other = "segment_minima:wgmma" if env else "segment_minima:i8i8"
-            if counts[name] == 0 or counts[other] != 0:
+            # Every K1 launch of the batches took the run's form.
+            form = "wgmma_s8" if env else "wgmma"
+            name = f"segment_minima:{form}"
+            k1 = {f: counts[f"segment_minima:{f}"]
+                  for f in ("ffma", "wgmma", "wgmma_s8")}
+            if k1[form] == 0 or sum(k1.values()) != k1[form]:
                 raise RuntimeError(f"flat sq8{tag}: stage 1 did not take "
-                                   f"its form ({name}: {counts[name]}, "
-                                   f"{other}: {counts[other]})")
+                                   f"{form}: {k1}")
             rows_out[1 if env else 0]["launches"] = counts[name]
         del index, res, store
         torch.cuda.empty_cache()
@@ -1322,9 +1352,8 @@ def probe_phase(smi: str, dev) -> list:
             else (q.to(torch.bfloat16), db_t.to(torch.bfloat16))
         rows.append({
             "name": f"scan_minima_{arm}", "route": "cuda",
-            "source": "smqtk_indexing_tpu_torch/csrc/" + (
-                "segment_minima_tiled.cu" if int8dot
-                else "segment_minima_tiled_wgmma.cu"),
+            "source":
+                "smqtk_indexing_tpu_torch/csrc/segment_minima_tiled_wgmma.cu",
             "replaces": "tools/probe_int8_mxu.py:65",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             **stage1_bound(b, n, d, 1, b * n // 128, int8_query=int8dot),
@@ -1500,7 +1529,7 @@ def capacity_phases(smi: str, dev) -> list:
     cap_k5_ms = {}
     _, g_c, bw_c = fused_scan.step_shape(capm.N_TILES, fused_scan.TILE_N)
     for i8dot in (False, True):
-        form = "i8i8" if i8dot else "wgmma"
+        form = "wgmma_s8" if i8dot else "wgmma"
         for batch in (capm.B, capm.B_BIG):
             capm.scan(cap, batch, i8dot=i8dot)             # warm-up
             torch.cuda.synchronize()
@@ -1519,7 +1548,7 @@ def capacity_phases(smi: str, dev) -> list:
                 launches[name] = launches.get(name, 0) + counts[name]
             # Every K5 launch of the three batches took this form.
             k5_forms = {f: counts[f"segment_minima_tiled2:{f}"]
-                        for f in ("ffma", "wgmma", "i8i8")}
+                        for f in ("ffma", "wgmma", "wgmma_s8")}
             if k5_forms[form] != 3 or sum(k5_forms.values()) != 3:
                 raise RuntimeError(f"capacity scan B={batch}: K5 launches "
                                    f"{k5_forms}, not 3 of {form}")
@@ -1623,25 +1652,24 @@ def capacity_phases(smi: str, dev) -> list:
     src = "smqtk_indexing_tpu_torch/csrc/"
     replaces = {"segment_minima_tiled": 246, "segment_minima_blocked": 491,
                 "segment_minima_tiled2": 807}
-    # K5's row also carries the FFMA kernel over the same codes and query
-    # in this call: K9's full variant (K5's products and minima,
-    # step-major at 8 tiles a step, no m2).
-    k9_full_ms = k9_held["full", "bf16"][1]
-    for form, kernel in (("", "wgmma"), (" i8i8", "i8i8")):
+    # K5's rows also carry the CUDA-core kernel over the same codes and
+    # query in this call: K9's full variant (K5's products and minima,
+    # step-major at 8 tiles a step, no m2), FFMA for the bf16 query,
+    # __dp4a for the int8 one.
+    for form, kernel, query in (("", "wgmma", "bf16"),
+                                (" i8i8", "wgmma_s8", "int8")):
         for name, line in replaces.items():
             err, ms, plain_ms = held[name + form]
             row = {
                 "name": name + form.replace(" ", "_"), "route": "cuda",
-                "source": src + ("segment_minima_tiled_wgmma.cu" if form == ""
-                                 else "segment_minima_tiled.cu"),
+                "source": src + "segment_minima_tiled_wgmma.cu",
                 "replaces": f"smqtk_indexing_tpu/ops/pallas_scan.py:{line}",
                 "launches": launches[f"{name}:{kernel}"], "max_abs_err": err,
                 "ms": ms, "plain_ms": plain_ms, **bounds[name + form],
                 "library_ms": library_i8_ms if form else library_ms,
                 "shape": shape}
             if name == "segment_minima_tiled2":
-                if not form:
-                    row["k9_full_ms"] = k9_full_ms
+                row["k9_full_ms"] = k9_held["full", query][1]
                 row["capacity_ms"] = [cap_k5_ms[kernel, capm.B],
                                       cap_k5_ms[kernel, capm.B_BIG]]
             out.append(row)
@@ -1668,39 +1696,48 @@ def capacity_phases(smi: str, dev) -> list:
     return out, launches["seg_gather_tiled:copy"]
 
 
-#: The instantiations of the tiled wgmma kernel, by the mangled template
-#: arguments <kMTiles, kStreamQ>.
-TILED_WGMMA = {"ILi1ELb0E": "segment_minima_tiled_i8 (128 resident)",
-               "ILi2ELb0E": "segment_minima_tiled_i8 (256 resident)",
-               "ILi1ELb1E": "segment_minima_tiled_i8 (128 streamed)"}
+#: The instantiations of the two wgmma kernels, by their mangled names
+#: (template arguments: It = uint16_t, the bf16 query; Ia = int8_t; then
+#: kMTiles and kStreamQ), with the SASS instruction of their products:
+#: HGMMA for bf16, IGMMA for int8. K1: <query, database, ...>; the tiled
+#: kernel: <query, ...>.
+WGMMA_KERNELS = {
+    **{f"segment_minima_wgmma_kernel{qt}{args}": (f"{name} ({plan})", op)
+       for qt, name, op in (("Itt", "segment_minima_bf16", "HGMMA"),
+                            ("Ita", "segment_minima_i8", "HGMMA"),
+                            ("Iaa", "segment_minima_i8i8", "IGMMA"))
+       for args, plan in (("Li2ELb0E", "256 resident"),
+                          ("Li1ELb0E", "128 resident"),
+                          ("Li2ELb1E", "256 streamed"))},
+    **{f"tiled_minima_wgmma_kernel{qt}{args}": (f"{name} ({plan})", op)
+       for qt, name, op in (("It", "segment_minima_tiled_i8", "HGMMA"),
+                            ("Ia", "segment_minima_tiled_i8i8", "IGMMA"))
+       for args, plan in (("Li1ELb0E", "128 resident"),
+                          ("Li2ELb0E", "256 resident"),
+                          ("Li1ELb1E", "128 streamed"))}}
 
 
-def hgmma_counts(kernels_mod) -> dict:
-    """HGMMA (tensor-core) instructions in the SASS of the wgmma kernels:
-    K1's bf16 and int8 forms (every variant of
-    ``segment_minima_wgmma_kernel``) and each instantiation of the tiled
-    layout's ``tiled_minima_wgmma_kernel``, read with the toolkit's
-    ``cuobjdump`` from the built library."""
+def gmma_counts(kernels_mod) -> dict:
+    """Tensor-core instructions in the SASS of each instantiation of the
+    wgmma kernels (:data:`WGMMA_KERNELS`), read with the toolkit's
+    ``cuobjdump`` from the built library: {name: {mnemonic: count}} for
+    every ``*GMMA`` mnemonic in the function."""
+    import re
     from pathlib import Path
     cuobjdump = Path(kernels_mod.nvcc()).with_name("cuobjdump")
     sass = subprocess.run(
         [str(cuobjdump), "-sass", str(kernels_mod.library_path())],
         capture_output=True, text=True, check=True, timeout=300).stdout
-    # Mangled template arguments: It = uint16_t (bf16), Ia = int8_t.
-    counts = {"segment_minima_bf16": 0, "segment_minima_i8": 0,
-              **dict.fromkeys(TILED_WGMMA.values(), 0)}
-    func = ""
+    counts = {name: {} for name, _ in WGMMA_KERNELS.values()}
+    name = None
     for line in sass.splitlines():
         if "Function :" in line:
             func = line.split("Function :", 1)[1].strip()
-        elif "HGMMA" in line and "segment_minima_wgmma_kernelIt" in func:
-            counts["segment_minima_bf16"] += 1
-        elif "HGMMA" in line and "segment_minima_wgmma_kernelIa" in func:
-            counts["segment_minima_i8"] += 1
-        elif "HGMMA" in line and "tiled_minima_wgmma_kernel" in func:
-            for args, name in TILED_WGMMA.items():
-                if "tiled_minima_wgmma_kernel" + args in func:
-                    counts[name] += 1
+            name = next((n for key, (n, _) in WGMMA_KERNELS.items()
+                         if key in func), None)
+        elif name is not None:
+            for op in re.findall(r"\b([A-Z]*GMMA)\b", line):
+                counts[name][op] = counts[name].get(op, 0) + 1
     return counts
 
 
@@ -1754,14 +1791,17 @@ def main() -> None:
     _kernels.library()
     ptxas = [ln.strip() for ln in info["log"].splitlines()
              if "registers" in ln or "spill" in ln]
-    hgmma = hgmma_counts(_kernels)
-    spills = ptxas_spills(info["log"], "tiled_minima_wgmma_kernel")
+    gmma = gmma_counts(_kernels)
+    spills = {}
+    for key in WGMMA_KERNELS:
+        spills.update(ptxas_spills(info["log"], key))
     emit("build", seconds=time.perf_counter() - t0, nvcc=info["cmd"],
-         ptxas=ptxas, hgmma=hgmma, tiled_wgmma_spill_bytes=spills)
-    if not all(hgmma.values()):
-        raise RuntimeError(f"a wgmma kernel holds no HGMMA: {hgmma}")
-    if len(spills) != len(TILED_WGMMA) or any(spills.values()):
-        raise RuntimeError(f"the tiled wgmma kernel spills: {spills}")
+         ptxas=ptxas, gmma=gmma, wgmma_spill_bytes=spills)
+    for name, op in WGMMA_KERNELS.values():
+        if gmma[name].get(op, 0) == 0:
+            raise RuntimeError(f"{name} holds no {op}: {gmma[name]}")
+    if len(spills) != len(WGMMA_KERNELS) or any(spills.values()):
+        raise RuntimeError(f"a wgmma kernel spills: {spills}")
 
     t0 = time.perf_counter()
     kernels = flat_phases(smi, dev)

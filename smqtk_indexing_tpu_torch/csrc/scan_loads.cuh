@@ -10,6 +10,8 @@
 // - codes_to_bf16x2 (segment_minima_wgmma.cu,
 //   segment_minima_tiled_wgmma.cu): two int8 codes widened exactly to one
 //   bf16x2 word for the tensor cores.
+// - inner (tiled_minima.cuh, wgmma_minima.cuh): an accumulator as the f32
+//   inner product of the epilogue.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -80,6 +82,15 @@ __device__ __forceinline__ uint32_t codes_to_bf16x2(uint32_t w, int k) {
       __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540 | (k + 1))) -
       8388736.0f;
   return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+// An accumulator as the f32 inner product: an f32 sum as it is, an int32
+// sum converted (exactly, below 2^24) and scaled. The int8 x int8 forms
+// pass scale = 1.0f in production, which changes no bit, and the K10
+// probe's g (tools/probe_int8_mxu.py:51-59: the product, then the scale).
+__device__ __forceinline__ float inner(float acc, float) { return acc; }
+__device__ __forceinline__ float inner(int acc, float scale) {
+  return static_cast<float>(acc) * scale;
 }
 
 }  // namespace

@@ -1,7 +1,7 @@
 // Stage 1 of the exact flat kNN scan: per-128-row segment minima of the L2
 // surrogate, written by hand for Hopper (sm_90a). This file holds its f32
-// form and its int8 x int8 form; the bf16 and int8-code forms run on the
-// tensor cores in segment_minima_wgmma.cu.
+// form; the bf16, int8-code and int8 x int8 forms run on the tensor cores
+// in segment_minima_wgmma.cu.
 //
 // Replaces the TPU kernel smqtk_indexing_tpu/ops/pallas_scan.py
 // segment_minima -> _scan_kernel (2-D branch, :102-241). It computes
@@ -13,15 +13,6 @@
 // (penalty = +inf on dead rows), out (B, N / 128) f32. The (B, N) score
 // matrix never reaches device memory: each block keeps its scores in
 // registers and writes one minimum per query and segment.
-//
-// The int8 x int8 form (segment_minima_i8i8, below the f32 kernel) is the
-// flat SQ8 store's i8dot stage 1 (smqtk_indexing_tpu/ops/sq8.py:253-257,
-// the TPU kernel's int8 x int8 -> int32 dot in _tile_ip,
-// pallas_scan.py:53-61): db holds the row-major codes, q the codec fold
-// quantised to int8 with one scale, db_sq the rows' stats divided by it.
-// Its products are bounded at the flat shape by 2 B N d = 5.5e11 integer
-// operations, 0.28 ms at the card's 1,979 TOPS int8 tensor-core rate; it
-// uses __dp4a on the CUDA cores instead (see that kernel's note).
 //
 // What bounds the f32 form on an H100: at the main path's shapes
 // (B = 2048, N = 1,048,576, d = 128) the products are 2 B N d = 5.5e11
@@ -48,7 +39,7 @@
 // - Every global offset is 64-bit: N * d passes 2^31 at 100M rows.
 //
 // The kernel allocates nothing and launches on the caller's stream. The C
-// entry points return cudaGetLastError() after the launch.
+// entry point returns cudaGetLastError() after the launch.
 
 #include <cuda_runtime.h>
 
@@ -155,107 +146,6 @@ segment_minima_kernel(const float* __restrict__ q,
   }
 }
 
-// The int8 x int8 form (the flat SQ8 store's i8dot stage 1): an int8 query
-// against the int8 codes, both row-major, summed exactly in int32 with
-// __dp4a (one instruction, four products) and converted to f32 in the
-// epilogue, which is the f32 form's: (db_sq - 2 float(acc)) + penalty.
-// Every partial sum is an integer below 2^24 at d <= 1040, so the result
-// is bit-equal to the plain PyTorch version's f32 product. Both operands
-// hold 4 consecutive dims of one row in a 32-bit word, so the f32 form's
-// staging carries over with words in place of floats: a stage is 32 dims
-// (8 words a row), and thread t copies 16 dims of row t / 2 with one
-// 16-byte load into 4 words of the word-transposed tiles. The inner loop
-// reads four 16-byte shared words for 64 __dp4a, 256 products: a quarter
-// of the f32 form's shared reads per product.
-constexpr int kDepth8 = 32;
-constexpr int kWords = kDepth8 / 4;
-
-__global__ void __launch_bounds__(kThreads, 2)
-segment_minima_i8i8_kernel(const int8_t* __restrict__ q,
-                           const int8_t* __restrict__ db,
-                           const float* __restrict__ db_sq,
-                           const float* __restrict__ penalty,
-                           float* __restrict__ out, int64_t n_queries,
-                           int64_t n_rows, int64_t dim, int64_t n_qtiles) {
-  __shared__ __align__(16) int q_s[kWords][kTileB + kPad];
-  __shared__ __align__(16) int x_s[kWords][kSeg + kPad];
-
-  const int64_t tile = blockIdx.x;
-  const int64_t q0 = (tile % n_qtiles) * kTileB;
-  const int64_t seg = tile / n_qtiles;
-  const int64_t r0 = seg * kSeg;
-  const int t = threadIdx.x;
-  const int tx = t % 16;
-  const int ty = t / 16;
-
-  const int lrow = t / 2;
-  const int lword = (t % 2) * 4;
-  const bool q_live = q0 + lrow < n_queries;
-  const int8_t* q_src = q + (q_live ? q0 + lrow : 0) * dim + lword * 4;
-  const int8_t* x_src = db + (r0 + lrow) * dim + lword * 4;
-
-  int acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0;
-  }
-
-  for (int64_t k0 = 0; k0 < dim; k0 += kDepth8) {
-    uint4 w = make_uint4(0u, 0u, 0u, 0u);
-    if (q_live) w = __ldg(reinterpret_cast<const uint4*>(q_src + k0));
-    q_s[lword + 0][lrow] = static_cast<int>(w.x);
-    q_s[lword + 1][lrow] = static_cast<int>(w.y);
-    q_s[lword + 2][lrow] = static_cast<int>(w.z);
-    q_s[lword + 3][lrow] = static_cast<int>(w.w);
-    w = __ldg(reinterpret_cast<const uint4*>(x_src + k0));
-    x_s[lword + 0][lrow] = static_cast<int>(w.x);
-    x_s[lword + 1][lrow] = static_cast<int>(w.y);
-    x_s[lword + 2][lrow] = static_cast<int>(w.z);
-    x_s[lword + 3][lrow] = static_cast<int>(w.w);
-    __syncthreads();
-
-#pragma unroll
-    for (int kw = 0; kw < kWords; ++kw) {
-      const int4 a0 = *reinterpret_cast<const int4*>(&q_s[kw][ty * 4]);
-      const int4 a1 = *reinterpret_cast<const int4*>(&q_s[kw][64 + ty * 4]);
-      const int4 b0 = *reinterpret_cast<const int4*>(&x_s[kw][tx * 4]);
-      const int4 b1 = *reinterpret_cast<const int4*>(&x_s[kw][64 + tx * 4]);
-      const int a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const int b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-
-  float sq[8], pen[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int64_t r = r0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + (j - 4));
-    sq[j] = db_sq[r];
-    pen[j] = penalty[r];
-  }
-  const int64_t n_seg = n_rows / kSeg;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    float m = __int_as_float(0x7f800000);  // +inf
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      m = fminf(m, (sq[j] - 2.0f * static_cast<float>(acc[i][j])) + pen[j]);
-    }
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1) {
-      m = fminf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    }
-    const int64_t qi = q0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + (i - 4));
-    if (tx == 0 && qi < n_queries) out[qi * n_seg + seg] = m;
-  }
-}
-
 int launch(const float* q, const float* db, const float* db_sq,
            const float* penalty, float* out, int64_t n_queries,
            int64_t n_rows, int64_t dim, int device, cudaStream_t stream) {
@@ -268,26 +158,6 @@ int launch(const float* q, const float* db, const float* db_sq,
   if (n_blocks > 0) {
     segment_minima_kernel<<<dim3(static_cast<unsigned>(n_blocks)), kThreads,
                             0, stream>>>(
-        q, db, db_sq, penalty, out, n_queries, n_rows, dim, n_qtiles);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-int launch_i8i8(const int8_t* q, const int8_t* db, const float* db_sq,
-                const float* penalty, float* out, int64_t n_queries,
-                int64_t n_rows, int64_t dim, int device,
-                cudaStream_t stream) {
-  const cudaError_t set = cudaSetDevice(device);
-  if (set != cudaSuccess) return static_cast<int>(set);
-  if (n_rows % kSeg || dim % kDepth8) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int64_t n_qtiles = (n_queries + kTileB - 1) / kTileB;
-  const int64_t n_blocks = n_qtiles * (n_rows / kSeg);
-  if (n_blocks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
-  if (n_blocks > 0) {
-    segment_minima_i8i8_kernel<<<dim3(static_cast<unsigned>(n_blocks)),
-                                 kThreads, 0, stream>>>(
         q, db, db_sq, penalty, out, n_queries, n_rows, dim, n_qtiles);
   }
   return static_cast<int>(cudaGetLastError());
@@ -308,18 +178,4 @@ extern "C" int segment_minima_f32(const void* q, const void* db,
                 static_cast<const float*>(penalty), static_cast<float*>(out),
                 n_queries, n_rows, dim, device,
                 static_cast<cudaStream_t>(stream));
-}
-
-// The int8 x int8 form: q (n_queries, dim) int8, db (n_rows, dim) int8.
-extern "C" int segment_minima_i8i8(const void* q, const void* db,
-                                   const void* db_sq, const void* penalty,
-                                   void* out, int64_t n_queries,
-                                   int64_t n_rows, int64_t dim, int device,
-                                   void* stream) {
-  return launch_i8i8(static_cast<const int8_t*>(q),
-                     static_cast<const int8_t*>(db),
-                     static_cast<const float*>(db_sq),
-                     static_cast<const float*>(penalty),
-                     static_cast<float*>(out), n_queries, n_rows, dim,
-                     device, static_cast<cudaStream_t>(stream));
 }

@@ -1,36 +1,48 @@
 // Stage 1 of the single-copy SQ8 capacity scan over the tiled-transposed
 // layout, with its products on Hopper's tensor cores (wgmma, sm_90a): the
-// int8-code, float-query form of K2, K4 and K5 (and of the K10 probe's
-// bf16 arm, which calls K2's entry point). The f32 and bf16 databases and
-// the int8 x int8 forms stay on tiled_minima.cuh's kernels, as does the K9
-// probe (stage1_variants.cu).
+// int8-code forms of K2, K4 and K5 with a float query (and of the K10
+// probe's bf16 arm) and with an int8 query (the i8dot int8 x int8 form,
+// and K10's int8 arm), both through K2's and K5's entry points. The f32
+// and bf16 databases stay on tiled_minima.cuh's FFMA kernels, as does the
+// K9 probe (stage1_variants.cu, with its __dp4a int8 x int8 form).
 //
 // Replaces the TPU kernels of smqtk_indexing_tpu/ops/pallas_scan.py:
 // K2 segment_minima_tiled -> _scan_kernel, 3-D branch (:244-310); K4
 // segment_minima_blocked -> _blocked_kernel (:490-544), the tiled layout
 // with tile_n = 128; K5 segment_minima_tiled2 -> _scan_kernel_tiled2
-// (:758-870); each in the product form of _tile_ip (:62-63), where the int8
-// tile is cast to bf16 and multiplied on the matrix unit. It computes
-// tiled_minima.cuh's function:
+// (:758-870); each in the two product forms of _tile_ip (:50-82): the int8
+// tile cast to bf16 against a bf16 query (:62-63), and int8 x int8 ->
+// int32 on the matrix unit (:53-61). It computes tiled_minima.cuh's
+// function:
 //
 //     m[b, s] = min over r in [128 s, 128 s + 128) of
-//               (db_sq[r] - 2 <q_b, x_r>) + penalty[r]
+//               (db_sq[r] - 2 ip(q_b, x_r)) + penalty[r]
 //
 // for db3 (n_tiles, d, tile_n) int8 codes (row r at db3[r / tile_n][.][r
-// % tile_n]), q (B, d) bf16 (the query rounded to bf16 by the wrapper),
-// db_sq and penalty (N,) f32 (penalty = +inf on dead rows), written as
-// out1[(s / G) * B * G + b * G + s % G] (G = N / 128: K2's and K4's (B, N /
-// 128); G = t_step * tile_n / 128: K5's step-major m1) and, when out2 is
-// given (K5), m2[(s / G) * B * (G / bw) + b * (G / bw) + (s % G) / bw], the
-// minimum over each group of bw consecutive segments. Every product of a
-// bf16 value and an int8 code is exact in f32, so the tensor cores change
-// nothing but the order and rounding of the f32 sums.
+// % tile_n]), db_sq and penalty (N,) f32 (penalty = +inf on dead rows),
+// written as out1[(s / G) * B * G + b * G + s % G] (G = N / 128: K2's and
+// K4's (B, N / 128); G = t_step * tile_n / 128: K5's step-major m1) and,
+// when out2 is given (K5), m2[(s / G) * B * (G / bw) + b * (G / bw) + (s %
+// G) / bw], the minimum over each group of bw consecutive segments. The
+// query q (B, d) and ip are:
+//
+// - bf16 (the query rounded to bf16 by the wrapper): ip = <q, x> summed in
+//   f32 by wgmma bf16 x bf16 -> f32. Every product of a bf16 value and an
+//   int8 code is exact in f32, so the tensor cores change nothing but the
+//   order and rounding of the f32 sums;
+// - int8 (ops/sq8._i8dot_q, or K10's int8 query): ip = float(<q, x>) *
+//   scale, the sum exact in s32 by wgmma s8 x s8 -> s32, then
+//   tiled_minima.cuh's inner() order (the product, then the scale; the
+//   order tools/probe_int8_mxu.py:51-59 uses). Production passes scale =
+//   1.0f, which changes no bit; float(acc) is exact below 2^24 (d <= 1040),
+//   so the result is bit-equal to the plain PyTorch version.
 //
 // What bounds it on an H100, at the capacity configuration (N =
 // 100,663,296, d = 128): 12.9 GB of codes and 0.8 GB of db_sq and penalty
 // must move, 4.1 ms at 3.35 TB/s; the products are 2 B N d = 3.3e12 at B =
-// 128 (3.3 ms at bf16's 989 TFLOP/s) and 6.6e12 at B = 256 (6.7 ms). So
-// the bytes and the products bound it about equally; the design reads
+// 128 (3.3 ms at bf16's 989 TFLOP/s, 1.7 ms at int8's 1,979 TOPS) and
+// 6.6e12 at B = 256 (6.7 / 3.3 ms). So the bytes bound the int8 form and
+// the bytes and the products the bf16 form about equally; the design reads
 // every code byte from memory once and keeps the tensor cores fed:
 //
 // - A block of two warpgroups (256 threads) owns 128 queries (kMTiles = 1,
@@ -41,18 +53,22 @@
 //   once. Wider batches take more query tiles, numbered fastest, so the
 //   blocks that read one strip run together and find it in L2. A strip
 //   ends at the last segment.
-// - The tiled layout is MN-major for wgmma's B (K = dims, N = rows: a
-//   segment is 128 contiguous codes in each dimension row), and wgmma
-//   takes int8 only K-major, so the staging transposes in registers into
-//   wgmma.cuh's K-major 128-byte swizzle. Thread (warp w, lane l) owns dims
-//   8 o .. 8 o + 7 of a 64-dim K-chunk, o = l % 4 + 4 (w % 2), and rows
-//   4 p .. 4 p + 3 of the segment, p = l / 4 + 8 (w / 2). It loads them as 8
-//   words, one a dim (a warp's load covers 4 dims x 32 contiguous bytes:
-//   whole sectors), transposes the two 4 x 4 byte blocks with transpose4x4,
-//   widens each code exactly to bf16 (codes_to_bf16x2) and stores one
-//   16-byte piece a row at swizzle_offset(row, o). Each 8 consecutive lanes
-//   then store to the 8 distinct piece positions of the swizzle, so a
-//   store takes the least shared-memory wavefronts.
+// - A K-chunk is one 128-byte swizzled row of each segment row: 64 dims
+//   (bf16) or 128 (int8), four K steps (k16 or k32). The tiled layout is
+//   MN-major for wgmma's B (K = dims, N = rows: a segment is 128
+//   contiguous codes in each dimension row), and wgmma takes int8 only
+//   K-major, so the staging transposes in registers into wgmma.cuh's
+//   K-major 128-byte swizzle. A 16-byte piece of the swizzle holds P dims
+//   of one row (P = 8 bf16 or 16 int8). Thread (warp w, lane l) owns dim
+//   group o = l % kDimGroups + kDimGroups (w % 2), the P dims o P .. o P +
+//   P - 1 of the chunk, and rows 4 p .. 4 p + 3 of the segment, p = l /
+//   kDimGroups + kRowQuads (w / 2). It loads them as P words, one a dim (a
+//   warp's load covers 4 dims x 32 contiguous bytes: whole sectors),
+//   transposes each 4 x 4 byte block with transpose4x4, widens each code
+//   exactly to bf16 (codes_to_bf16x2; the bf16 form only) and stores one
+//   16-byte piece a row at swizzle_offset(row, o). Each 8 consecutive
+//   lanes then store to the 8 distinct piece positions of the swizzle, so
+//   a store takes the least shared-memory wavefronts.
 // - The codes are read into registers one step ahead and stored into the
 //   two-stage ring while the step's wgmma run, so staging overlaps the
 //   products; the epilogue does not (it follows the last K-chunk of each
@@ -61,11 +77,14 @@
 //   one segment ahead, so the epilogue waits on no device-memory load.
 // - Widths: any d % 16 == 0. The last K-chunk's dims past d are staged as
 //   zeros in both operands (the query by cp.async zero-fill). The query
-//   tile stays resident while it fits beside the ring (d <= 384 at 256
-//   queries, d <= 768 at 128), else its K-chunks stream through the ring.
-// - At kMTiles = 1 with a resident query a block needs at most 128
+//   tile stays resident while it fits beside the ring (bf16: d <= 384 at
+//   256 queries, d <= 768 at 128; int8: d <= 768 and d <= 1536), else its
+//   K-chunks stream through the ring.
+// - At kMTiles = 1 with a resident query the bf16 form needs at most 128
 //   registers a thread and 67 KB of shared memory at d = 128, so two
 //   blocks share an SM and one's epilogue runs under the other's products.
+//   The int8 x int8 form holds 16 prefetched words a thread where the bf16
+//   form holds 8, spills under that cap, and takes one block an SM.
 // - Queries past B read the last query and are never written. Every
 //   global offset is 64-bit: N d passes 2^31 at capacity.
 //
@@ -82,9 +101,8 @@ namespace {
 
 constexpr int kStages = 2;      // ring depth
 constexpr int kStrip = 32;      // segments a block walks when bw = 1
-constexpr int kCodeWords = 8;   // words a thread loads a step: 8 dims x 4 rows
 constexpr int kRowQuads = 8;    // row quads of a warp: 32 rows
-constexpr int kDimOctets = 4;   // dim octets of a warp: 32 dims
+constexpr int kDimGroups = 4;   // dim groups (one piece each) of a warp
 constexpr int kStatsSlotBytes = 2 * kSeg * 4;  // a segment's db_sq, penalty
 
 template <int kMTiles, bool kStreamQ>
@@ -94,9 +112,9 @@ __host__ __device__ constexpr int stage_bytes() {
 
 // Dynamic shared memory: the ring, the resident query tile, two segments'
 // stats, and 1 KB to align the start to a swizzle atom.
-template <int kMTiles, bool kStreamQ>
+template <typename Q, int kMTiles, bool kStreamQ>
 int64_t smem_bytes(int64_t dim) {
-  const int64_t n_chunks = (dim + kChunk - 1) / kChunk;
+  const int64_t n_chunks = (dim + chunk_dims<Q>() - 1) / chunk_dims<Q>();
   const int64_t q_res =
       kStreamQ ? 0 : q_rows<kMTiles>() * n_chunks * kSwizzleBytes;
   return kAtomBytes + kStages * stage_bytes<kMTiles, kStreamQ>() + q_res +
@@ -109,17 +127,24 @@ inline int64_t strip_segments(int64_t bw) {
   return bw >= kStrip ? bw : bw * (kStrip / bw);
 }
 
-template <int kMTiles, bool kStreamQ>
-__global__ void __launch_bounds__(kThreads,
-                                  kMTiles == 1 && !kStreamQ ? 2 : 1)
-tiled_minima_wgmma_kernel(const uint16_t* __restrict__ q,
+// Q: the query's type, uint16_t (bf16; the codes are widened) or int8_t.
+// Two blocks share an SM at 128 resident queries in the bf16 form; the
+// int8 x int8 form would spill under the 128 registers that leaves a
+// thread, and takes one.
+template <typename Q, int kMTiles, bool kStreamQ>
+__global__ void __launch_bounds__(
+    kThreads, kMTiles == 1 && !kStreamQ && sizeof(Q) == 2 ? 2 : 1)
+tiled_minima_wgmma_kernel(const Q* __restrict__ q,
                           const int8_t* __restrict__ db3,
                           const float* __restrict__ db_sq,
                           const float* __restrict__ penalty,
                           float* __restrict__ out1, float* __restrict__ out2,
                           int64_t n_queries, int64_t n_seg, int64_t dim,
                           int64_t tile_n, int64_t g, int64_t bw,
-                          int64_t strip, int64_t n_qtiles) {
+                          int64_t strip, int64_t n_qtiles, float scale) {
+  constexpr bool kWiden = sizeof(Q) == 2;
+  constexpr int kDims = chunk_dims<Q>();
+  constexpr int kPiece = piece_dims<Q>();  // dims of a piece: words a thread
   constexpr int kQRows = q_rows<kMTiles>();
   constexpr int kQChunkBytes = kQRows * kSwizzleBytes;
   constexpr int kStageBytes = stage_bytes<kMTiles, kStreamQ>();
@@ -131,7 +156,7 @@ tiled_minima_wgmma_kernel(const uint16_t* __restrict__ q,
   const int64_t q0 = (blockIdx.x % n_qtiles) * kQRows;
   const int64_t seg0 = (blockIdx.x / n_qtiles) * strip;
   const int64_t nseg_t = tile_n / kSeg;
-  const int n_chunks = static_cast<int>((dim + kChunk - 1) / kChunk);
+  const int n_chunks = static_cast<int>((dim + kDims - 1) / kDims);
   const int n_segs =
       static_cast<int>(n_seg - seg0 < strip ? n_seg - seg0 : strip);
   const int n_steps = n_segs * n_chunks;
@@ -151,12 +176,12 @@ tiled_minima_wgmma_kernel(const uint16_t* __restrict__ q,
     return [=](int r) {
       // Rows past the batch read its last query; they are never written.
       const int64_t qr = q0 + r < n_queries ? q0 + r : n_queries - 1;
-      return q + qr * dim + c * kChunk;
+      return q + qr * dim + c * kDims;
     };
   };
-  // Live 8-dim pieces of K-chunk c.
+  // Live pieces of K-chunk c.
   auto live_pieces = [&](int c) {
-    const int64_t left = (dim - c * kChunk) / 8;
+    const int64_t left = (dim - c * kDims) / kPiece;
     return static_cast<int>(left < 8 ? left : 8);
   };
   // db_sq and penalty of the strip's segment j into stats slot j % 2
@@ -170,21 +195,21 @@ tiled_minima_wgmma_kernel(const uint16_t* __restrict__ q,
     }
   };
 
-  // This thread's dim octet o and row quad p of every step (see the top).
+  // This thread's dim group o and row quad p of every step (see the top).
   // The codes of the next step to load: K-chunk ld_c of the segment whose
   // row quad starts at ld_src, segment ld_col of its tile.
-  const int o = (lane % kDimOctets) + kDimOctets * ((tid >> 5) & 1);
-  const int p = (lane / kDimOctets) + kRowQuads * (tid >> 6);
+  const int o = (lane % kDimGroups) + kDimGroups * ((tid >> 5) & 1);
+  const int p = (lane / kDimGroups) + kRowQuads * (tid >> 6);
   int ld_c = 0;
   int64_t ld_col = seg0 % nseg_t;
   const int8_t* ld_src = db3 + (seg0 / nseg_t) * dim * tile_n +
                          ld_col * kSeg + 4 * p;
-  uint32_t words[kCodeWords];
+  uint32_t words[kPiece];
   auto load_codes = [&]() {
-    const int64_t k0 = ld_c * kChunk + 8 * o;
-    const bool live = k0 < dim;  // d % 16 == 0: an octet is whole
+    const int64_t k0 = ld_c * kDims + kPiece * o;
+    const bool live = k0 < dim;  // d % 16 == 0: a group is whole
 #pragma unroll
-    for (int i = 0; i < kCodeWords; ++i) {
+    for (int i = 0; i < kPiece; ++i) {
       words[i] = live ? __ldg(reinterpret_cast<const unsigned int*>(
                             ld_src + (k0 + i) * tile_n))
                       : 0u;
@@ -199,31 +224,39 @@ tiled_minima_wgmma_kernel(const uint16_t* __restrict__ q,
       }
     }
   };
+  // rows[u][j]: dims 4 u .. 4 u + 3 of row 4 p + j (byte i = dim 4 u + i),
+  // widened to bf16 or as they are: one 16-byte piece a row.
   auto store_codes = [&](int t) {
     uint8_t* stage = ring_ptr + (t % kStages) * kStageBytes;
-    const uint32_t lo[4] = {words[0] ^ 0x80808080u, words[1] ^ 0x80808080u,
-                            words[2] ^ 0x80808080u, words[3] ^ 0x80808080u};
-    const uint32_t hi[4] = {words[4] ^ 0x80808080u, words[5] ^ 0x80808080u,
-                            words[6] ^ 0x80808080u, words[7] ^ 0x80808080u};
-    uint32_t a[4], b[4];
-    transpose4x4(lo, a);  // a[j]: dims 0-3 of row 4 p + j
-    transpose4x4(hi, b);  // b[j]: dims 4-7
+    uint32_t rows[kPiece / 4][4];
+#pragma unroll
+    for (int u = 0; u < kPiece / 4; ++u) {
+      const uint32_t flip = kWiden ? 0x80808080u : 0u;
+      const uint32_t w[4] = {words[4 * u] ^ flip, words[4 * u + 1] ^ flip,
+                             words[4 * u + 2] ^ flip,
+                             words[4 * u + 3] ^ flip};
+      transpose4x4(w, rows[u]);
+    }
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       uint4 v;
-      v.x = codes_to_bf16x2(a[j], 0);
-      v.y = codes_to_bf16x2(a[j], 2);
-      v.z = codes_to_bf16x2(b[j], 0);
-      v.w = codes_to_bf16x2(b[j], 2);
+      if constexpr (kWiden) {
+        v.x = codes_to_bf16x2(rows[0][j], 0);
+        v.y = codes_to_bf16x2(rows[0][j], 2);
+        v.z = codes_to_bf16x2(rows[1][j], 0);
+        v.w = codes_to_bf16x2(rows[1][j], 2);
+      } else {
+        v = make_uint4(rows[0][j], rows[1][j], rows[2][j], rows[3][j]);
+      }
       *reinterpret_cast<uint4*>(stage + swizzle_offset(4 * p + j, o)) = v;
     }
   };
 
-  float acc[kMTiles][64];
+  typename MmaAcc<Q>::type acc[kMTiles][64];
 #pragma unroll
   for (int i = 0; i < kMTiles; ++i) {
 #pragma unroll
-    for (int j = 0; j < 64; ++j) acc[i][j] = 0.0f;
+    for (int j = 0; j < 64; ++j) acc[i][j] = 0;
   }
   float gmin[kMTiles][2];
 #pragma unroll
@@ -287,13 +320,13 @@ tiled_minima_wgmma_kernel(const uint16_t* __restrict__ q,
     }
     wgmma_fence();
 #pragma unroll
-    for (int k = 0; k < kChunk / 16; ++k) {
-      const uint64_t b_desc = smem_desc(stage + k * kK16Bytes);
+    for (int k = 0; k < kSwizzleBytes / kKStepBytes; ++k) {
+      const uint64_t b_desc = smem_desc(stage + k * kKStepBytes);
 #pragma unroll
       for (int i = 0; i < kMTiles; ++i) {
         const uint64_t a_desc =
-            smem_desc(a_tile + i * kMTile * kSwizzleBytes + k * kK16Bytes);
-        wgmma_m64n128k16_bf16(acc[i], a_desc, b_desc, (c | k) != 0);
+            smem_desc(a_tile + i * kMTile * kSwizzleBytes + k * kKStepBytes);
+        wgmma_step(acc[i], a_desc, b_desc, (c | k) != 0);
       }
     }
     wgmma_commit();
@@ -318,7 +351,7 @@ tiled_minima_wgmma_kernel(const uint16_t* __restrict__ q,
     const float* sq = stats_ptr + (j & 1) * (kStatsSlotBytes / 4) +
                       2 * (lane & 3);
     float m[kMTiles][2];
-    fold_minima<kMTiles>(acc, [&](int jj) {
+    fold_minima<kMTiles>(acc, scale, [&](int jj) {
       const float2 a = *reinterpret_cast<const float2*>(sq + 8 * jj);
       const float2 b = *reinterpret_cast<const float2*>(sq + kSeg + 8 * jj);
       return make_float4(a.x, a.y, b.x, b.y);
@@ -356,14 +389,14 @@ tiled_minima_wgmma_kernel(const uint16_t* __restrict__ q,
   }
 }
 
-template <int kMTiles, bool kStreamQ>
-int launch_variant(const uint16_t* q, const int8_t* db3, const float* db_sq,
+template <typename Q, int kMTiles, bool kStreamQ>
+int launch_variant(const Q* q, const int8_t* db3, const float* db_sq,
                    const float* penalty, float* out1, float* out2,
                    int64_t n_queries, int64_t n_seg, int64_t dim,
-                   int64_t tile_n, int64_t g, int64_t bw,
+                   int64_t tile_n, int64_t g, int64_t bw, float scale,
                    cudaStream_t stream) {
-  auto kernel = tiled_minima_wgmma_kernel<kMTiles, kStreamQ>;
-  const int64_t smem = smem_bytes<kMTiles, kStreamQ>(dim);
+  auto kernel = tiled_minima_wgmma_kernel<Q, kMTiles, kStreamQ>;
+  const int64_t smem = smem_bytes<Q, kMTiles, kStreamQ>(dim);
   const cudaError_t set = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -377,17 +410,18 @@ int launch_variant(const uint16_t* q, const int8_t* db3, const float* db_sq,
     kernel<<<dim3(static_cast<unsigned>(n_blocks)), kThreads,
              static_cast<size_t>(smem), stream>>>(
         q, db3, db_sq, penalty, out1, out2, n_queries, n_seg, dim, tile_n, g,
-        bw, strip, n_qtiles);
+        bw, strip, n_qtiles, scale);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // Picks the block: 256 resident queries for B > 128 while they fit beside
 // the ring, else 128 resident, else 128 streamed with the codes.
+template <typename Q>
 int launch(const void* q, const void* db3, const void* db_sq,
            const void* penalty, void* out1, void* out2, int64_t n_queries,
            int64_t n_tiles, int64_t dim, int64_t tile_n, int64_t g,
-           int64_t bw, int device, void* stream) {
+           int64_t bw, float scale, int device, void* stream) {
   // This library carries its own CUDA runtime: select the tensors' device
   // in it before launching on the caller's stream.
   const cudaError_t set = cudaSetDevice(device);
@@ -397,42 +431,45 @@ int launch(const void* q, const void* db3, const void* db_sq,
       bw <= 0 || n_seg % g || g % bw) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const auto* qh = static_cast<const uint16_t*>(q);
+  const auto* qq = static_cast<const Q*>(q);
   const auto* x = static_cast<const int8_t*>(db3);
   const auto* sq = static_cast<const float*>(db_sq);
   const auto* pen = static_cast<const float*>(penalty);
   auto* o1 = static_cast<float*>(out1);
   auto* o2 = static_cast<float*>(out2);
   auto s = static_cast<cudaStream_t>(stream);
-  if (n_queries > q_rows<1>() && smem_bytes<2, false>(dim) <= kMaxSmem) {
-    return launch_variant<2, false>(qh, x, sq, pen, o1, o2, n_queries, n_seg,
-                                    dim, tile_n, g, bw, s);
+  if (n_queries > q_rows<1>() && smem_bytes<Q, 2, false>(dim) <= kMaxSmem) {
+    return launch_variant<Q, 2, false>(qq, x, sq, pen, o1, o2, n_queries,
+                                       n_seg, dim, tile_n, g, bw, scale, s);
   }
-  if (smem_bytes<1, false>(dim) <= kMaxSmem) {
-    return launch_variant<1, false>(qh, x, sq, pen, o1, o2, n_queries, n_seg,
-                                    dim, tile_n, g, bw, s);
+  if (smem_bytes<Q, 1, false>(dim) <= kMaxSmem) {
+    return launch_variant<Q, 1, false>(qq, x, sq, pen, o1, o2, n_queries,
+                                       n_seg, dim, tile_n, g, bw, scale, s);
   }
-  return launch_variant<1, true>(qh, x, sq, pen, o1, o2, n_queries, n_seg,
-                                 dim, tile_n, g, bw, s);
+  return launch_variant<Q, 1, true>(qq, x, sq, pen, o1, o2, n_queries, n_seg,
+                                    dim, tile_n, g, bw, scale, s);
 }
 
 }  // namespace
 
 // Shape contract (checked by the Python wrapper): db3 (n_tiles, dim,
-// tile_n) int8 with tile_n % 128 == 0 and dim % 16 == 0; q (n_queries,
-// dim) bf16; db_sq and penalty (n_tiles * tile_n,) f32; all contiguous and
-// 16-byte aligned on CUDA device `device`. The (B, N / 128) form (K2, K4)
-// writes out (n_queries, N / 128); the step-major form (K5) writes m1
-// (N / 128 / g, n_queries, g) and m2 (N / 128 / g, n_queries, g / bw),
-// with g dividing N / 128 and bw dividing g.
+// tile_n) int8 with tile_n % 128 == 0 and dim % 16 == 0 (dim % 32 == 0
+// for the int8 query); q (n_queries, dim) bf16 (the _i8 entries) or int8
+// (the _i8i8 entries, whose products are scaled by `scale`); db_sq and
+// penalty (n_tiles * tile_n,) f32; all contiguous and 16-byte aligned on
+// CUDA device `device`. The (B, N / 128) form (K2, K4) writes out
+// (n_queries, N / 128); the step-major form (K5) writes m1 (N / 128 / g,
+// n_queries, g) and m2 (N / 128 / g, n_queries, g / bw), with g dividing
+// N / 128 and bw dividing g.
 extern "C" int segment_minima_tiled_i8(const void* q, const void* db3,
                                        const void* db_sq, const void* penalty,
                                        void* out, int64_t n_queries,
                                        int64_t n_tiles, int64_t dim,
                                        int64_t tile_n, int device,
                                        void* stream) {
-  return launch(q, db3, db_sq, penalty, out, nullptr, n_queries, n_tiles, dim,
-                tile_n, n_tiles * (tile_n / kSeg), 1, device, stream);
+  return launch<uint16_t>(q, db3, db_sq, penalty, out, nullptr, n_queries,
+                          n_tiles, dim, tile_n, n_tiles * (tile_n / kSeg), 1,
+                          1.0f, device, stream);
 }
 
 extern "C" int segment_minima_tiled2_i8(const void* q, const void* db3,
@@ -443,6 +480,24 @@ extern "C" int segment_minima_tiled2_i8(const void* q, const void* db3,
                                         int64_t tile_n, int64_t g,
                                         int64_t bw, int device,
                                         void* stream) {
-  return launch(q, db3, db_sq, penalty, m1, m2, n_queries, n_tiles, dim,
-                tile_n, g, bw, device, stream);
+  return launch<uint16_t>(q, db3, db_sq, penalty, m1, m2, n_queries, n_tiles,
+                          dim, tile_n, g, bw, 1.0f, device, stream);
+}
+
+extern "C" int segment_minima_tiled_i8i8(
+    const void* q, const void* db3, const void* db_sq, const void* penalty,
+    void* out, int64_t n_queries, int64_t n_tiles, int64_t dim,
+    int64_t tile_n, float scale, int device, void* stream) {
+  return launch<int8_t>(q, db3, db_sq, penalty, out, nullptr, n_queries,
+                        n_tiles, dim, tile_n, n_tiles * (tile_n / kSeg), 1,
+                        scale, device, stream);
+}
+
+extern "C" int segment_minima_tiled2_i8i8(
+    const void* q, const void* db3, const void* db_sq, const void* penalty,
+    void* m1, void* m2, int64_t n_queries, int64_t n_tiles, int64_t dim,
+    int64_t tile_n, int64_t g, int64_t bw, float scale, int device,
+    void* stream) {
+  return launch<int8_t>(q, db3, db_sq, penalty, m1, m2, n_queries, n_tiles,
+                        dim, tile_n, g, bw, scale, device, stream);
 }

@@ -1,11 +1,12 @@
 // The stage-1 scan over the tiled-transposed layout on the CUDA cores,
-// shared by the production kernels (segment_minima_tiled.cu: K2, K4, K5
-// over f32 and bf16 databases, and their int8 x int8 form) and the stage-1
-// variant probe (stage1_variants.cu: K9). Int8 codes with a float query
-// run on the tensor cores in production (segment_minima_tiled_wgmma.cu);
-// here they still serve K9. Each kernel takes the epilogue
-// variant as a template parameter, so a variant differs from production
-// only in its epilogue (or, for kNoDot, in skipping the products).
+// shared by the production kernels of the f32 and bf16 databases
+// (segment_minima_tiled.cu: K2, K4, K5) and the stage-1 variant probe
+// (stage1_variants.cu: K9, over int8 codes with a float or an int8
+// query). Int8 codes run on the tensor cores in production
+// (segment_minima_tiled_wgmma.cu, both query forms); here they serve K9
+// only. Each kernel takes the epilogue variant as a template parameter, so
+// a variant differs from production only in its epilogue (or, for kNoDot,
+// in skipping the products).
 //
 // The database db3 is (n_tiles, d, tile_n), tile_n % 128 == 0: row r is
 // column r % tile_n of tile r / tile_n, so element (r, j) lies at
@@ -28,14 +29,15 @@
 // - tiled_minima_kernel<T, V>: f32 FFMA over an f32, bf16 or int8 database
 //   widened to f32 as it is staged, against an f32 query (rounded to bf16
 //   by the wrapper for a bf16 or int8 database, so every product is exact).
-// - tiled_minima_i8i8_kernel<V>: int8 codes against an int8 query (the
-//   i8dot stage 1 of ops/sq8.py, and the int8 arm of the K10 probe), summed
-//   exactly in int32 with __dp4a, four products an instruction, and scaled
-//   by one f32 `scale` in the epilogue: ip = float(acc) * scale, then
-//   (db_sq - 2 ip) + penalty, the order tools/probe_int8_mxu.py:51-59
-//   uses. The production i8dot passes scale = 1.0f, which changes no bit.
-//   Every partial sum is an integer below 2^24 at d <= 1040, so float(acc)
-//   is exact and the result is bit-equal to the plain PyTorch version.
+// - tiled_minima_i8i8_kernel<V>: int8 codes against an int8 query (K9's
+//   int8-query variants; production's i8dot form runs on the tensor
+//   cores), summed exactly in int32 with __dp4a, four products an
+//   instruction, and scaled by one f32 `scale` in the epilogue: ip =
+//   float(acc) * scale (inner(), scan_loads.cuh), then (db_sq - 2 ip) +
+//   penalty, the order tools/probe_int8_mxu.py:51-59 uses. K9 passes scale
+//   = 1.0f, which changes no bit. Every partial sum is an integer below
+//   2^24 at d <= 1040, so float(acc) is exact and the result is bit-equal
+//   to the plain PyTorch version.
 //
 // Both keep K1's (segment_minima.cu) block shape: 256 threads own 128
 // queries and walk bw consecutive segments (one group; one segment for K2
@@ -104,13 +106,6 @@ __device__ __forceinline__ float round_bf16(float x) {
   uint32_t u = __float_as_uint(x);
   u += 0x7fffu + ((u >> 16) & 1u);
   return __uint_as_float(u & 0xffff0000u);
-}
-
-// An accumulator as the f32 inner product: the FFMA sum as it is, the
-// int32 sum converted (exactly, below 2^24) and scaled.
-__device__ __forceinline__ float inner(float acc, float) { return acc; }
-__device__ __forceinline__ float inner(int acc, float scale) {
-  return static_cast<float>(acc) * scale;
 }
 
 // The epilogue of segment s: the thread's 8 x 8 accumulators (x0: the

@@ -1,22 +1,25 @@
 // Hopper (sm_90a) building blocks for kernels whose products run on the
 // tensor cores through wgmma: inline-PTX wrappers for cp.async, the wgmma
 // fences and groups, the 64-bit shared-memory matrix descriptor, and
-// wgmma.mma_async m64n128k16 with bf16 operands and f32 accumulators.
+// wgmma.mma_async m64n128 in two operand types: k16 of bf16 with f32
+// accumulators, and k32 of int8 with s32 accumulators.
 //
 // Operand layout. Every operand tile is K-major (a row's K values are
 // contiguous) and stored in the 128-byte swizzle layout that the
 // descriptor's layout type 1 reads:
 //
-// - a tile holds R rows of one 64-value K-chunk of bf16: row r lies at
-//   byte r * 128 of the tile, so eight rows make one 1024-byte swizzle
-//   atom and the tile starts on a 1024-byte boundary;
-// - the row's eight 16-byte pieces (8 bf16 each) are stored XOR-permuted:
-//   logical piece p of row r sits at piece p ^ (r % 8) (swizzle_offset);
-// - the descriptor of a k16 step (16 K values, 32 bytes) starts at the
-//   tile plus 32 * step; SBO is the 1024-byte stride between 8-row groups;
-//   LBO is unused in this layout (set to one 16-byte unit). The hardware
-//   applies the XOR to the address bits it computes, which is why the
-//   tile must be 1024-byte aligned.
+// - a tile holds R rows of one 128-byte K-chunk (64 bf16 or 128 int8
+//   values): row r lies at byte r * 128 of the tile, so eight rows make one
+//   1024-byte swizzle atom and the tile starts on a 1024-byte boundary;
+// - the row's eight 16-byte pieces (8 bf16 or 16 int8 each) are stored
+//   XOR-permuted: logical piece p of row r sits at piece p ^ (r % 8)
+//   (swizzle_offset);
+// - one wgmma K step reads 32 bytes of each row (k16 of bf16, k32 of
+//   int8), so the descriptor of step k starts at the tile plus 32 * k in
+//   both types; SBO is the 1024-byte stride between 8-row groups; LBO is
+//   unused in this layout (set to one 16-byte unit). The hardware applies
+//   the XOR to the address bits it computes, which is why the tile must be
+//   1024-byte aligned.
 //
 // tests/test_torch_wgmma_layout.py models this layout in numpy and reads
 // the constants below from this file.
@@ -28,13 +31,13 @@
 
 namespace {
 
-constexpr int kSwizzleBytes = 128;   // one swizzled row: 64 bf16 values
-constexpr int kPieceBytes = 16;      // one cp.async copy, 8 bf16 values
+constexpr int kSwizzleBytes = 128;   // one swizzled row: 64 bf16, 128 int8
+constexpr int kPieceBytes = 16;      // one cp.async copy: 8 bf16, 16 int8
 constexpr int kAtomRows = 8;         // rows of one swizzle atom
 constexpr int kAtomBytes = 1024;     // kAtomRows * kSwizzleBytes
 constexpr int kLboBytes = 16;        // leading byte offset (unused here)
 constexpr int kSboBytes = 1024;      // stride byte offset: next 8 rows
-constexpr int kK16Bytes = 32;        // one k16 step of bf16 along a row
+constexpr int kKStepBytes = 32;      // one K step: k16 of bf16, k32 of int8
 constexpr int kDescAddrShift = 0;    // bits 0-13: start address >> 4
 constexpr int kDescLboShift = 16;    // bits 16-29: LBO >> 4
 constexpr int kDescSboShift = 32;    // bits 32-45: SBO >> 4
@@ -105,10 +108,39 @@ __device__ __forceinline__ void fence_operand(float& r) {
   asm volatile("" : "+f"(r)::"memory");
 }
 
+__device__ __forceinline__ void fence_operand(int& r) {
+  asm volatile("" : "+r"(r)::"memory");
+}
+
+// The 64 accumulator registers of an m64n128 wgmma: the PTX operand list
+// and the asm outputs, "+f" (f32) or "+r" (s32).
+#define WGMMA_D64_REGS                                                  \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, "                                   \
+  "%8, %9, %10, %11, %12, %13, %14, %15, "                              \
+  "%16, %17, %18, %19, %20, %21, %22, %23, "                            \
+  "%24, %25, %26, %27, %28, %29, %30, %31, "                            \
+  "%32, %33, %34, %35, %36, %37, %38, %39, "                            \
+  "%40, %41, %42, %43, %44, %45, %46, %47, "                            \
+  "%48, %49, %50, %51, %52, %53, %54, %55, "                            \
+  "%56, %57, %58, %59, %60, %61, %62, %63}"
+#define WGMMA_D64(C, d)                                                 \
+  C(d[0]), C(d[1]), C(d[2]), C(d[3]), C(d[4]), C(d[5]), C(d[6]),        \
+  C(d[7]), C(d[8]), C(d[9]), C(d[10]), C(d[11]), C(d[12]), C(d[13]),    \
+  C(d[14]), C(d[15]), C(d[16]), C(d[17]), C(d[18]), C(d[19]),           \
+  C(d[20]), C(d[21]), C(d[22]), C(d[23]), C(d[24]), C(d[25]),           \
+  C(d[26]), C(d[27]), C(d[28]), C(d[29]), C(d[30]), C(d[31]),           \
+  C(d[32]), C(d[33]), C(d[34]), C(d[35]), C(d[36]), C(d[37]),           \
+  C(d[38]), C(d[39]), C(d[40]), C(d[41]), C(d[42]), C(d[43]),           \
+  C(d[44]), C(d[45]), C(d[46]), C(d[47]), C(d[48]), C(d[49]),           \
+  C(d[50]), C(d[51]), C(d[52]), C(d[53]), C(d[54]), C(d[55]),           \
+  C(d[56]), C(d[57]), C(d[58]), C(d[59]), C(d[60]), C(d[61]),           \
+  C(d[62]), C(d[63])
+
 // d (64 x 128, f32) = A (64 x 16, bf16) B (16 x 128, bf16) + (scale_d ? d
 // : 0), A and B K-major in shared memory. Thread t of the warpgroup holds
 // d[4 j + 2 h + e] = D[16 (t / 32) + (t % 32) / 4 + 8 h][8 j + 2 (t % 4) +
-// e] for j in [0, 16), h and e in {0, 1}.
+// e] for j in [0, 16), h and e in {0, 1}. The immediates after the
+// predicate scale A and B by +1 and take both as K-major (no transpose).
 __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64],
                                                       uint64_t desc_a,
                                                       uint64_t desc_b,
@@ -117,33 +149,30 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64],
       "{\n"
       ".reg .pred p;\n"
       "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      WGMMA_D64_REGS ", %64, %65, p, 1, 1, 0, 0;\n"
       "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : WGMMA_D64("+f", d)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 128, s32) = A (64 x 32, s8) B (32 x 128, s8) + (scale_d ? d :
+// 0), A and B K-major in shared memory (the only layout wgmma takes for
+// int8). The integer form takes no scale or transpose immediates, only
+// the scale-d predicate. Its accumulator fragment is the bf16 form's
+// above. The int32 sums are exact in any order.
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64],
+                                                    uint64_t desc_a,
+                                                    uint64_t desc_b,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      WGMMA_D64_REGS ", %64, %65, p;\n"
+      "}\n"
+      : WGMMA_D64("+r", d)
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 

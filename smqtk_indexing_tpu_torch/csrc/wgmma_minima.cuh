@@ -1,13 +1,15 @@
-// What the two stage-1 kernels on the tensor cores share: K1's
+// What the stage-1 kernels on the tensor cores share: K1's
 // (segment_minima_wgmma.cu, row-major database) and the tiled layout's
 // (segment_minima_tiled_wgmma.cu: K2, K4, K5). Both compute per-128-row
-// segment minima of (db_sq - 2 <q, x>) + penalty with wgmma.m64n128k16
+// segment minima of (db_sq - 2 <q, x>) + penalty with wgmma.m64n128
 // (wgmma.cuh): a block of two warpgroups holds kMTiles 64-query tiles a
 // warpgroup (A) and multiplies them by one segment's 128 rows (B), one
-// 64-dim K-chunk at a time, both operands bf16 in the 128-byte swizzle
-// layout. This header holds the block's geometry, the cp.async staging of
-// a row-major bf16 K-chunk (the query tile; K1's bf16 database), and the
-// epilogue's fold and quad reduction.
+// 128-byte K-chunk at a time, both operands in the 128-byte swizzle layout.
+// The query's element type Q names the product: bf16 (raw 16-bit
+// patterns; 64 dims a chunk, k16 steps, f32 sums) or int8 (128 dims a
+// chunk, k32 steps, exact s32 sums). This header holds the block's
+// geometry, the cp.async staging of a row-major K-chunk (the query tile;
+// K1's bf16 or int8 database), and the epilogue's fold and quad reduction.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -20,11 +22,42 @@
 namespace {
 
 constexpr int kSeg = 128;       // rows per segment: wgmma's N
-constexpr int kChunk = 64;      // dims per K-chunk: one swizzled row
+constexpr int kChunkBf16 = 64;  // bf16 dims per K-chunk: one swizzled row
+constexpr int kChunkS8 = 128;   // int8 dims per K-chunk: one swizzled row
 constexpr int kMTile = 64;      // queries per wgmma: its M
 constexpr int kThreads = 256;   // two warpgroups
 constexpr int kDbStageBytes = kSeg * kSwizzleBytes;  // 16 KB
 constexpr int kMaxSmem = 232448;                     // 227 KB a block
+
+static_assert(kChunkBf16 * 2 == kSwizzleBytes && kChunkS8 == kSwizzleBytes,
+              "a K-chunk is one swizzled row");
+
+// Dims of one K-chunk and of one 16-byte piece of it, for query type Q.
+template <typename Q>
+__host__ __device__ constexpr int chunk_dims() {
+  return sizeof(Q) == 1 ? kChunkS8 : kChunkBf16;
+}
+template <typename Q>
+__host__ __device__ constexpr int piece_dims() {
+  return kPieceBytes / static_cast<int>(sizeof(Q));
+}
+
+// The accumulator type of Q's product.
+template <typename Q>
+struct MmaAcc { using type = float; };
+template <>
+struct MmaAcc<int8_t> { using type = int; };
+
+// One K step of the product of a 64-query tile and a segment: k16 of
+// bf16 into f32, or k32 of int8 into s32 (32 bytes of each row either way).
+__device__ __forceinline__ void wgmma_step(float (&d)[64], uint64_t a,
+                                           uint64_t b, int scale_d) {
+  wgmma_m64n128k16_bf16(d, a, b, scale_d);
+}
+__device__ __forceinline__ void wgmma_step(int (&d)[64], uint64_t a,
+                                           uint64_t b, int scale_d) {
+  wgmma_m64n128k32_s8(d, a, b, scale_d);
+}
 
 // Queries a block owns with kMTiles tiles per warpgroup.
 template <int kMTiles>
@@ -32,10 +65,10 @@ __host__ __device__ constexpr int q_rows() {
   return 2 * kMTile * kMTiles;
 }
 
-// Copies one 64-dim K-chunk of `rows` rows (row r reads src_row(r)) into a
-// swizzled tile at shared address dst: 8 cp.async pieces a row. Pieces at
-// or past `live` (8 bf16 each) are zero-filled and read nothing: the tail
-// of a chunk past the last dimension.
+// Copies one K-chunk of `rows` rows (row r reads src_row(r), a pointer of
+// any element type) into a swizzled tile at shared address dst: 8 cp.async
+// pieces of 16 bytes a row. Pieces at or past `live` are zero-filled and
+// read nothing: the tail of a chunk past the last dimension.
 template <int kRows, typename RowPtr>
 __device__ __forceinline__ void copy_chunk(uint32_t dst, RowPtr src_row,
                                            int tid, int live) {
@@ -47,23 +80,25 @@ __device__ __forceinline__ void copy_chunk(uint32_t dst, RowPtr src_row,
     const int p = i & 7;
     const bool on = p < live;
     const uint32_t bytes = on ? 16u : 0u;
+    const uint8_t* src = reinterpret_cast<const uint8_t*>(src_row(r));
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                      dst + swizzle_offset(r, p)),
-                 "l"(src_row(r) + (on ? p * 8 : 0)), "r"(bytes)
+                 "l"(src + (on ? p * kPieceBytes : 0)), "r"(bytes)
                  : "memory");
   }
 }
 
 // The epilogue's fold: acc[i] is the warpgroup's 64 x 128 tile i of <q, x>
 // for one segment (wgmma.cuh's fragment: this thread holds columns 8 j + 2
-// (lane % 4) + e of query rows 16 warp + lane / 4 + 8 h). sq_pen(j)
-// returns the db_sq and penalty of the thread's columns 8 j + 2 (lane % 4)
-// + {0, 1} as (sq.x, sq.y, pen.x, pen.y). m[i][h] becomes the minimum of
-// (db_sq - 2 acc) + penalty over the thread's 32 columns of row h of tile
-// i.
-template <int kMTiles, typename SqPen>
-__device__ __forceinline__ void fold_minima(const float (&acc)[kMTiles][64],
-                                            SqPen sq_pen,
+// (lane % 4) + e of query rows 16 warp + lane / 4 + 8 h), f32 or s32.
+// sq_pen(j) returns the db_sq and penalty of the thread's columns 8 j + 2
+// (lane % 4) + {0, 1} as (sq.x, sq.y, pen.x, pen.y). m[i][h] becomes the
+// minimum of (db_sq - 2 ip) + penalty over the thread's 32 columns of row
+// h of tile i, with ip = inner(acc, scale) (scan_loads.cuh: an f32 sum as
+// it is, an s32 sum converted and scaled).
+template <int kMTiles, typename Acc, typename SqPen>
+__device__ __forceinline__ void fold_minima(const Acc (&acc)[kMTiles][64],
+                                            float scale, SqPen sq_pen,
                                             float (&m)[kMTiles][2]) {
 #pragma unroll
   for (int i = 0; i < kMTiles; ++i) {
@@ -76,10 +111,10 @@ __device__ __forceinline__ void fold_minima(const float (&acc)[kMTiles][64],
     for (int i = 0; i < kMTiles; ++i) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        m[i][h] = fminf(m[i][h],
-                        (sp.x - 2.0f * acc[i][4 * j + 2 * h]) + sp.z);
-        m[i][h] = fminf(m[i][h],
-                        (sp.y - 2.0f * acc[i][4 * j + 2 * h + 1]) + sp.w);
+        const float ip0 = inner(acc[i][4 * j + 2 * h], scale);
+        const float ip1 = inner(acc[i][4 * j + 2 * h + 1], scale);
+        m[i][h] = fminf(m[i][h], (sp.x - 2.0f * ip0) + sp.z);
+        m[i][h] = fminf(m[i][h], (sp.y - 2.0f * ip1) + sp.w);
       }
     }
   }

@@ -55,8 +55,8 @@ def _args(n_ptr: int, n_int64: int, n_float: int = 0) -> list:
 #: C entry points -> argtypes; each returns a cudaError_t.
 _ENTRY_POINTS = {
     # (q, db, db_sq, penalty, out, n_queries, n_rows, dim): q f32 over an
-    # f32 db, int8 over int8 codes (i8i8), bf16 over a bf16 db or int8
-    # codes (the wgmma forms, segment_minima_wgmma.cu)
+    # f32 db (segment_minima.cu); bf16 over a bf16 db or int8 codes, and
+    # int8 over int8 codes (i8i8) (the wgmma forms, segment_minima_wgmma.cu)
     "segment_minima_f32": _args(5, 3),
     "segment_minima_bf16": _args(5, 3),
     "segment_minima_i8": _args(5, 3),
@@ -72,7 +72,8 @@ _ENTRY_POINTS = {
     "segment_minima_tiled2_f32": _args(6, 6),
     "segment_minima_tiled2_bf16": _args(6, 6),
     "segment_minima_tiled2_i8": _args(6, 6),
-    # The int8 x int8 forms, with the f32 scale of the products last:
+    # The int8 x int8 forms (wgmma s8, segment_minima_tiled_wgmma.cu),
+    # with the f32 scale of the products last:
     # (q, db3, db_sq, penalty, out, n_queries, n_tiles, dim, tile_n, scale)
     "segment_minima_tiled_i8i8": _args(5, 4, 1),
     # (q, db3, db_sq, penalty, m1, m2, n_queries, n_tiles, dim, tile_n, g,

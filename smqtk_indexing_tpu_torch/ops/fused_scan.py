@@ -23,12 +23,13 @@ Every stage-1 function here also takes an int8 query over an int8
 database: the ``i8dot`` int8 x int8 form (``pallas_scan._tile_ip``,
 ``:53-61``; the caller quantised the query with one scale and divided the
 row stats by it, ``ops/sq8._i8dot_q``). The products are summed exactly
-(int32 ``__dp4a`` on the card's CUDA cores; f32 in the plain versions,
-where every partial sum is an integer below 2^24 at d = 128), then the
-same f32 epilogue ``(db_sq - 2 ip) + penalty`` applies, so the kernels and
-the plain versions agree bit for bit. :data:`LAUNCHES` counts each
-wrapper's launches by the form its kernel took, so a run shows which form
-stage 1 took.
+(``wgmma`` s8 x s8 -> s32 on the card's tensor cores, in
+``csrc/segment_minima_wgmma.cu`` and ``csrc/segment_minima_tiled_wgmma.cu``;
+f32 in the plain versions, where every partial sum is an integer below
+2^24 at d <= 1040), then the same f32 epilogue ``(db_sq - 2 ip) +
+penalty`` applies, so the kernels and the plain versions agree bit for
+bit. :data:`LAUNCHES` counts each wrapper's launches by the form its
+kernel took, so a run shows which form stage 1 took.
 
 Stage 2 (``pallas_scan.py:619-700``, the f32 form): the top ``s_keep``
 segments by minimum, a gather of their rows, exact per-metric distances
@@ -48,11 +49,12 @@ the capacity scan's stage 2 (``ops/sq8.sq8_topk_blocked``). On a CUDA
 tensor it runs ``csrc/seg_gather.cu``; on a CPU tensor, its plain version.
 
 Stage 1 over the single-copy layouts of the capacity scan
-(``ops/sq8.sq8_topk_blocked``); over int8 codes with a float query (the
-capacity scan's own form) all three run ``csrc/segment_minima_tiled_wgmma.cu``
-on the tensor cores (``wgmma``) with the query rounded to bf16, over an f32
-or bf16 database f32 FFMA, and the int8 x int8 form ``__dp4a``
-(``csrc/segment_minima_tiled.cu``, ``csrc/tiled_minima.cuh``):
+(``ops/sq8.sq8_topk_blocked``); over int8 codes all three run
+``csrc/segment_minima_tiled_wgmma.cu`` on the tensor cores, with the query
+rounded to bf16 (``wgmma``, the capacity scan's own form) or as an int8
+query (``wgmma_s8``, the int8 x int8 form), and over an f32 or bf16
+database f32 FFMA (``csrc/segment_minima_tiled.cu``,
+``csrc/tiled_minima.cuh``):
 
 - ``segment_minima_tiled`` (K2, ``pallas_scan.py:244-310``) over the tiled
   layout (n_tiles, d, tile_n) built by :func:`tiled_layout`: K1's minima,
@@ -101,19 +103,21 @@ _TILED_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16",
                  torch.int8: "i8"}
 
 #: The form of the kernel each stage-1 C entry point launches, by the
-#: source that defines it: ``ffma`` (``segment_minima.cu``,
-#: ``segment_minima_tiled.cu``, ``stage1_variants.cu``), ``wgmma`` (a bf16
-#: query on the tensor cores: ``segment_minima_wgmma.cu``,
-#: ``segment_minima_tiled_wgmma.cu``) or ``i8i8`` (an int8 query,
-#: ``__dp4a``). The launchers choose the entry point, take its form from
-#: here and give the query in the form's operand type.
+#: source that defines it and the instruction its products run on: ``ffma``
+#: (``segment_minima.cu``, ``segment_minima_tiled.cu``,
+#: ``stage1_variants.cu``), ``wgmma`` (a bf16 query on the tensor cores)
+#: and ``wgmma_s8`` (an int8 query on the tensor cores; both
+#: ``segment_minima_wgmma.cu``, ``segment_minima_tiled_wgmma.cu``), or
+#: ``i8i8`` (an int8 query, ``__dp4a``: K9's ``stage1_variants.cu`` only).
+#: The launchers choose the entry point, take its form from here and give
+#: the query in the form's operand type.
 _ENTRY_FORM = {
     "segment_minima_f32": "ffma", "segment_minima_bf16": "wgmma",
-    "segment_minima_i8": "wgmma", "segment_minima_i8i8": "i8i8",
+    "segment_minima_i8": "wgmma", "segment_minima_i8i8": "wgmma_s8",
     **{f"{entry}_{suffix}": form
        for entry in ("segment_minima_tiled", "segment_minima_tiled2")
        for suffix, form in (("f32", "ffma"), ("bf16", "ffma"),
-                            ("i8", "wgmma"), ("i8i8", "i8i8"))},
+                            ("i8", "wgmma"), ("i8i8", "wgmma_s8"))},
     "stage1_variant_i8": "ffma", "stage1_variant_i8i8": "i8i8"}
 
 #: The stage-1 wrappers: K1, K2, K4, K5.
@@ -122,12 +126,12 @@ _STAGE1_WRAPPERS = ("segment_minima", "segment_minima_tiled",
 
 #: Launches of this module's CUDA kernels in this process, by (wrapper,
 #: form). A stage-1 wrapper's form is ``ffma`` (f32 FFMA on the CUDA
-#: cores), ``wgmma`` (bf16 products on the tensor cores) or ``i8i8`` (an
-#: int8 query over int8 codes, ``__dp4a``); ``seg_gather_tiled``'s is
-#: ``copy``. Each wrapper adds one where it launches its kernel and
-#: nowhere else.
+#: cores), ``wgmma`` (bf16 products on the tensor cores) or ``wgmma_s8``
+#: (an int8 query over int8 codes, s8 products on the tensor cores);
+#: ``seg_gather_tiled``'s is ``copy``. Each wrapper adds one where it
+#: launches its kernel and nowhere else.
 LAUNCHES = {**{(w, f): 0 for w in _STAGE1_WRAPPERS
-               for f in ("ffma", "wgmma", "i8i8")},
+               for f in ("ffma", "wgmma", "wgmma_s8")},
             ("seg_gather_tiled", "copy"): 0}
 
 #: Cap on the (B, C) f32 score block of ``segment_minima_reference``.
@@ -247,15 +251,18 @@ def segment_minima_reference(db: torch.Tensor, db_sq: torch.Tensor,
 
 
 def _segment_minima_cuda(db, db_sq, penalty, q) -> torch.Tensor:
-    """Launch ``csrc/segment_minima.cu`` (f32 database, int8 x int8) or
+    """Launch ``csrc/segment_minima.cu`` (f32 database) or
     ``csrc/segment_minima_wgmma.cu`` (bf16 database or int8 codes, with
-    the query as bf16) on the current stream."""
+    the query as bf16; int8 x int8) on the current stream."""
     _check_stage1(db, db_sq, penalty, q)
     n, d = db.shape
     b = q.shape[0]
-    if d % 128:
-        raise ValueError(f"segment_minima: d={d} is not a multiple of 128 "
-                         "(stores pad it with pad_dim)")
+    # The int8 x int8 form zero-fills a K-chunk's tail, a k32 step at a
+    # time; the others take whole 128-dim chunks.
+    depth = 32 if q.dtype == torch.int8 else 128
+    if d % depth:
+        raise ValueError(f"segment_minima: d={d} is not a multiple of "
+                         f"{depth} (stores pad it with pad_dim)")
     name = ("segment_minima_i8i8" if q.dtype == torch.int8
             else _STAGE1_ENTRY[db.dtype])
     form = _ENTRY_FORM[name]
@@ -714,21 +721,23 @@ def tiled_cuda(db3, db_sq, penalty, q, g: int, bw: int, *,
 
     - ``variant`` None: the (B, N / 128) form when ``g`` is N / 128 and
       ``bw`` 1 (K2, K4), else the step-major pair (K5). Over int8 codes
-      with a float query, ``csrc/segment_minima_tiled_wgmma.cu`` (the
-      tensor cores, the query as bf16); for an int8 query, the int8 x int8
-      form, its products times ``scale``; over an f32 or bf16 database,
-      FFMA (both ``csrc/segment_minima_tiled.cu``).
+      ``csrc/segment_minima_tiled_wgmma.cu`` on the tensor cores: with a
+      float query as bf16, or with an int8 query (the int8 x int8 form,
+      its products times ``scale``); over an f32 or bf16 database, FFMA
+      (``csrc/segment_minima_tiled.cu``).
     - ``variant`` one of ``csrc/tiled_minima.cuh``'s ``Variant`` values
       (``csrc/stage1_variants.cu``, K9): that epilogue over int8 codes into
-      the step-major (n_steps, B, g) layout, FFMA or int8 x int8; ``bw`` is
-      1 and the products are not scaled.
+      the step-major (n_steps, B, g) layout, FFMA or int8 x int8
+      (``__dp4a``); ``bw`` is 1 and the products are not scaled.
 
     The FFMA kernels read an f32 query (rounded to bf16 first for a bf16
-    or int8 database), the int8 x int8 ones an int8 query as it is.
+    or int8 database), the ``wgmma`` ones a bf16 query, the int8 x int8
+    ones an int8 query as it is.
 
     :return: (out (n_steps, B, g), group minima (n_steps, B, g // bw) or
         None for ``bw == 1``, the form of the entry point it launched:
-        ``ffma``, ``wgmma`` or ``i8i8``, from :data:`_ENTRY_FORM`).
+        ``ffma``, ``wgmma``, ``wgmma_s8`` or ``i8i8``, from
+        :data:`_ENTRY_FORM`).
     :raises ValueError: the kernels cannot take these tensors.
     """
     n_tiles, d, tile_n = db3.shape

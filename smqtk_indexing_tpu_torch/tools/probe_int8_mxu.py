@@ -17,11 +17,12 @@ so that both operands are int8? The probe answers it in one process, on
 prints one JSON line for each. It needs a card and raises without one.
 
 :func:`scan_minima` is K10's function: the (d, N) layout is the tiled
-layout with a single tile, so it runs the kernels of
-``csrc/segment_minima_tiled.cu`` over ``db_t[None]``: the int8 x int8 form
-with the query's scale ``g`` (``(sq - 2 (float(<q, x>) g)) + pen``, the
-order of ``probe_int8_mxu.py:51-59``), or the int8-code form against a
-bf16-rounded query. :func:`scan_minima_reference` is its plain version.
+layout with a single tile, so it runs K2's tensor-core kernel
+(``csrc/segment_minima_tiled_wgmma.cu``) over ``db_t[None]``: the int8 x
+int8 form (``wgmma`` s8) with the query's scale ``g`` (``(sq - 2
+(float(<q, x>) g)) + pen``, the order of ``probe_int8_mxu.py:51-59``), or
+the int8-code form against a bf16-rounded query (``wgmma`` bf16).
+:func:`scan_minima_reference` is its plain version.
 """
 from __future__ import annotations
 

@@ -1,7 +1,9 @@
 """
 Where the time of the capacity scan's stage 1 on the tensor cores goes, on
 one CUDA card: K5's ``wgmma`` kernel (``csrc/segment_minima_tiled_wgmma.cu``)
-timed beside copies of itself with one part knocked out.
+timed beside copies of itself with one part knocked out, in either form:
+``--form bf16`` (the float query rounded to bf16, the flag off; default)
+or ``--form s8`` (the ``i8dot`` int8 query, ``wgmma`` s8).
 
 - ``full``: the kernel as it is;
 - ``nofold``: the epilogue's fold (db_sq, penalty and the minimum over the
@@ -16,6 +18,7 @@ hidden under the others. A knocked-out copy computes a wrong result; only
 ``full`` is held against the library's kernel, bit for bit.
 
     python -m smqtk_indexing_tpu_torch.tools.tiled_wgmma_split [--reps 5]
+        [--form bf16|s8]
 
 builds each copy with its own ``nvcc`` into the git-ignored build
 directory, builds the capacity index on the card
@@ -42,7 +45,7 @@ SOURCE = "segment_minima_tiled_wgmma.cu"
 KNOCKOUTS = {
     "full": (),
     "nofold": ((
-        "    fold_minima<kMTiles>(acc, [&](int jj) {\n"
+        "    fold_minima<kMTiles>(acc, scale, [&](int jj) {\n"
         "      const float2 a = *reinterpret_cast<const float2*>(sq + 8 * jj);\n"
         "      const float2 b = *reinterpret_cast<const float2*>(sq + kSeg + 8 * jj);\n"
         "      return make_float4(a.x, a.y, b.x, b.y);\n"
@@ -56,10 +59,13 @@ KNOCKOUTS = {
         "      store_codes(t + 1);\n"
         "      if (t + 2 < n_steps) load_codes();\n", ""),),
     "noproducts": ((
-        "        wgmma_m64n128k16_bf16(acc[i], a_desc, b_desc, (c | k) != 0);\n",
+        "        wgmma_step(acc[i], a_desc, b_desc, (c | k) != 0);\n",
         ""),),
 }
 BATCHES = (128, 256)
+#: K5's entry point of each form.
+ENTRIES = {"bf16": "segment_minima_tiled2_i8",
+           "s8": "segment_minima_tiled2_i8i8"}
 
 
 def variant_source(name: str) -> str:
@@ -102,7 +108,8 @@ def build_variants() -> dict:
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
         built[name] = (lib, [ln.strip() for ln in log.splitlines()
-                             if "registers" in ln or "spill" in ln])
+                             if "registers" in ln or "spill" in ln
+                             or "entry function" in ln])
     return built
 
 
@@ -110,12 +117,14 @@ def main(argv: Optional[list] = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--n-tiles", type=int, default=None)
+    ap.add_argument("--form", choices=sorted(ENTRIES), default="bf16")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("tiled_wgmma_split needs a CUDA card")
     from smqtk_indexing_tpu_torch.examples import capacity_100m as capm
+    from smqtk_indexing_tpu_torch.ops.sq8 import _i8dot_q
 
-    entry = "segment_minima_tiled2_i8"
+    entry = ENTRIES[args.form]
     libs = {}
     built = build_variants()
     for name, (path, _) in built.items():
@@ -133,23 +142,29 @@ def main(argv: Optional[list] = None) -> dict:
     _, g, bw = fused_scan.step_shape(n_tiles, tile_n)
     nseg = n_tiles * tile_n // fused_scan.SEG
     stream = torch.cuda.current_stream().cuda_stream
-    result = {"card": smi, "rows": n_tiles * tile_n, "d": d, "g": g,
-              "bw": bw, "ptxas": {k: v[1] for k, v in built.items()}}
+    result = {"card": smi, "form": args.form, "rows": n_tiles * tile_n,
+              "d": d, "g": g, "bw": bw,
+              "ptxas": {k: v[1] for k, v in built.items()}}
     for b in BATCHES:
-        q = ((cap.queries[:b] - cap.b) * cap.a).to(torch.bfloat16)
+        t = (cap.queries[:b] - cap.b) * cap.a
+        if args.form == "s8":
+            q, sq = _i8dot_q(t, cap.s2)
+            scale = (1.0,)
+        else:
+            q, sq, scale = t.to(torch.bfloat16), cap.s2, ()
         m1 = torch.empty((nseg // g, b, g), device="cuda")
         m2 = torch.empty((nseg // g, b, g // bw), device="cuda")
 
         def launch(name):
             err = libs[name](q.data_ptr(), cap.codes.data_ptr(),
-                             cap.s2.data_ptr(), pen.data_ptr(),
+                             sq.data_ptr(), pen.data_ptr(),
                              m1.data_ptr(), m2.data_ptr(), b, n_tiles, d,
-                             tile_n, g, bw, 0, stream)
+                             tile_n, g, bw, *scale, 0, stream)
             _kernels.check(err, f"{entry} ({name})")
         launch("full")
         got = m1.clone(), m2.clone()
-        want = fused_scan.segment_minima_tiled2(cap.codes, cap.s2, pen,
-                                                q.float())
+        want = fused_scan.segment_minima_tiled2(
+            cap.codes, sq, pen, q if args.form == "s8" else q.float())
         result[f"full_equals_library_b{b}"] = bool(
             torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))
         del got, want
@@ -166,7 +181,7 @@ def main(argv: Optional[list] = None) -> dict:
                 end.synchronize()
                 ms[name].append(start.elapsed_time(end) / args.reps)
         result[f"k5_ms_b{b}"] = ms
-        del m1, m2, q
+        del m1, m2, q, sq
         torch.cuda.empty_cache()
     print(json.dumps(result), flush=True)
     return result

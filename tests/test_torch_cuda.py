@@ -5,7 +5,8 @@ its f32 form and its bf16 and int8-code forms on the tensor cores, K7
 ``ivf_list_scores_tiled_pq``, K2, K4 and K5 over int8 codes on the tensor
 cores (``csrc/segment_minima_tiled_wgmma.cu``) and over f32 and bf16
 (``csrc/segment_minima_tiled.cu``), the int8 x int8 forms of K1, K2, K4 and
-K5, and the probes K10 and K9 of ``smqtk_indexing_tpu_torch/tools/``),
+K5 on the tensor cores (``wgmma`` s8, bit for bit), and the probes K10 and
+K9 of ``smqtk_indexing_tpu_torch/tools/``),
 against their plain PyTorch versions and against the port's CPU path, for
 the flat and the IVF indexes and the capacity scan. Every test here is marked
 ``cuda`` and skips without a card. This file imports neither jax nor the
@@ -807,7 +808,7 @@ def test_k1_i8i8_is_bit_equal_to_plain_version(card):
     before = dict(fused_scan.LAUNCHES)
     out = fused_scan.segment_minima(codes, sq, pen, q)
     torch.cuda.synchronize()
-    assert _launched(before) == {("segment_minima", "i8i8"): 1}
+    assert _launched(before) == {("segment_minima", "wgmma_s8"): 1}
     ref = fused_scan.segment_minima_reference(codes, sq, pen, q)
     assert torch.isinf(out[:, 1]).all()
     assert torch.equal(out, ref)
@@ -828,13 +829,172 @@ def test_tiled_i8i8_kernels_are_bit_equal_to_plain_versions(card, tile_n):
     out_blk = fused_scan.segment_minima_blocked(blk, sq.view(-1, 128),
                                                 pen.view(-1, 128), q)
     torch.cuda.synchronize()
-    assert _launched(before) == {(w, "i8i8"): 1 for w in TILED_WRAPPERS}
+    assert _launched(before) == {(w, "wgmma_s8"): 1 for w in TILED_WRAPPERS}
     ref = fused_scan.segment_minima_tiled_reference(db3, sq, pen, q)
     assert torch.isinf(ref[:, 1]).all()
     n_steps, g, bw = fused_scan.step_shape(n // tile_n, tile_n)
     for got in (out, out_blk, m1.transpose(0, 1).reshape(b, -1)):
         assert torch.equal(got, ref)
     assert torch.equal(m2, m1.view(n_steps, b, g // bw, bw).amin(-1))
+
+
+def _s8_case(card, b, n, d, seed):
+    """K1's int8 x int8 operands on the card: codes (N, d) with rows of
+    -128 and of 127, dead rows and a wholly dead segment (rows 128-255),
+    an int8 query from ``_i8dot_q`` with one row of 127 and one of -128,
+    and the stats divided by its scale."""
+    from smqtk_indexing_tpu_torch.ops import sq8
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(-128, 128, size=(n, d)).astype(np.int8)
+    codes[0] = -128
+    codes[1] = 127
+    codes[n // 2] = -128
+    a = (rng.random(d) * 0.02 + 0.001).astype(np.float32)
+    s2 = ((codes.astype(np.float64) * a) ** 2).sum(1).astype(np.float32)
+    pen = np.where(rng.random(n) < 0.03, np.inf, 0.0).astype(np.float32)
+    pen[128:256] = np.inf
+    t = (rng.normal(size=(b, d)) * a * 60).astype(np.float32)
+    q, sq = sq8._i8dot_q(torch.from_numpy(t), torch.from_numpy(s2))
+    q[0] = 127
+    q[-1] = -128
+    return [x.to(card) for x in (torch.from_numpy(codes), sq,
+                                 torch.from_numpy(pen), q)]
+
+
+#: The int8 x int8 forms on wgmma s8: B over one, two and four 64-query
+#: tiles (1, 65, 200 ragged, 256), d with a K-chunk tail (32, 96) and one
+#: whole chunk (128), all with the narrow fold (d <= 256), and over wider
+#: d with I2F: the 256-query resident plan (512) and the 128-query one
+#: (1024).
+S8_B = [1, 65, 200, 256]
+S8_D = [32, 96, 128, 512, 1024]
+
+
+@pytest.mark.cuda
+def test_k1_s8_one_block(card):
+    # One block: 64 queries, one segment, d = 128.
+    codes, sq, pen, q = _s8_case(card, 64, 128, 128, seed=50)
+    pen[:] = 0.0
+    before = dict(fused_scan.LAUNCHES)
+    out = fused_scan.segment_minima(codes, sq, pen, q)
+    torch.cuda.synchronize()
+    assert _launched(before) == {("segment_minima", "wgmma_s8"): 1}
+    assert torch.equal(out, fused_scan.segment_minima_reference(
+        codes, sq, pen, q))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", S8_D)
+@pytest.mark.parametrize("b", S8_B)
+def test_k1_s8_is_bit_equal_to_plain_version(card, b, d):
+    # 40 segments: a strip of 32 and a ragged one of 8.
+    codes, sq, pen, q = _s8_case(card, b, 128 * 40, d, seed=b + d)
+    before = dict(fused_scan.LAUNCHES)
+    out = fused_scan.segment_minima(codes, sq, pen, q)
+    torch.cuda.synchronize()
+    assert _launched(before) == {("segment_minima", "wgmma_s8"): 1}
+    assert out.shape == (b, 40)
+    assert torch.isinf(out[:, 1]).all()
+    assert torch.equal(out, fused_scan.segment_minima_reference(
+        codes, sq, pen, q))
+
+
+@pytest.mark.cuda
+def test_tiled_s8_one_block(card):
+    # One block: 64 queries, one segment, d = 128 (K2's entry point).
+    codes, sq, pen, q = _s8_case(card, 64, 128, 128, seed=51)
+    db3 = fused_scan.tiled_layout(codes, 128)
+    before = dict(fused_scan.LAUNCHES)
+    out = fused_scan.segment_minima_tiled(db3, sq, pen, q)
+    torch.cuda.synchronize()
+    assert _launched(before) == {("segment_minima_tiled", "wgmma_s8"): 1}
+    assert torch.equal(out, fused_scan.segment_minima_tiled_reference(
+        db3, sq, pen, q))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_n", [128, 4096])
+@pytest.mark.parametrize("d", S8_D)
+@pytest.mark.parametrize("b", S8_B)
+def test_k2_s8_is_bit_equal_to_plain_version(card, b, d, tile_n):
+    # 40 one-segment tiles (a ragged last strip of 8) or 3 tiles of 32.
+    n_tiles = 40 if tile_n == 128 else 3
+    codes, sq, pen, q = _s8_case(card, b, n_tiles * tile_n, d,
+                                 seed=2 * b + d + tile_n)
+    db3 = fused_scan.tiled_layout(codes, tile_n)
+    before = dict(fused_scan.LAUNCHES)
+    out = fused_scan.segment_minima_tiled(db3, sq, pen, q)
+    torch.cuda.synchronize()
+    assert _launched(before) == {("segment_minima_tiled", "wgmma_s8"): 1}
+    assert torch.isinf(out[:, 1]).all()
+    assert torch.equal(out, fused_scan.segment_minima_tiled_reference(
+        db3, sq, pen, q))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", S8_D)
+@pytest.mark.parametrize("b", S8_B)
+def test_k4_s8_is_bit_equal_to_plain_version(card, b, d):
+    # 200 segments: the last strip of 32 holds 8.
+    codes, sq, pen, q = _s8_case(card, b, 200 * 128, d, seed=3 * b + d)
+    args = (fused_scan.blocked_layout(codes), sq.view(-1, 128),
+            pen.view(-1, 128), q)
+    before = dict(fused_scan.LAUNCHES)
+    out = fused_scan.segment_minima_blocked(*args)
+    torch.cuda.synchronize()
+    assert _launched(before) == {("segment_minima_blocked", "wgmma_s8"): 1}
+    assert torch.isinf(out[:, 1]).all()
+    assert torch.equal(out, fused_scan.segment_minima_blocked_reference(
+        *args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", S8_D)
+@pytest.mark.parametrize("b", S8_B)
+def test_k5_s8_is_bit_equal_to_plain_version(card, b, d):
+    # 6 tiles of 4096: 3 steps of 2 tiles, G = 64, bw = 16, a wholly dead
+    # group in the last step.
+    codes, sq, pen, q = _s8_case(card, b, 6 * 4096, d, seed=5 * b + d)
+    db3 = fused_scan.tiled_layout(codes)
+    n_steps, g, bw = fused_scan.step_shape(6, 4096)
+    pen[g * 128 * (n_steps - 1):g * 128 * (n_steps - 1) + 128 * bw] = \
+        math.inf
+    before = dict(fused_scan.LAUNCHES)
+    m1, m2 = fused_scan.segment_minima_tiled2(db3, sq, pen, q)
+    torch.cuda.synchronize()
+    assert _launched(before) == {("segment_minima_tiled2", "wgmma_s8"): 1}
+    ref1, ref2 = fused_scan.segment_minima_tiled2_reference(db3, sq, pen, q)
+    assert torch.equal(m1, ref1) and torch.equal(m2, ref2)
+    assert torch.isinf(m2[-1, :, 0]).all()
+
+
+@pytest.mark.cuda
+def test_s8_streamed_plans_are_bit_equal_to_plain_versions(card):
+    # Widths whose query tile streams through the ring: K1 above d = 1280,
+    # the tiled kernel above 1536. Codes and queries in [-64, 64] keep
+    # every sum under 2^24 (exact in f32) at these widths.
+    for d in (1408, 1600):
+        rng = np.random.default_rng(d)
+        codes = torch.from_numpy(rng.integers(-64, 65, size=(4096, d))
+                                 .astype(np.int8)).to(card)
+        q = torch.from_numpy(rng.integers(-64, 65, size=(65, d))
+                             .astype(np.int8)).to(card)
+        sq = torch.from_numpy(rng.random(4096).astype(np.float32)
+                              * 1e5).to(card)
+        pen = torch.zeros(4096, device=card)
+        pen[128:256] = math.inf
+        before = dict(fused_scan.LAUNCHES)
+        out = fused_scan.segment_minima(codes, sq, pen, q)
+        db3 = fused_scan.tiled_layout(codes, 1024)
+        m1, m2 = fused_scan.segment_minima_tiled2(db3, sq, pen, q)
+        torch.cuda.synchronize()
+        assert _launched(before) == {("segment_minima", "wgmma_s8"): 1,
+                                     ("segment_minima_tiled2", "wgmma_s8"): 1}
+        assert torch.equal(out, fused_scan.segment_minima_reference(
+            codes, sq, pen, q))
+        ref1, ref2 = fused_scan.segment_minima_tiled2_reference(db3, sq, pen,
+                                                                q)
+        assert torch.equal(m1, ref1) and torch.equal(m2, ref2)
 
 
 @pytest.mark.cuda
@@ -847,6 +1007,9 @@ def test_i8i8_wrappers_and_refused_launches_raise(card):
     with pytest.raises(ValueError, match="multiple of 32"):
         fused_scan.segment_minima_tiled(db3, sq, pen,
                                         q[:, :112].contiguous())
+    with pytest.raises(ValueError, match="multiple of 32"):
+        fused_scan.segment_minima(codes[:, :112].contiguous(), sq, pen,
+                                  q[:, :112].contiguous())
     # A launch the kernel refuses (tile_n not a multiple of 128) returns
     # its error, and the wrapper's check raises.
     out = torch.empty((8, 32), device=card)
@@ -944,11 +1107,11 @@ def test_sq8_topk_blocked_i8dot_on_card_matches_cpu(card, layout):
     d_cpu, r_cpu = sq8.sq8_topk_blocked(*cpu, k=k, i8dot=True)
     name = "segment_minima_tiled2" if layout == "tiled" \
         else "segment_minima_blocked"
-    before = fused_scan.LAUNCHES[name, "i8i8"]
+    before = fused_scan.LAUNCHES[name, "wgmma_s8"]
     d_gpu, r_gpu = sq8.sq8_topk_blocked(*(t.to(card) for t in cpu), k=k,
                                         i8dot=True)
     torch.cuda.synchronize()
-    assert fused_scan.LAUNCHES[name, "i8i8"] == before + 1
+    assert fused_scan.LAUNCHES[name, "wgmma_s8"] == before + 1
     assert_same_neighbours(r_gpu.cpu().numpy(), d_gpu.cpu().numpy(),
                            r_cpu.numpy(), d_cpu.numpy(), rtol=DIST_RTOL,
                            atol=1e-5)
@@ -965,9 +1128,9 @@ def test_flat_sq8_i8dot_flag_on_card_matches_cpu(card, monkeypatch):
         index = FlatNearestNeighborsIndex(dtype="sq8", device=device)
         index.build_index(els)
         index.remove_from_index(list(range(0, 70000, 9)))
-        before = fused_scan.LAUNCHES["segment_minima", "i8i8"]
+        before = fused_scan.LAUNCHES["segment_minima", "wgmma_s8"]
         res = index.nn_many(els[1:200:4], 10)
-        assert (fused_scan.LAUNCHES["segment_minima", "i8i8"] > before) \
+        assert (fused_scan.LAUNCHES["segment_minima", "wgmma_s8"] > before) \
             == (device == "cuda")
         results.append((np.array([[e.uuid() for e in r[0]] for r in res]),
                         np.array([r[1] for r in res])))
@@ -985,7 +1148,7 @@ def test_capacity_module_i8dot_on_card_at_a_mini_size(card):
                                                            i8dot=True))
         assert res["recall_at_10"] == 1.0
         assert res["planted_to_random_margin"] > 1.0
-    assert _launched(before)[("segment_minima_tiled2", "i8i8")] == 2
+    assert _launched(before)[("segment_minima_tiled2", "wgmma_s8")] == 2
     ms = capacity_100m.stages(cap, reps=1, i8dot=True)
-    assert _launched(before)[("segment_minima_tiled", "i8i8")] > 0
+    assert _launched(before)[("segment_minima_tiled", "wgmma_s8")] > 0
     assert all(v > 0 for v in ms.values())

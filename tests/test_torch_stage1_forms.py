@@ -44,11 +44,26 @@ def test_entry_form_follows_the_source_that_defines_it(entry):
     files = _defined_entries().get(entry, [])
     assert len(files) == 1, f"{entry} defined in {files}"
     assert entry in _kernels._ENTRY_POINTS
+    # An int8 query runs wgmma s8 in the tensor-core sources and __dp4a
+    # (K9's variant) elsewhere.
+    int8_query = entry.endswith("_i8i8")
     if files[0] in WGMMA_SOURCES:
-        want = "wgmma"
+        want = "wgmma_s8" if int8_query else "wgmma"
     else:
-        want = "i8i8" if entry.endswith("_i8i8") else "ffma"
+        want = "i8i8" if int8_query else "ffma"
     assert fused_scan._ENTRY_FORM[entry] == want
+
+
+def test_only_k9_keeps_the_dp4a_form():
+    # The four stage-1 wrappers run the tensor cores for an int8 query;
+    # the __dp4a form is K9's variant probe alone, and no launch count of
+    # the wrappers names it.
+    assert [e for e, f in fused_scan._ENTRY_FORM.items() if f == "i8i8"] \
+        == ["stage1_variant_i8i8"]
+    assert {f for _, f in fused_scan.LAUNCHES} == {
+        "ffma", "wgmma", "wgmma_s8", "copy"}
+    src = (CSRC / "segment_minima.cu").read_text()
+    assert "__dp4a" not in src and "i8i8" not in src
 
 
 def test_every_stage1_entry_has_a_form():
@@ -113,18 +128,38 @@ def test_tiled_cuda_reports_the_form_it_launched(fake_card, db_dtype,
     assert lib.called == [entry]
     assert form == fused_scan._ENTRY_FORM[entry]
     # The query goes to the kernel in its form's operand type.
-    want = {"wgmma": torch.bfloat16, "i8i8": torch.int8,
-            "ffma": torch.float32}[form]
+    want = {"wgmma": torch.bfloat16, "wgmma_s8": torch.int8,
+            "i8i8": torch.int8, "ffma": torch.float32}[form]
     assert operands == [want]
     assert out.shape == (n_tiles * tile_n // fused_scan.SEG // g, b, g)
     assert (groups is None) == (bw == 1)
+
+
+def test_k1_takes_an_int8_query_at_d_a_multiple_of_32(fake_card):
+    # The int8 x int8 form zero-fills a K-chunk's tail, so d % 32 will do;
+    # the other forms keep whole 128-dim chunks.
+    lib, operands = fake_card
+    vec = torch.zeros(256)
+    out = fused_scan._segment_minima_cuda(
+        torch.zeros((256, 96), dtype=torch.int8), vec, vec,
+        torch.ones((3, 96), dtype=torch.int8))
+    assert lib.called == ["segment_minima_i8i8"] and out.shape == (3, 2)
+    assert operands == [torch.int8]
+    for db_dtype, q_dtype, d in ((torch.int8, torch.int8, 48),
+                                 (torch.int8, torch.float32, 96),
+                                 (torch.bfloat16, torch.float32, 96)):
+        with pytest.raises(ValueError, match="multiple of"):
+            fused_scan._segment_minima_cuda(
+                torch.zeros((256, d), dtype=db_dtype), vec, vec,
+                torch.ones((3, d), dtype=q_dtype))
+    assert lib.called == ["segment_minima_i8i8"]
 
 
 @pytest.mark.parametrize("db_dtype, q_dtype, form", [
     (torch.float32, torch.float32, "ffma"),
     (torch.bfloat16, torch.float32, "wgmma"),
     (torch.int8, torch.float32, "wgmma"),
-    (torch.int8, torch.int8, "i8i8"),
+    (torch.int8, torch.int8, "wgmma_s8"),
 ])
 def test_segment_minima_counts_the_form_it_launched(fake_card, db_dtype,
                                                     q_dtype, form):

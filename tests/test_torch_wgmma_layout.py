@@ -2,29 +2,33 @@
 A numpy model of the shared-memory layout that the ``wgmma`` kernels of
 K1 (``csrc/segment_minima_wgmma.cu``) and of K2 / K4 / K5
 (``csrc/segment_minima_tiled_wgmma.cu``) stage and that their descriptors
-ask the tensor cores to read (``csrc/wgmma.cuh``). It checks, with no card:
+ask the tensor cores to read (``csrc/wgmma.cuh``), for both operand
+types: bf16 (k16 steps) and int8 (the s8 x s8 -> s32 form, k32 steps).
+It checks, with no card:
 
 - that the ``cp.async`` staging map (db rows, query rows) and the int8
   widening map are bijections onto their 128-byte-swizzle tiles;
-- that every k16 step's descriptor (start address, LBO, SBO, layout type)
-  reads back the (64 or 128) x 16 operand slice in wgmma's order, for the
-  query tile (A) and the database tile (B), at d = 128 and d = 1024, with
-  the query tile resident or streamed through the ring;
+- that every K step's descriptor (start address, LBO, SBO, layout type)
+  reads back the (64 or 128) x 16 bf16 or x 32 int8 operand slice in
+  wgmma's order, for the query tile (A) and the database tile (B), at d =
+  128 and d = 1024 (and an int8 tail, d = 96), with the query tile
+  resident or streamed through the ring;
 - the shared-memory plan (which variant each d takes, tile alignment),
-  the accumulator fragment the epilogue reduces, and the exact int8 ->
-  bf16 widening;
-- for the tiled kernel: the tiled addresses each thread loads, that the
-  register transpose, the widening and the swizzled store put code (row
-  r, dim k) where the k16 descriptors read B[k][r], with the tail past d
-  zero, that the stores are free of bank conflicts, that the strips,
-  groups and step-major offsets write each output once, and its
-  shared-memory plan.
+  the accumulator fragment the epilogue reduces, the exact int8 -> bf16
+  widening and the s32 epilogue's order;
+- for the tiled kernel, in both forms: the tiled addresses each thread
+  loads (whole 32-byte sectors a warp), that the register transpose, the
+  widening (bf16 only) and the swizzled store put code (row r, dim k)
+  where the K-step descriptors read B[k][r], with the tail past d zero,
+  that the stores are free of bank conflicts, that the strips, groups and
+  step-major offsets write each output once, and its shared-memory plan.
 
 The hardware's side of the model is the PTX ISA's K-major 128-byte swizzle
-layout: an operand row r, K offset kk of a k16 step lies at the logical
-address ``start + (r // 8) * SBO + (r % 8) * 128 + kk * 2`` (LBO unused),
-and the swizzle XORs address bits 4-6 with bits 7-9. The kernel's side is
-read from the sources, so the model and the kernel cannot drift apart.
+layout: an operand row r, byte kb of a K step (32 bytes: 16 bf16 or 32
+int8 values) lies at the logical address ``start + (r // 8) * SBO + (r %
+8) * 128 + kb`` (LBO unused), and the swizzle XORs address bits 4-6 with
+bits 7-9. The kernel's side is read from the sources, so the model and the
+kernel cannot drift apart.
 """
 import re
 from pathlib import Path
@@ -56,10 +60,18 @@ LOADS_SRC = (CSRC / "scan_loads.cuh").read_text()
 TILED_SRC = (CSRC / "segment_minima_tiled_wgmma.cu").read_text()
 
 #: The PTX ISA's geometry of a K-major operand with 128-byte swizzle: rows
-#: of 128 bytes, 8-row core groups, bf16 values, 16-byte pieces.
+#: of 128 bytes, 8-row core groups, bf16 values, 16-byte pieces; a wgmma K
+#: step reads 32 bytes of each row (k16 of bf16, k32 of s8).
 HW_ROW_BYTES = 128
 HW_CORE_ROWS = 8
 HW_ELEM_BYTES = 2
+HW_K_STEP_BYTES = 32
+#: The two product forms: element bytes of the operands, their numpy
+#: type, and the kernels' dims per K-chunk (read from the header).
+FORMS = ("bf16", "s8")
+ELEM = {"bf16": 2, "s8": 1}
+NP_TYPE = {"bf16": np.uint16, "s8": np.int8}
+CHUNK = {"bf16": SHARED["kChunkBf16"], "s8": SHARED["kChunkS8"]}
 
 
 def swizzle_offset(row: int, piece: int) -> int:
@@ -76,51 +88,64 @@ def smem_desc(addr: int) -> int:
             | (H["kLayoutSwizzle128"] << H["kDescLayoutShift"]))
 
 
-def hw_address(desc: int, row: int, kk: int) -> int:
+def hw_address(desc: int, row: int, kk: int, elem: int = HW_ELEM_BYTES
+               ) -> int:
     """The shared byte address the tensor cores read for operand row
-    ``row``, K offset ``kk`` (0..15) of the k16 step that ``desc``
-    describes (PTX ISA: matrix descriptor, K-major, 128-byte swizzle)."""
+    ``row``, K offset ``kk`` (0 .. 32 / elem - 1) of the K step that
+    ``desc`` describes (PTX ISA: matrix descriptor, K-major, 128-byte
+    swizzle), for elements of ``elem`` bytes."""
     start = (desc & 0x3FFF) << 4
     sbo = ((desc >> 32) & 0x3FFF) << 4
     assert desc >> 62 == 1, "layout type must be the 128-byte swizzle"
     assert (desc >> 49) & 7 == 0, "base offset must be 0"
+    assert 0 <= kk * elem < HW_K_STEP_BYTES
     logical = (start + (row // HW_CORE_ROWS) * sbo
-               + (row % HW_CORE_ROWS) * HW_ROW_BYTES + kk * HW_ELEM_BYTES)
+               + (row % HW_CORE_ROWS) * HW_ROW_BYTES + kk * elem)
     return logical ^ (((logical >> 7) & 7) << 4)
 
 
-def stage_rows(smem: np.ndarray, base: int, mat: np.ndarray) -> None:
-    """Write a (rows, 64) uint16 K-chunk into ``smem`` at ``base`` the way
-    ``copy_chunk`` does: thread t copies pieces i = t + kThreads j."""
+def stage_rows(smem: np.ndarray, base: int, mat: np.ndarray,
+               live: int = 8) -> None:
+    """Write a (rows, chunk) K-chunk (uint16 bf16 patterns or int8; fewer
+    columns than a chunk at a tail) into ``smem`` at ``base`` the way
+    ``copy_chunk`` does: thread t copies pieces i = t + kThreads j, and
+    pieces at or past ``live`` are zero-filled."""
     rows = mat.shape[0]
-    raw = mat.view(np.uint8).reshape(rows, -1)
+    raw = np.zeros((rows, H["kSwizzleBytes"]), np.uint8)
+    data = np.ascontiguousarray(mat).view(np.uint8).reshape(rows, -1)
+    raw[:, :data.shape[1]] = data
     for tid in range(K["kThreads"]):
         for j in range(rows * 8 // K["kThreads"]):
             i = tid + j * K["kThreads"]
             r, p = i >> 3, i & 7
             dst = base + swizzle_offset(r, p)
-            smem[dst:dst + 16] = raw[r, 16 * p:16 * p + 16]
+            smem[dst:dst + 16] = (raw[r, 16 * p:16 * p + 16] if p < live
+                                  else 0)
 
 
-def read_operand(smem: np.ndarray, desc: int, rows: int) -> np.ndarray:
-    """The (rows, 16) uint16 slice the tensor cores read through desc."""
-    out = np.empty((rows, 16), np.uint16)
+def read_operand(smem: np.ndarray, desc: int, rows: int,
+                 form: str = "bf16") -> np.ndarray:
+    """The (rows, 32 / elem) slice the tensor cores read through desc."""
+    elem = ELEM[form]
+    width = HW_K_STEP_BYTES // elem
+    out = np.empty((rows, width), NP_TYPE[form])
     for r in range(rows):
-        for kk in range(16):
-            a = hw_address(desc, r, kk)
-            out[r, kk] = smem[a:a + 2].view(np.uint16)[0]
+        for kk in range(width):
+            a = hw_address(desc, r, kk, elem)
+            out[r, kk] = smem[a:a + elem].view(NP_TYPE[form])[0]
     return out
 
 
-def smem_plan(dim: int):
+def smem_plan(dim: int, form: str = "bf16"):
     """(m_tiles, stream_q, bytes) of the kernel's launch choice."""
     ring_db = K["kStages"] * K["kSeg"] * H["kSwizzleBytes"]
+    n_chunks = -(-dim // CHUNK[form])
     for m_tiles, stream in ((2, False), (1, False), (2, True)):
         q_rows = 2 * K["kMTile"] * m_tiles
         q_chunk = q_rows * H["kSwizzleBytes"]
         total = H["kAtomBytes"] + ring_db + (
             K["kStages"] * q_chunk if stream
-            else q_chunk * (dim // K["kChunk"]))
+            else q_chunk * n_chunks)
         if total <= K["kMaxSmem"] or stream:
             return m_tiles, stream, total
 
@@ -130,9 +155,12 @@ def test_header_constants_match_the_hardware_geometry():
     assert H["kAtomRows"] == HW_CORE_ROWS
     assert H["kAtomBytes"] == HW_CORE_ROWS * HW_ROW_BYTES
     assert H["kSboBytes"] == H["kAtomBytes"]   # row groups back to back
-    assert H["kK16Bytes"] == 16 * HW_ELEM_BYTES
+    assert H["kKStepBytes"] == HW_K_STEP_BYTES == 16 * HW_ELEM_BYTES
     assert H["kPieceBytes"] * 8 == H["kSwizzleBytes"]
-    assert K["kChunk"] * HW_ELEM_BYTES == H["kSwizzleBytes"]
+    # A K-chunk is one swizzled row in both forms: four K steps.
+    for form in FORMS:
+        assert CHUNK[form] * ELEM[form] == H["kSwizzleBytes"]
+    assert K["kChunkBf16"] == 64 and K["kChunkS8"] == 128
     assert K["kSeg"] == 128 and K["kMTile"] == 64  # m64n128k16
     assert K["kThreads"] == 256                     # two warpgroups
 
@@ -172,16 +200,23 @@ def test_int8_widening_map_is_a_bijection():
     assert (seen == 1).all()
 
 
-@pytest.mark.parametrize("dim,operand,stream", [
-    (128, "A", False), (128, "B", False),
-    (1024, "A", True), (1024, "B", True), (512, "A", False)])
-def test_each_k16_descriptor_reads_its_operand_slice(dim, operand, stream):
-    m_tiles, stream_plan, total = smem_plan(dim)
+def _check_k1_descriptors(form: str, dim: int, operand: str, stream: bool):
+    """Stage every K-chunk of a random (rows, dim) operand as K1 does and
+    read each K step back through its descriptor: the operand's slice of
+    32 bytes a row, zeros past d."""
+    m_tiles, stream_plan, total = smem_plan(dim, form)
     assert stream_plan == stream
     rng = np.random.default_rng(dim)
     q_rows = 2 * K["kMTile"] * m_tiles
     rows = q_rows if operand == "A" else K["kSeg"]
-    mat = rng.integers(0, 1 << 16, size=(rows, dim)).astype(np.uint16)
+    if form == "bf16":
+        mat = rng.integers(0, 1 << 16, size=(rows, dim)).astype(np.uint16)
+    else:
+        mat = rng.integers(-128, 128, size=(rows, dim)).astype(np.int8)
+    chunk, piece = CHUNK[form], H["kPieceBytes"] // ELEM[form]
+    width = HW_K_STEP_BYTES // ELEM[form]
+    padded = np.zeros((rows, -(-dim // chunk) * chunk), mat.dtype)
+    padded[:, :dim] = mat
     # The kernel's ring starts on the first 1024-byte boundary of dynamic
     # shared memory, which need not be aligned itself.
     raw = 48
@@ -189,8 +224,8 @@ def test_each_k16_descriptor_reads_its_operand_slice(dim, operand, stream):
     db_stage = K["kSeg"] * H["kSwizzleBytes"]
     stage_bytes = db_stage + (q_rows * H["kSwizzleBytes"] if stream else 0)
     q_res = ring + K["kStages"] * stage_bytes
-    smem = np.zeros(ring + total, np.uint8)
-    for c in range(dim // K["kChunk"]):
+    smem = np.full(ring + total, 0xAB, np.uint8)
+    for c in range(-(-dim // chunk)):
         stage = ring + (c % K["kStages"]) * stage_bytes
         if operand == "B":
             tile = stage
@@ -199,24 +234,42 @@ def test_each_k16_descriptor_reads_its_operand_slice(dim, operand, stream):
         else:
             tile = q_res + c * q_rows * H["kSwizzleBytes"]
         assert tile % H["kAtomBytes"] == 0
-        chunk = np.ascontiguousarray(mat[:, c * K["kChunk"]:
-                                         (c + 1) * K["kChunk"]])
-        stage_rows(smem, tile, chunk)
-        for k in range(K["kChunk"] // 16):
-            cols = slice(c * K["kChunk"] + 16 * k,
-                         c * K["kChunk"] + 16 * k + 16)
+        # live_pieces(c): whole pieces of the chunk before d.
+        live = min(8, (dim - c * chunk) // piece)
+        stage_rows(smem, tile, np.ascontiguousarray(
+            mat[:, c * chunk:(c + 1) * chunk]), live)
+        for k in range(H["kSwizzleBytes"] // H["kKStepBytes"]):
+            cols = slice(c * chunk + width * k, c * chunk + width * (k + 1))
             if operand == "B":
-                desc = smem_desc(tile + k * H["kK16Bytes"])
-                assert np.array_equal(read_operand(smem, desc, rows),
-                                      mat[:, cols])
+                desc = smem_desc(tile + k * H["kKStepBytes"])
+                assert np.array_equal(read_operand(smem, desc, rows, form),
+                                      padded[:, cols])
                 continue
             for wg in range(2):
                 for i in range(m_tiles):
                     m0 = (wg * m_tiles + i) * K["kMTile"]
                     desc = smem_desc(tile + m0 * H["kSwizzleBytes"]
-                                     + k * H["kK16Bytes"])
-                    got = read_operand(smem, desc, K["kMTile"])
-                    assert np.array_equal(got, mat[m0:m0 + 64, cols])
+                                     + k * H["kKStepBytes"])
+                    got = read_operand(smem, desc, K["kMTile"], form)
+                    assert np.array_equal(got, padded[m0:m0 + 64, cols])
+
+
+@pytest.mark.parametrize("dim,operand,stream", [
+    (128, "A", False), (128, "B", False),
+    (1024, "A", True), (1024, "B", True), (512, "A", False)])
+def test_each_k16_descriptor_reads_its_operand_slice(dim, operand, stream):
+    _check_k1_descriptors("bf16", dim, operand, stream)
+
+
+@pytest.mark.parametrize("dim,operand,stream", [
+    (128, "A", False), (128, "B", False), (96, "A", False),
+    (96, "B", False), (32, "B", False), (1024, "A", False),
+    (1024, "B", False), (2048, "A", True), (2048, "B", True)])
+def test_each_k32_descriptor_reads_its_s8_operand_slice(dim, operand,
+                                                        stream):
+    # K1's int8 x int8 form: 128 int8 dims a K-chunk, k32 steps, the tail
+    # past d (d = 96, 32) zero in the staged tile.
+    _check_k1_descriptors("s8", dim, operand, stream)
 
 
 @pytest.mark.parametrize("dim", [128, 256, 384, 640, 768, 1024, 4096])
@@ -225,6 +278,22 @@ def test_shared_memory_plan_fits(dim):
     assert total <= K["kMaxSmem"]
     assert stream == (dim > 640)
     assert m_tiles == (1 if 256 < dim <= 640 else 2)
+
+
+@pytest.mark.parametrize("dim", [32, 96, 128, 512, 640, 768, 1024, 1280,
+                                 1408, 4096])
+def test_s8_shared_memory_plan_fits(dim):
+    # 128 int8 dims a K-chunk: 256 resident queries to d = 640, 128 to
+    # d = 1280, streamed above; the kernel's launch makes the same choice.
+    m_tiles, stream, total = smem_plan(dim, "s8")
+    assert total <= K["kMaxSmem"]
+    assert stream == (dim > 1280)
+    assert m_tiles == (1 if 640 < dim <= 1280 else 2)
+    assert "const int64_t n_chunks = (dim + chunk_dims<Q>() - 1) / " \
+        "chunk_dims<Q>();" in KERNEL_SRC
+    assert "if (smem_bytes<Q, 2, false>(dim) <= kMaxSmem) {" in KERNEL_SRC
+    assert "const int64_t unit = sizeof(Q) == 1 ? 32 : 2 * kChunkBf16;" \
+        in KERNEL_SRC
 
 
 def test_accumulator_fragment_and_quad_reduction():
@@ -249,6 +318,49 @@ def test_accumulator_fragment_and_quad_reduction():
     assert "__shfl_xor_sync(0xffffffffu, v, 2)" in SHARED_SRC
     for src in (KERNEL_SRC, TILED_SRC):
         assert "quad_min(m[i][h])" in src and "fold_minima<kMTiles>" in src
+
+
+WGMMA_SRC = (CSRC / "wgmma.cuh").read_text()
+
+
+def test_s8_product_and_epilogue():
+    # The integer wgmma takes only the scale-d predicate after the
+    # descriptors (no scale or transpose immediates) and s32 registers;
+    # its accumulator fragment is the f32 one's (PTX ISA, wgmma D
+    # fragments: the same for every K of m64nNk*), so the fold and quad
+    # reduction above serve both forms.
+    body = WGMMA_SRC[WGMMA_SRC.index("void wgmma_m64n128k32_s8("):]
+    body = body[:body.index("\n}")]
+    assert "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " in body
+    assert 'WGMMA_D64_REGS ", %64, %65, p;\\n"' in body
+    assert 'WGMMA_D64("+r", d)' in body
+    assert 'asm volatile("" : "+r"(r)::"memory");' in WGMMA_SRC
+    regs = re.findall(r"%(\d+)", WGMMA_SRC[
+        WGMMA_SRC.index("#define WGMMA_D64_REGS"):
+        WGMMA_SRC.index("#define WGMMA_D64(C, d)")])
+    assert [int(r) for r in regs] == list(range(64))
+    assert len(re.findall(r"C\(d\[\d+\]\)", WGMMA_SRC)) == 64
+    # The epilogue: ip = float(acc) * scale, then (db_sq - 2 ip) + penalty;
+    # K1 passes scale 1, the tiled kernel its argument.
+    assert "const float ip0 = inner(acc[i][4 * j + 2 * h], scale);" \
+        in SHARED_SRC
+    assert "m[i][h] = fminf(m[i][h], (sp.x - 2.0f * ip0) + sp.z);" \
+        in SHARED_SRC
+    assert "fold_minima<kMTiles>(acc, 1.0f, [&](int j) {" in KERNEL_SRC
+    assert "return static_cast<float>(acc) * scale;" in LOADS_SRC
+    # float(acc) is exact: at d = 1024 the largest |<q, x>| of int8 codes
+    # and a query in [-127, 127] is below 2^24, and every integer there is
+    # an f32.
+    top = 1024 * 128 * 127
+    assert top < 2 ** 24
+    acc = np.random.default_rng(0).integers(-top, top + 1, 100000)
+    assert (acc.astype(np.float32).astype(np.int64) == acc).all()
+    # Each K1 entry point instantiates its form: <query, database>.
+    for entry, form in (("segment_minima_bf16", "<uint16_t, uint16_t>"),
+                        ("segment_minima_i8", "<uint16_t, int8_t>"),
+                        ("segment_minima_i8i8", "<int8_t, int8_t>")):
+        body = KERNEL_SRC[KERNEL_SRC.index(f'extern "C" int {entry}('):]
+        assert f"return launch{form}(" in body[:body.index("\n}")]
 
 
 def _byte_perm(x: int, y: int, s: int) -> int:
@@ -306,26 +418,33 @@ def _bf16_bits(codes: np.ndarray) -> np.ndarray:
 #: The thread map, the load addresses, the strip and the output offsets
 #: as the kernel writes them; the model below restates each.
 TILED_LINES = (
-    "const int o = (lane % kDimOctets) + kDimOctets * ((tid >> 5) & 1);",
-    "const int p = (lane / kDimOctets) + kRowQuads * (tid >> 6);",
+    "const int o = (lane % kDimGroups) + kDimGroups * ((tid >> 5) & 1);",
+    "const int p = (lane / kDimGroups) + kRowQuads * (tid >> 6);",
     "int64_t ld_col = seg0 % nseg_t;",
     "const int8_t* ld_src = db3 + (seg0 / nseg_t) * dim * tile_n +\n"
     "                         ld_col * kSeg + 4 * p;",
-    "const int64_t k0 = ld_c * kChunk + 8 * o;",
+    "uint32_t words[kPiece];",
+    "const int64_t k0 = ld_c * kDims + kPiece * o;",
     "const bool live = k0 < dim;",
+    "for (int i = 0; i < kPiece; ++i) {",
     "ld_src + (k0 + i) * tile_n",
     "if (++ld_c == n_chunks) {",
     "if (++ld_col == nseg_t) {",
     "ld_src += dim * tile_n - (nseg_t - 1) * kSeg;",
     "ld_src += kSeg;",
-    "transpose4x4(lo, a);",
-    "transpose4x4(hi, b);",
-    "v.x = codes_to_bf16x2(a[j], 0);",
-    "v.y = codes_to_bf16x2(a[j], 2);",
-    "v.z = codes_to_bf16x2(b[j], 0);",
-    "v.w = codes_to_bf16x2(b[j], 2);",
+    "const uint32_t flip = kWiden ? 0x80808080u : 0u;",
+    "const uint32_t w[4] = {words[4 * u] ^ flip, words[4 * u + 1] ^ flip,\n"
+    "                             words[4 * u + 2] ^ flip,\n"
+    "                             words[4 * u + 3] ^ flip};",
+    "transpose4x4(w, rows[u]);",
+    "v.x = codes_to_bf16x2(rows[0][j], 0);",
+    "v.y = codes_to_bf16x2(rows[0][j], 2);",
+    "v.z = codes_to_bf16x2(rows[1][j], 0);",
+    "v.w = codes_to_bf16x2(rows[1][j], 2);",
+    "v = make_uint4(rows[0][j], rows[1][j], rows[2][j], rows[3][j]);",
     "stage + swizzle_offset(4 * p + j, o)",
-    "const uint64_t b_desc = smem_desc(stage + k * kK16Bytes);",
+    "const uint64_t b_desc = smem_desc(stage + k * kKStepBytes);",
+    "wgmma_step(acc[i], a_desc, b_desc, (c | k) != 0);",
     "return bw >= kStrip ? bw : bw * (kStrip / bw);",
     "int64_t step = seg0 / g, gi = seg0 % g, gq = gi / bw, gpos = 0;",
     "const bool group_end = out2 != nullptr && ++gpos == bw;",
@@ -338,51 +457,78 @@ TILED_LINES = (
     "const float* src = (tid < 32 ? db_sq : penalty) + (seg0 + j) * kSeg +\n"
     "                         4 * (tid & 31);",
     "const int64_t qr = q0 + r < n_queries ? q0 + r : n_queries - 1;",
-    "const int64_t left = (dim - c * kChunk) / 8;",
+    "const int64_t left = (dim - c * kDims) / kPiece;",
+    "constexpr bool kWiden = sizeof(Q) == 2;",
+    "constexpr int kDims = chunk_dims<Q>();",
+    "constexpr int kPiece = piece_dims<Q>();",
+    "fold_minima<kMTiles>(acc, scale, [&](int jj) {",
 )
+#: The query type of each form, as the tiled kernel's entry points
+#: instantiate it.
+TILED_Q = {"bf16": "uint16_t", "s8": "int8_t"}
 
 
 def test_tiled_kernel_source_matches_the_model():
     for line in TILED_LINES:
         assert line in TILED_SRC, line
-    assert T["kThreads"] == 256 and T["kSeg"] == 128 and T["kChunk"] == 64
-    # 8 dims x 4 rows a thread covers one 64-dim x 128-row K-chunk.
-    assert T["kCodeWords"] * 4 * T["kThreads"] == T["kChunk"] * T["kSeg"]
-    assert T["kRowQuads"] * T["kDimOctets"] == 32
+    assert T["kThreads"] == 256 and T["kSeg"] == 128
+    # A thread covers one piece (P dims) x 4 rows; the block covers one
+    # K-chunk of 128 rows in both forms.
+    for form in FORMS:
+        piece = H["kPieceBytes"] // ELEM[form]
+        assert piece * 4 * T["kThreads"] == CHUNK[form] * T["kSeg"]
+        assert 2 * T["kDimGroups"] * piece == CHUNK[form]
+    assert T["kRowQuads"] * T["kDimGroups"] == 32
+    assert 4 * T["kRowQuads"] * 4 == T["kSeg"]
+    for entry, form in (("segment_minima_tiled_i8(", "bf16"),
+                        ("segment_minima_tiled2_i8(", "bf16"),
+                        ("segment_minima_tiled_i8i8(", "s8"),
+                        ("segment_minima_tiled2_i8i8(", "s8")):
+        body = TILED_SRC[TILED_SRC.index(f'extern "C" int {entry}'):]
+        body = body[:body.index("\n}")]
+        assert f"return launch<{TILED_Q[form]}>(" in body, entry
 
 
 def tiled_thread(tid: int):
-    """(dim octet o, row quad p) of thread tid."""
+    """(dim group o, row quad p) of thread tid."""
     lane = tid & 31
-    o = lane % T["kDimOctets"] + T["kDimOctets"] * ((tid >> 5) & 1)
-    p = lane // T["kDimOctets"] + T["kRowQuads"] * (tid >> 6)
+    o = lane % T["kDimGroups"] + T["kDimGroups"] * ((tid >> 5) & 1)
+    p = lane // T["kDimGroups"] + T["kRowQuads"] * (tid >> 6)
     return o, p
 
 
-def tiled_loads(seg: int, c: int, tid: int, dim: int, tile_n: int):
+def piece_dims(form: str) -> int:
+    """Dims of one 16-byte piece: the words a thread loads a step."""
+    return H["kPieceBytes"] // ELEM[form]
+
+
+def tiled_loads(seg: int, c: int, tid: int, dim: int, tile_n: int,
+                form: str = "bf16"):
     """The flat db3 offsets of thread tid's words for K-chunk c of segment
     seg, and whether they are live (else zeros)."""
     o, p = tiled_thread(tid)
     nseg_t = tile_n // T["kSeg"]
-    k0 = c * T["kChunk"] + 8 * o
+    piece = piece_dims(form)
+    k0 = c * CHUNK[form] + piece * o
     src = (seg // nseg_t) * dim * tile_n + (seg % nseg_t) * T["kSeg"] + 4 * p
-    return [src + (k0 + i) * tile_n for i in range(T["kCodeWords"])], \
-        k0 < dim
+    return [src + (k0 + i) * tile_n for i in range(piece)], k0 < dim
 
 
-def walk_loads(seg0: int, n_steps: int, tid: int, dim: int, tile_n: int):
+def walk_loads(seg0: int, n_steps: int, tid: int, dim: int, tile_n: int,
+               form: str = "bf16"):
     """load_codes called once a step from the strip's first segment, with
     its running pointer: the offsets and liveness of each step."""
     o, p = tiled_thread(tid)
     nseg_t = tile_n // T["kSeg"]
-    n_chunks = -(-dim // T["kChunk"])
+    n_chunks = -(-dim // CHUNK[form])
+    piece = piece_dims(form)
     ld_c, ld_col = 0, seg0 % nseg_t
     ld_src = (seg0 // nseg_t) * dim * tile_n + ld_col * T["kSeg"] + 4 * p
     out = []
     for _ in range(n_steps):
-        k0 = ld_c * T["kChunk"] + 8 * o
-        out.append(([ld_src + (k0 + i) * tile_n
-                     for i in range(T["kCodeWords"])], k0 < dim))
+        k0 = ld_c * CHUNK[form] + piece * o
+        out.append(([ld_src + (k0 + i) * tile_n for i in range(piece)],
+                    k0 < dim))
         ld_c += 1
         if ld_c == n_chunks:
             ld_c = 0
@@ -399,15 +545,18 @@ def walk_loads(seg0: int, n_steps: int, tid: int, dim: int, tile_n: int):
 @pytest.mark.parametrize("tile_n", list(TILED_SHAPES_ALL := (128, 4096)))
 def test_tiled_running_load_pointer_walks_the_strip(tile_n, dim):
     # A strip that starts mid-tile and crosses tile ends: each step's
-    # loads are those of its (segment, K-chunk).
+    # loads are those of its (segment, K-chunk), in both forms (the s8
+    # form at d + 16, a multiple of 32 with a tail in its last chunk).
     nseg_t = tile_n // T["kSeg"]
-    n_chunks = -(-dim // T["kChunk"])
     seg0 = nseg_t + nseg_t // 2
-    n_steps = (2 * nseg_t + 3) * n_chunks
-    for tid in (0, 37, 255):
-        for t, got in enumerate(walk_loads(seg0, n_steps, tid, dim, tile_n)):
-            assert got == tiled_loads(seg0 + t // n_chunks, t % n_chunks,
-                                      tid, dim, tile_n)
+    for form, d in (("bf16", dim), ("s8", dim + 16)):
+        n_chunks = -(-d // CHUNK[form])
+        n_steps = (2 * nseg_t + 3) * n_chunks
+        for tid in (0, 37, 255):
+            for t, got in enumerate(walk_loads(seg0, n_steps, tid, d, tile_n,
+                                               form)):
+                assert got == tiled_loads(seg0 + t // n_chunks,
+                                          t % n_chunks, tid, d, tile_n, form)
 
 
 def _transpose_fn():
@@ -427,24 +576,30 @@ def _transpose_fn():
     return transpose
 
 
-def hw_addresses(desc: int, rows: int) -> np.ndarray:
-    """:func:`hw_address` for every (row, kk) of a k16 step: (rows, 16)."""
+def hw_addresses(desc: int, rows: int, elem: int = HW_ELEM_BYTES
+                 ) -> np.ndarray:
+    """:func:`hw_address` for every (row, kk) of a K step: (rows, 32 /
+    elem)."""
     r = np.arange(rows)[:, None]
-    kk = np.arange(16)[None, :]
+    kk = np.arange(HW_K_STEP_BYTES // elem)[None, :]
     start = (desc & 0x3FFF) << 4
     sbo = ((desc >> 32) & 0x3FFF) << 4
     assert desc >> 62 == 1 and (desc >> 49) & 7 == 0
     logical = (start + (r // HW_CORE_ROWS) * sbo
-               + (r % HW_CORE_ROWS) * HW_ROW_BYTES + kk * HW_ELEM_BYTES)
+               + (r % HW_CORE_ROWS) * HW_ROW_BYTES + kk * elem)
     return logical ^ (((logical >> 7) & 7) << 4)
 
 
-#: Bytes of one staged K-chunk of codes: 128 rows of 64 bf16.
+#: Bytes of one staged K-chunk of codes: 128 rows of 128 bytes (64 bf16
+#: or 128 int8 dims).
 TILED_STAGE = T["kSeg"] * H["kSwizzleBytes"]
 
 #: (tile_n, n_tiles) of the tiled cases: one and several segments a tile.
 TILED_SHAPES = {128: 5, 4096: 3}
 TILED_DIMS = [16, 48, 128, 144]
+#: The s8 form's widths: multiples of 32 (the wrapper's rule), with a
+#: K-chunk tail (32, 96, 160) and whole chunks (128).
+TILED_DIMS_S8 = [32, 96, 128, 160]
 
 
 def _tiled_case(tile_n: int, where: str, dim: int):
@@ -458,37 +613,35 @@ def _tiled_case(tile_n: int, where: str, dim: int):
     return db3, seg
 
 
-@pytest.mark.parametrize("dim", TILED_DIMS)
-@pytest.mark.parametrize("where", ["first", "middle", "last"])
-@pytest.mark.parametrize("tile_n", list(TILED_SHAPES))
-def test_tiled_loads_cover_each_code_of_a_chunk_once(tile_n, where, dim):
+def _check_tiled_loads(tile_n: int, where: str, dim: int, form: str):
     db3, seg = _tiled_case(tile_n, where, dim)
     n_tiles = db3.shape[0]
     nseg_t = tile_n // T["kSeg"]
-    for c in range(-(-dim // T["kChunk"])):
-        seen = np.zeros((T["kSeg"], T["kChunk"]), np.int64)
+    chunk, piece = CHUNK[form], piece_dims(form)
+    for c in range(-(-dim // chunk)):
+        seen = np.zeros((T["kSeg"], chunk), np.int64)
         for tid in range(T["kThreads"]):
             o, p = tiled_thread(tid)
-            offs, live = tiled_loads(seg, c, tid, dim, tile_n)
+            offs, live = tiled_loads(seg, c, tid, dim, tile_n, form)
             if not live:
                 continue
             for i, off in enumerate(offs):
                 assert off % 4 == 0 and 0 <= off <= db3.size - 4
                 t, k, col = np.unravel_index(off, db3.shape)
                 # One word: rows 4 p .. 4 p + 3 of the segment, dim i of
-                # the thread's octet.
-                assert t == seg // nseg_t and k == c * T["kChunk"] + 8 * o + i
+                # the thread's group.
+                assert t == seg // nseg_t and k == c * chunk + piece * o + i
                 assert col == (seg % nseg_t) * T["kSeg"] + 4 * p
-                seen[4 * p:4 * p + 4, 8 * o + i] += 1
-        live_dims = min(T["kChunk"], dim - c * T["kChunk"])
+                seen[4 * p:4 * p + 4, piece * o + i] += 1
+        live_dims = min(chunk, dim - c * chunk)
         assert (seen[:, :live_dims] == 1).all()
         assert (seen[:, live_dims:] == 0).all()
         assert n_tiles * nseg_t > seg
     # Each warp's load of word i reads whole 32-byte sectors: 4 dims x 32
     # contiguous bytes.
     for w in range(T["kThreads"] // 32):
-        for i in range(T["kCodeWords"]):
-            addrs = [tiled_loads(seg, 0, 32 * w + lane, 4096, 4096)[0][i]
+        for i in range(piece):
+            addrs = [tiled_loads(seg, 0, 32 * w + lane, 4096, 4096, form)[0][i]
                      for lane in range(32)]
             sectors = {a // 32 for a in addrs}
             assert len(sectors) == 4
@@ -499,58 +652,100 @@ def test_tiled_loads_cover_each_code_of_a_chunk_once(tile_n, where, dim):
 @pytest.mark.parametrize("dim", TILED_DIMS)
 @pytest.mark.parametrize("where", ["first", "middle", "last"])
 @pytest.mark.parametrize("tile_n", list(TILED_SHAPES))
-def test_tiled_staging_feeds_each_k16_descriptor_its_codes(tile_n, where,
-                                                           dim):
+def test_tiled_loads_cover_each_code_of_a_chunk_once(tile_n, where, dim):
+    _check_tiled_loads(tile_n, where, dim, "bf16")
+
+
+@pytest.mark.parametrize("dim", TILED_DIMS_S8)
+@pytest.mark.parametrize("where", ["first", "middle", "last"])
+@pytest.mark.parametrize("tile_n", list(TILED_SHAPES))
+def test_tiled_s8_loads_cover_each_code_of_a_chunk_once(tile_n, where, dim):
+    _check_tiled_loads(tile_n, where, dim, "s8")
+
+
+def _check_tiled_staging(tile_n: int, where: str, dim: int, form: str):
+    """Run every thread's loads, transposes, widening (bf16) and swizzled
+    stores of each K-chunk of a segment, then read each K step back
+    through its descriptor: B[k][r] in the form's type, zeros past d."""
     db3, seg = _tiled_case(tile_n, where, dim)
     flat = db3.view(np.uint8).reshape(-1)
     transpose, widen = _transpose_fn(), _widen_fn()
     rows = seg * T["kSeg"] + np.arange(T["kSeg"])
     # Code (row r of the segment, dim k) in row order.
     seg_codes = db3[rows // tile_n, :, rows % tile_n]          # (128, dim)
+    chunk, piece, elem = CHUNK[form], piece_dims(form), ELEM[form]
+    width = HW_K_STEP_BYTES // elem
+    flip = 0x80808080 if form == "bf16" else 0
     stage = 3 * H["kAtomBytes"]        # any 1024-byte-aligned stage
-    for c in range(-(-dim // T["kChunk"])):
+    for c in range(-(-dim // chunk)):
         smem = np.full(stage + TILED_STAGE, 0xAB, np.uint8)
         writes = np.zeros(TILED_STAGE // 16, np.int64)
         for tid in range(T["kThreads"]):
             o, p = tiled_thread(tid)
-            offs, live = tiled_loads(seg, c, tid, dim, tile_n)
+            offs, live = tiled_loads(seg, c, tid, dim, tile_n, form)
             words = [int.from_bytes(flat[a:a + 4].tobytes(), "little")
                      if live else 0 for a in offs]
-            lo = transpose([w ^ 0x80808080 for w in words[:4]])
-            hi = transpose([w ^ 0x80808080 for w in words[4:]])
+            rows_u = [transpose([w ^ flip for w in words[4 * u:4 * u + 4]])
+                      for u in range(piece // 4)]
             for j in range(4):
-                v = np.array([widen(lo[j], 0), widen(lo[j], 2),
-                              widen(hi[j], 0), widen(hi[j], 2)], np.uint32)
+                if form == "bf16":
+                    v = np.array([widen(rows_u[0][j], 0),
+                                  widen(rows_u[0][j], 2),
+                                  widen(rows_u[1][j], 0),
+                                  widen(rows_u[1][j], 2)], np.uint32)
+                else:
+                    v = np.array([rows_u[u][j] for u in range(4)], np.uint32)
                 off = swizzle_offset(4 * p + j, o)
                 smem[stage + off:stage + off + 16] = v.view(np.uint8)
                 writes[off // 16] += 1
         assert (writes == 1).all()             # a bijection onto the stage
-        view = smem.view(np.uint16)
-        for k in range(T["kChunk"] // 16):
-            desc = smem_desc(stage + k * H["kK16Bytes"])
-            got = view[hw_addresses(desc, T["kSeg"]) // 2]     # (128, 16)
-            dims = c * T["kChunk"] + 16 * k + np.arange(16)
-            want = np.zeros((T["kSeg"], 16), np.uint16)
+        view = smem.view(NP_TYPE[form])
+        for k in range(H["kSwizzleBytes"] // H["kKStepBytes"]):
+            desc = smem_desc(stage + k * H["kKStepBytes"])
+            got = view[hw_addresses(desc, T["kSeg"], elem) // elem]
+            dims = c * chunk + width * k + np.arange(width)
+            want = np.zeros((T["kSeg"], width), NP_TYPE[form])
             live = dims < dim
-            want[:, live] = _bf16_bits(seg_codes[:, dims[live]])
+            want[:, live] = (_bf16_bits(seg_codes[:, dims[live]])
+                             if form == "bf16" else seg_codes[:, dims[live]])
             np.testing.assert_array_equal(got, want)   # B[k][r], tail 0
+
+
+@pytest.mark.parametrize("dim", TILED_DIMS)
+@pytest.mark.parametrize("where", ["first", "middle", "last"])
+@pytest.mark.parametrize("tile_n", list(TILED_SHAPES))
+def test_tiled_staging_feeds_each_k16_descriptor_its_codes(tile_n, where,
+                                                           dim):
+    _check_tiled_staging(tile_n, where, dim, "bf16")
+
+
+@pytest.mark.parametrize("dim", TILED_DIMS_S8)
+@pytest.mark.parametrize("where", ["first", "middle", "last"])
+@pytest.mark.parametrize("tile_n", list(TILED_SHAPES))
+def test_tiled_s8_staging_feeds_each_k32_descriptor_its_codes(tile_n, where,
+                                                              dim):
+    _check_tiled_staging(tile_n, where, dim, "s8")
 
 
 def test_tiled_code_stores_are_free_of_bank_conflicts():
     # A 16-byte store is served a quarter-warp at a time: each 8
-    # consecutive lanes must hit the 8 distinct 16-byte bank groups.
-    for j in range(4):
-        for tid0 in range(0, T["kThreads"], 8):
-            groups = set()
-            for tid in range(tid0, tid0 + 8):
-                o, p = tiled_thread(tid)
-                groups.add((swizzle_offset(4 * p + j, o) % 128) // 16)
-            assert len(groups) == 8
+    # consecutive lanes must hit the 8 distinct 16-byte bank groups. Both
+    # forms store piece o of rows 4 p + j; a piece is 8 bf16 or 16 int8
+    # dims, so the map (and this check) is the same for both.
+    for form in FORMS:
+        assert 2 * T["kDimGroups"] * piece_dims(form) == CHUNK[form]
+        for j in range(4):
+            for tid0 in range(0, T["kThreads"], 8):
+                groups = set()
+                for tid in range(tid0, tid0 + 8):
+                    o, p = tiled_thread(tid)
+                    groups.add((swizzle_offset(4 * p + j, o) % 128) // 16)
+                assert len(groups) == 8
 
 
-def tiled_plan(n_queries: int, dim: int):
+def tiled_plan(n_queries: int, dim: int, form: str = "bf16"):
     """(m_tiles, stream_q, bytes) of the tiled kernel's launch choice."""
-    n_chunks = -(-dim // T["kChunk"])
+    n_chunks = -(-dim // CHUNK[form])
 
     def total(m_tiles, stream):
         q_chunk = 2 * T["kMTile"] * m_tiles * H["kSwizzleBytes"]
@@ -577,8 +772,25 @@ def test_tiled_shared_memory_plan_fits(n_queries, dim):
     if n_queries <= 128 and dim <= 320:
         # Two blocks share an SM (228 KB, 1 KB reserved a block).
         assert 2 * (total + 1024) <= 233472
-    assert "n_queries > q_rows<1>() && smem_bytes<2, false>(dim)" \
+    assert "n_queries > q_rows<1>() && smem_bytes<Q, 2, false>(dim)" \
         in TILED_SRC
+
+
+@pytest.mark.parametrize("dim", TILED_DIMS_S8 + [768, 1024, 1536, 2048])
+@pytest.mark.parametrize("n_queries", [128, 256])
+def test_tiled_s8_shared_memory_plan_fits(n_queries, dim):
+    # 128 int8 dims a K-chunk: 256 resident queries to d = 768, 128 to
+    # d = 1536, then 128 streamed.
+    m_tiles, stream, total = tiled_plan(n_queries, dim, "s8")
+    assert total <= T["kMaxSmem"]
+    assert stream == (dim > 1536)
+    assert m_tiles == (2 if n_queries > 128 and dim <= 768 else 1)
+    # One block an SM in this form: two would leave a thread 128
+    # registers, under which it spills.
+    assert "kThreads, kMTiles == 1 && !kStreamQ && sizeof(Q) == 2 ? 2 : 1)" \
+        in TILED_SRC
+    assert "const int64_t n_chunks = (dim + chunk_dims<Q>() - 1) / " \
+        "chunk_dims<Q>();" in TILED_SRC
 
 
 def tiled_outputs(m: np.ndarray, g: int, bw: int, has_out2: bool,
