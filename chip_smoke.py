@@ -12,23 +12,34 @@ not 0:
 1. build: the hand-written kernels compiled with ``nvcc`` for sm_90a, one
    ``nvcc`` a source, all at once, then linked into one library; the
    count of tensor-core instructions in each instantiation of the two
-   wgmma kernels (K1's bf16, int8-code and int8 x int8 forms; K2 / K4 / K5
-   over int8 codes with a bf16 and with an int8 query), read with
-   ``cuobjdump -sass`` (HGMMA for the bf16 products, IGMMA for the int8
-   ones), must not be 0, and ptxas must report no spill in any of them;
+   wgmma kernels (K1's bf16, int8-code, int8 x int8, f32 split3 and f32
+   native forms; K2 / K4 / K5 over int8 codes with a bf16 and with an
+   int8 query), read with ``cuobjdump -sass`` (HGMMA for the bf16
+   products, IGMMA for the int8 ones), must not be 0, and ptxas must
+   report no spill in any of them (their registers are printed);
 2. flat kernels: K1 (``segment_minima``) against its plain PyTorch version
    at the flat path's shapes (B=2048 queries, N=1,048,576 rows, d=128; f32
-   with dead rows, and the bf16 form on the tensor cores, also against
+   with dead rows in its three precisions: the exact FFMA form
+   ``highest``, and ``split3`` and ``native`` on the tensor cores, held
+   against float64 over the f32 rows and over the bf16-rounded operands;
+   split3 also over rows scaled by 2^-126, whose lo parts are bf16
+   subnormals; and the bf16 form on the tensor cores, also against
    float64), timed with CUDA events as plain, kernel, kernel, plain; the
    bf16 and int8-code forms at d=1024 the same way; plus the selection,
-   stage-2 and whole ``flat_topk_fused`` times at the f32 shapes;
+   stage-2 and whole ``flat_topk_fused`` times at the f32 shapes (split3,
+   beside the ``highest`` stage 1);
 3. flat path: ``FlatNearestNeighborsIndex(device="cuda")`` over 1,000,000
    x 128 SIFT1M-shaped vectors (uniform * 218, seed 0, as ``bench.py``
    makes them), through ``build_index`` / ``nn_many`` with 2048 held-out
    queries at k=10, with the per-batch host-clock split of ``nn_many``
-   into ``store.knn`` and result assembly (from the tracing spans);
-   self-queries must return themselves and recall@10 against a float64
-   oracle must be 1.0. Then smaller builds for inner_product and cosine,
+   into ``store.knn`` and result assembly (from the tracing spans); every
+   K1 launch must take split3 (``SMQTK_TPU_STAGE1`` unset), self-queries
+   must return themselves at 0.0, the reported distances must be the
+   float64 ones of the rows found, and recall@10 against a float64
+   oracle must be 1.0. Then three batches with
+   ``SMQTK_TPU_STAGE1=highest`` (every launch FFMA, the same checks) and
+   three with ``native`` (the same checks but recall, which is read).
+   Then smaller builds for inner_product and cosine (split3),
    and ``dtype="bfloat16"`` at the full size (K1's bf16 form;
    recall@10 against float64 over the bf16 rows must be 1.0);
 4. IVF serving line: ``IvfNearestNeighborsIndex(n_lists=4096, nprobe=4,
@@ -240,17 +251,20 @@ def bound(nbytes: float, flops: float, peak: float) -> dict:
 
 
 def stage1_bound(b: int, n: int, d: int, esize: int, out_elems: int,
-                 exact_f32: bool = False, int8_query: bool = False) -> dict:
+                 exact_f32: bool = False, int8_query: bool = False,
+                 passes: int = 1) -> dict:
     """K1, K2, K4, K5, K10: the database, its row stats and penalty, the
-    queries and the f32 outputs once; 2 B N d operations, at the FP32 rate
-    for an f32 database (only FFMA keeps those products exact), at the
-    int8 tensor-core rate for an int8 query over int8 codes, and at the
-    bf16 tensor-core rate otherwise (a bf16 or int8 database's products
-    with the bf16-rounded query are exact there)."""
+    queries and the f32 outputs once; 2 B N d operations a pass, at the
+    FP32 rate for an f32 database under "highest" (only FFMA keeps those
+    products exact), at the int8 tensor-core rate for an int8 query over
+    int8 codes, and at the bf16 tensor-core rate otherwise (a bf16 or int8
+    database's products with the bf16-rounded query are exact there; an
+    f32 database's split3 takes three passes over its bf16 parts, native
+    one)."""
     peak = FP32_FLOPS if exact_f32 else INT8_OPS if int8_query \
         else BF16_FLOPS
     return bound(n * d * esize + 8 * n + (1 if int8_query else 4) * b * d
-                 + 4 * out_elems, 2.0 * b * n * d, peak)
+                 + 4 * out_elems, passes * 2.0 * b * n * d, peak)
 
 
 def distinct_positions(base, lo, hi, width: int, size: int):
@@ -423,15 +437,17 @@ def flat_batches(index, q_elems, n_batches: int):
         ("flat.query", "store.knn", "flat.assemble")), read_counts()
 
 
-def k1_f64(db_sq, penalty, q, x):
-    """``hold``'s float64 check of K1's bf16 and int8-code forms on the
-    first N_ORACLE queries: (exact minima, largest sum of absolute terms
-    |db_sq| + 2 |q| . |x| of each segment), with the query rounded to bf16
-    as the kernel takes it."""
+def k1_f64(db_sq, penalty, q, x, q_bf16: bool = True):
+    """``hold``'s float64 check of K1 on the first N_ORACLE queries:
+    (exact minima, largest sum of absolute terms |db_sq| + 2 |q| . |x| of
+    each segment), with the query rounded to bf16 as the bf16, int8-code
+    and f32 native forms take it (``x`` rounded too for native), or as it
+    is (``q_bf16=False``: the f32 split3 form against the f32 rows)."""
     import torch
 
     def f64():
-        q64 = q[:N_ORACLE].to(torch.bfloat16).double()
+        q64 = q[:N_ORACLE]
+        q64 = (q64.to(torch.bfloat16) if q_bf16 else q64).double()
         x64 = x.double()
         exact = ((db_sq.double() - 2.0 * (q64 @ x64.T))
                  + penalty.double()).view(N_ORACLE, -1, 128).amin(-1)
@@ -475,9 +491,21 @@ def k1_wide(smi: str, dev, dim: int = 1024) -> None:
         torch.cuda.empty_cache()
 
 
+def exact_dists_ok(res, data: np.ndarray, queries: np.ndarray) -> bool:
+    """Each returned (uid, distance) of the first N_ORACLE queries is the
+    float64 Euclidean distance of that row, within REL_TOL: stage 2 is
+    exact f32 whatever stage 1 selected."""
+    for r, qv in zip(res[:N_ORACLE], queries[:N_ORACLE]):
+        rows = data[[e.uuid() for e in r[0]]].astype(np.float64)
+        want = np.sqrt(((rows - qv.astype(np.float64)) ** 2).sum(1))
+        if not np.allclose(r[1], want, rtol=REL_TOL, atol=0.0):
+            return False
+    return True
+
+
 def flat_phases(smi: str, dev) -> list:
-    """Phases 2 and 3; returns K1's f32 and bf16 rows of the kernels
-    line."""
+    """Phases 2 and 3; returns K1's f32 (highest, split3, native) and bf16
+    rows of the kernels line."""
     import torch
     from smqtk_indexing_tpu_torch.data import DescriptorMemoryElement
     from smqtk_indexing_tpu_torch.models.nn_index.flat import (
@@ -496,11 +524,14 @@ def flat_phases(smi: str, dev) -> list:
     penalty = torch.where(dead, float("inf"), 0.0)
     db_sq = (db * db).sum(-1)
 
+    # The exact f32 form, "highest": FFMA on the CUDA cores.
     def plain():
-        return fused_scan.segment_minima_reference(db, db_sq, penalty, q)
+        return fused_scan.segment_minima_reference(db, db_sq, penalty, q,
+                                                   precision="highest")
 
     def kernel():
-        return fused_scan.segment_minima(db, db_sq, penalty, q)
+        return fused_scan.segment_minima(db, db_sq, penalty, q,
+                                         precision="highest")
 
     ref = plain()
     out = kernel()
@@ -523,7 +554,8 @@ def flat_phases(smi: str, dev) -> list:
     ok = (inf_match and max_abs_err <= REL_TOL * scale
           and f64_err <= REL_TOL * scale)
     emit("kernel", kernel="segment_minima", dtype="float32",
-         shape=[BATCH, n_pad, DIM], max_abs_err=max_abs_err,
+         precision="highest", shape=[BATCH, n_pad, DIM],
+         max_abs_err=max_abs_err,
          f64_max_abs_err=f64_err, score_scale=scale,
          tol=REL_TOL * scale, inf_match=inf_match,
          ms=t_kernel, plain_ms=t_plain, card=smi, ok=ok)
@@ -533,6 +565,34 @@ def flat_phases(smi: str, dev) -> list:
     f32_k1 = (max_abs_err, statistics.mean(t_kernel),
               statistics.mean(t_plain))
     k1_library_ms = library_mm(q, db.T)
+    # The f32 forms on the tensor cores: split3 against float64 over the
+    # f32 rows and the query as it is; native against float64 over both
+    # rounded to bf16.
+    split_k1 = {}
+    for precision in ("split3", "native"):
+        split_k1[precision] = hold(
+            f"segment_minima_f32_{precision}",
+            lambda p=precision: fused_scan.segment_minima(
+                db, db_sq, penalty, q, precision=p),
+            lambda p=precision: fused_scan.segment_minima_reference(
+                db, db_sq, penalty, q, precision=p),
+            smi, compare="f64",
+            f64=k1_f64(db_sq, penalty, q,
+                       db if precision == "split3"
+                       else db.to(torch.bfloat16),
+                       q_bf16=precision == "native"),
+            shape=[BATCH, n_pad, DIM], library_ms=k1_library_ms)
+    # A small-magnitude hold at the same shapes: the rows scaled by
+    # 2^-126, so nearly every lo part is a bf16 subnormal; the tensor
+    # cores must take them as the plain version's f32 products do.
+    tiny = db * 2.0 ** -126
+    tiny_sq = (tiny * tiny).sum(-1)
+    hold("segment_minima_f32_split3_small",
+         lambda: fused_scan.segment_minima(tiny, tiny_sq, penalty, q),
+         lambda: fused_scan.segment_minima_reference(tiny, tiny_sq,
+                                                     penalty, q),
+         smi, compare="plain", reps=(3, 1), shape=[BATCH, n_pad, DIM])
+    del tiny, tiny_sq
     # The bf16 form on the tensor cores, on the bf16-rounded rows.
     xb = db.to(torch.bfloat16)
     bf16_k1 = hold(
@@ -544,7 +604,8 @@ def flat_phases(smi: str, dev) -> list:
     bf16_library_ms = library_mm(q.to(torch.bfloat16), xb.T)
     del xb
     k1_wide(smi, dev)
-    # Stage 2 (plain PyTorch) and the segment selection at the same shapes.
+    # Stage 2 (plain PyTorch) and the segment selection at the same shapes,
+    # over split3's minima (the store's default).
     minima = fused_scan.segment_minima(db, db_sq, penalty, q)
     s_keep = fused_scan.segments_kept(K, n_pad)
     sid = fused_scan.select_segments(minima, s_keep)
@@ -553,13 +614,14 @@ def flat_phases(smi: str, dev) -> list:
                         10)
     stage2_ms = cuda_ms(lambda: fused_scan.rerank_segments(
         db, valid, q, sid, k=K), 10)
-    # The whole of flat_topk_fused, as store.knn calls it: penalty,
-    # stage 1, selection and stage 2.
+    # The whole of flat_topk_fused, as store.knn calls it by default:
+    # penalty, stage 1 (split3), selection and stage 2.
     fused_ms = cuda_ms(lambda: fused_scan.flat_topk_fused(
         db, db_sq, valid, q, k=K), 10)
-    emit("stages", shape=[BATCH, n_pad, DIM], k=K,
-         stage1_ms=f32_k1[1], select_ms=select_ms,
-         stage2_ms=stage2_ms, flat_topk_fused_ms=fused_ms, card=smi)
+    emit("stages", shape=[BATCH, n_pad, DIM], k=K, stage1="split3",
+         stage1_ms=split_k1["split3"][1], stage1_highest_ms=f32_k1[1],
+         select_ms=select_ms, stage2_ms=stage2_ms,
+         flat_topk_fused_ms=fused_ms, card=smi)
     del db, q, dead, valid, penalty, db_sq, minima, sid
     torch.cuda.empty_cache()
 
@@ -575,22 +637,46 @@ def flat_phases(smi: str, dev) -> list:
     t0 = time.perf_counter()
     index.build_index(elems)
     build_s = time.perf_counter() - t0
-    res, batch_s, split_ms, counts = flat_batches(index, q_elems, 5)
-    f32_launches = counts["segment_minima:ffma"]
-    found = [[e.uuid() for e in r[0]] for r in res[:N_ORACLE]]
-    rec = recall(found, truth)
-    self_res = index.nn_many(elems[:BATCH], K)
-    self_ok = all(r[0][0].uuid() == i and r[1][0] == 0.0
-                  for i, r in enumerate(self_res))
-    finite = all(len(r[0]) == K and np.all(np.isfinite(r[1])) for r in res)
-    emit("main", metric="euclidean", dtype="float32", n=N_MAIN, d=DIM,
-         batch=BATCH, k=K, build_s=build_s, batch_s=batch_s,
-         qps=BATCH / statistics.median(batch_s), split_ms=split_ms,
-         recall_at_10=rec, launches=f32_launches,
-         self_queries_ok=self_ok, finite=finite,
-         peak_device_bytes=torch.cuda.max_memory_allocated(dev), card=smi)
-    if not (self_ok and finite and rec == 1.0):
-        raise RuntimeError("main path: wrong results")
+    # The default stage 1 (SMQTK_TPU_STAGE1 unset: split3), then three
+    # batches under each other mode: the store reads it per query.
+    # highest must also reach recall 1.0; native (one bf16 pass) must
+    # return exact distances of the rows it finds, its recall is read.
+    launches = {}
+    for stage1, n_batches, form in ((None, 5, "wgmma_split3"),
+                                    ("highest", 3, "ffma"),
+                                    ("native", 3, "wgmma_native")):
+        if stage1 is not None:
+            os.environ["SMQTK_TPU_STAGE1"] = stage1
+        try:
+            res, batch_s, split_ms, counts = flat_batches(index, q_elems,
+                                                          n_batches)
+            self_res = index.nn_many(elems[:BATCH], K)
+        finally:
+            os.environ.pop("SMQTK_TPU_STAGE1", None)
+        k1 = {key: n for key, n in counts.items()
+              if key.startswith("segment_minima:") and n}
+        launches[form] = k1.get(f"segment_minima:{form}", 0)
+        found = [[e.uuid() for e in r[0]] for r in res[:N_ORACLE]]
+        rec = recall(found, truth)
+        self_ok = all(r[0][0].uuid() == i and r[1][0] == 0.0
+                      for i, r in enumerate(self_res))
+        finite = all(len(r[0]) == K and np.all(np.isfinite(r[1]))
+                     for r in res)
+        exact = exact_dists_ok(res, data, queries)
+        emit("main", metric="euclidean", dtype="float32",
+             stage1=stage1 or "split3 (default)", n=N_MAIN, d=DIM,
+             batch=BATCH, k=K, build_s=build_s, batch_s=batch_s,
+             qps=BATCH / statistics.median(batch_s), split_ms=split_ms,
+             recall_at_10=rec, launches=k1, self_queries_ok=self_ok,
+             finite=finite, exact_dists=exact,
+             peak_device_bytes=torch.cuda.max_memory_allocated(dev),
+             card=smi)
+        if k1 != {f"segment_minima:{form}": n_batches}:
+            raise RuntimeError(f"flat f32 under {stage1}: K1 launched "
+                               f"{k1}, not {form} once a batch")
+        if not (self_ok and finite and exact
+                and (rec == 1.0 or form == "wgmma_native")):
+            raise RuntimeError(f"main path under {stage1}: wrong results")
     del index, self_res, res
 
     small = data[:N_SMALL]
@@ -631,19 +717,32 @@ def flat_phases(smi: str, dev) -> list:
     if rec != 1.0:
         raise RuntimeError(f"flat bfloat16: recall {rec} != 1.0")
     del index, res, bf16_data
-    if f32_launches == 0 or bf16_launches == 0:
-        raise RuntimeError("the flat path never launched segment_minima "
-                           f"(f32 {f32_launches}, bf16 {bf16_launches})")
+    if bf16_launches == 0:
+        raise RuntimeError("the flat bf16 path never launched "
+                           "segment_minima")
     err, ms, plain_ms = f32_k1
     source = "smqtk_indexing_tpu_torch/csrc/"
-    return [{"name": "segment_minima", "route": "cuda",
+    rows = [{"name": "segment_minima", "route": "cuda",
              "source": source + "segment_minima.cu",
              "replaces": "smqtk_indexing_tpu/ops/pallas_scan.py:173",
-             "launches": f32_launches, "max_abs_err": err,
-             "ms": ms, "plain_ms": plain_ms,
+             "precision": "highest", "launches": launches["ffma"],
+             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
              **stage1_bound(BATCH, n_pad, DIM, 4, BATCH * n_pad // 128,
                             exact_f32=True),
-             "library_ms": k1_library_ms, "shape": [BATCH, n_pad, DIM]},
+             "library_ms": k1_library_ms, "shape": [BATCH, n_pad, DIM]}]
+    for precision, passes in (("split3", 3), ("native", 1)):
+        err, ms, plain_ms = split_k1[precision]
+        rows.append({
+            "name": f"segment_minima_f32_{precision}", "route": "cuda",
+            "source": source + "segment_minima_wgmma.cu",
+            "replaces": "smqtk_indexing_tpu/ops/pallas_scan.py:173",
+            "precision": precision,
+            "launches": launches[f"wgmma_{precision}"],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            **stage1_bound(BATCH, n_pad, DIM, 4, BATCH * n_pad // 128,
+                           passes=passes),
+            "library_ms": k1_library_ms, "shape": [BATCH, n_pad, DIM]})
+    return rows + [
             {"name": "segment_minima_bf16", "route": "cuda",
              "source": source + "segment_minima_wgmma.cu",
              "replaces": "smqtk_indexing_tpu/ops/pallas_scan.py:173",
@@ -1697,15 +1796,19 @@ def capacity_phases(smi: str, dev) -> list:
 
 
 #: The instantiations of the two wgmma kernels, by their mangled names
-#: (template arguments: It = uint16_t, the bf16 query; Ia = int8_t; then
-#: kMTiles and kStreamQ), with the SASS instruction of their products:
-#: HGMMA for bf16, IGMMA for int8. K1: <query, database, ...>; the tiled
-#: kernel: <query, ...>.
+#: (template arguments: It = uint16_t, the bf16 query; Ia = int8_t; f =
+#: float, the f32 database; then kMTiles, kStreamQ and, for K1, kPasses),
+#: with the SASS instruction of their products: HGMMA for bf16, IGMMA for
+#: int8. K1: <query, database, ...>; the tiled kernel: <query, ...>.
 WGMMA_KERNELS = {
-    **{f"segment_minima_wgmma_kernel{qt}{args}": (f"{name} ({plan})", op)
-       for qt, name, op in (("Itt", "segment_minima_bf16", "HGMMA"),
-                            ("Ita", "segment_minima_i8", "HGMMA"),
-                            ("Iaa", "segment_minima_i8i8", "IGMMA"))
+    **{f"segment_minima_wgmma_kernel{qt}{args}{passes}":
+       (f"{name} ({plan})", op)
+       for qt, passes, name, op in (
+           ("Itt", "Li1E", "segment_minima_bf16", "HGMMA"),
+           ("Ita", "Li1E", "segment_minima_i8", "HGMMA"),
+           ("Iaa", "Li1E", "segment_minima_i8i8", "IGMMA"),
+           ("Itf", "Li3E", "segment_minima_f32_split3", "HGMMA"),
+           ("Itf", "Li1E", "segment_minima_f32_native", "HGMMA"))
        for args, plan in (("Li2ELb0E", "256 resident"),
                           ("Li1ELb0E", "128 resident"),
                           ("Li2ELb1E", "256 streamed"))},
@@ -1741,25 +1844,33 @@ def gmma_counts(kernels_mod) -> dict:
     return counts
 
 
-def ptxas_spills(log: str, kernel: str) -> dict:
-    """Spill bytes (stores and loads) of each entry function whose mangled
-    name holds ``kernel``, from the build's ``ptxas -v`` lines."""
+def ptxas_usage(log: str, kernel: str) -> dict:
+    """Spill bytes (stores and loads) and registers of each entry function
+    whose mangled name holds ``kernel``, from the build's ``ptxas -v``
+    lines: {function: {"spill_bytes": n, "registers": n}}."""
     out, func = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             func = line.split("'")[1]
-        elif "spill stores" in line and func and kernel in func:
+        elif func and kernel in func and ("spill stores" in line
+                                          or "registers" in line):
             nums = [int(w) for w in line.replace(",", " ").split()
                     if w.isdigit()]
-            out[func] = nums[1] + nums[2]     # stack, stores, loads
+            use = out.setdefault(func, {})
+            if "spill stores" in line:
+                use["spill_bytes"] = nums[1] + nums[2]  # stack, st, ld
+            else:
+                use["registers"] = nums[0]
     return out
 
 
 def main() -> None:
-    # The runs with the flag off must not inherit the int8 x int8 switch
-    # from the caller: the store reads it per query, the capacity example
-    # once at import. The phases that want it set it themselves.
+    # The runs with the flags off must not inherit the int8 x int8 switch
+    # or the f32 stage-1 mode from the caller: the store reads them per
+    # query, the capacity example the first once at import. The phases
+    # that want one set it themselves.
     os.environ.pop("SMQTK_TPU_SQ8_I8DOT", None)
+    os.environ.pop("SMQTK_TPU_STAGE1", None)
     import torch
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1792,19 +1903,26 @@ def main() -> None:
     ptxas = [ln.strip() for ln in info["log"].splitlines()
              if "registers" in ln or "spill" in ln]
     gmma = gmma_counts(_kernels)
-    spills = {}
-    for key in WGMMA_KERNELS:
-        spills.update(ptxas_spills(info["log"], key))
+    usage = {}
+    for key, (name, _) in WGMMA_KERNELS.items():
+        found = ptxas_usage(info["log"], key)
+        if len(found) != 1:
+            raise RuntimeError(f"{name}: {len(found)} ptxas entries")
+        usage[name] = next(iter(found.values()))
+    spills = {name: u.get("spill_bytes") for name, u in usage.items()}
     emit("build", seconds=time.perf_counter() - t0, nvcc=info["cmd"],
-         ptxas=ptxas, gmma=gmma, wgmma_spill_bytes=spills)
+         ptxas=ptxas, gmma=gmma, wgmma_spill_bytes=spills,
+         wgmma_registers={name: u.get("registers")
+                          for name, u in usage.items()})
     for name, op in WGMMA_KERNELS.values():
         if gmma[name].get(op, 0) == 0:
             raise RuntimeError(f"{name} holds no {op}: {gmma[name]}")
-    if len(spills) != len(WGMMA_KERNELS) or any(spills.values()):
+    if any(v != 0 for v in spills.values()):
         raise RuntimeError(f"a wgmma kernel spills: {spills}")
 
     t0 = time.perf_counter()
     kernels = flat_phases(smi, dev)
+    n_flat = len(kernels)
     emit("seconds", of="flat phases", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
     kernels += ivf_phases(smi, dev)
@@ -1817,7 +1935,7 @@ def main() -> None:
             row["launches"] += k3_launches
     kernels += k8_rows
     t0 = time.perf_counter()
-    kernels[2:2] = flat_codec_phases(smi, dev)
+    kernels[n_flat:n_flat] = flat_codec_phases(smi, dev)
     emit("seconds", of="flat codec phases", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
     kernels += probe_phase(smi, dev)

@@ -10,6 +10,9 @@
 // - codes_to_bf16x2 (segment_minima_wgmma.cu,
 //   segment_minima_tiled_wgmma.cu): two int8 codes widened exactly to one
 //   bf16x2 word for the tensor cores.
+// - split_bf16x2 (segment_minima_wgmma.cu): two f32 values split into
+//   bf16 hi and lo words, each rounded to nearest even, for the split3 and
+//   native forms of the f32 stage 1 on the tensor cores.
 // - inner (tiled_minima.cuh, wgmma_minima.cuh): an accumulator as the f32
 //   inner product of the epilogue.
 #pragma once
@@ -82,6 +85,25 @@ __device__ __forceinline__ uint32_t codes_to_bf16x2(uint32_t w, int k) {
       __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540 | (k + 1))) -
       8388736.0f;
   return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+// Two f32 values x0, x1 (bit patterns a, b) as one bf16x2 word of each,
+// x0 in the low half: hi = bf16(x) and lo = bf16(x - f32(hi)), both
+// rounded to nearest even (cvt.rn.bf16x2.f32 packs its first source into
+// the high half), as torch's and jnp's astype(bfloat16) round. x - f32(hi)
+// is exact in f32, and a bf16 widens to f32 by a 16-bit shift.
+__device__ __forceinline__ uint32_t bf16x2_rn(float x0, float x1) {
+  uint32_t d;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(x1), "f"(x0));
+  return d;
+}
+__device__ __forceinline__ void split_bf16x2(uint32_t a, uint32_t b,
+                                             uint32_t& hi, uint32_t& lo) {
+  const float x0 = __uint_as_float(a);
+  const float x1 = __uint_as_float(b);
+  hi = bf16x2_rn(x0, x1);
+  lo = bf16x2_rn(x0 - __uint_as_float(hi << 16),
+                 x1 - __uint_as_float(hi & 0xffff0000u));
 }
 
 // An accumulator as the f32 inner product: an f32 sum as it is, an int32

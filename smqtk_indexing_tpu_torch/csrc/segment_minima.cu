@@ -1,7 +1,9 @@
 // Stage 1 of the exact flat kNN scan: per-128-row segment minima of the L2
-// surrogate, written by hand for Hopper (sm_90a). This file holds its f32
-// form; the bf16, int8-code and int8 x int8 forms run on the tensor cores
-// in segment_minima_wgmma.cu.
+// surrogate, written by hand for Hopper (sm_90a). This file holds its exact
+// f32 form, the TPU kernel's "highest" mode (SMQTK_TPU_STAGE1=highest,
+// precision="highest"); the f32 store's default, split3, and native run on
+// the tensor cores in segment_minima_wgmma.cu, as do the bf16, int8-code
+// and int8 x int8 forms.
 //
 // Replaces the TPU kernel smqtk_indexing_tpu/ops/pallas_scan.py
 // segment_minima -> _scan_kernel (2-D branch, :102-241). It computes

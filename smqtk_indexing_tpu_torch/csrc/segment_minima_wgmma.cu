@@ -1,6 +1,7 @@
-// Stage 1 of the exact flat kNN scan over a bf16 or int8-code database,
-// with its products on Hopper's tensor cores (wgmma, sm_90a): the bf16,
-// int8-code and int8 x int8 forms of K1. The f32 form stays in
+// Stage 1 of the exact flat kNN scan with its products on Hopper's tensor
+// cores (wgmma, sm_90a): K1's bf16, int8-code and int8 x int8 forms, and
+// the split3 and native forms of its f32 database, which serve the flat
+// f32 store by default. The exact f32 form ("highest", FFMA) stays in
 // segment_minima.cu.
 //
 // Replaces the TPU kernel smqtk_indexing_tpu/ops/pallas_scan.py:173
@@ -11,7 +12,7 @@
 //                 (db_sq[r] - 2 <q_b, x_r>) + penalty[r]
 //
 // for q (B, d), db (N, d) row-major, db_sq and penalty (N,) f32 (penalty =
-// +inf on dead rows), out (B, N / 128) f32, in three forms:
+// +inf on dead rows), out (B, N / 128) f32, in five forms:
 //
 // - bf16: db bf16, q bf16 (the query rounded to bf16 by the wrapper);
 // - int8 codes: db the flat SQ8 store's codes u, q the bf16-rounded codec
@@ -25,14 +26,24 @@
 //   quantised to int8 with one scale, db_sq the stats divided by it. The
 //   products run as wgmma s8 x s8 -> s32, exact in any order; the epilogue
 //   is (db_sq - 2 float(acc)) + penalty, and float(acc) is exact below 2^24
-//   (d <= 1040), so the result is bit-equal to the plain PyTorch version.
+//   (d <= 1040), so the result is bit-equal to the plain PyTorch version;
+// - f32 split3 (segment_minima_f32_split3, the TPU kernel's default f32
+//   mode, _tile_ip(mode="split3"), pallas_scan.py:64-77): db f32, q given
+//   as its bf16 hi and lo parts (2, B, d), xh = bf16(x) and xl = bf16(x -
+//   f32(xh)) (both rounded to nearest even), and
+//   <q, x> = qh.xh + qh.xl + ql.xh: three bf16 passes into the same f32
+//   accumulators. The dropped ql.xl is below 2^-16 of |q| . |x|, so a
+//   score is within about 4e-6 of |db_sq| + 2 |q| . |x| of the exact one;
+// - f32 native (segment_minima_f32_native, the TPU's default-precision f32
+//   dot): the single pass qh.xh.
 //
-// What bounds it on an H100: 2 B N d operations, 5.5e11 at the flat path's
-// shapes (B = 2048, N = 2^20, d = 128): 0.556 ms at the card's 989 TFLOP/s
-// dense bf16 tensor-core rate, 0.278 ms at its 1,979 TOPS int8 rate; the
-// database is 256 MB (bf16) or 128 MB (int8), under 0.08 ms at 3.35 TB/s if
-// read once. The products bound it, so the design keeps the tensor cores
-// fed and the (B, N) scores out of memory:
+// What bounds it on an H100: 2 B N d operations a pass, 5.5e11 at the flat
+// path's shapes (B = 2048, N = 2^20, d = 128): 0.556 ms at the card's 989
+// TFLOP/s dense bf16 tensor-core rate (split3: three passes, 1.668 ms),
+// 0.278 ms at its 1,979 TOPS int8 rate; the database is 256 MB (bf16), 128
+// MB (int8) or 512 MB (f32), under 0.16 ms at 3.35 TB/s if read once. The
+// products bound it, so the design keeps the tensor cores fed and the (B,
+// N) scores out of memory:
 //
 // - A block of two warpgroups (256 threads) owns 256 queries (128 where
 //   256 do not fit resident) and walks a strip of kStrip consecutive
@@ -42,19 +53,29 @@
 // - A K-chunk is one 128-byte swizzled row: 64 bf16 dims or 128 int8 dims,
 //   four K steps either way. The query tile is resident in shared memory
 //   for the whole strip while it fits beside the ring (bf16: d <= 640;
-//   int8: d <= 1280); above that, its K-chunks stream through the ring
-//   with the database's, which costs L2 traffic but keeps any d right.
-// - The database streams through a ring of kStages stages, one K-chunk of
-//   one segment (16 KB) each, in the 128-byte swizzle layout of wgmma.cuh.
-//   bf16 rows and int8 rows under an int8 query arrive by cp.async (K1's
-//   database is row-major, so K-major already: no register work); the int8
-//   x int8 form zero-fills a chunk's tail past d in both operands, so any
-//   d % 32 == 0 is right. Int8 codes under a bf16 query are read into
-//   registers one step ahead, widened exactly to bf16 (2^23 + u as f32
-//   bits, less 2^23 + 128: two byte permutes and an add per code, no
-//   int-to-float conversion) and stored at the same swizzled addresses:
-//   wgmma takes no int8 x bf16 product, and widening keeps it on the
-//   tensor cores at the bf16 rate.
+//   int8: d <= 1280; split3: d <= 256; native: d <= 768); above that, its
+//   K-chunks stream through the ring with the database's, which costs L2
+//   traffic but keeps any d right.
+// - The database streams through a ring of stages, one K-chunk of one
+//   segment (16 KB a bf16 or int8 tile) each, in the 128-byte swizzle
+//   layout of wgmma.cuh. bf16 rows and int8 rows under an int8 query
+//   arrive by cp.async (K1's database is row-major, so K-major already: no
+//   register work) through kStages stages; the int8 x int8 form zero-fills
+//   a chunk's tail past d in both operands, so any d % 32 == 0 is right.
+// - The other forms stage the database through registers, one step ahead
+//   (read with __ldg two steps ahead), and store it at the same swizzled
+//   addresses. Int8 codes under a bf16 query are widened exactly to bf16
+//   (2^23 + u as f32 bits, less 2^23 + 128: two byte permutes and an add
+//   per code, no int-to-float conversion): wgmma takes no int8 x bf16
+//   product, and widening keeps it on the tensor cores at the bf16 rate.
+//   f32 rows are split into a hi and (split3) a lo tile, two cvt.rn.bf16x2
+//   and two subtractions a pair of values; the split keeps no bf16 mirror
+//   of the store in device memory. A 64-dim K-chunk of 128 f32 rows is 32
+//   KB: 32 values a thread. The f32 forms take kRegStages stages, since a
+//   stage is written only after the barrier that follows the wgmma that
+//   read it, and they store step t + 1 while step t's products run: at 256
+//   queries and d = 128 the split3 ring and the resident hi and lo query
+//   fit in 193 KB.
 // - Epilogue, once a segment's last K-chunk is summed: each thread holds
 //   32 columns of two query rows per tile; it folds
 //   (db_sq - 2 ip) + penalty into a minimum in registers (float2 loads of
@@ -64,9 +85,8 @@
 //   each s32 sum to f32 for it (I2F, inner() of scan_loads.cuh).
 // - Blocks are numbered query-tile fastest, so the blocks that read one
 //   strip run together and find it in L2.
-// - The first form waits for each step's wgmma group before the next
-//   step; overlapping a segment's epilogue with the next one's products is
-//   later work.
+// - Each step waits for its wgmma group before the next step; overlapping
+//   a segment's epilogue with the next one's products is later work.
 //
 // The block geometry, the query staging, the widening and the epilogue's
 // fold and quad reduction are shared with the tiled layout's kernel
@@ -78,32 +98,49 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "wgmma_minima.cuh"
 
 namespace {
 
-constexpr int kStages = 4;      // ring depth
+constexpr int kStages = 4;      // ring depth of the cp.async forms
+constexpr int kRegStages = 2;   // ring depth of the f32 forms
 constexpr int kStrip = 32;      // segments a block walks
 
-template <int kMTiles, bool kStreamQ>
+// bf16 tiles a K-chunk of each operand: hi and lo for split3, else one.
+template <int kPasses>
+__host__ __device__ constexpr int parts() {
+  return kPasses == 3 ? 2 : 1;
+}
+
+template <typename T>
+__host__ __device__ constexpr int ring_stages() {
+  return std::is_same<T, float>::value ? kRegStages : kStages;
+}
+
+template <int kMTiles, bool kStreamQ, int kPasses>
 __host__ __device__ constexpr int stage_bytes() {
-  return kDbStageBytes + (kStreamQ ? q_rows<kMTiles>() * kSwizzleBytes : 0);
+  return parts<kPasses>() *
+         (kDbStageBytes + (kStreamQ ? q_rows<kMTiles>() * kSwizzleBytes : 0));
 }
 
 // Dynamic shared memory: the ring, the resident query tile, and 1 KB to
 // align the start to a swizzle atom.
-template <typename Q, int kMTiles, bool kStreamQ>
+template <typename Q, typename T, int kMTiles, bool kStreamQ, int kPasses>
 int64_t smem_bytes(int64_t dim) {
   const int64_t n_chunks = (dim + chunk_dims<Q>() - 1) / chunk_dims<Q>();
-  const int64_t q_res =
-      kStreamQ ? 0 : q_rows<kMTiles>() * n_chunks * kSwizzleBytes;
-  return kAtomBytes + kStages * stage_bytes<kMTiles, kStreamQ>() + q_res;
+  const int64_t q_res = kStreamQ ? 0
+                                 : parts<kPasses>() * q_rows<kMTiles>() *
+                                       n_chunks * kSwizzleBytes;
+  return kAtomBytes +
+         ring_stages<T>() * stage_bytes<kMTiles, kStreamQ, kPasses>() + q_res;
 }
 
 // Q: the query's type (uint16_t for bf16, int8_t); T: the database's. A
-// bf16 query over int8 codes widens them (kWiden).
-template <typename Q, typename T, int kMTiles, bool kStreamQ>
+// bf16 query over int8 codes widens them (kWiden); over f32 rows it splits
+// them (kSplit) and takes kPasses products (1: native, 3: split3).
+template <typename Q, typename T, int kMTiles, bool kStreamQ, int kPasses>
 __global__ void __launch_bounds__(kThreads, 1)
 segment_minima_wgmma_kernel(const Q* __restrict__ q,
                             const T* __restrict__ db,
@@ -111,18 +148,26 @@ segment_minima_wgmma_kernel(const Q* __restrict__ q,
                             const float* __restrict__ penalty,
                             float* __restrict__ out, int64_t n_queries,
                             int64_t n_rows, int64_t dim, int64_t n_qtiles) {
-  constexpr bool kWiden = sizeof(T) != sizeof(Q);
+  constexpr bool kSplit = std::is_same<T, float>::value;
+  constexpr bool kWiden = !kSplit && sizeof(T) != sizeof(Q);
+  constexpr bool kRegStaged = kSplit || kWiden;
+  constexpr int kParts = parts<kPasses>();
+  constexpr int kRing = ring_stages<T>();
   constexpr int kDims = chunk_dims<Q>();
   constexpr int kQRows = q_rows<kMTiles>();
   constexpr int kQChunkBytes = kQRows * kSwizzleBytes;
-  constexpr int kStageBytes = stage_bytes<kMTiles, kStreamQ>();
+  constexpr int kStageBytes = stage_bytes<kMTiles, kStreamQ, kPasses>();
+  // Register staging: 32 values of one row a thread, in 16-byte words.
+  constexpr int kWords = 32 * static_cast<int>(sizeof(T)) / 16;
   using Acc = typename MmaAcc<Q>::type;
+  static_assert(kPasses == 1 || (kSplit && kPasses == 3),
+                "three passes split f32 rows");
 
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t ring = (raw + kAtomBytes - 1) & ~uint32_t(kAtomBytes - 1);
   uint8_t* const ring_ptr = smem_raw + (ring - raw);
-  const uint32_t q_res = ring + kStages * kStageBytes;
+  const uint32_t q_res = ring + kRing * kStageBytes;
 
   const int tid = threadIdx.x;
   const int wg = tid >> 7;
@@ -134,12 +179,13 @@ segment_minima_wgmma_kernel(const Q* __restrict__ q,
       static_cast<int>(n_seg - seg0 < kStrip ? n_seg - seg0 : kStrip) *
       n_chunks;
 
-  // Step t is K-chunk t % n_chunks of segment seg0 + t / n_chunks.
-  auto q_row = [&](int c) {
+  // Step t is K-chunk t % n_chunks of segment seg0 + t / n_chunks. Part s
+  // of the query (split3: 0 hi, 1 lo) follows part s - 1 in memory.
+  auto q_row = [&](int c, int s) {
     return [=](int r) {
       // Rows past the batch read its last query; they are never written.
       const int64_t qr = q0 + r < n_queries ? q0 + r : n_queries - 1;
-      return q + qr * dim + c * kDims;
+      return q + (s * n_queries + qr) * dim + c * kDims;
     };
   };
   auto db_row = [&](int t) {
@@ -153,40 +199,48 @@ segment_minima_wgmma_kernel(const Q* __restrict__ q,
     const int64_t left = (dim - c * kDims) / piece_dims<Q>();
     return static_cast<int>(left < 8 ? left : 8);
   };
+  // A stage: the database's kParts tiles, then (streamed) the query's.
+  auto q_tile = [&](uint32_t stage, int c, int s) {
+    return kStreamQ ? stage + kParts * kDbStageBytes + s * kQChunkBytes
+                    : q_res + (c * kParts + s) * kQChunkBytes;
+  };
   // The cp.async copies of step t (if any): the db chunk (unless it is
-  // widened) and, when the queries stream, the query chunk.
+  // staged through registers) and, when the queries stream, the query's.
   auto issue = [&](int t) {
     if (t >= n_steps) return;
-    const uint32_t stage = ring + (t % kStages) * kStageBytes;
+    const uint32_t stage = ring + (t % kRing) * kStageBytes;
     const int c = t % n_chunks;
-    if constexpr (!kWiden) {
+    if constexpr (!kRegStaged) {
       copy_chunk<kSeg>(stage, db_row(t), tid, live_pieces(c));
     }
     if constexpr (kStreamQ) {
-      copy_chunk<kQRows>(stage + kDbStageBytes, q_row(c), tid,
-                         live_pieces(c));
+#pragma unroll
+      for (int s = 0; s < kParts; ++s) {
+        copy_chunk<kQRows>(q_tile(stage, c, s), q_row(c, s), tid,
+                           live_pieces(c));
+      }
     }
   };
 
-  // Widening: thread tid stages 32 codes of row tid / 2 (half tid % 2 of
-  // the chunk) through registers, widened into 4 swizzled bf16 pieces.
-  uint4 codes[2];
-  auto load_codes = [&](int t) {
-    if constexpr (kWiden) {
-      const int8_t* src = reinterpret_cast<const int8_t*>(db_row(t)(tid >> 1)) +
-                          (tid & 1) * 32;
-      codes[0] = __ldg(reinterpret_cast<const uint4*>(src));
-      codes[1] = __ldg(reinterpret_cast<const uint4*>(src + 16));
+  // Register staging: thread tid stages 32 values of row tid / 2 (half
+  // tid % 2 of the chunk), as 4 swizzled bf16 pieces of each tile.
+  uint4 vals[kWords];
+  auto load_regs = [&](int t) {
+    if constexpr (kRegStaged) {
+      const uint4* src = reinterpret_cast<const uint4*>(
+          db_row(t)(tid >> 1) + (tid & 1) * 32);
+#pragma unroll
+      for (int i = 0; i < kWords; ++i) vals[i] = __ldg(src + i);
     }
   };
-  auto store_codes = [&](int t) {
+  auto store_regs = [&](int t) {
+    uint8_t* stage = ring_ptr + (t % kRing) * kStageBytes;
+    const int r = tid >> 1;
     if constexpr (kWiden) {
-      uint8_t* stage = ring_ptr + (t % kStages) * kStageBytes;
-      const uint32_t w[8] = {codes[0].x ^ 0x80808080u, codes[0].y ^ 0x80808080u,
-                             codes[0].z ^ 0x80808080u, codes[0].w ^ 0x80808080u,
-                             codes[1].x ^ 0x80808080u, codes[1].y ^ 0x80808080u,
-                             codes[1].z ^ 0x80808080u, codes[1].w ^ 0x80808080u};
-      const int r = tid >> 1;
+      const uint32_t w[8] = {vals[0].x ^ 0x80808080u, vals[0].y ^ 0x80808080u,
+                             vals[0].z ^ 0x80808080u, vals[0].w ^ 0x80808080u,
+                             vals[1].x ^ 0x80808080u, vals[1].y ^ 0x80808080u,
+                             vals[1].z ^ 0x80808080u, vals[1].w ^ 0x80808080u};
 #pragma unroll
       for (int p = 0; p < 4; ++p) {
         uint4 v;
@@ -196,6 +250,23 @@ segment_minima_wgmma_kernel(const Q* __restrict__ q,
         v.w = codes_to_bf16x2(w[2 * p + 1], 2);
         *reinterpret_cast<uint4*>(
             stage + swizzle_offset(r, (tid & 1) * 4 + p)) = v;
+      }
+    } else if constexpr (kSplit) {
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        // Piece p: values 8 p .. 8 p + 7, in words 2 p and 2 p + 1.
+        const uint4 a = vals[2 * p];
+        const uint4 b = vals[2 * p + 1];
+        uint4 hi, lo;
+        split_bf16x2(a.x, a.y, hi.x, lo.x);
+        split_bf16x2(a.z, a.w, hi.y, lo.y);
+        split_bf16x2(b.x, b.y, hi.z, lo.z);
+        split_bf16x2(b.z, b.w, hi.w, lo.w);
+        const uint32_t off = swizzle_offset(r, (tid & 1) * 4 + p);
+        *reinterpret_cast<uint4*>(stage + off) = hi;
+        if constexpr (kParts == 2) {
+          *reinterpret_cast<uint4*>(stage + kDbStageBytes + off) = lo;
+        }
       }
     }
   };
@@ -207,41 +278,46 @@ segment_minima_wgmma_kernel(const Q* __restrict__ q,
     for (int j = 0; j < 64; ++j) acc[i][j] = 0;
   }
 
-  // Prologue: the resident query tile and steps 0 .. kStages - 2 (the
-  // query tile joins step 0's group), then widened steps 0 and 1.
+  // Prologue: the resident query tile and steps 0 .. kRing - 2 (the query
+  // tile joins step 0's group), then the register-staged steps 0 and 1.
   if constexpr (!kStreamQ) {
     for (int c = 0; c < n_chunks; ++c) {
-      copy_chunk<kQRows>(q_res + c * kQChunkBytes, q_row(c), tid,
-                         live_pieces(c));
+#pragma unroll
+      for (int s = 0; s < kParts; ++s) {
+        copy_chunk<kQRows>(q_tile(0, c, s), q_row(c, s), tid,
+                           live_pieces(c));
+      }
     }
   }
 #pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
+  for (int s = 0; s < kRing - 1; ++s) {
     issue(s);
     cp_async_commit();
   }
-  load_codes(0);
-  store_codes(0);
-  load_codes(1);  // widened: n_steps >= 2, d is a multiple of 128
+  if constexpr (kRegStaged) {
+    load_regs(0);
+    store_regs(0);
+    load_regs(1);  // n_steps >= 2: d is a multiple of 128
+  }
 
   const int lane = tid & 31;
   const int warp = (tid >> 5) & 3;
   for (int t = 0; t < n_steps; ++t) {
-    cp_async_wait<kStages - 2>();  // step t's copies have landed
+    cp_async_wait<kRing - 2>();  // step t's copies have landed
     fence_proxy_async();
     __syncthreads();  // ... everyone's; step t - 1's wgmma are done
-    issue(t + kStages - 1);  // into the stage step t - 1 read
+    issue(t + kRing - 1);  // into the stage step t - 1 read
     cp_async_commit();
-    if (t + 1 < n_steps) {
-      store_codes(t + 1);
-      if (t + 2 < n_steps) load_codes(t + 2);
+    if constexpr (kWiden) {
+      if (t + 1 < n_steps) {
+        store_regs(t + 1);
+        if (t + 2 < n_steps) load_regs(t + 2);
+      }
     }
 
     const int c = t % n_chunks;
-    const uint32_t stage = ring + (t % kStages) * kStageBytes;
-    const uint32_t a_tile = (kStreamQ ? stage + kDbStageBytes
-                                      : q_res + c * kQChunkBytes) +
-                            wg * kMTiles * kMTile * kSwizzleBytes;
+    const uint32_t stage = ring + (t % kRing) * kStageBytes;
+    const uint32_t a_off = wg * kMTiles * kMTile * kSwizzleBytes;
 #pragma unroll
     for (int i = 0; i < kMTiles; ++i) {
 #pragma unroll
@@ -250,15 +326,29 @@ segment_minima_wgmma_kernel(const Q* __restrict__ q,
     wgmma_fence();
 #pragma unroll
     for (int k = 0; k < kSwizzleBytes / kKStepBytes; ++k) {
-      const uint64_t b_desc = smem_desc(stage + k * kKStepBytes);
+      // Pass 0: q hi x db hi; split3 adds q hi x db lo, then q lo x db hi.
 #pragma unroll
-      for (int i = 0; i < kMTiles; ++i) {
-        const uint64_t a_desc =
-            smem_desc(a_tile + i * kMTile * kSwizzleBytes + k * kKStepBytes);
-        wgmma_step(acc[i], a_desc, b_desc, (c | k) != 0);
+      for (int pass = 0; pass < kPasses; ++pass) {
+        const uint64_t b_desc = smem_desc(
+            stage + (pass == 1 ? kDbStageBytes : 0) + k * kKStepBytes);
+        const uint32_t a_tile = q_tile(stage, c, pass == 2 ? 1 : 0) + a_off;
+#pragma unroll
+        for (int i = 0; i < kMTiles; ++i) {
+          const uint64_t a_desc = smem_desc(
+              a_tile + i * kMTile * kSwizzleBytes + k * kKStepBytes);
+          wgmma_step(acc[i], a_desc, b_desc, (c | k | pass) != 0);
+        }
       }
     }
     wgmma_commit();
+    // The f32 forms split the next step while this step's products run:
+    // its stage was read by step t - 1, whose wgmma are done.
+    if constexpr (kSplit) {
+      if (t + 1 < n_steps) {
+        store_regs(t + 1);
+        if (t + 2 < n_steps) load_regs(t + 2);
+      }
+    }
     wgmma_wait<0>();
 #pragma unroll
     for (int i = 0; i < kMTiles; ++i) {
@@ -292,12 +382,14 @@ segment_minima_wgmma_kernel(const Q* __restrict__ q,
   }
 }
 
-template <typename Q, typename T, int kMTiles, bool kStreamQ>
+template <typename Q, typename T, int kMTiles, bool kStreamQ, int kPasses>
 int launch_variant(const Q* q, const T* db, const float* db_sq,
                    const float* penalty, float* out, int64_t n_queries,
                    int64_t n_rows, int64_t dim, cudaStream_t stream) {
-  auto kernel = segment_minima_wgmma_kernel<Q, T, kMTiles, kStreamQ>;
-  const int64_t smem = smem_bytes<Q, kMTiles, kStreamQ>(dim);
+  auto kernel = segment_minima_wgmma_kernel<Q, T, kMTiles, kStreamQ, kPasses>;
+  const int64_t smem = smem_bytes<Q, T, kMTiles, kStreamQ, kPasses>(dim);
+  // Never launch a plan that overflows the block's shared memory.
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t set = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -316,9 +408,11 @@ int launch_variant(const Q* q, const T* db, const float* db_sq,
 }
 
 // Picks the widest query tile that stays resident beside the ring: 256
-// queries (bf16: d <= 256; int8: d <= 640), 128 (bf16: d <= 640; int8: d
-// <= 1280), else 256 streamed with the database.
-template <typename Q, typename T>
+// queries (bf16: d <= 256; int8: d <= 640; split3: d <= 128; native: d <=
+// 384), 128 (bf16: d <= 640; int8: d <= 1280; split3: d <= 256; native: d
+// <= 768), else 256 streamed with the database (at most 193 KB in every
+// form, whatever d).
+template <typename Q, typename T, int kPasses = 1>
 int launch(const void* q, const void* db, const void* db_sq,
            const void* penalty, void* out, int64_t n_queries, int64_t n_rows,
            int64_t dim, int device, void* stream) {
@@ -327,7 +421,7 @@ int launch(const void* q, const void* db, const void* db_sq,
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   // The int8 x int8 form takes whole k32 steps; the others whole 128-dim
-  // pairs of bf16 K-chunks (the widening stages two steps ahead).
+  // pairs of bf16 K-chunks (register staging loads two steps ahead).
   const int64_t unit = sizeof(Q) == 1 ? 32 : 2 * kChunkBf16;
   if (n_rows % kSeg || dim % unit || dim <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -338,24 +432,27 @@ int launch(const void* q, const void* db, const void* db_sq,
   const auto* pen = static_cast<const float*>(penalty);
   auto* o = static_cast<float*>(out);
   auto s = static_cast<cudaStream_t>(stream);
-  if (smem_bytes<Q, 2, false>(dim) <= kMaxSmem) {
-    return launch_variant<Q, T, 2, false>(qq, x, sq, pen, o, n_queries,
-                                          n_rows, dim, s);
+  if (smem_bytes<Q, T, 2, false, kPasses>(dim) <= kMaxSmem) {
+    return launch_variant<Q, T, 2, false, kPasses>(qq, x, sq, pen, o,
+                                                   n_queries, n_rows, dim, s);
   }
-  if (smem_bytes<Q, 1, false>(dim) <= kMaxSmem) {
-    return launch_variant<Q, T, 1, false>(qq, x, sq, pen, o, n_queries,
-                                          n_rows, dim, s);
+  if (smem_bytes<Q, T, 1, false, kPasses>(dim) <= kMaxSmem) {
+    return launch_variant<Q, T, 1, false, kPasses>(qq, x, sq, pen, o,
+                                                   n_queries, n_rows, dim, s);
   }
-  return launch_variant<Q, T, 2, true>(qq, x, sq, pen, o, n_queries, n_rows,
-                                       dim, s);
+  return launch_variant<Q, T, 2, true, kPasses>(qq, x, sq, pen, o, n_queries,
+                                                n_rows, dim, s);
 }
 
 }  // namespace
 
 // Shape contract (checked by the Python wrapper): q (n_queries, dim) bf16,
 // db (n_rows, dim) bf16 or int8, dim % 128 == 0; for segment_minima_i8i8
-// q and db int8, dim % 32 == 0; n_rows % 128 == 0, all arrays contiguous
-// and 16-byte aligned on CUDA device `device`.
+// q and db int8, dim % 32 == 0; for segment_minima_f32_split3 q (2,
+// n_queries, dim) bf16 (hi, then lo) and db f32, for
+// segment_minima_f32_native q (n_queries, dim) bf16 (hi) and db f32, dim %
+// 128 == 0; n_rows % 128 == 0, all arrays contiguous and 16-byte aligned
+// on CUDA device `device`.
 extern "C" int segment_minima_bf16(const void* q, const void* db,
                                    const void* db_sq, const void* penalty,
                                    void* out, int64_t n_queries,
@@ -380,4 +477,24 @@ extern "C" int segment_minima_i8i8(const void* q, const void* db,
                                    void* stream) {
   return launch<int8_t, int8_t>(q, db, db_sq, penalty, out, n_queries,
                                 n_rows, dim, device, stream);
+}
+
+extern "C" int segment_minima_f32_split3(const void* q, const void* db,
+                                         const void* db_sq,
+                                         const void* penalty, void* out,
+                                         int64_t n_queries, int64_t n_rows,
+                                         int64_t dim, int device,
+                                         void* stream) {
+  return launch<uint16_t, float, 3>(q, db, db_sq, penalty, out, n_queries,
+                                    n_rows, dim, device, stream);
+}
+
+extern "C" int segment_minima_f32_native(const void* q, const void* db,
+                                         const void* db_sq,
+                                         const void* penalty, void* out,
+                                         int64_t n_queries, int64_t n_rows,
+                                         int64_t dim, int device,
+                                         void* stream) {
+  return launch<uint16_t, float, 1>(q, db, db_sq, penalty, out, n_queries,
+                                    n_rows, dim, device, stream);
 }

@@ -55,12 +55,16 @@ def _args(n_ptr: int, n_int64: int, n_float: int = 0) -> list:
 #: C entry points -> argtypes; each returns a cudaError_t.
 _ENTRY_POINTS = {
     # (q, db, db_sq, penalty, out, n_queries, n_rows, dim): q f32 over an
-    # f32 db (segment_minima.cu); bf16 over a bf16 db or int8 codes, and
-    # int8 over int8 codes (i8i8) (the wgmma forms, segment_minima_wgmma.cu)
+    # f32 db (segment_minima.cu, FFMA: "highest"); bf16 over a bf16 db or
+    # int8 codes, int8 over int8 codes (i8i8), and over an f32 db the
+    # query's bf16 hi and lo (2, B, d) (f32_split3) or its hi (f32_native)
+    # (the wgmma forms, segment_minima_wgmma.cu)
     "segment_minima_f32": _args(5, 3),
     "segment_minima_bf16": _args(5, 3),
     "segment_minima_i8": _args(5, 3),
     "segment_minima_i8i8": _args(5, 3),
+    "segment_minima_f32_split3": _args(5, 3),
+    "segment_minima_f32_native": _args(5, 3),
     # (q, db3, db_sq, penalty, out, n_queries, n_tiles, dim, tile_n): q
     # f32 over an f32 or bf16 db3 (FFMA), bf16 over int8 codes (the wgmma
     # form, segment_minima_tiled_wgmma.cu)

@@ -8,11 +8,14 @@ packages pad and grow their stores identically. The device side is new:
 an explicit ``torch.device`` everywhere, the kernel tier read from where
 the tensors live, and full-f32 matrix products on the card.
 
-``stage1_precision`` / ``SMQTK_TPU_STAGE1`` (``ops/device.py:80-94``) is not
-ported: the port's stage 1 has no reduced-precision mode to choose. An f32
-database runs exact f32 FFMA (``csrc/segment_minima.cu``); a bf16 database
-or int8 codes run the tensor cores on exact bf16 products with f32 sums
-(``csrc/segment_minima_wgmma.cu``), as the TPU kernel runs them.
+``stage1_precision`` reads ``SMQTK_TPU_STAGE1`` as the JAX package's does
+(``ops/device.py:80-94``): the f32 flat store's stage-1 dot mode, read per
+query. ``split3`` (the default) and ``native`` run on the tensor cores
+(``csrc/segment_minima_wgmma.cu``: three or one bf16 passes over the hi /
+lo split of both operands); ``highest`` runs exact f32 FFMA
+(``csrc/segment_minima.cu``). A bf16 database or int8 codes run the
+tensor cores on exact bf16 products with f32 sums whatever it says, as the
+TPU kernel runs them.
 """
 from __future__ import annotations
 
@@ -134,6 +137,30 @@ def device_report(device, flags: tuple = ()) -> dict:
         "disabled_flags": disabled,
         "degraded": tier != "cuda" or bool(disabled),
     }
+
+
+#: Stage-1 dot modes for an f32 database, cheapest first
+#: (``pallas_scan.PRECISIONS``).
+PRECISIONS = ("native", "split3", "highest")
+
+
+def stage1_precision() -> str:
+    """Stage-1 dot mode for the fused flat scan (:data:`PRECISIONS`):
+    'split3' by default (3-pass split-bf16, ~1e-5 relative score noise vs
+    a k+8 segment margin); SMQTK_TPU_STAGE1=highest|split3|native
+    overrides ('highest' = exact f32 FFMA on the CUDA cores; 'native' =
+    one raw bf16 pass, only safe for bf16-stored data).
+
+    :raises ValueError: the variable holds another value.
+    """
+    v = os.environ.get("SMQTK_TPU_STAGE1", "split3")
+    if v not in PRECISIONS:
+        # Exactness-sensitive users must not silently get the
+        # approximate default off a typo.
+        raise ValueError(
+            f"SMQTK_TPU_STAGE1={v!r}: must be one of "
+            "'native' | 'split3' | 'highest'.")
+    return v
 
 
 def require_full_f32(t: torch.Tensor) -> None:

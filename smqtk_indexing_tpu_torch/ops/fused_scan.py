@@ -11,13 +11,20 @@ hand-written Hopper kernel (the port of ``pallas_scan.segment_minima`` ->
 ``_scan_kernel``, ``:102-241``); on a CPU tensor, its plain PyTorch
 version ``segment_minima_reference``. The database is f32, bf16 or int8;
 the int8 form is the flat SQ8 store's stage 1 over its row-major codes
-(``ops/sq8.sq8_topk``). An f32 database runs ``csrc/segment_minima.cu``,
-exact f32 FFMA on the CUDA cores (only FFMA keeps f32 products exact). A
-bf16 database or int8 codes run ``csrc/segment_minima_wgmma.cu`` on the
-tensor cores (``wgmma``, bf16 x bf16 -> f32) with the query rounded to
-bf16, as the TPU kernel runs them on its matrix unit: every product of a
-bf16 value with a bf16 value or an int8 code is exact, and only the order
-and rounding of the f32 sums differ from the plain version.
+(``ops/sq8.sq8_topk``). An f32 database takes ``precision``, the TPU
+kernel's stage-1 dot mode (``pallas_scan.PRECISIONS``; the flat store
+passes ``ops/device.stage1_precision()``, ``SMQTK_TPU_STAGE1``):
+``split3`` (the default) splits both operands into bf16 hi and lo parts
+and sums three bf16 products, ``hi.hi + hi.lo + lo.hi``, and ``native``
+takes the one product ``hi.hi``, both on the tensor cores
+(``csrc/segment_minima_wgmma.cu``, forms ``wgmma_split3`` and
+``wgmma_native``); ``highest`` runs ``csrc/segment_minima.cu``, exact f32
+FFMA on the CUDA cores (form ``ffma``). A bf16 database or int8 codes run
+``csrc/segment_minima_wgmma.cu`` on the tensor cores (``wgmma``, bf16 x
+bf16 -> f32) with the query rounded to bf16, as the TPU kernel runs them
+on its matrix unit, whatever ``precision`` says: every product of a bf16
+value with a bf16 value or an int8 code is exact, and only the order and
+rounding of the f32 sums differ from the plain version.
 
 Every stage-1 function here also takes an int8 query over an int8
 database: the ``i8dot`` int8 x int8 form (``pallas_scan._tile_ip``,
@@ -77,7 +84,9 @@ from typing import Optional, Tuple
 import torch
 
 from smqtk_indexing_tpu_torch.ops import _kernels
-from smqtk_indexing_tpu_torch.ops.device import require_full_f32
+from smqtk_indexing_tpu_torch.ops.device import (
+    PRECISIONS, require_full_f32,
+)
 from smqtk_indexing_tpu_torch.utils.tracing import trace_span
 
 #: Segment width: rows collapsing to one stage-1 output element.
@@ -93,10 +102,15 @@ TILES_PER_STEP = 8
 #: Metrics with a matmul-form surrogate, served by this path.
 FUSED_METRICS = ("euclidean", "inner_product", "cosine")
 
-#: The stage-1 kernel's C entry point for each database dtype.
-_STAGE1_ENTRY = {torch.float32: "segment_minima_f32",
-                 torch.bfloat16: "segment_minima_bf16",
+#: The stage-1 kernel's C entry point for a bf16 database and int8 codes
+#: under a float query.
+_STAGE1_ENTRY = {torch.bfloat16: "segment_minima_bf16",
                  torch.int8: "segment_minima_i8"}
+
+#: The f32 stage-1 kernel's C entry point for each precision.
+_F32_ENTRY = {"highest": "segment_minima_f32",
+              "split3": "segment_minima_f32_split3",
+              "native": "segment_minima_f32_native"}
 
 #: Each database dtype's suffix of the tiled kernels' C entry points.
 _TILED_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16",
@@ -105,15 +119,19 @@ _TILED_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16",
 #: The form of the kernel each stage-1 C entry point launches, by the
 #: source that defines it and the instruction its products run on: ``ffma``
 #: (``segment_minima.cu``, ``segment_minima_tiled.cu``,
-#: ``stage1_variants.cu``), ``wgmma`` (a bf16 query on the tensor cores)
-#: and ``wgmma_s8`` (an int8 query on the tensor cores; both
-#: ``segment_minima_wgmma.cu``, ``segment_minima_tiled_wgmma.cu``), or
-#: ``i8i8`` (an int8 query, ``__dp4a``: K9's ``stage1_variants.cu`` only).
-#: The launchers choose the entry point, take its form from here and give
-#: the query in the form's operand type.
+#: ``stage1_variants.cu``), ``wgmma`` (a bf16 query on the tensor cores),
+#: ``wgmma_s8`` (an int8 query on the tensor cores; both
+#: ``segment_minima_wgmma.cu``, ``segment_minima_tiled_wgmma.cu``),
+#: ``wgmma_split3`` and ``wgmma_native`` (an f32 database split to bf16 on
+#: the tensor cores, ``segment_minima_wgmma.cu``), or ``i8i8`` (an int8
+#: query, ``__dp4a``: K9's ``stage1_variants.cu`` only). The launchers
+#: choose the entry point, take its form from here and give the query in
+#: the form's operand type.
 _ENTRY_FORM = {
     "segment_minima_f32": "ffma", "segment_minima_bf16": "wgmma",
     "segment_minima_i8": "wgmma", "segment_minima_i8i8": "wgmma_s8",
+    "segment_minima_f32_split3": "wgmma_split3",
+    "segment_minima_f32_native": "wgmma_native",
     **{f"{entry}_{suffix}": form
        for entry in ("segment_minima_tiled", "segment_minima_tiled2")
        for suffix, form in (("f32", "ffma"), ("bf16", "ffma"),
@@ -127,11 +145,14 @@ _STAGE1_WRAPPERS = ("segment_minima", "segment_minima_tiled",
 #: Launches of this module's CUDA kernels in this process, by (wrapper,
 #: form). A stage-1 wrapper's form is ``ffma`` (f32 FFMA on the CUDA
 #: cores), ``wgmma`` (bf16 products on the tensor cores) or ``wgmma_s8``
-#: (an int8 query over int8 codes, s8 products on the tensor cores);
-#: ``seg_gather_tiled``'s is ``copy``. Each wrapper adds one where it
-#: launches its kernel and nowhere else.
+#: (an int8 query over int8 codes, s8 products on the tensor cores); K1's
+#: also ``wgmma_split3`` or ``wgmma_native`` (an f32 database split to
+#: bf16 on the tensor cores); ``seg_gather_tiled``'s is ``copy``. Each
+#: wrapper adds one where it launches its kernel and nowhere else.
 LAUNCHES = {**{(w, f): 0 for w in _STAGE1_WRAPPERS
                for f in ("ffma", "wgmma", "wgmma_s8")},
+            ("segment_minima", "wgmma_split3"): 0,
+            ("segment_minima", "wgmma_native"): 0,
             ("seg_gather_tiled", "copy"): 0}
 
 #: Cap on the (B, C) f32 score block of ``segment_minima_reference``.
@@ -170,17 +191,32 @@ def _check_query(q: torch.Tensor, db_dtype: torch.dtype, name: str) -> None:
     _q_kernel_dtype(q[:0], db_dtype)
 
 
+def split_bf16(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``split3`` parts of an f32 tensor (``pallas_scan._tile_ip``,
+    ``:65-68``): ``hi = bf16(x)`` and ``lo = bf16(x - f32(hi))``, each
+    rounded to nearest even as ``jnp.astype`` rounds, as bf16 tensors."""
+    hi = x.to(torch.bfloat16)
+    return hi, (x - hi.float()).to(torch.bfloat16)
+
+
 def _query_operand(q: torch.Tensor, db_dtype: torch.dtype,
                    form: str) -> torch.Tensor:
     """The query as the kernel of ``form`` reads it: the bf16-rounded
-    query of :func:`_q_kernel_dtype` as a bf16 tensor for ``wgmma``, else
-    that function's f32 (or int8) query; contiguous."""
-    if form == "wgmma":
+    query of :func:`_q_kernel_dtype` as a bf16 tensor for ``wgmma`` (and
+    the hi part for ``wgmma_native``), its hi and lo parts stacked (2, B,
+    d) for ``wgmma_split3``, else that function's f32 (or int8) query;
+    contiguous."""
+    if form in ("wgmma", "wgmma_native"):
         return q.to(torch.bfloat16).contiguous()
+    if form == "wgmma_split3":
+        return torch.stack(split_bf16(q.float()))
     return _q_kernel_dtype(q, db_dtype).contiguous()
 
 
-def _check_stage1(db, db_sq, penalty, q) -> None:
+def _check_stage1(db, db_sq, penalty, q, precision) -> None:
+    if precision not in PRECISIONS:
+        raise ValueError(f"segment_minima: precision {precision!r} is not "
+                         f"one of {PRECISIONS}")
     if db.dim() != 2 or q.dim() != 2 or q.shape[1] != db.shape[1]:
         raise ValueError(
             f"segment_minima: db {tuple(db.shape)} and q {tuple(q.shape)} "
@@ -190,7 +226,7 @@ def _check_stage1(db, db_sq, penalty, q) -> None:
         raise ValueError(f"segment_minima: N={n} is not a multiple of {SEG}")
     if db_sq.shape != (n,) or penalty.shape != (n,):
         raise ValueError("segment_minima: db_sq and penalty must be (N,)")
-    if db.dtype not in _STAGE1_ENTRY:
+    if db.dtype not in (torch.float32, *_STAGE1_ENTRY):
         raise TypeError(f"segment_minima: db dtype {db.dtype} is not "
                         "float32, bfloat16 or int8")
     if (db_sq.dtype, penalty.dtype) != (torch.float32,) * 2:
@@ -199,7 +235,8 @@ def _check_stage1(db, db_sq, penalty, q) -> None:
 
 
 def segment_minima(db: torch.Tensor, db_sq: torch.Tensor,
-                   penalty: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+                   penalty: torch.Tensor, q: torch.Tensor,
+                   precision: str = "split3") -> torch.Tensor:
     """
     Stage 1: per-query, per-128-row-segment minima of the L2 surrogate.
 
@@ -211,6 +248,10 @@ def segment_minima(db: torch.Tensor, db_sq: torch.Tensor,
     :param q: (B, d) f32 queries, or the SQ8 fold ``(q - b) a`` (rounded
         to bf16 for a bf16 or int8 database), or that fold quantised to
         int8 over int8 codes (the int8 x int8 form).
+    :param precision: the f32 database's stage-1 dot mode, one of
+        ``PRECISIONS`` (``pallas_scan.segment_minima``'s): ``split3``,
+        ``native`` or ``highest``. A bf16 database and int8 codes ignore
+        it, as the TPU kernel runs them "native".
     :return: (B, N // 128) f32 segment minima.
     :raises RuntimeError: on CUDA tensors, if the kernel cannot be built
         or launched. There is no fallback to the plain version.
@@ -221,40 +262,58 @@ def segment_minima(db: torch.Tensor, db_sq: torch.Tensor,
                          f"{sorted(map(str, devices))}")
     dev = devices.pop()
     if dev.type == "cpu":
-        return segment_minima_reference(db, db_sq, penalty, q)
+        return segment_minima_reference(db, db_sq, penalty, q, precision)
     if dev.type == "cuda":
-        return _segment_minima_cuda(db, db_sq, penalty, q)
+        return _segment_minima_cuda(db, db_sq, penalty, q, precision)
     raise ValueError(f"segment_minima: unsupported device {dev}")
 
 
 def segment_minima_reference(db: torch.Tensor, db_sq: torch.Tensor,
-                             penalty: torch.Tensor,
-                             q: torch.Tensor) -> torch.Tensor:
+                             penalty: torch.Tensor, q: torch.Tensor,
+                             precision: str = "split3") -> torch.Tensor:
     """The plain PyTorch version of :func:`segment_minima`, on any device:
     row chunks of f32 scores, each reduced to its segment minima at once,
-    so it never holds more than ``REFERENCE_BYTES`` of scores. On a card
-    the caller keeps TF32 products off (``require_full_f32``)."""
-    _check_stage1(db, db_sq, penalty, q)
+    so it never holds more than ``REFERENCE_BYTES`` of scores. An f32
+    database's ``split3`` sums three f32 products of the bf16 parts of
+    :func:`split_bf16` in the JAX order (``ip = hh; ip += hl; ip += lh``),
+    ``native`` takes ``hh`` alone (each product of two bf16 values is exact
+    in f32), and ``highest`` one f32 product. On a card the caller keeps
+    TF32 products off (``require_full_f32``)."""
+    _check_stage1(db, db_sq, penalty, q, precision)
     n = db.shape[0]
     b = q.shape[0]
+    # Only an f32 database under a float query is split.
+    split = precision != "highest" and db.dtype == torch.float32 \
+        and q.dtype != torch.int8
     # An int8 query's products are integers below 2^24: exact in f32.
     qk = _q_kernel_dtype(q, db.dtype).float()
     require_full_f32(qk)
+    if split:
+        qh, ql = (p.float() for p in split_bf16(qk))
     out = torch.empty((b, n // SEG), dtype=torch.float32, device=db.device)
     rows = max(SEG, REFERENCE_BYTES // (4 * max(b, 1)) // SEG * SEG)
     for lo in range(0, n, rows):
         hi = min(lo + rows, n)
-        ip = qk @ db[lo:hi].float().T
+        if not split:
+            ip = qk @ db[lo:hi].float().T
+        else:
+            xh, xl = (p.float() for p in split_bf16(db[lo:hi]))
+            ip = qh @ xh.T
+            if precision == "split3":
+                ip += qh @ xl.T
+                ip += ql @ xh.T
         s = (db_sq[lo:hi] - 2.0 * ip) + penalty[lo:hi]
         out[:, lo // SEG:hi // SEG] = s.view(b, -1, SEG).amin(dim=-1)
     return out
 
 
-def _segment_minima_cuda(db, db_sq, penalty, q) -> torch.Tensor:
-    """Launch ``csrc/segment_minima.cu`` (f32 database) or
-    ``csrc/segment_minima_wgmma.cu`` (bf16 database or int8 codes, with
-    the query as bf16; int8 x int8) on the current stream."""
-    _check_stage1(db, db_sq, penalty, q)
+def _segment_minima_cuda(db, db_sq, penalty, q,
+                         precision: str = "split3") -> torch.Tensor:
+    """Launch ``csrc/segment_minima.cu`` (f32 database, ``highest``) or
+    ``csrc/segment_minima_wgmma.cu`` (f32 database, ``split3`` or
+    ``native``; bf16 database or int8 codes, with the query as bf16; int8
+    x int8) on the current stream."""
+    _check_stage1(db, db_sq, penalty, q, precision)
     n, d = db.shape
     b = q.shape[0]
     # The int8 x int8 form zero-fills a K-chunk's tail, a k32 step at a
@@ -263,8 +322,12 @@ def _segment_minima_cuda(db, db_sq, penalty, q) -> torch.Tensor:
     if d % depth:
         raise ValueError(f"segment_minima: d={d} is not a multiple of "
                          f"{depth} (stores pad it with pad_dim)")
-    name = ("segment_minima_i8i8" if q.dtype == torch.int8
-            else _STAGE1_ENTRY[db.dtype])
+    if q.dtype == torch.int8:
+        name = "segment_minima_i8i8"
+    elif db.dtype == torch.float32:
+        name = _F32_ENTRY[precision]
+    else:
+        name = _STAGE1_ENTRY[db.dtype]
     form = _ENTRY_FORM[name]
     qk = _query_operand(q, db.dtype, form)
     for what, t in (("db", db), ("db_sq", db_sq), ("penalty", penalty)):
@@ -460,11 +523,17 @@ def flat_topk_fused(db: torch.Tensor, db_sq: torch.Tensor,
                     valid: torch.Tensor, q: torch.Tensor, *, k: int,
                     metric: str = "euclidean",
                     db_mirror: Optional[torch.Tensor] = None,
-                    db_norm: Optional[torch.Tensor] = None
+                    db_norm: Optional[torch.Tensor] = None,
+                    precision: str = "split3"
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """
     Exact exhaustive top-k: fused stage 1 + exact f32 stage 2
     (``pallas_scan.flat_topk_fused``, ``:577-700``, without ``db_seg_lo``).
+
+    Error budget (``pallas_scan.py:608-614``): an f32 database's "split3"
+    stage 1 carries ~1e-5 relative score noise against the k+8 segment
+    margin, and stage 2 is exact f32; ``precision="highest"`` is the
+    provably exact (and slower) configuration.
 
     - 'euclidean': the kernel's ``sq - 2 ip`` surrogate;
     - 'inner_product': zero norms degrade the surrogate to ``-2 ip``;
@@ -481,6 +550,8 @@ def flat_topk_fused(db: torch.Tensor, db_sq: torch.Tensor,
         ``db_norm`` when None). Ignored by the other metrics, which scan
         ``db`` itself: no transposed copy is needed.
     :param db_norm: (N,) f32 row norms; required for cosine.
+    :param precision: stage 1's dot mode over an f32 database
+        (:func:`segment_minima`); a bf16 database ignores it.
     :return: (dists (B, k) f32 ascending, rows (B, k) int64); entries past
         the live rows are +inf / -1.
     """
@@ -502,7 +573,8 @@ def flat_topk_fused(db: torch.Tensor, db_sq: torch.Tensor,
             else normalized_rows(db, db_norm)
     penalty = torch.where(valid, 0.0, math.inf).to(torch.float32)
     with trace_span("fused_scan.stage1"):
-        minima = segment_minima(stage1_db, db_sq, penalty, q_stage1)
+        minima = segment_minima(stage1_db, db_sq, penalty, q_stage1,
+                                precision)
         sid = select_segments(minima, segments_kept(k, n))
     with trace_span("fused_scan.stage2"):
         return rerank_segments(db, valid, q, sid, k=k, metric=metric,
@@ -626,8 +698,9 @@ def segment_minima_tiled_reference(db3: torch.Tensor, db_sq: torch.Tensor,
         t1 = min(t0 + step, n_tiles)
         lo, hi = t0 * tile_n, t1 * tile_n
         rows = db3[t0:t1].transpose(1, 2).reshape(-1, d)
+        # The tiled f32 kernels add in FFMA: "highest".
         out[:, lo // SEG:hi // SEG] = segment_minima_reference(
-            rows, db_sq[lo:hi], penalty[lo:hi], q)
+            rows, db_sq[lo:hi], penalty[lo:hi], q, "highest")
     return out
 
 

@@ -19,7 +19,10 @@ routing of ``store.py:479-545``):
   ``ops/fused_scan.flat_topk_fused`` (the CUDA stage-1 kernel on a card,
   its plain version on the CPU). The kernel reads the row-major matrix,
   so there is no transposed copy; cosine keeps a row-normalised mirror,
-  built on first use after each upload.
+  built on first use after each upload. A float32 store's stage 1 takes
+  ``SMQTK_TPU_STAGE1`` (``ops/device.stage1_precision``, the JAX store's
+  switch, same name and values), read per query: ``split3`` by default,
+  ``native`` or ``highest``.
 - float32 / bfloat16, hik, chi_square -> ``ops/scan.flat_topk``.
 - sq8 -> ``ops/sq8.sq8_topk``; euclidean and inner_product at a capacity
   past one 65,536-row block (and a multiple of 4096) run its stage 1
@@ -47,7 +50,7 @@ import torch
 
 from smqtk_indexing_tpu_torch.ops import scan
 from smqtk_indexing_tpu_torch.ops.device import (
-    capacity_for, pad_dim, pad_rows_np, resolve_device,
+    capacity_for, pad_dim, pad_rows_np, resolve_device, stage1_precision,
 )
 from smqtk_indexing_tpu_torch.ops.fused_scan import (
     FUSED_METRICS, flat_topk_fused, normalized_rows,
@@ -400,10 +403,13 @@ class VectorStore:
                 if metric == "cosine" and self._cos_mirror is None:
                     self._cos_mirror = normalized_rows(
                         self._dev, self._dev_norm, self._dev.dtype)
+                # The JAX store's stage-1 dot mode (store.py:535-541),
+                # read per query so that a change takes effect at the next
+                # call.
                 dists, rows = flat_topk_fused(
                     self._dev, self._dev_sq, self._dev_valid, qd, k=k_eff,
                     metric=metric, db_mirror=self._cos_mirror,
-                    db_norm=self._dev_norm)
+                    db_norm=self._dev_norm, precision=stage1_precision())
             else:
                 dists, rows = scan.flat_topk(
                     self._dev, self._dev_sq, self._dev_norm,

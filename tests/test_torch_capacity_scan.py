@@ -98,10 +98,11 @@ def test_segment_minima_tiled_matches_jax(dtype):
     assert fused_scan.LAUNCHES == before
     _assert_minima(out, ref)
     assert np.isinf(out.numpy()[:, 1]).all()
-    # The same minima as K1 over the row-major rows.
+    # The same minima as K1 over the row-major rows, under the tiled
+    # kernels' f32 mode ("highest": they add in FFMA).
     flat = fused_scan.segment_minima(_torch(rows, dtype), torch.from_numpy(sq),
                                      torch.from_numpy(pen),
-                                     torch.from_numpy(q))
+                                     torch.from_numpy(q), precision="highest")
     torch.testing.assert_close(out, flat, rtol=0, atol=0)
 
 

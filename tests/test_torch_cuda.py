@@ -1,6 +1,7 @@
 """
 The port's hand-written kernels on the card (K1 ``segment_minima`` with
-its f32 form and its bf16 and int8-code forms on the tensor cores, K7
+its exact f32 form, its split3 and native f32 forms and its bf16 and
+int8-code forms on the tensor cores, K7
 ``ivf_list_scores_tiled``, K6 ``ivf_list_scores``, K3 ``seg_gather_tiled``, K8
 ``ivf_list_scores_tiled_pq``, K2, K4 and K5 over int8 codes on the tensor
 cores (``csrc/segment_minima_tiled_wgmma.cu``) and over f32 and bf16
@@ -33,10 +34,11 @@ from tests.test_torch_helpers import (
 torch.set_num_threads(1)
 
 #: K1 vs its plain version and float64: every form's products are exact
-#: (f32 FFMA; bf16 x bf16 or bf16 x int8 on the tensor cores), summed in
-#: f32 in different orders, so each (query, segment) minimum agrees within
-#: STAGE1_RTOL of the largest sum of absolute terms |db_sq| + 2 |q| . |x|
-#: over the segment's rows.
+#: (f32 FFMA; bf16 x bf16 or bf16 x int8 on the tensor cores, the f32
+#: forms' products of bf16 parts included), summed in f32 in different
+#: orders, so each (query, segment) minimum agrees within STAGE1_RTOL of
+#: the largest sum of absolute terms |db_sq| + 2 |q| . |x| over the
+#: segment's rows.
 STAGE1_RTOL = 1e-5
 #: Distances, card vs CPU: exact f32 formulas in different orders.
 DIST_RTOL = 1e-5
@@ -57,19 +59,36 @@ def _launched(before: dict) -> dict:
             if n != before[key]}
 
 
-def _assert_stage1(out, ref, db, sq, pen, q):
+def _f64_parts(t: torch.Tensor, precision: str) -> list:
+    """An f32 operand as float64 pieces whose products the form sums:
+    itself (``highest``), or its bf16 hi (``native``) and hi and lo
+    (``split3``) parts."""
+    if precision == "highest":
+        return [t.double()]
+    hi, lo = fused_scan.split_bf16(t.float())
+    return [hi.double()] if precision == "native" \
+        else [hi.double(), lo.double()]
+
+
+def _assert_stage1(out, ref, db, sq, pen, q, precision="highest"):
     """K1's output against its plain version ``ref`` and float64 on the
     operands the kernel sees (the bf16-rounded query over a bf16 or int8
-    database), within STAGE1_RTOL of each segment's largest sum of
-    absolute terms; +inf where float64 has it."""
-    qk = q.double() if db.dtype == torch.float32 \
-        else q.to(torch.bfloat16).double()
-    x = db.double()
+    database; over an f32 database the products of ``precision``'s bf16
+    parts: qh.xh for native, qh.xh + qh.xl + ql.xh for split3), within
+    STAGE1_RTOL of each segment's largest sum of absolute terms; +inf
+    where float64 has it."""
+    if db.dtype == torch.float32:
+        qs, xs = _f64_parts(q, precision), _f64_parts(db, precision)
+        pairs = [(0, 0), (0, 1), (1, 0)][:2 * len(qs) - 1]
+    else:
+        qs, xs = [q.to(torch.bfloat16).double()], [db.double()]
+        pairs = [(0, 0)]
     b, n = q.shape[0], db.shape[0]
-    exact = ((sq.double() - 2.0 * (qk @ x.T)) + pen.double()) \
+    ip = sum(qs[i] @ xs[j].T for i, j in pairs)
+    mag = sum(qs[i].abs() @ xs[j].abs().T for i, j in pairs)
+    exact = ((sq.double() - 2.0 * ip) + pen.double()) \
         .view(b, n // 128, 128).amin(-1)
-    mag = (sq.double().abs() + 2.0 * (qk.abs() @ x.abs().T)) \
-        .view(b, n // 128, 128).amax(-1)
+    mag = (sq.double().abs() + 2.0 * mag).view(b, n // 128, 128).amax(-1)
     assert torch.equal(torch.isinf(out), torch.isinf(exact))
     assert torch.equal(torch.isinf(ref), torch.isinf(exact))
     fin = torch.isfinite(exact)
@@ -81,17 +100,19 @@ def _assert_stage1(out, ref, db, sq, pen, q):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernel_matches_plain_version(card, dtype):
+    # The f32 form here is the exact one, "highest" (FFMA); a bf16
+    # database ignores the precision.
     n, d, b = 4096, 256, 200  # a ragged query tile (200 = 128 + 72)
     db, sq, pen, q, _ = scan_inputs(n, d, b, seed=5)
     args = (torch.from_numpy(db).to(card, getattr(torch, dtype)),
             torch.from_numpy(sq).to(card), torch.from_numpy(pen).to(card),
             torch.from_numpy(q).to(card))
     before = dict(fused_scan.LAUNCHES)
-    out = fused_scan.segment_minima(*args)
+    out = fused_scan.segment_minima(*args, precision="highest")
     torch.cuda.synchronize()
     form = "ffma" if dtype == "float32" else "wgmma"
     assert _launched(before) == {("segment_minima", form): 1}
-    ref = fused_scan.segment_minima_reference(*args)
+    ref = fused_scan.segment_minima_reference(*args, precision="highest")
     assert _launched(before) == {("segment_minima", form): 1}
     assert torch.isinf(out[:, 1]).all()
     _assert_stage1(out, ref, *args)
@@ -152,6 +173,113 @@ def test_k1_wgmma_forms_match_plain_and_f64(card, case, dtype):
     _assert_stage1(out, ref, *args)
 
 
+def _f32_inputs(b, n, d, kind, card, seed):
+    """K1's f32 operands: dead rows, rows 128-255 dead (one wholly dead
+    segment, when n > 128). ``kind``: "normal" (N(0, 3) rows and queries),
+    "small" (rows scaled by 2^-120, so that most lo parts are bf16
+    subnormals, and some hi parts too) or "cosine" (unit rows and queries,
+    zero norms: cosine's stage 1)."""
+    rng = np.random.default_rng(seed)
+    pen = np.where(rng.random(n) < 0.03, np.inf, 0.0).astype(np.float32)
+    pen[128:256] = np.inf
+    x = rng.normal(size=(n, d)) * 3
+    q = rng.normal(size=(b, d)) * 3
+    if kind == "small":
+        x = x * 2.0 ** -120
+    if kind == "cosine":
+        x /= np.linalg.norm(x, axis=1, keepdims=True)
+        q /= np.linalg.norm(q, axis=1, keepdims=True)
+    x, q = x.astype(np.float32), q.astype(np.float32)
+    sq = np.zeros(n, np.float32) if kind == "cosine" \
+        else np.einsum("ij,ij->i", x, x).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(card) for a in (x, sq, pen, q))
+
+
+#: K1's f32 forms on the tensor cores: (B, N, d), as WGMMA_CASES. split3
+#: keeps 256 queries resident at d = 128 and 128 at d = 256, and streams
+#: the query above; native keeps 256 to d = 384, 128 to d = 768.
+F32_CASES = {"one_block": (64, 128, 128),
+             "b1": (1, 128 * 40, 128),
+             "b65": (65, 128 * 40, 128),
+             "b200": (200, 128 * 40, 128),
+             "b256": (256, 128 * 40, 128),
+             "d256": (200, 128 * 36, 256),
+             "d512": (256, 128 * 36, 512),
+             "d1024": (200, 128 * 36, 1024)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["normal", "small", "cosine"])
+@pytest.mark.parametrize("precision", ["split3", "native"])
+@pytest.mark.parametrize("case", list(F32_CASES))
+def test_k1_f32_forms_match_plain_and_f64(card, case, precision, kind):
+    b, n, d = F32_CASES[case]
+    args = _f32_inputs(b, n, d, kind, card, seed=len(case) * 11 + b)
+    before = dict(fused_scan.LAUNCHES)
+    out = fused_scan.segment_minima(*args, precision=precision)
+    torch.cuda.synchronize()
+    assert _launched(before) == {("segment_minima", f"wgmma_{precision}"): 1}
+    assert out.shape == (b, n // 128)
+    ref = fused_scan.segment_minima_reference(*args, precision=precision)
+    if n > 256:
+        assert torch.isinf(out[:, 1]).all()
+    _assert_stage1(out, ref, *args, precision)
+    if precision == "split3" and kind != "small":
+        # The split's own error: within STAGE1_RTOL of the exact f32
+        # operands' float64 minima too (the dropped ql.xl is below 2^-16
+        # of |q| . |x|). Bf16 subnormal lo parts keep fewer bits.
+        _assert_stage1(out, ref, *args, "highest")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["split3", "native"])
+def test_k1_f32_forms_refuse_a_depth_they_cannot_take(card, precision):
+    db = torch.zeros((256, 64), device=card)
+    vec = torch.zeros(256, device=card)
+    before = dict(fused_scan.LAUNCHES)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        fused_scan.segment_minima(db, vec, vec,
+                                  torch.zeros((4, 64), device=card),
+                                  precision=precision)
+    with pytest.raises(ValueError, match="precision"):
+        fused_scan.segment_minima(db, vec, vec,
+                                  torch.zeros((4, 64), device=card),
+                                  precision="split4")
+    assert _launched(before) == {}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage1, form", [(None, "wgmma_split3"),
+                                          ("split3", "wgmma_split3"),
+                                          ("native", "wgmma_native"),
+                                          ("highest", "ffma")])
+def test_flat_store_takes_smqtk_tpu_stage1(card, monkeypatch, stage1, form):
+    # The f32 store reads SMQTK_TPU_STAGE1 on each query: split3 by
+    # default, highest on the FFMA kernel; the results equal the CPU
+    # path's under the same mode (stage 2 is exact f32 in both).
+    rng = np.random.default_rng(9)
+    x = (rng.random((5000, 96), dtype=np.float32) * 218.0)
+    els = [DescriptorMemoryElement(i, x[i]) for i in range(5000)]
+    if stage1 is None:
+        monkeypatch.delenv("SMQTK_TPU_STAGE1", raising=False)
+    else:
+        monkeypatch.setenv("SMQTK_TPU_STAGE1", stage1)
+    results = []
+    for device in ("cuda", "cpu"):
+        index = FlatNearestNeighborsIndex(device=device)
+        index.build_index(els)
+        before = dict(fused_scan.LAUNCHES)
+        results.append(index.nn_many(els[:64], 10))
+        launched = _launched(before)
+        assert launched == ({("segment_minima", form): 1}
+                            if device == "cuda" else {})
+    for r_gpu, r_cpu in zip(*results):
+        assert r_gpu[0][0].uuid() == r_cpu[0][0].uuid()
+        np.testing.assert_allclose(r_gpu[1], r_cpu[1], rtol=DIST_RTOL,
+                                   atol=1e-6)
+        assert r_gpu[1][0] == 0.0
+
+
 @pytest.mark.cuda
 def test_kernel_wrapper_rejects_what_the_kernel_cannot_take(card):
     db = torch.zeros((256, 64), device=card)
@@ -202,7 +330,8 @@ def test_flat_index_on_card_matches_cpu(card, dtype):
         res = index.nn_many(els[1:40:2], 5)
         launched = _launched(before)
         assert bool(launched) == (device == "cuda")
-        form = "ffma" if dtype == "float32" else "wgmma"
+        # The f32 store's default stage 1 is split3 on the tensor cores.
+        form = "wgmma_split3" if dtype == "float32" else "wgmma"
         assert set(launched) <= {("segment_minima", form)}
         results.append(res)
     for r_gpu, r_cpu in zip(*results):

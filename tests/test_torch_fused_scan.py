@@ -39,7 +39,7 @@ def test_segment_minima_matches_jax(dtype):
     before = dict(fused_scan.LAUNCHES)
     out = fused_scan.segment_minima(
         _torch_db(db, dtype), torch.from_numpy(sq), torch.from_numpy(pen),
-        torch.from_numpy(q)).numpy()
+        torch.from_numpy(q), precision="highest").numpy()
     # The plain version on CPU tensors is not a kernel launch.
     assert fused_scan.LAUNCHES == before
     assert out.shape == (b, n // 128)
@@ -74,7 +74,7 @@ def test_flat_topk_fused_matches_jax(metric):
     d_port, r_port = fused_scan.flat_topk_fused(
         torch.from_numpy(db), torch.from_numpy(sq), torch.from_numpy(valid),
         torch.from_numpy(q), k=k, metric=metric,
-        db_norm=torch.from_numpy(norm))
+        db_norm=torch.from_numpy(norm), precision="highest")
     assert valid[r_port.numpy()].all()
     assert_same_neighbours(r_port, d_port, r_ref, d_ref, rtol=DIST_RTOL,
                            atol=1e-6)

@@ -45,10 +45,14 @@ def test_entry_form_follows_the_source_that_defines_it(entry):
     assert len(files) == 1, f"{entry} defined in {files}"
     assert entry in _kernels._ENTRY_POINTS
     # An int8 query runs wgmma s8 in the tensor-core sources and __dp4a
-    # (K9's variant) elsewhere.
+    # (K9's variant) elsewhere; an f32 database split to bf16 on the
+    # tensor cores names its precision.
     int8_query = entry.endswith("_i8i8")
     if files[0] in WGMMA_SOURCES:
         want = "wgmma_s8" if int8_query else "wgmma"
+        for precision in ("split3", "native"):
+            if entry.endswith(f"_f32_{precision}"):
+                want = f"wgmma_{precision}"
     else:
         want = "i8i8" if int8_query else "ffma"
     assert fused_scan._ENTRY_FORM[entry] == want
@@ -61,7 +65,7 @@ def test_only_k9_keeps_the_dp4a_form():
     assert [e for e, f in fused_scan._ENTRY_FORM.items() if f == "i8i8"] \
         == ["stage1_variant_i8i8"]
     assert {f for _, f in fused_scan.LAUNCHES} == {
-        "ffma", "wgmma", "wgmma_s8", "copy"}
+        "ffma", "wgmma", "wgmma_s8", "wgmma_split3", "wgmma_native", "copy"}
     src = (CSRC / "segment_minima.cu").read_text()
     assert "__dp4a" not in src and "i8i8" not in src
 
@@ -98,7 +102,7 @@ def fake_card(monkeypatch):
 
     def spy(q, db_dtype, form):
         qk = real(q, db_dtype, form)
-        operands.append(qk.dtype)
+        operands.append(qk)
         return qk
     monkeypatch.setattr(fused_scan, "_query_operand", spy)
     return lib, operands
@@ -130,7 +134,7 @@ def test_tiled_cuda_reports_the_form_it_launched(fake_card, db_dtype,
     # The query goes to the kernel in its form's operand type.
     want = {"wgmma": torch.bfloat16, "wgmma_s8": torch.int8,
             "i8i8": torch.int8, "ffma": torch.float32}[form]
-    assert operands == [want]
+    assert [qk.dtype for qk in operands] == [want]
     assert out.shape == (n_tiles * tile_n // fused_scan.SEG // g, b, g)
     assert (groups is None) == (bw == 1)
 
@@ -144,7 +148,7 @@ def test_k1_takes_an_int8_query_at_d_a_multiple_of_32(fake_card):
         torch.zeros((256, 96), dtype=torch.int8), vec, vec,
         torch.ones((3, 96), dtype=torch.int8))
     assert lib.called == ["segment_minima_i8i8"] and out.shape == (3, 2)
-    assert operands == [torch.int8]
+    assert [qk.dtype for qk in operands] == [torch.int8]
     for db_dtype, q_dtype, d in ((torch.int8, torch.int8, 48),
                                  (torch.int8, torch.float32, 96),
                                  (torch.bfloat16, torch.float32, 96)):
@@ -155,20 +159,29 @@ def test_k1_takes_an_int8_query_at_d_a_multiple_of_32(fake_card):
     assert lib.called == ["segment_minima_i8i8"]
 
 
-@pytest.mark.parametrize("db_dtype, q_dtype, form", [
-    (torch.float32, torch.float32, "ffma"),
-    (torch.bfloat16, torch.float32, "wgmma"),
-    (torch.int8, torch.float32, "wgmma"),
-    (torch.int8, torch.int8, "wgmma_s8"),
+@pytest.mark.parametrize("db_dtype, q_dtype, precision, form, q_shape", [
+    (torch.float32, torch.float32, "highest", "ffma", (2, 128)),
+    (torch.float32, torch.float32, "split3", "wgmma_split3", (2, 2, 128)),
+    (torch.float32, torch.float32, "native", "wgmma_native", (2, 128)),
+    (torch.bfloat16, torch.float32, "split3", "wgmma", (2, 128)),
+    (torch.int8, torch.float32, "highest", "wgmma", (2, 128)),
+    (torch.int8, torch.int8, "split3", "wgmma_s8", (2, 128)),
 ])
 def test_segment_minima_counts_the_form_it_launched(fake_card, db_dtype,
-                                                    q_dtype, form):
-    lib, _ = fake_card
+                                                    q_dtype, precision,
+                                                    form, q_shape):
+    # An f32 database takes the precision's entry point; the other
+    # databases ignore it. The query reaches the kernel in the form's
+    # operand: split3's hi and lo parts stacked, (2, B, d).
+    lib, operands = fake_card
     db = torch.zeros((256, 128), dtype=db_dtype)
     vec = torch.zeros(256)
     before = dict(fused_scan.LAUNCHES)
     fused_scan._segment_minima_cuda(db, vec, vec,
-                                    torch.ones((2, 128), dtype=q_dtype))
+                                    torch.ones((2, 128), dtype=q_dtype),
+                                    precision)
+    (qk,) = operands
+    assert tuple(qk.shape) == q_shape and qk.is_contiguous()
     assert fused_scan._ENTRY_FORM[lib.called[0]] == form
     grew = {k: n - before[k] for k, n in fused_scan.LAUNCHES.items()
             if n != before[k]}

@@ -188,7 +188,7 @@ def test_cp_async_staging_is_a_bijection(rows):
 
 
 def test_int8_widening_map_is_a_bijection():
-    # store_codes: thread t widens codes [32 (t % 2), +32) of row t / 2
+    # store_regs: thread t widens codes [32 (t % 2), +32) of row t / 2
     # into logical pieces 4 (t % 2) + p, p < 4 (8 codes a piece).
     seen = np.zeros(K["kSeg"] * 8, np.int64)
     for tid in range(K["kThreads"]):
@@ -291,9 +291,216 @@ def test_s8_shared_memory_plan_fits(dim):
     assert m_tiles == (1 if 640 < dim <= 1280 else 2)
     assert "const int64_t n_chunks = (dim + chunk_dims<Q>() - 1) / " \
         "chunk_dims<Q>();" in KERNEL_SRC
-    assert "if (smem_bytes<Q, 2, false>(dim) <= kMaxSmem) {" in KERNEL_SRC
+    assert "if (smem_bytes<Q, T, 2, false, kPasses>(dim) <= kMaxSmem) {" \
+        in KERNEL_SRC
     assert "const int64_t unit = sizeof(Q) == 1 ? 32 : 2 * kChunkBf16;" \
         in KERNEL_SRC
+
+
+# -- K1's f32 forms: split3 and native (f32 rows split in registers) ------
+
+#: The f32 forms: bf16 tiles a K-chunk of each operand (hi, lo) and the
+#: products a K step, as (query part, database part): q hi x db hi, then
+#: split3's q hi x db lo and q lo x db hi.
+F32_PARTS = {"split3": 2, "native": 1}
+F32_PASSES = {"split3": ((0, 0), (0, 1), (1, 0)), "native": ((0, 0),)}
+
+
+def f32_smem_plan(dim: int, form: str):
+    """(m_tiles, stream_q, bytes) of the f32 forms' launch choice: a ring
+    of kRegStages stages, each the database's parts (16 KB each) and,
+    streamed, the query's; the resident query's parts otherwise."""
+    parts = F32_PARTS[form]
+    db_stage = K["kSeg"] * H["kSwizzleBytes"]
+    n_chunks = -(-dim // K["kChunkBf16"])
+    for m_tiles, stream in ((2, False), (1, False), (2, True)):
+        q_chunk = 2 * K["kMTile"] * m_tiles * H["kSwizzleBytes"]
+        stage = parts * (db_stage + (q_chunk if stream else 0))
+        total = H["kAtomBytes"] + K["kRegStages"] * stage + (
+            0 if stream else parts * q_chunk * n_chunks)
+        if total <= K["kMaxSmem"] or stream:
+            return m_tiles, stream, total
+
+
+#: Each f32 form's plan by d: (resident 256 up to, resident 128 up to).
+F32_PLANS = {"split3": (128, 256), "native": (384, 768)}
+
+
+@pytest.mark.parametrize("dim", [128, 256, 384, 512, 768, 896, 1024, 4096])
+@pytest.mark.parametrize("form", list(F32_PARTS))
+def test_f32_shared_memory_plan_fits(form, dim):
+    # Two ring stages (the f32 forms stage the database through registers,
+    # one step ahead); every plan fits in a block's shared memory, and the
+    # streamed plan does at any d.
+    m_tiles, stream, total = f32_smem_plan(dim, form)
+    assert total <= K["kMaxSmem"]
+    wide, narrow = F32_PLANS[form]
+    assert stream == (dim > narrow)
+    assert m_tiles == (1 if wide < dim <= narrow else 2)
+    if form == "split3" and dim == 128:
+        assert total == 197632          # 193 KB: 256 resident queries
+    # The kernel's side: its ring, parts and byte counts.
+    assert K["kRegStages"] == 2
+    for line in (
+            "return std::is_same<T, float>::value ? kRegStages : kStages;",
+            "return kPasses == 3 ? 2 : 1;",
+            "return parts<kPasses>() *\n"
+            "         (kDbStageBytes + (kStreamQ ? q_rows<kMTiles>() * "
+            "kSwizzleBytes : 0));",
+            ": parts<kPasses>() * q_rows<kMTiles>() *\n"
+            "                                       n_chunks * kSwizzleBytes;",
+            "ring_stages<T>() * stage_bytes<kMTiles, kStreamQ, kPasses>() "
+            "+ q_res;",
+            "if (smem > kMaxSmem) return static_cast<int>("
+            "cudaErrorInvalidValue);"):
+        assert line in KERNEL_SRC, line
+
+
+def _split_parts(x: np.ndarray):
+    """``scan_loads.cuh``'s split_bf16x2 on f32 values, as bit patterns:
+    hi = bf16_rn(x), lo = bf16_rn(x - f32(hi)), rounded to nearest even
+    (the PTX ISA's cvt.rn.bf16x2.f32)."""
+    def rn(v):
+        u = np.asarray(v, np.float32).view(np.uint32).astype(np.uint64)
+        return ((u + 0x7FFF + ((u >> 16) & 1)) >> 16).astype(np.uint16)
+    hi = rn(x)
+    back = (hi.astype(np.uint32) << 16).view(np.float32)
+    return hi, rn(np.asarray(x, np.float32) - back)
+
+
+def test_split_matches_torch_rounding_bit_for_bit():
+    # The model of the kernel's split is the wrapper's (torch .to(bf16)),
+    # bit for bit, over magnitudes from the subnormal range up, ties to
+    # even included; and the source packs x0 in the low half.
+    from smqtk_indexing_tpu_torch.ops.fused_scan import split_bf16
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal(20000)
+         * np.exp2(rng.integers(-140, 60, 20000))).astype(np.float32)
+    ties = (np.arange(1, 200, dtype=np.uint32) << 16) | 0x8000
+    x = np.concatenate([x, ties.view(np.float32), -ties.view(np.float32),
+                        np.float32([0.0, -0.0, 1e-45, 218.0])])
+    hi, lo = _split_parts(x)
+    th, tl = split_bf16(torch.from_numpy(x))
+    assert np.array_equal(hi, th.view(torch.int16).numpy().view(np.uint16))
+    assert np.array_equal(lo, tl.view(torch.int16).numpy().view(np.uint16))
+    fn = LOADS_SRC[LOADS_SRC.index("void split_bf16x2("):]
+    fn = fn[:fn.index("\n}")]
+    assert "hi = bf16x2_rn(x0, x1);" in fn
+    assert "lo = bf16x2_rn(x0 - __uint_as_float(hi << 16),\n" \
+        "                 x1 - __uint_as_float(hi & 0xffff0000u));" in fn
+    assert 'asm("cvt.rn.bf16x2.f32 %0, %1, %2;\\n" : "=r"(d) : "f"(x1), ' \
+        '"f"(x0));' in LOADS_SRC
+
+
+def test_split_staging_is_a_bijection_onto_hi_and_lo():
+    # store_regs: thread t splits values [32 (t % 2), +32) of row t / 2
+    # of the f32 K-chunk into logical pieces 4 (t % 2) + p of the hi tile
+    # and, at the same offset kDbStageBytes on, the lo tile.
+    db_stage = K["kSeg"] * H["kSwizzleBytes"]
+    seen = np.zeros(2 * db_stage // 16, np.int64)
+    for tid in range(K["kThreads"]):
+        r, half = tid >> 1, tid & 1
+        for p in range(4):
+            off = swizzle_offset(r, 4 * half + p)
+            for part in range(2):
+                seen[(part * db_stage + off) // 16] += 1
+    assert (seen == 1).all()
+    for line in ("db_row(t)(tid >> 1) + (tid & 1) * 32);",
+                 "constexpr int kWords = 32 * static_cast<int>(sizeof(T)) "
+                 "/ 16;",
+                 "const uint32_t off = swizzle_offset(r, (tid & 1) * 4 + p);",
+                 "*reinterpret_cast<uint4*>(stage + kDbStageBytes + off) "
+                 "= lo;",
+                 "split_bf16x2(a.x, a.y, hi.x, lo.x);",
+                 "split_bf16x2(b.z, b.w, hi.w, lo.w);"):
+        assert line in KERNEL_SRC, line
+
+
+def _check_f32_forms(form: str, dim: int):
+    """Stage a random f32 database chunk by chunk as the f32 forms do
+    (hi and lo tiles through registers, the query's hi and lo parts by
+    cp.async, resident or streamed) and read every K step of every pass
+    back through its descriptors; the passes' products summed over the
+    K steps are qh.xh (+ qh.xl + ql.xh) in float64."""
+    m_tiles, stream, total = f32_smem_plan(dim, form)
+    parts, ring_n = F32_PARTS[form], K["kRegStages"]
+    rng = np.random.default_rng(dim + parts)
+    q_rows, seg = 2 * K["kMTile"] * m_tiles, K["kSeg"]
+    x = (rng.random((seg, dim)) * 218.0).astype(np.float32)
+    qf = (rng.random((q_rows, dim)) * 218.0).astype(np.float32)
+    xs, qs = _split_parts(x), _split_parts(qf)
+    chunk, q_chunk = K["kChunkBf16"], q_rows * H["kSwizzleBytes"]
+    db_stage = seg * H["kSwizzleBytes"]
+    raw = 48
+    ring = (raw + H["kAtomBytes"] - 1) & ~(H["kAtomBytes"] - 1)
+    stage_bytes = parts * (db_stage + (q_chunk if stream else 0))
+    q_res = ring + ring_n * stage_bytes
+    smem = np.full(ring + total, 0xAB, np.uint8)
+    f64 = {s: (v.astype(np.uint32) << 16).view(np.float32).astype(np.float64)
+           for s, v in (("xh", xs[0]), ("xl", xs[1]), ("qh", qs[0]),
+                        ("ql", qs[1]))}
+    want = f64["qh"] @ f64["xh"].T
+    if parts == 2:
+        want += f64["qh"] @ f64["xl"].T + f64["ql"] @ f64["xh"].T
+    got = np.zeros((q_rows, seg))
+    for c in range(-(-dim // chunk)):
+        stage = ring + (c % ring_n) * stage_bytes
+        cols = slice(c * chunk, (c + 1) * chunk)
+
+        def q_tile(s):
+            return (stage + parts * db_stage + s * q_chunk if stream
+                    else q_res + (c * parts + s) * q_chunk)
+        for tid in range(K["kThreads"]):
+            r, half = tid >> 1, tid & 1
+            for p in range(4):
+                off = swizzle_offset(r, 4 * half + p)
+                lo_col = c * chunk + 32 * half + 8 * p
+                for s in range(parts):
+                    piece = xs[s][r, lo_col:lo_col + 8]
+                    base = stage + s * db_stage + off
+                    smem[base:base + 16] = piece.view(np.uint8)
+        for s in range(parts):
+            assert q_tile(s) % H["kAtomBytes"] == 0
+            stage_rows(smem, q_tile(s), np.ascontiguousarray(qs[s][:, cols]))
+        for k in range(H["kSwizzleBytes"] // H["kKStepBytes"]):
+            kc = slice(c * chunk + 16 * k, c * chunk + 16 * (k + 1))
+            for qp, dp in F32_PASSES[form]:
+                b = read_operand(smem, smem_desc(
+                    stage + dp * db_stage + k * H["kKStepBytes"]), seg)
+                assert np.array_equal(b, xs[dp][:, kc])
+                for m0 in range(0, q_rows, K["kMTile"]):
+                    a = read_operand(smem, smem_desc(
+                        q_tile(qp) + m0 * H["kSwizzleBytes"]
+                        + k * H["kKStepBytes"]), K["kMTile"])
+                    assert np.array_equal(a, qs[qp][m0:m0 + 64, kc])
+                    af = (a.astype(np.uint32) << 16).view(np.float32)
+                    bf = (b.astype(np.uint32) << 16).view(np.float32)
+                    got[m0:m0 + 64] += af.astype(np.float64) \
+                        @ bf.astype(np.float64).T
+    np.testing.assert_allclose(got, want, rtol=1e-12)
+
+
+@pytest.mark.parametrize("form,dim", [
+    ("split3", 128), ("split3", 256), ("split3", 384), ("native", 128),
+    ("native", 512), ("native", 1024)])
+def test_f32_forms_feed_each_k16_descriptor_its_parts(form, dim):
+    # d = 128: 256 resident queries; split3 at 256 / native at 512: 128
+    # resident; split3 at 384 / native at 1024: the query streamed.
+    _check_f32_forms(form, dim)
+    for line in (
+            "return kStreamQ ? stage + kParts * kDbStageBytes + s * "
+            "kQChunkBytes\n                    : q_res + (c * kParts + s) * "
+            "kQChunkBytes;",
+            "stage + (pass == 1 ? kDbStageBytes : 0) + k * kKStepBytes);",
+            "const uint32_t a_tile = q_tile(stage, c, pass == 2 ? 1 : 0) "
+            "+ a_off;",
+            "wgmma_step(acc[i], a_desc, b_desc, (c | k | pass) != 0);",
+            "return q + (s * n_queries + qr) * dim + c * kDims;"):
+        assert line in KERNEL_SRC, line
+    for entry, args in (("segment_minima_f32_split3", "<uint16_t, float, 3>"),
+                        ("segment_minima_f32_native", "<uint16_t, float, 1>")):
+        body = KERNEL_SRC[KERNEL_SRC.index(f'extern "C" int {entry}('):]
+        assert f"return launch{args}(" in body[:body.index("\n}")]
 
 
 def test_accumulator_fragment_and_quad_reduction():
