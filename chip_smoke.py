@@ -14,9 +14,11 @@ not 0:
    count of tensor-core instructions in each instantiation of the two
    wgmma kernels (K1's bf16, int8-code, int8 x int8, f32 split3 and f32
    native forms; K2 / K4 / K5 over int8 codes with a bf16 and with an
-   int8 query), read with ``cuobjdump -sass`` (HGMMA for the bf16
-   products, IGMMA for the int8 ones), must not be 0, and ptxas must
-   report no spill in any of them (their registers are printed);
+   int8 query, and K9's variants of that kernel), read with ``cuobjdump
+   -sass`` (HGMMA for the bf16 products, IGMMA for the int8 ones), must
+   not be 0 (and must be 0 in K9's ``nodot``, which takes no product),
+   and ptxas must report no spill in any of them (their registers are
+   printed);
 2. flat kernels: K1 (``segment_minima``) against its plain PyTorch version
    at the flat path's shapes (B=2048 queries, N=1,048,576 rows, d=128; f32
    with dead rows in its three precisions: the exact FFMA form
@@ -98,9 +100,11 @@ not 0:
    the plain pipeline; every K5 launch ``wgmma_s8``) beside the flag-off
    numbers, its stage split and the blocked layout at the prefix. Then
    each K9 variant
-   (``smqtk_indexing_tpu_torch.tools.stage1_analysis``) held against its
-   plain version on the prefix with both query forms, and the K9 sweep
-   (every variant x t_step in {2, 4, 8}) on the resident index.
+   (``smqtk_indexing_tpu_torch.tools.stage1_analysis``; instantiations
+   of the tiled tensor-core kernel) held against its plain version on the
+   prefix with both query forms, beside production's K2 and K5 times of
+   the same form (``full`` must give K2's output bit for bit), and the K9
+   sweep (every variant x t_step in {2, 4, 8}) on the resident index.
 
 Each path sets the kernels' launch counts to 0 just before it runs and
 reads them just after. Then a ``{"kernels": [...]}`` line with each
@@ -111,10 +115,8 @@ this run's inputs) and the time of one PyTorch call of the same function
 where there is one (``torch.mm``, or ``torch._int_mm`` for the int8 x int8
 forms: K1, K2, K4, K5, K9, K10; K3's gather as one advanced indexing of
 the tiled codes; the port never calls any of them); K5's rows also carry
-its capacity ms at B=128 and 256, and ``k9_full_ms``: the CUDA-core kernel
-over the same codes and query in this run (K9's ``full``, step-major at 8
-tiles a step, no m2: FFMA beside the bf16-query row, ``__dp4a`` beside the
-int8 x int8 row); and last ``{"ok": true, "device": {...}}``.
+its capacity ms at B=128 and 256, K9's rows production K2's ms of each
+query form; and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -351,9 +353,10 @@ def hold(name: str, kernel, plain, smi: str, *, compare: str, f64=None,
       the absolute terms of each score);
     - ``"plain"``: within REL_TOL of the plain version's largest magnitude
       (a probe's variant with no float64 form);
-    - ``"plain_bf16"``: as ``"plain"``, plus 2^-8 of each value (scores
-      rounded to bf16 after f32 sums in another order may take the
-      neighbouring bf16).
+    - ``"plain_bf16"``: as ``"plain"``, plus one bf16 unit in the last
+      place of each value (``stage1_analysis.bf16_ulp``: scores rounded
+      to bf16 after f32 sums in another order may take the neighbouring
+      bf16).
 
     :return: (max |kernel - plain|, mean kernel ms, mean plain ms).
     """
@@ -374,8 +377,12 @@ def hold(name: str, kernel, plain, smi: str, *, compare: str, f64=None,
         tol = 0.0
     elif compare != "f64":
         tol = REL_TOL * ref[fin].abs().max().item()
-        allowed = tol + (2.0 ** -8 * ref[fin].abs()
-                         if compare == "plain_bf16" else 0.0)
+        allowed = tol
+        if compare == "plain_bf16":
+            from smqtk_indexing_tpu_torch.tools.stage1_analysis import (
+                bf16_ulp,
+            )
+            allowed = allowed + bf16_ulp(ref[fin])
         ok = inf_match and bool((diff <= allowed).all())
     else:
         exact, mag = f64()
@@ -1607,10 +1614,29 @@ def capacity_phases(smi: str, dev) -> list:
         bounds["segment_minima_tiled2" + form] = stage1_bound(
             b, n_p, d, 1, out_seg + out_seg // bw, int8_query=int8_query)
 
-    # K9's variants on the prefix, 8 tiles a step, both query forms.
+    # K9's variants on the prefix, 8 tiles a step, both query forms, on
+    # the tiled kernel's instantiations; production's K2 and K5 times of
+    # the same form beside each. full is K2's own instantiation: its
+    # output is K2's, bit for bit.
     k9_held = {}
-    for variant in k9.LAUNCHES:
-        for query, qq, sqq in (("bf16", t, sq), ("int8", t_i8, sq_i8)):
+    for query, qq, sqq, form in (("bf16", t, sq, ""),
+                                 ("int8", t_i8, sq_i8, " i8i8")):
+        full = k9.run_variant(db3, sqq, pen, qq, variant="full", t_step=8)
+        k2 = fused_scan.segment_minima_tiled(db3, sqq, pen, qq)
+        same = bool(torch.equal(full.transpose(0, 1).reshape(b, -1), k2))
+        # bf16min rounds full's scores: min and rounding commute, and the
+        # two instantiations take the same products, so its output is
+        # full's rounded to bf16, bit for bit.
+        bm = k9.run_variant(db3, sqq, pen, qq, variant="bf16min", t_step=8)
+        rounded = bool(torch.equal(bm, full.to(torch.bfloat16).float()))
+        emit("kernel", kernel=f"stage1_variant full {query}",
+             equals_production_k2=same, bf16min_equals_full_rounded=rounded,
+             card=smi)
+        if not (same and rounded):
+            raise RuntimeError(f"K9 full ({query}) is not K2's output, or "
+                               "bf16min not full's rounded to bf16")
+        del full, k2, bm
+        for variant in k9.LAUNCHES:
             k9_held[variant, query] = hold(
                 f"stage1_variant {variant} {query}",
                 lambda: k9.run_variant(db3, sqq, pen, qq, variant=variant,
@@ -1619,7 +1645,9 @@ def capacity_phases(smi: str, dev) -> list:
                                                  variant=variant, t_step=8),
                 smi, compare="equal" if query == "int8" or variant == "nodot"
                 else "plain_bf16" if variant == "bf16min" else "plain",
-                shape=shape, t_step=8)
+                shape=shape, t_step=8,
+                production_k2_ms=held["segment_minima_tiled" + form][1],
+                production_k5_ms=held["segment_minima_tiled2" + form][1])
     del rows
     torch.cuda.empty_cache()
 
@@ -1751,12 +1779,7 @@ def capacity_phases(smi: str, dev) -> list:
     src = "smqtk_indexing_tpu_torch/csrc/"
     replaces = {"segment_minima_tiled": 246, "segment_minima_blocked": 491,
                 "segment_minima_tiled2": 807}
-    # K5's rows also carry the CUDA-core kernel over the same codes and
-    # query in this call: K9's full variant (K5's products and minima,
-    # step-major at 8 tiles a step, no m2), FFMA for the bf16 query,
-    # __dp4a for the int8 one.
-    for form, kernel, query in (("", "wgmma", "bf16"),
-                                (" i8i8", "wgmma_s8", "int8")):
+    for form, kernel in (("", "wgmma"), (" i8i8", "wgmma_s8")):
         for name, line in replaces.items():
             err, ms, plain_ms = held[name + form]
             row = {
@@ -1768,7 +1791,6 @@ def capacity_phases(smi: str, dev) -> list:
                 "library_ms": library_i8_ms if form else library_ms,
                 "shape": shape}
             if name == "segment_minima_tiled2":
-                row["k9_full_ms"] = k9_held["full", query][1]
                 row["capacity_ms"] = [cap_k5_ms[kernel, capm.B],
                                       cap_k5_ms[kernel, capm.B_BIG]]
             out.append(row)
@@ -1779,7 +1801,7 @@ def capacity_phases(smi: str, dev) -> list:
         err_i8, ms_i8, plain_i8 = k9_held[variant, "int8"]
         out.append({
             "name": f"stage1_variant_{variant}", "route": "cuda",
-            "source": "smqtk_indexing_tpu_torch/csrc/stage1_variants.cu",
+            "source": src + "segment_minima_tiled_wgmma.cu",
             "replaces": "tools/stage1_analysis.py:166",
             "launches": counts[f"stage1_variant:{variant}"],
             "max_abs_err": max(err_bf, err_i8), "ms": ms,
@@ -1789,6 +1811,9 @@ def capacity_phases(smi: str, dev) -> list:
             "library_ms": None if variant == "nodot" else library_ms,
             "shape": shape, "int8_query_ms": ms_i8,
             "int8_query_plain_ms": plain_i8,
+            "production_k2_ms": held["segment_minima_tiled"][1],
+            "int8_query_production_k2_ms":
+                held["segment_minima_tiled i8i8"][1],
             "capacity_ms": by_metric[f"stage1_{variant}_t8_ms"]})
         if out[-1]["launches"] == 0:
             raise RuntimeError(f"the K9 sweep never launched {variant}")
@@ -1797,9 +1822,12 @@ def capacity_phases(smi: str, dev) -> list:
 
 #: The instantiations of the two wgmma kernels, by their mangled names
 #: (template arguments: It = uint16_t, the bf16 query; Ia = int8_t; f =
-#: float, the f32 database; then kMTiles, kStreamQ and, for K1, kPasses),
-#: with the SASS instruction of their products: HGMMA for bf16, IGMMA for
-#: int8. K1: <query, database, ...>; the tiled kernel: <query, ...>.
+#: float, the f32 database; then kMTiles, kStreamQ and, for K1, kPasses,
+#: for the tiled kernel its epilogue Variant: 0 production, 1-4 the K9
+#: probe's folded, nomin, nodot, bf16min), with the SASS instruction of
+#: their products: HGMMA for bf16, IGMMA for int8, None for K9's nodot,
+#: which must hold no tensor-core instruction. K1: <query, database, ...>;
+#: the tiled kernel: <query, ..., variant>.
 WGMMA_KERNELS = {
     **{f"segment_minima_wgmma_kernel{qt}{args}{passes}":
        (f"{name} ({plan})", op)
@@ -1812,12 +1840,19 @@ WGMMA_KERNELS = {
        for args, plan in (("Li2ELb0E", "256 resident"),
                           ("Li1ELb0E", "128 resident"),
                           ("Li2ELb1E", "256 streamed"))},
-    **{f"tiled_minima_wgmma_kernel{qt}{args}": (f"{name} ({plan})", op)
-       for qt, name, op in (("It", "segment_minima_tiled_i8", "HGMMA"),
-                            ("Ia", "segment_minima_tiled_i8i8", "IGMMA"))
+    **{f"tiled_minima_wgmma_kernel{qt}{args}Li{v}EE":
+       (f"{name if v == 0 else f'stage1_variant_{variant}_{query}'} "
+        f"({plan})", None if variant == "nodot" else op)
+       for qt, name, query, op in (
+           ("It", "segment_minima_tiled_i8", "bf16", "HGMMA"),
+           ("Ia", "segment_minima_tiled_i8i8", "int8", "IGMMA"))
+       for v, variant in enumerate(("full", "folded", "nomin", "nodot",
+                                    "bf16min"))
        for args, plan in (("Li1ELb0E", "128 resident"),
                           ("Li2ELb0E", "256 resident"),
-                          ("Li1ELb1E", "128 streamed"))}}
+                          ("Li1ELb1E", "128 streamed"))
+       # K9's other variants are built for the probe's plan only.
+       if v == 0 or args == "Li1ELb0E"}}
 
 
 def gmma_counts(kernels_mod) -> dict:
@@ -1876,7 +1911,12 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device "
                          "(torch.cuda.is_available() is False)")
-    from smqtk_indexing_tpu_torch.ops import _kernels
+    try:
+        from smqtk_indexing_tpu_torch.ops import _kernels
+    except ImportError as exc:
+        # The script alone, without the package beside it, must fail.
+        raise SystemExit(f"chip_smoke: cannot import the port ({exc}); run "
+                         "it from the repository's root") from exc
 
     # -- 0. card -------------------------------------------------------
     smi = subprocess.run(
@@ -1909,16 +1949,26 @@ def main() -> None:
         if len(found) != 1:
             raise RuntimeError(f"{name}: {len(found)} ptxas entries")
         usage[name] = next(iter(found.values()))
+    # K8 holds no wgmma, but its registers decide how many blocks share an
+    # SM; it must not spill either.
+    found = ptxas_usage(info["log"], "ivf_list_scores_tiled_pq_kernel")
+    if len(found) != 1:
+        raise RuntimeError(f"ivf_list_scores_tiled_pq: {len(found)} ptxas "
+                           "entries")
+    usage["ivf_list_scores_tiled_pq"] = next(iter(found.values()))
     spills = {name: u.get("spill_bytes") for name, u in usage.items()}
     emit("build", seconds=time.perf_counter() - t0, nvcc=info["cmd"],
          ptxas=ptxas, gmma=gmma, wgmma_spill_bytes=spills,
          wgmma_registers={name: u.get("registers")
                           for name, u in usage.items()})
     for name, op in WGMMA_KERNELS.values():
-        if gmma[name].get(op, 0) == 0:
+        if op is None and gmma[name]:
+            raise RuntimeError(f"{name} holds tensor-core instructions: "
+                               f"{gmma[name]}")
+        if op is not None and gmma[name].get(op, 0) == 0:
             raise RuntimeError(f"{name} holds no {op}: {gmma[name]}")
     if any(v != 0 for v in spills.values()):
-        raise RuntimeError(f"a wgmma kernel spills: {spills}")
+        raise RuntimeError(f"a wgmma kernel or K8 spills: {spills}")
 
     t0 = time.perf_counter()
     kernels = flat_phases(smi, dev)

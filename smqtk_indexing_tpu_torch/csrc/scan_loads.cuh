@@ -1,20 +1,19 @@
 // Widening loads and byte shuffles shared by the stage-1 scan kernels:
 //
-// - load8 (segment_minima.cu, tiled_minima.cuh): eight consecutive f32,
-//   bf16 or int8 values, read with one or two vector loads and widened
-//   exactly to f32. The pointer is aligned to the load's width (16 bytes
-//   for f32 and bf16, 8 for int8); the callers' wrappers check the base
-//   pointers and the strides keep every load aligned.
-// - transpose4x4 (tiled_minima.cuh, segment_minima_tiled_wgmma.cu): a
-//   4 x 4 byte transpose of int8 codes in registers.
+// - load8 (segment_minima.cu, tiled_minima.cuh): eight consecutive f32
+//   or bf16 values, read with one or two 16-byte loads and widened exactly
+//   to f32. The pointer is 16-byte aligned; the callers' wrappers check
+//   the base pointers and the strides keep every load aligned.
+// - transpose4x4 (segment_minima_tiled_wgmma.cu): a 4 x 4 byte transpose
+//   of int8 codes in registers.
 // - codes_to_bf16x2 (segment_minima_wgmma.cu,
 //   segment_minima_tiled_wgmma.cu): two int8 codes widened exactly to one
 //   bf16x2 word for the tensor cores.
 // - split_bf16x2 (segment_minima_wgmma.cu): two f32 values split into
 //   bf16 hi and lo words, each rounded to nearest even, for the split3 and
 //   native forms of the f32 stage 1 on the tensor cores.
-// - inner (tiled_minima.cuh, wgmma_minima.cuh): an accumulator as the f32
-//   inner product of the epilogue.
+// - inner (wgmma_minima.cuh, segment_minima_tiled_wgmma.cu): an
+//   accumulator as the f32 inner product of the epilogue.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -40,22 +39,6 @@ __device__ __forceinline__ void load8(const uint16_t* __restrict__ p,
   for (int i = 0; i < 4; ++i) {
     v[2 * i] = __uint_as_float(words[i] << 16);
     v[2 * i + 1] = __uint_as_float(words[i] & 0xffff0000u);
-  }
-}
-
-// Eight int8 codes widened exactly to f32 (byte j of word i is value
-// 4 i + j: the card is little-endian).
-__device__ __forceinline__ void load8(const int8_t* __restrict__ p,
-                                      float v[8]) {
-  const uint2 w = __ldg(reinterpret_cast<const uint2*>(p));
-  const uint32_t words[2] = {w.x, w.y};
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      v[4 * i + j] = static_cast<float>(
-          static_cast<int8_t>((words[i] >> (8 * j)) & 0xffu));
-    }
   }
 }
 
@@ -108,8 +91,9 @@ __device__ __forceinline__ void split_bf16x2(uint32_t a, uint32_t b,
 
 // An accumulator as the f32 inner product: an f32 sum as it is, an int32
 // sum converted (exactly, below 2^24) and scaled. The int8 x int8 forms
-// pass scale = 1.0f in production, which changes no bit, and the K10
-// probe's g (tools/probe_int8_mxu.py:51-59: the product, then the scale).
+// pass scale = 1.0f in production and in the K9 probe, which changes no
+// bit, and the K10 probe's g (tools/probe_int8_mxu.py:51-59: the product,
+// then the scale).
 __device__ __forceinline__ float inner(float acc, float) { return acc; }
 __device__ __forceinline__ float inner(int acc, float scale) {
   return static_cast<float>(acc) * scale;

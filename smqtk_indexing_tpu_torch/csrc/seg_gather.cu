@@ -4,7 +4,9 @@
 // Replaces the TPU kernel smqtk_indexing_tpu/ops/pallas_scan.py
 // _seg_gather_tiled -> _seg_gather_kernel / _seg_gather_kernel_pf
 // (:319-454; the two are a TPU DMA-scheduling A/B, and one kernel covers
-// both). For every entry m of the flattened (B, s_keep) id array, with
+// both). SMQTK_TPU_NO_GATHER_PREFETCH, which picks between those two TPU
+// schedules (:393-401), has no counterpart here: this kernel has one
+// schedule. For every entry m of the flattened (B, s_keep) id array, with
 // segment s = sid[m], tile ti = s / (tile_n / 128) and column
 // c0 = (s % (tile_n / 128)) * 128:
 //

@@ -43,19 +43,17 @@
       const void* q, const void* db3, const void* db_sq,                     \
       const void* penalty, void* out, int64_t n_queries, int64_t n_tiles,    \
       int64_t dim, int64_t tile_n, int device, void* stream) {               \
-    return launch_tiled<T, kFull>(q, db3, db_sq, penalty, out, nullptr,      \
-                                  n_queries, n_tiles, dim, tile_n,           \
-                                  n_tiles * (tile_n / kSeg), 1, device,      \
-                                  stream);                                   \
+    return launch_tiled<T>(q, db3, db_sq, penalty, out, nullptr, n_queries,  \
+                           n_tiles, dim, tile_n, n_tiles * (tile_n / kSeg),  \
+                           1, device, stream);                               \
   }                                                                          \
   extern "C" int segment_minima_tiled2_##NAME(                               \
       const void* q, const void* db3, const void* db_sq,                     \
       const void* penalty, void* m1, void* m2, int64_t n_queries,            \
       int64_t n_tiles, int64_t dim, int64_t tile_n, int64_t g, int64_t bw,   \
       int device, void* stream) {                                            \
-    return launch_tiled<T, kFull>(q, db3, db_sq, penalty, m1, m2,            \
-                                  n_queries, n_tiles, dim, tile_n, g, bw,    \
-                                  device, stream);                           \
+    return launch_tiled<T>(q, db3, db_sq, penalty, m1, m2, n_queries,        \
+                           n_tiles, dim, tile_n, g, bw, device, stream);     \
   }
 
 SEGMENT_MINIMA_TILED(f32, float)

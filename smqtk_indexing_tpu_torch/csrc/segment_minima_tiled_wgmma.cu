@@ -2,9 +2,10 @@
 // layout, with its products on Hopper's tensor cores (wgmma, sm_90a): the
 // int8-code forms of K2, K4 and K5 with a float query (and of the K10
 // probe's bf16 arm) and with an int8 query (the i8dot int8 x int8 form,
-// and K10's int8 arm), both through K2's and K5's entry points. The f32
-// and bf16 databases stay on tiled_minima.cuh's FFMA kernels, as does the
-// K9 probe (stage1_variants.cu, with its __dp4a int8 x int8 form).
+// and K10's int8 arm), both through K2's and K5's entry points; and the K9
+// stage-1 variant probe in both query forms (the stage1_variant_* entry
+// points, below). The f32 and bf16 databases stay on tiled_minima.cuh's
+// FFMA kernels.
 //
 // Replaces the TPU kernels of smqtk_indexing_tpu/ops/pallas_scan.py:
 // K2 segment_minima_tiled -> _scan_kernel, 3-D branch (:244-310); K4
@@ -32,7 +33,7 @@
 //   order and rounding of the f32 sums;
 // - int8 (ops/sq8._i8dot_q, or K10's int8 query): ip = float(<q, x>) *
 //   scale, the sum exact in s32 by wgmma s8 x s8 -> s32, then
-//   tiled_minima.cuh's inner() order (the product, then the scale; the
+//   scan_loads.cuh's inner() order (the product, then the scale; the
 //   order tools/probe_int8_mxu.py:51-59 uses). Production passes scale =
 //   1.0f, which changes no bit; float(acc) is exact below 2^24 (d <= 1040),
 //   so the result is bit-equal to the plain PyTorch version.
@@ -88,6 +89,36 @@
 // - Queries past B read the last query and are never written. Every
 //   global offset is 64-bit: N d passes 2^31 at capacity.
 //
+// K9, the stage-1 variant probe (replaces tools/stage1_analysis.py
+// _run_variant -> _variant_kernel, :67-198, pallas_call :176), is this
+// kernel with its epilogue swapped: the variant V is a template parameter,
+// and kFull is production's own instantiation (K2's, with g = t_step *
+// tile_n / 128 and no m2). Each variant computes the JAX probe's function
+// into the step-major (n_steps, B, g) output:
+//
+// - kFolded: the segment minima of db_sq - 2 ip, no penalty (its stats
+//   are not copied and its add is not taken);
+// - kNoMin: no minimum: the block of a tile's first segment writes the
+//   scores of that segment's first tile_n / 128 rows into the tile's
+//   tile_n / 128 slots, straight from the accumulator fragment; every
+//   block still takes its segment's products;
+// - kNoDot: no wgmma (nor its fences, commits and waits): the codes are
+//   still staged through shared memory,
+//   and the scores are (db_sq - 2 x[r, 0]) + penalty, the same for every
+//   query, with x[r, 0] read from the staged K-chunk 0 (its byte or bf16
+//   at swizzle_offset(r, 0));
+// - kBf16Min: each score rounded to bf16 (nearest, ties to even) before
+//   the minimum.
+//
+// The four are built for the probe's plan only (B <= 128 queries resident,
+// kMTiles 1), so that production's build carries eight instantiations for
+// them, not 24; kFull keeps its three plans.
+//
+// The probe's "staged" and "minfirst" reorder the TPU kernel's
+// instructions and compute kFull's function; they run kFull. So the
+// differences between the variants' times split production's stage 1 into
+// products, staging, fold and minimum.
+//
 // The kernel allocates nothing and launches on the caller's stream. The C
 // entry points return cudaGetLastError() after the launch.
 
@@ -104,6 +135,11 @@ constexpr int kStrip = 32;      // segments a block walks when bw = 1
 constexpr int kRowQuads = 8;    // row quads of a warp: 32 rows
 constexpr int kDimGroups = 4;   // dim groups (one piece each) of a warp
 constexpr int kStatsSlotBytes = 2 * kSeg * 4;  // a segment's db_sq, penalty
+
+// Epilogue variants: kFull is production (K2, K4, K5), the others the K9
+// probe's (tools/stage1_analysis.py:67-162; see the top).
+enum Variant : int { kFull = 0, kFolded = 1, kNoMin = 2, kNoDot = 3,
+                     kBf16Min = 4 };
 
 template <int kMTiles, bool kStreamQ>
 __host__ __device__ constexpr int stage_bytes() {
@@ -130,8 +166,8 @@ inline int64_t strip_segments(int64_t bw) {
 // Q: the query's type, uint16_t (bf16; the codes are widened) or int8_t.
 // Two blocks share an SM at 128 resident queries in the bf16 form; the
 // int8 x int8 form would spill under the 128 registers that leaves a
-// thread, and takes one.
-template <typename Q, int kMTiles, bool kStreamQ>
+// thread, and takes one. V: the epilogue (Variant).
+template <typename Q, int kMTiles, bool kStreamQ, int V>
 __global__ void __launch_bounds__(
     kThreads, kMTiles == 1 && !kStreamQ && sizeof(Q) == 2 ? 2 : 1)
 tiled_minima_wgmma_kernel(const Q* __restrict__ q,
@@ -186,9 +222,9 @@ tiled_minima_wgmma_kernel(const Q* __restrict__ q,
   };
   // db_sq and penalty of the strip's segment j into stats slot j % 2
   // (db_sq's 128 values, then penalty's): 16 bytes a thread of the first
-  // two warps.
+  // two warps (kFolded: db_sq only).
   auto copy_stats = [&](int j) {
-    if (tid < 2 * 32 && j < n_segs) {
+    if (tid < (V == kFolded ? 1 : 2) * 32 && j < n_segs) {
       const float* src = (tid < 32 ? db_sq : penalty) + (seg0 + j) * kSeg +
                          4 * (tid & 31);
       cp_async16(stats + (j & 1) * kStatsSlotBytes + 16 * tid, src);
@@ -263,6 +299,9 @@ tiled_minima_wgmma_kernel(const Q* __restrict__ q,
   for (int i = 0; i < kMTiles; ++i) {
     gmin[i][0] = gmin[i][1] = __int_as_float(0x7f800000);  // +inf
   }
+  // kNoDot: x[r, 0] of this thread's columns r = 8 jj + 2 (lane % 4) + e
+  // of the segment, x0[2 jj + e], read from its staged K-chunk 0.
+  float x0[V == kNoDot ? 32 : 1];
 
   // Prologue: the resident query tile (or step 0's query chunk) and the
   // first segment's stats, then the codes of step 0 staged and those of
@@ -301,6 +340,23 @@ tiled_minima_wgmma_kernel(const Q* __restrict__ q,
     __syncthreads();  // step t's operands are in; step t - 1's wgmma done
     const uint32_t stage = ring + (t % kStages) * kStageBytes;
     if (c == 0) copy_stats(j + 1);  // its slot was read by segment j - 1
+    if constexpr (V == kNoDot) {
+      if (c == 0) {
+        const uint8_t* chunk0 = ring_ptr + (t % kStages) * kStageBytes;
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int r = 8 * (e / 2) + 2 * (lane & 3) + e % 2;
+          const uint8_t* x = chunk0 + swizzle_offset(r, 0);
+          if constexpr (kWiden) {  // the code widened to bf16
+            x0[e] = __uint_as_float(
+                static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(x))
+                << 16);
+          } else {
+            x0[e] = static_cast<float>(*reinterpret_cast<const int8_t*>(x));
+          }
+        }
+      }
+    }
     if constexpr (kStreamQ) {
       if (t + 1 < n_steps) {
         const int c1 = c + 1 == n_chunks ? 0 : c + 1;
@@ -313,12 +369,14 @@ tiled_minima_wgmma_kernel(const Q* __restrict__ q,
     const uint32_t a_tile = (kStreamQ ? stage + kDbStageBytes
                                       : q_res + c * kQChunkBytes) +
                             wg * kMTiles * kMTile * kSwizzleBytes;
+    if constexpr (V != kNoDot) {
 #pragma unroll
-    for (int i = 0; i < kMTiles; ++i) {
+      for (int i = 0; i < kMTiles; ++i) {
 #pragma unroll
-      for (int e = 0; e < 64; ++e) fence_operand(acc[i][e]);
+        for (int e = 0; e < 64; ++e) fence_operand(acc[i][e]);
+      }
+      wgmma_fence();
     }
-    wgmma_fence();
 #pragma unroll
     for (int k = 0; k < kSwizzleBytes / kKStepBytes; ++k) {
       const uint64_t b_desc = smem_desc(stage + k * kKStepBytes);
@@ -326,21 +384,25 @@ tiled_minima_wgmma_kernel(const Q* __restrict__ q,
       for (int i = 0; i < kMTiles; ++i) {
         const uint64_t a_desc =
             smem_desc(a_tile + i * kMTile * kSwizzleBytes + k * kKStepBytes);
-        wgmma_step(acc[i], a_desc, b_desc, (c | k) != 0);
+        if constexpr (V != kNoDot) {
+          wgmma_step(acc[i], a_desc, b_desc, (c | k) != 0);
+        }
       }
     }
-    wgmma_commit();
+    if constexpr (V != kNoDot) wgmma_commit();
     // Stage step t + 1 into the other stage (read by step t - 1, done)
     // while the products run.
     if (t + 1 < n_steps) {
       store_codes(t + 1);
       if (t + 2 < n_steps) load_codes();
     }
-    wgmma_wait<0>();
+    if constexpr (V != kNoDot) {
+      wgmma_wait<0>();
 #pragma unroll
-    for (int i = 0; i < kMTiles; ++i) {
+      for (int i = 0; i < kMTiles; ++i) {
 #pragma unroll
-      for (int e = 0; e < 64; ++e) fence_operand(acc[i][e]);
+        for (int e = 0; e < 64; ++e) fence_operand(acc[i][e]);
+      }
     }
     if constexpr (kStreamQ) cp_async_wait<0>();
     if (++c < n_chunks) continue;
@@ -351,11 +413,62 @@ tiled_minima_wgmma_kernel(const Q* __restrict__ q,
     const float* sq = stats_ptr + (j & 1) * (kStatsSlotBytes / 4) +
                       2 * (lane & 3);
     float m[kMTiles][2];
-    fold_minima<kMTiles>(acc, scale, [&](int jj) {
-      const float2 a = *reinterpret_cast<const float2*>(sq + 8 * jj);
-      const float2 b = *reinterpret_cast<const float2*>(sq + kSeg + 8 * jj);
-      return make_float4(a.x, a.y, b.x, b.y);
-    }, m);
+    if constexpr (V == kNoMin) {
+      // The tile's first segment: its columns below tile_n / 128 are the
+      // scores of the tile's slots gi .. gi + tile_n / 128 - 1.
+      if ((seg0 + j) % nseg_t == 0) {
+#pragma unroll
+        for (int jj = 0; jj < 16; ++jj) {
+          const float2 a = *reinterpret_cast<const float2*>(sq + 8 * jj);
+          const float2 b =
+              *reinterpret_cast<const float2*>(sq + kSeg + 8 * jj);
+          const float sv[2] = {a.x, a.y};
+          const float pv[2] = {b.x, b.y};
+#pragma unroll
+          for (int i = 0; i < kMTiles; ++i) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int64_t qi = q0 + (wg * kMTiles + i) * kMTile +
+                                 warp * 16 + (lane >> 2) + 8 * h;
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int col = 8 * jj + 2 * (lane & 3) + e;
+                if (col < nseg_t && qi < n_queries) {
+                  out1[(step * n_queries + qi) * g + gi + col] =
+                      (sv[e] - 2.0f * inner(acc[i][4 * jj + 2 * h + e],
+                                            scale)) +
+                      pv[e];
+                }
+              }
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kMTiles; ++i) {
+        m[i][0] = m[i][1] = __int_as_float(0x7f800000);  // +inf
+      }
+    } else if constexpr (V == kNoDot) {
+      float v = __int_as_float(0x7f800000);  // +inf
+#pragma unroll
+      for (int jj = 0; jj < 16; ++jj) {
+        const float2 a = *reinterpret_cast<const float2*>(sq + 8 * jj);
+        const float2 b = *reinterpret_cast<const float2*>(sq + kSeg + 8 * jj);
+        v = fminf(v, (a.x - 2.0f * x0[2 * jj]) + b.x);
+        v = fminf(v, (a.y - 2.0f * x0[2 * jj + 1]) + b.y);
+      }
+#pragma unroll
+      for (int i = 0; i < kMTiles; ++i) m[i][0] = m[i][1] = v;
+    } else {
+      fold_minima<kMTiles, V != kFolded, V == kBf16Min>(
+          acc, scale, [&](int jj) {
+            const float2 a = *reinterpret_cast<const float2*>(sq + 8 * jj);
+            const float2 b = V == kFolded
+                ? make_float2(0.0f, 0.0f)
+                : *reinterpret_cast<const float2*>(sq + kSeg + 8 * jj);
+            return make_float4(a.x, a.y, b.x, b.y);
+          }, m);
+    }
     const bool group_end = out2 != nullptr && ++gpos == bw;
 #pragma unroll
     for (int i = 0; i < kMTiles; ++i) {
@@ -364,7 +477,8 @@ tiled_minima_wgmma_kernel(const Q* __restrict__ q,
         const float v = quad_min(m[i][h]);
         const int64_t qi = q0 + (wg * kMTiles + i) * kMTile + warp * 16 +
                            (lane >> 2) + 8 * h;
-        const bool write = (lane & 3) == 0 && qi < n_queries;
+        const bool write =
+            V != kNoMin && (lane & 3) == 0 && qi < n_queries;
         if (write) out1[(step * n_queries + qi) * g + gi] = v;
         gmin[i][h] = fminf(gmin[i][h], v);
         if (group_end) {
@@ -389,13 +503,13 @@ tiled_minima_wgmma_kernel(const Q* __restrict__ q,
   }
 }
 
-template <typename Q, int kMTiles, bool kStreamQ>
+template <typename Q, int kMTiles, bool kStreamQ, int V>
 int launch_variant(const Q* q, const int8_t* db3, const float* db_sq,
                    const float* penalty, float* out1, float* out2,
                    int64_t n_queries, int64_t n_seg, int64_t dim,
                    int64_t tile_n, int64_t g, int64_t bw, float scale,
                    cudaStream_t stream) {
-  auto kernel = tiled_minima_wgmma_kernel<Q, kMTiles, kStreamQ>;
+  auto kernel = tiled_minima_wgmma_kernel<Q, kMTiles, kStreamQ, V>;
   const int64_t smem = smem_bytes<Q, kMTiles, kStreamQ>(dim);
   const cudaError_t set = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -417,7 +531,7 @@ int launch_variant(const Q* q, const int8_t* db3, const float* db_sq,
 
 // Picks the block: 256 resident queries for B > 128 while they fit beside
 // the ring, else 128 resident, else 128 streamed with the codes.
-template <typename Q>
+template <typename Q, int V = kFull>
 int launch(const void* q, const void* db3, const void* db_sq,
            const void* penalty, void* out1, void* out2, int64_t n_queries,
            int64_t n_tiles, int64_t dim, int64_t tile_n, int64_t g,
@@ -428,7 +542,8 @@ int launch(const void* q, const void* db3, const void* db_sq,
   if (set != cudaSuccess) return static_cast<int>(set);
   const int64_t n_seg = n_tiles * (tile_n / kSeg);
   if (tile_n <= 0 || tile_n % kSeg || dim <= 0 || dim % 16 || g <= 0 ||
-      bw <= 0 || n_seg % g || g % bw) {
+      bw <= 0 || n_seg % g || g % bw ||
+      (V == kNoMin && tile_n / kSeg > kSeg)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto* qq = static_cast<const Q*>(q);
@@ -438,16 +553,61 @@ int launch(const void* q, const void* db3, const void* db_sq,
   auto* o1 = static_cast<float*>(out1);
   auto* o2 = static_cast<float*>(out2);
   auto s = static_cast<cudaStream_t>(stream);
+  if constexpr (V != kFull) {
+    // K9's other variants are built for the probe's plan only: at most
+    // 128 queries, resident beside the ring.
+    if (n_queries > q_rows<1>() || smem_bytes<Q, 1, false>(dim) > kMaxSmem) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return launch_variant<Q, 1, false, V>(qq, x, sq, pen, o1, o2, n_queries,
+                                          n_seg, dim, tile_n, g, bw, scale,
+                                          s);
+  }
   if (n_queries > q_rows<1>() && smem_bytes<Q, 2, false>(dim) <= kMaxSmem) {
-    return launch_variant<Q, 2, false>(qq, x, sq, pen, o1, o2, n_queries,
-                                       n_seg, dim, tile_n, g, bw, scale, s);
+    return launch_variant<Q, 2, false, V>(qq, x, sq, pen, o1, o2, n_queries,
+                                          n_seg, dim, tile_n, g, bw, scale,
+                                          s);
   }
   if (smem_bytes<Q, 1, false>(dim) <= kMaxSmem) {
-    return launch_variant<Q, 1, false>(qq, x, sq, pen, o1, o2, n_queries,
-                                       n_seg, dim, tile_n, g, bw, scale, s);
+    return launch_variant<Q, 1, false, V>(qq, x, sq, pen, o1, o2, n_queries,
+                                          n_seg, dim, tile_n, g, bw, scale,
+                                          s);
   }
-  return launch_variant<Q, 1, true>(qq, x, sq, pen, o1, o2, n_queries, n_seg,
-                                    dim, tile_n, g, bw, scale, s);
+  return launch_variant<Q, 1, true, V>(qq, x, sq, pen, o1, o2, n_queries,
+                                       n_seg, dim, tile_n, g, bw, scale, s);
+}
+
+// K9: variant `variant` into the step-major (n_steps, B, g) output, no m2,
+// the products unscaled.
+template <typename Q>
+int launch_probe(const void* q, const void* db3, const void* db_sq,
+                 const void* penalty, void* out, int64_t n_queries,
+                 int64_t n_tiles, int64_t dim, int64_t tile_n, int64_t g,
+                 int64_t variant, int device, void* stream) {
+  switch (variant) {
+    case kFull:
+      return launch<Q, kFull>(q, db3, db_sq, penalty, out, nullptr,
+                              n_queries, n_tiles, dim, tile_n, g, 1, 1.0f,
+                              device, stream);
+    case kFolded:
+      return launch<Q, kFolded>(q, db3, db_sq, penalty, out, nullptr,
+                                n_queries, n_tiles, dim, tile_n, g, 1, 1.0f,
+                                device, stream);
+    case kNoMin:
+      return launch<Q, kNoMin>(q, db3, db_sq, penalty, out, nullptr,
+                               n_queries, n_tiles, dim, tile_n, g, 1, 1.0f,
+                               device, stream);
+    case kNoDot:
+      return launch<Q, kNoDot>(q, db3, db_sq, penalty, out, nullptr,
+                               n_queries, n_tiles, dim, tile_n, g, 1, 1.0f,
+                               device, stream);
+    case kBf16Min:
+      return launch<Q, kBf16Min>(q, db3, db_sq, penalty, out, nullptr,
+                                 n_queries, n_tiles, dim, tile_n, g, 1, 1.0f,
+                                 device, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -500,4 +660,32 @@ extern "C" int segment_minima_tiled2_i8i8(
     void* stream) {
   return launch<int8_t>(q, db3, db_sq, penalty, m1, m2, n_queries, n_tiles,
                         dim, tile_n, g, bw, scale, device, stream);
+}
+
+// K9's entry points: db3, db_sq and penalty as above; q (n_queries, dim)
+// bf16 (_i8) or int8 (_i8i8); out (N / 128 / g, n_queries, g) f32 with g
+// dividing N / 128; `variant` one of the Variant values (kNoMin takes
+// tile_n <= 16384; all but kFull take n_queries <= 128 and a query tile
+// that fits resident).
+extern "C" int stage1_variant_i8(const void* q, const void* db3,
+                                 const void* db_sq, const void* penalty,
+                                 void* out, int64_t n_queries,
+                                 int64_t n_tiles, int64_t dim,
+                                 int64_t tile_n, int64_t g, int64_t variant,
+                                 int device, void* stream) {
+  return launch_probe<uint16_t>(q, db3, db_sq, penalty, out, n_queries,
+                                n_tiles, dim, tile_n, g, variant, device,
+                                stream);
+}
+
+extern "C" int stage1_variant_i8i8(const void* q, const void* db3,
+                                   const void* db_sq, const void* penalty,
+                                   void* out, int64_t n_queries,
+                                   int64_t n_tiles, int64_t dim,
+                                   int64_t tile_n, int64_t g,
+                                   int64_t variant, int device,
+                                   void* stream) {
+  return launch_probe<int8_t>(q, db3, db_sq, penalty, out, n_queries,
+                              n_tiles, dim, tile_n, g, variant, device,
+                              stream);
 }

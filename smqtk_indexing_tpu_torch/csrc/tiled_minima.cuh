@@ -1,19 +1,14 @@
-// The stage-1 scan over the tiled-transposed layout on the CUDA cores,
-// shared by the production kernels of the f32 and bf16 databases
-// (segment_minima_tiled.cu: K2, K4, K5) and the stage-1 variant probe
-// (stage1_variants.cu: K9, over int8 codes with a float or an int8
-// query). Int8 codes run on the tensor cores in production
-// (segment_minima_tiled_wgmma.cu, both query forms); here they serve K9
-// only. Each kernel takes the epilogue variant as a template parameter, so
-// a variant differs from production only in its epilogue (or, for kNoDot,
-// in skipping the products).
+// The stage-1 scan over the tiled-transposed layout on the CUDA cores:
+// the production kernel of the f32 and bf16 databases
+// (segment_minima_tiled.cu: K2, K4, K5). Int8 codes, with a float or an
+// int8 query, run on the tensor cores (segment_minima_tiled_wgmma.cu,
+// which also holds the K9 variant probe).
 //
 // The database db3 is (n_tiles, d, tile_n), tile_n % 128 == 0: row r is
 // column r % tile_n of tile r / tile_n, so element (r, j) lies at
 // db3[r / tile_n][j][r % tile_n], and a segment's 128 rows are 128
 // contiguous values in each of the d dimension rows. With q (B, d), db_sq
-// and penalty (N,) f32 (penalty = +inf on dead rows), production (kFull)
-// computes
+// and penalty (N,) f32 (penalty = +inf on dead rows), it computes
 //
 //     m[b, s] = min over r in [128 s, 128 s + 128) of
 //               (db_sq[r] - 2 <q_b, x_r>) + penalty[r]
@@ -24,47 +19,20 @@
 // m2[(s / G) * B * (G / bw) + b * (G / bw) + (s % G) / bw], the minimum of
 // m over each group of bw consecutive segments (bw divides G).
 //
-// Two forms of the product:
-//
-// - tiled_minima_kernel<T, V>: f32 FFMA over an f32, bf16 or int8 database
-//   widened to f32 as it is staged, against an f32 query (rounded to bf16
-//   by the wrapper for a bf16 or int8 database, so every product is exact).
-// - tiled_minima_i8i8_kernel<V>: int8 codes against an int8 query (K9's
-//   int8-query variants; production's i8dot form runs on the tensor
-//   cores), summed exactly in int32 with __dp4a, four products an
-//   instruction, and scaled by one f32 `scale` in the epilogue: ip =
-//   float(acc) * scale (inner(), scan_loads.cuh), then (db_sq - 2 ip) +
-//   penalty, the order tools/probe_int8_mxu.py:51-59 uses. K9 passes scale
-//   = 1.0f, which changes no bit. Every partial sum is an integer below
-//   2^24 at d <= 1040, so float(acc) is exact and the result is bit-equal
-//   to the plain PyTorch version.
-//
-// Both keep K1's (segment_minima.cu) block shape: 256 threads own 128
-// queries and walk bw consecutive segments (one group; one segment for K2
-// and K4); per segment each thread owns an 8 x 8 micro-tile of scores in
-// registers (queries ty*4 + {0..3} and 64 + ty*4 + {0..3}, rows tx*4 +
-// {0..3} and 64 + tx*4 + {0..3}), and each query's segment minimum is
-// reduced over the thread's 8 rows, then over the 16 lanes that share the
-// query with warp shuffles. The group minimum is a running minimum in
-// registers, written once after the group's last segment. Queries past B
-// are staged as zeros and not written. Blocks are numbered query-tile
-// fastest, so the blocks that read one group run close together and find
-// it in L2. Every global offset is 64-bit: N d passes 2^31 at capacity.
-//
-// Staging the int8 x int8 form. __dp4a multiplies 4 bytes of one word by 4
-// bytes of another, so both operands need 4 consecutive dims of one row in
-// a word. The query (B, d) is row-major and has that for free. The tiled
-// layout does not: a 32-bit word of db3 holds 4 consecutive ROWS of one
-// dim. Each thread therefore loads a 4-dim x 4-row block as 4 words (one
-// per dim; a warp's 32 loads of one dim are 128 contiguous bytes, fully
-// coalesced) and transposes the 4 x 4 bytes in registers with six
-// __byte_perm (PRMT; transpose4x4 in scan_loads.cuh) before its one
-// 16-byte shared-memory store. The
-// alternative, storing bytes and re-packing on every read, would put the
-// byte shuffles in the inner loop, which reads each staged word 16 times;
-// transposing once at staging costs 6 PRMT per 16 bytes loaded. A stage is
-// 32 dims (8 words a row), so 256 threads cover a segment's 128 rows with
-// one block each.
+// The product is f32 FFMA over the database widened to f32 as it is
+// staged, against an f32 query (rounded to bf16 by the wrapper for a bf16
+// database, so every product is exact). The kernel keeps K1's
+// (segment_minima.cu) block shape: 256 threads own 128 queries and walk bw
+// consecutive segments (one group; one segment for K2 and K4); per segment
+// each thread owns an 8 x 8 micro-tile of scores in registers (queries
+// ty*4 + {0..3} and 64 + ty*4 + {0..3}, rows tx*4 + {0..3} and 64 + tx*4 +
+// {0..3}), and each query's segment minimum is reduced over the thread's 8
+// rows, then over the 16 lanes that share the query with warp shuffles.
+// The group minimum is a running minimum in registers, written once after
+// the group's last segment. Queries past B are staged as zeros and not
+// written. Blocks are numbered query-tile fastest, so the blocks that read
+// one group run close together and find it in L2. Every global offset is
+// 64-bit: N d passes 2^31 at capacity.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -78,19 +46,8 @@ namespace {
 constexpr int kSeg = 128;      // rows per segment
 constexpr int kTileB = 128;    // queries per block
 constexpr int kDepth = 16;     // dims of one FFMA shared-memory stage
-constexpr int kDepth8 = 32;    // dims of one int8 x int8 stage
-constexpr int kWords = kDepth8 / 4;
 constexpr int kThreads = 256;
 constexpr int kPad = 4;        // keeps rows 16-byte aligned
-
-// Epilogue variants. kFull is production (K2, K4, K5); the others are the
-// K9 probe's (tools/stage1_analysis.py:67-120): kFolded drops the penalty,
-// kNoMin writes the first tile_n / 128 scores of each tile in place of
-// its segment minima, kNoDot skips the products (scores sq - 2 x[r, 0] +
-// penalty, the same for every query, from the staged tile), kBf16Min
-// rounds each score to bf16 before the minimum.
-enum Variant : int { kFull = 0, kFolded = 1, kNoMin = 2, kNoDot = 3,
-                     kBf16Min = 4 };
 
 __device__ __forceinline__ int query_of(int ty, int i) {
   return i < 4 ? ty * 4 + i : 64 + ty * 4 + (i - 4);
@@ -100,23 +57,14 @@ __device__ __forceinline__ int row_of(int tx, int j) {
   return j < 4 ? tx * 4 + j : 64 + tx * 4 + (j - 4);
 }
 
-// Round to the nearest bf16, ties to even, kept in an f32 (finite values
-// and +inf; scores are never NaN).
-__device__ __forceinline__ float round_bf16(float x) {
-  uint32_t u = __float_as_uint(x);
-  u += 0x7fffu + ((u >> 16) & 1u);
-  return __uint_as_float(u & 0xffff0000u);
-}
-
-// The epilogue of segment s: the thread's 8 x 8 accumulators (x0: the
-// rows' first dim, for kNoDot) become scores, each query's minimum over
-// the segment goes to out1 and into the running group minimum gmin.
-template <int V, typename A>
+// The epilogue of segment s: the thread's 8 x 8 accumulators become
+// scores, each query's minimum over the segment goes to out1 and into the
+// running group minimum gmin.
 __device__ __forceinline__ void segment_epilogue(
-    const A (&acc)[8][8], float scale, const float (&x0)[8],
-    const float* __restrict__ db_sq, const float* __restrict__ penalty,
-    float* __restrict__ out1, float (&gmin)[8], int64_t s, int64_t q0,
-    int64_t n_queries, int64_t g, int64_t nseg_t, int tx, int ty) {
+    const float (&acc)[8][8], const float* __restrict__ db_sq,
+    const float* __restrict__ penalty, float* __restrict__ out1,
+    float (&gmin)[8], int64_t s, int64_t q0, int64_t n_queries, int64_t g,
+    int tx, int ty) {
   const int64_t r0 = s * kSeg;
   float sq[8], pen[8];
 #pragma unroll
@@ -130,34 +78,10 @@ __device__ __forceinline__ void segment_epilogue(
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int64_t qi = q0 + query_of(ty, i);
-    if (V == kNoMin) {
-      // The tile's first segment holds its first tile_n / 128 rows: their
-      // scores fill the tile's tile_n / 128 output slots.
-      if (s % nseg_t == 0 && qi < n_queries) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int p = row_of(tx, j);
-          if (p < nseg_t) {
-            out1[(step * n_queries + qi) * g + gi + p] =
-                (sq[j] - 2.0f * inner(acc[i][j], scale)) + pen[j];
-          }
-        }
-      }
-      continue;
-    }
     float m = __int_as_float(0x7f800000);  // +inf
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      float v;
-      if (V == kFolded) {
-        v = sq[j] - 2.0f * inner(acc[i][j], scale);
-      } else if (V == kNoDot) {
-        v = (sq[j] - 2.0f * x0[j]) + pen[j];
-      } else {
-        v = (sq[j] - 2.0f * inner(acc[i][j], scale)) + pen[j];
-      }
-      if (V == kBf16Min) v = round_bf16(v);
-      m = fminf(m, v);
+      m = fminf(m, (sq[j] - 2.0f * acc[i][j]) + pen[j]);
     }
     // The 16 lanes sharing this query hold the segment's other rows.
 #pragma unroll
@@ -184,7 +108,7 @@ __device__ __forceinline__ void group_epilogue(
   }
 }
 
-template <typename T, int V>
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
 tiled_minima_kernel(const float* __restrict__ q, const T* __restrict__ db3,
                     const float* __restrict__ db_sq,
@@ -222,10 +146,8 @@ tiled_minima_kernel(const float* __restrict__ q, const T* __restrict__ db3,
                      + (s % nseg_t) * kSeg + xdim * tile_n + xrow;
 
     float acc[8][8];
-    float x0[8];
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      x0[i] = 0.0f;
 #pragma unroll
       for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
     }
@@ -247,146 +169,32 @@ tiled_minima_kernel(const float* __restrict__ q, const T* __restrict__ db3,
           make_float4(v[4], v[5], v[6], v[7]);
       __syncthreads();
 
-      if (V == kNoDot) {
-        if (k0 == 0) {
 #pragma unroll
-          for (int j = 0; j < 8; ++j) x0[j] = x_s[0][row_of(tx, j)];
-        }
-      } else {
+      for (int kk = 0; kk < kDepth; ++kk) {
+        const float4 a0 =
+            *reinterpret_cast<const float4*>(&q_s[kk][ty * 4]);
+        const float4 a1 =
+            *reinterpret_cast<const float4*>(&q_s[kk][64 + ty * 4]);
+        const float4 b0 =
+            *reinterpret_cast<const float4*>(&x_s[kk][tx * 4]);
+        const float4 b1 =
+            *reinterpret_cast<const float4*>(&x_s[kk][64 + tx * 4]);
+        const float a[8] = {a0.x, a0.y, a0.z, a0.w,
+                            a1.x, a1.y, a1.z, a1.w};
+        const float b[8] = {b0.x, b0.y, b0.z, b0.w,
+                            b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-        for (int kk = 0; kk < kDepth; ++kk) {
-          const float4 a0 =
-              *reinterpret_cast<const float4*>(&q_s[kk][ty * 4]);
-          const float4 a1 =
-              *reinterpret_cast<const float4*>(&q_s[kk][64 + ty * 4]);
-          const float4 b0 =
-              *reinterpret_cast<const float4*>(&x_s[kk][tx * 4]);
-          const float4 b1 =
-              *reinterpret_cast<const float4*>(&x_s[kk][64 + tx * 4]);
-          const float a[8] = {a0.x, a0.y, a0.z, a0.w,
-                              a1.x, a1.y, a1.z, a1.w};
-          const float b[8] = {b0.x, b0.y, b0.z, b0.w,
-                              b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-#pragma unroll
-            for (int j = 0; j < 8; ++j) {
-              acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-            }
-          }
-        }
-      }
-      __syncthreads();
-    }
-    segment_epilogue<V>(acc, 1.0f, x0, db_sq, penalty, out1, gmin, s, q0,
-                        n_queries, g, nseg_t, tx, ty);
-  }
-  if (out2 != nullptr) {
-    group_epilogue(gmin, out2, group, q0, n_queries, g, bw, tx, ty);
-  }
-}
-
-template <int V>
-__global__ void __launch_bounds__(kThreads, 2)
-tiled_minima_i8i8_kernel(const int8_t* __restrict__ q,
-                         const int8_t* __restrict__ db3,
-                         const float* __restrict__ db_sq,
-                         const float* __restrict__ penalty,
-                         float* __restrict__ out1, float* __restrict__ out2,
-                         int64_t n_queries, int64_t dim, int64_t tile_n,
-                         int64_t g, int64_t bw, int64_t n_qtiles,
-                         float scale) {
-  // Word w of a row holds its dims 4 w .. 4 w + 3 of the stage.
-  __shared__ __align__(16) int q_s[kWords][kTileB + kPad];
-  __shared__ __align__(16) int x_s[kWords][kSeg + kPad];
-
-  const int64_t q0 = (blockIdx.x % n_qtiles) * kTileB;
-  const int64_t group = blockIdx.x / n_qtiles;
-  const int64_t nseg_t = tile_n / kSeg;
-  const int t = threadIdx.x;
-  const int tx = t % 16;
-  const int ty = t / 16;
-
-  // Query staging: thread t copies 16 consecutive dims (4 words) of query
-  // row t / 2 with one 16-byte load.
-  const int lrow = t / 2;
-  const int lword = (t % 2) * 4;
-  const bool q_live = q0 + lrow < n_queries;
-  const int8_t* q_src = q + (q_live ? q0 + lrow : 0) * dim + lword * 4;
-  // Database staging: the 4 x 4 block of dims 4 (t / 32) + {0..3} and rows
-  // 4 (t % 32) + {0..3}.
-  const int xword = t / 32;
-  const int xrow = (t % 32) * 4;
-
-  float gmin[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) gmin[i] = __int_as_float(0x7f800000);  // +inf
-
-  for (int64_t s = group * bw; s < (group + 1) * bw; ++s) {
-    const int8_t* x_src = db3 + (s / nseg_t) * dim * tile_n
-                          + (s % nseg_t) * kSeg + (4 * xword) * tile_n
-                          + xrow;
-
-    int acc[8][8];
-    float x0[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      x0[i] = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0;
-    }
-
-    for (int64_t k0 = 0; k0 < dim; k0 += kDepth8) {
-      uint4 qv = make_uint4(0u, 0u, 0u, 0u);
-      if (q_live) qv = __ldg(reinterpret_cast<const uint4*>(q_src + k0));
-      q_s[lword + 0][lrow] = static_cast<int>(qv.x);
-      q_s[lword + 1][lrow] = static_cast<int>(qv.y);
-      q_s[lword + 2][lrow] = static_cast<int>(qv.z);
-      q_s[lword + 3][lrow] = static_cast<int>(qv.w);
-      uint32_t w[4], o[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        w[i] = __ldg(reinterpret_cast<const unsigned int*>(
-            x_src + (k0 + i) * tile_n));
-      }
-      transpose4x4(w, o);
-      *reinterpret_cast<int4*>(&x_s[xword][xrow]) =
-          make_int4(static_cast<int>(o[0]), static_cast<int>(o[1]),
-                    static_cast<int>(o[2]), static_cast<int>(o[3]));
-      __syncthreads();
-
-      if (V == kNoDot) {
-        if (k0 == 0) {
+        for (int i = 0; i < 8; ++i) {
 #pragma unroll
           for (int j = 0; j < 8; ++j) {
-            x0[j] = static_cast<float>(static_cast<int8_t>(
-                x_s[0][row_of(tx, j)] & 0xff));
-          }
-        }
-      } else {
-#pragma unroll
-        for (int kw = 0; kw < kWords; ++kw) {
-          const int4 a0 = *reinterpret_cast<const int4*>(&q_s[kw][ty * 4]);
-          const int4 a1 =
-              *reinterpret_cast<const int4*>(&q_s[kw][64 + ty * 4]);
-          const int4 b0 = *reinterpret_cast<const int4*>(&x_s[kw][tx * 4]);
-          const int4 b1 =
-              *reinterpret_cast<const int4*>(&x_s[kw][64 + tx * 4]);
-          const int a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-          const int b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-#pragma unroll
-            for (int j = 0; j < 8; ++j) {
-              acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
-            }
+            acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
           }
         }
       }
       __syncthreads();
     }
-    segment_epilogue<V>(acc, scale, x0, db_sq, penalty, out1, gmin, s, q0,
-                        n_queries, g, nseg_t, tx, ty);
+    segment_epilogue(acc, db_sq, penalty, out1, gmin, s, q0, n_queries, g,
+                     tx, ty);
   }
   if (out2 != nullptr) {
     group_epilogue(gmin, out2, group, q0, n_queries, g, bw, tx, ty);
@@ -396,11 +204,11 @@ tiled_minima_i8i8_kernel(const int8_t* __restrict__ q,
 // The checks every launcher makes; cudaSuccess or cudaErrorInvalidValue.
 inline cudaError_t check_tiled(int64_t n_queries, int64_t n_tiles,
                                int64_t dim, int64_t tile_n, int64_t g,
-                               int64_t bw, int depth, bool no_min,
-                               int64_t* n_qtiles, int64_t* n_blocks) {
+                               int64_t bw, int64_t* n_qtiles,
+                               int64_t* n_blocks) {
   const int64_t nseg = n_tiles * (tile_n / kSeg);
-  if (tile_n <= 0 || tile_n % kSeg || dim % depth || g <= 0 || bw <= 0
-      || nseg % g || g % bw || (no_min && tile_n / kSeg > kSeg)) {
+  if (tile_n <= 0 || tile_n % kSeg || dim % kDepth || g <= 0 || bw <= 0
+      || nseg % g || g % bw) {
     return cudaErrorInvalidValue;
   }
   *n_qtiles = (n_queries + kTileB - 1) / kTileB;
@@ -409,7 +217,7 @@ inline cudaError_t check_tiled(int64_t n_queries, int64_t n_tiles,
   return cudaSuccess;
 }
 
-template <typename T, int V>
+template <typename T>
 int launch_tiled(const void* q, const void* db3, const void* db_sq,
                  const void* penalty, void* out1, void* out2,
                  int64_t n_queries, int64_t n_tiles, int64_t dim,
@@ -420,41 +228,16 @@ int launch_tiled(const void* q, const void* db3, const void* db_sq,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   int64_t n_qtiles, n_blocks;
-  err = check_tiled(n_queries, n_tiles, dim, tile_n, g, bw, kDepth,
-                    V == kNoMin, &n_qtiles, &n_blocks);
+  err = check_tiled(n_queries, n_tiles, dim, tile_n, g, bw, &n_qtiles,
+                    &n_blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_blocks > 0) {
-    tiled_minima_kernel<T, V><<<dim3(static_cast<unsigned>(n_blocks)),
-                                kThreads, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
+    tiled_minima_kernel<T><<<dim3(static_cast<unsigned>(n_blocks)), kThreads,
+                             0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(q), static_cast<const T*>(db3),
         static_cast<const float*>(db_sq), static_cast<const float*>(penalty),
         static_cast<float*>(out1), static_cast<float*>(out2), n_queries, dim,
         tile_n, g, bw, n_qtiles);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int V>
-int launch_tiled_i8i8(const void* q, const void* db3, const void* db_sq,
-                      const void* penalty, void* out1, void* out2,
-                      int64_t n_queries, int64_t n_tiles, int64_t dim,
-                      int64_t tile_n, int64_t g, int64_t bw, float scale,
-                      int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int64_t n_qtiles, n_blocks;
-  err = check_tiled(n_queries, n_tiles, dim, tile_n, g, bw, kDepth8,
-                    V == kNoMin, &n_qtiles, &n_blocks);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_blocks > 0) {
-    tiled_minima_i8i8_kernel<V><<<dim3(static_cast<unsigned>(n_blocks)),
-                                  kThreads, 0,
-                                  static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int8_t*>(q), static_cast<const int8_t*>(db3),
-        static_cast<const float*>(db_sq), static_cast<const float*>(penalty),
-        static_cast<float*>(out1), static_cast<float*>(out2), n_queries, dim,
-        tile_n, g, bw, n_qtiles, scale);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -88,6 +88,14 @@ __device__ __forceinline__ void copy_chunk(uint32_t dst, RowPtr src_row,
   }
 }
 
+// Round to the nearest bf16, ties to even, kept in an f32 (finite values
+// and +inf; scores are never NaN): torch's and jnp's astype(bfloat16).
+__device__ __forceinline__ float round_bf16(float x) {
+  uint32_t u = __float_as_uint(x);
+  u += 0x7fffu + ((u >> 16) & 1u);
+  return __uint_as_float(u & 0xffff0000u);
+}
+
 // The epilogue's fold: acc[i] is the warpgroup's 64 x 128 tile i of <q, x>
 // for one segment (wgmma.cuh's fragment: this thread holds columns 8 j + 2
 // (lane % 4) + e of query rows 16 warp + lane / 4 + 8 h), f32 or s32.
@@ -95,8 +103,11 @@ __device__ __forceinline__ void copy_chunk(uint32_t dst, RowPtr src_row,
 // (lane % 4) + {0, 1} as (sq.x, sq.y, pen.x, pen.y). m[i][h] becomes the
 // minimum of (db_sq - 2 ip) + penalty over the thread's 32 columns of row
 // h of tile i, with ip = inner(acc, scale) (scan_loads.cuh: an f32 sum as
-// it is, an s32 sum converted and scaled).
-template <int kMTiles, typename Acc, typename SqPen>
+// it is, an s32 sum converted and scaled). The K9 probe's epilogues:
+// kPen false drops the penalty (its "folded"), kRound rounds each score
+// to bf16 before the minimum (its "bf16min"); production takes neither.
+template <int kMTiles, bool kPen = true, bool kRound = false, typename Acc,
+          typename SqPen>
 __device__ __forceinline__ void fold_minima(const Acc (&acc)[kMTiles][64],
                                             float scale, SqPen sq_pen,
                                             float (&m)[kMTiles][2]) {
@@ -104,6 +115,12 @@ __device__ __forceinline__ void fold_minima(const Acc (&acc)[kMTiles][64],
   for (int i = 0; i < kMTiles; ++i) {
     m[i][0] = m[i][1] = __int_as_float(0x7f800000);  // +inf
   }
+  auto score = [](float sq, float ip, float pen) {
+    float v = sq - 2.0f * ip;
+    if constexpr (kPen) v = v + pen;
+    if constexpr (kRound) v = round_bf16(v);
+    return v;
+  };
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
     const float4 sp = sq_pen(j);
@@ -113,8 +130,8 @@ __device__ __forceinline__ void fold_minima(const Acc (&acc)[kMTiles][64],
       for (int h = 0; h < 2; ++h) {
         const float ip0 = inner(acc[i][4 * j + 2 * h], scale);
         const float ip1 = inner(acc[i][4 * j + 2 * h + 1], scale);
-        m[i][h] = fminf(m[i][h], (sp.x - 2.0f * ip0) + sp.z);
-        m[i][h] = fminf(m[i][h], (sp.y - 2.0f * ip1) + sp.w);
+        m[i][h] = fminf(m[i][h], score(sp.x, ip0, sp.z));
+        m[i][h] = fminf(m[i][h], score(sp.y, ip1, sp.w));
       }
     }
   }

@@ -8,8 +8,11 @@ them row-major (f32, bf16, SQ8 codes or PQ codes, with a codec trained per
 layout), with the list balancer's sublist CSR. The routed cells
 (``ivf._tiled_rows_ok``: SQ8 with ``rerank='score'``, euclidean PQ, with
 or without ``pq_residual``) take the tiled engine instead (``_ivf_code``),
-with a per-layout codec that is never persisted. Row-major PQ therefore
-serves only inner_product and cosine, which admit no residual.
+with a per-layout codec that is never persisted. Row-major PQ serves
+inner_product and cosine, and euclidean PQ (with or without residuals)
+when a switch takes the routing away (``SMQTK_TPU_NO_ROWS_TILED`` or
+``SMQTK_TPU_NO_DMA_IVF`` at the layout); ``SMQTK_TPU_NO_DMA_IVF`` at a
+query also takes K6 away (``ops/ivf.ivf_query``).
 Functions take the index instance as ``idx`` and run under its lock.
 """
 from __future__ import annotations
@@ -25,8 +28,8 @@ from smqtk_indexing_tpu_torch.ops.ivf import ivf_query, ivf_query_pq
 from smqtk_indexing_tpu_torch.ops.ivf_scan import L_MAX, ivf_query_dma
 from smqtk_indexing_tpu_torch.ops.opq import compose_transform, opq_train
 from smqtk_indexing_tpu_torch.ops.pq import (
-    pq_build_store, pq_encode_np, pq_prep_queries, pq_train,
-    pq_transform_queries,
+    pq_build_store, pq_encode_np, pq_prep_queries, pq_residual_build_store,
+    pq_train, pq_transform_queries,
 )
 from smqtk_indexing_tpu_torch.ops.sq8 import (
     sq8_build_store, sq8_encode_np, sq8_train,
@@ -101,8 +104,11 @@ def upload_rows(idx) -> None:
     if idx._tiled_rows_ok():
         _upload_tiled_routed(idx)
         return
+    # A re-layout may cross a routing switch: the query path prefers tiled
+    # state when present, so none from a routed layout survives here.
     idx._dev3 = idx._s2t = None
     idx._v_tile = idx._v_col = idx._v_len = idx._slot_table = None
+    idx._cents_codec_dev = idx._row2list_dev = None
     dev = idx._device
     n = idx._host.shape[0]
     idx._capacity = capacity_for(n)
@@ -118,12 +124,24 @@ def upload_rows(idx) -> None:
         idx._dev_norm = nrm
     elif idx._pq_m(idx.dtype) is not None:
         # PQ codes in list-sorted order (pq_build_store: the interleave,
-        # a per-layout codec, exact reconstruction-norm stats). Padding
+        # a per-layout codec, exact reconstruction-norm stats; with
+        # pq_residual the residuals to the list centroids, as the JAX
+        # rows tier off the tiled routing, _ivf_rows.py:84-104). Padding
         # rows decode to some codeword; windows never cover them, and
         # their stats are zeroed anyway.
-        (perm, rot, _, idx._pq_cb_dev, idx._dev, s2) = pq_build_store(
-            idx._host, idx._valid_host, idx._capacity, d_pad,
-            idx._pq_m(idx.dtype), dev, rotate=idx._pq_rotate(idx.dtype))
+        if idx.pq_residual:
+            (perm, rot, _, idx._pq_cb_dev, idx._dev, s2, cents_c,
+             idx._row2list_dev) = pq_residual_build_store(
+                idx._host, idx._valid_host, idx._capacity, d_pad,
+                idx._pq_m(idx.dtype), idx._centroids_np, idx._assign_host,
+                dev, rotate=idx._pq_rotate(idx.dtype))
+            idx._cents_codec_dev = torch.from_numpy(
+                cents_c.astype(np.float32)).to(dev)
+        else:
+            (perm, rot, _, idx._pq_cb_dev, idx._dev, s2) = pq_build_store(
+                idx._host, idx._valid_host, idx._capacity, d_pad,
+                idx._pq_m(idx.dtype), dev,
+                rotate=idx._pq_rotate(idx.dtype))
         idx._dev_sq = torch.where(torch.from_numpy(valid).to(dev), s2, 0.0)
         idx._dev_norm = torch.sqrt(torch.clamp(idx._dev_sq, min=0.0))
         idx._perm_dev = torch.from_numpy(
@@ -169,7 +187,8 @@ def query_rows(idx, q_p: torch.Tensor, k_dev: int, nprobe: int,
             pq_transform_queries(q_p, idx._perm_dev),
             k=k_dev, nprobe=nprobe, l_max=idx._l_max, metric=idx.metric,
             first_virt=first_virt, nprobe_orig=nprobe_orig,
-            has_dead=has_dead)
+            has_dead=has_dead, res_cents=idx._cents_codec_dev,
+            row2list=idx._row2list_dev)
     if idx._dma_eligible():
         return ivf_query_dma(
             idx._dev, idx._dev_valid, idx._dev_centroids, idx._dev_offsets,

@@ -91,7 +91,10 @@ class FlatNearestNeighborsIndex (NearestNeighborsIndex):
     @classmethod
     def usability_report(cls) -> dict:
         r = super().usability_report()
-        r.update(device_report("cuda"))
+        # The JAX index's switches (flat.py:99-104): a set one is listed
+        # and marks the index degraded.
+        r.update(device_report("cuda", flags=(
+            "SMQTK_TPU_NO_FUSED", "SMQTK_TPU_NO_NATIVE")))
         return r
 
     @classmethod

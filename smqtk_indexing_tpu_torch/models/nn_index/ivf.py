@@ -23,6 +23,12 @@ every device):
   K6's window): the plain list gathers of ``ops/ivf.ivf_query`` and
   ``ivf_query_pq``.
 
+The JAX index's switches take the rows tier off its kernels, under their
+names (``_tiled_rows_ok``, ``_dma_eligible``): ``SMQTK_TPU_NO_ROWS_TILED``
+(row-major layout), ``SMQTK_TPU_ROWS_TILED`` (the tiled routing for sq8
+whatever its finalization) and ``SMQTK_TPU_NO_DMA_IVF`` (neither the tiled
+routing nor K6). The code tier keeps its tiled engine, as in JAX.
+
 PQ ('pq<M>') and OPQ ('opq<M>') codes live on the codec grid: the padded
 dims extended to a multiple of M, interleaved round-robin over the
 subspaces, and for OPQ rotated. ``pq_residual=True`` encodes
@@ -42,6 +48,7 @@ Example, on the CPU::
 from __future__ import annotations
 
 import logging
+import os
 import threading
 import warnings
 from typing import Any, Dict, Hashable, Iterable, List, Optional, Sequence
@@ -73,6 +80,7 @@ from smqtk_indexing_tpu_torch.models.nn_index._results import (
 )
 from smqtk_indexing_tpu_torch.ops.device import (
     device_report, pad_dim, pad_rows_np, pow2_at_least, resolve_device,
+    tpu_kernel_enabled,
 )
 from smqtk_indexing_tpu_torch.ops.ivf_scan import L_MAX, TILE_ROWS
 from smqtk_indexing_tpu_torch.ops.kmeans import kmeans_assign, kmeans_lloyd
@@ -127,7 +135,10 @@ class IvfNearestNeighborsIndex (NearestNeighborsIndex):
     @classmethod
     def usability_report(cls) -> dict:
         r = super().usability_report()
-        r.update(device_report("cuda"))
+        # The JAX index's switches (ivf.py:136-141): a set one is listed
+        # and marks the index degraded.
+        r.update(device_report("cuda", flags=(
+            "SMQTK_TPU_NO_DMA_IVF", "SMQTK_TPU_NO_ROWS_TILED")))
         return r
 
     @classmethod
@@ -237,21 +248,37 @@ class IvfNearestNeighborsIndex (NearestNeighborsIndex):
                                self._code_rot if rotate else None)
 
     def _dma_eligible(self) -> bool:
-        """Rows tier through K6 (``ivf.py:289-302``): euclidean, every
-        sublist inside the kernel's window less its alignment slack, and a
-        capacity of at least one window."""
-        return (self.metric == "euclidean"
+        """Rows tier through K6 (``ivf.py:289-302``): ``SMQTK_TPU_NO_DMA_IVF``
+        unset (read per query), euclidean, every sublist inside the
+        kernel's window less its alignment slack, and a capacity of at
+        least one window."""
+        return (tpu_kernel_enabled("SMQTK_TPU_NO_DMA_IVF")
+                and self.metric == "euclidean"
                 and 0 < self._l_max_raw <= L_MAX - 32
                 and self._capacity >= L_MAX)
 
     def _tiled_rows_ok(self) -> bool:
         """The rows tier's routed cells take the tiled engine
-        (``ivf.py:304-337``, the TPU routing): euclidean PQ / OPQ always
-        (K8), and sq8 with score finalization (score mode exists only
-        there)."""
-        return (self.storage == "rows" and self.metric == "euclidean"
-                and (self._pq_m(self.dtype) is not None
-                     or (self.dtype == "sq8" and self.rerank == "score")))
+        (``ivf.py:304-337``, the TPU routing, read at each layout): only
+        euclidean PQ / OPQ and sq8 qualify, then in the JAX order
+
+        1. ``SMQTK_TPU_NO_ROWS_TILED`` set: row-major;
+        2. ``SMQTK_TPU_ROWS_TILED`` set: tiled;
+        3. sq8 without score finalization (score mode exists only on the
+           tiled engine): row-major;
+        4. otherwise tiled (K7 / K8) unless ``SMQTK_TPU_NO_DMA_IVF`` is
+           set.
+        """
+        if self.storage != "rows" \
+                or (self.dtype != "sq8" and self._pq_m(self.dtype) is None) \
+                or self.metric != "euclidean" \
+                or os.environ.get("SMQTK_TPU_NO_ROWS_TILED"):
+            return False
+        if os.environ.get("SMQTK_TPU_ROWS_TILED"):
+            return True
+        if self.dtype == "sq8" and self.rerank != "score":
+            return False
+        return tpu_kernel_enabled("SMQTK_TPU_NO_DMA_IVF")
 
     def _reset_state(self) -> None:
         # Host source of truth, in list-sorted order.

@@ -34,9 +34,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("segment_minima.cu", "segment_minima_wgmma.cu",
            "segment_minima_tiled.cu", "segment_minima_tiled_wgmma.cu",
-           "stage1_variants.cu", "ivf_list_scores.cu",
-           "ivf_list_scores_tiled.cu", "ivf_list_scores_tiled_pq.cu",
-           "seg_gather.cu")
+           "ivf_list_scores.cu", "ivf_list_scores_tiled.cu",
+           "ivf_list_scores_tiled_pq.cu", "seg_gather.cu")
 #: Headers the sources include; hashed with them.
 HEADERS = ("scan_loads.cuh", "tiled_minima.cuh", "wgmma.cuh",
            "wgmma_minima.cuh")

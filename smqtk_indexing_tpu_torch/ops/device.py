@@ -8,6 +8,8 @@ packages pad and grow their stores identically. The device side is new:
 an explicit ``torch.device`` everywhere, the kernel tier read from where
 the tensors live, and full-f32 matrix products on the card.
 
+``tpu_kernel_enabled`` reads the JAX package's kernel opt-outs
+(``SMQTK_TPU_NO_FUSED``, ``SMQTK_TPU_NO_DMA_IVF``) per call, as there.
 ``stage1_precision`` reads ``SMQTK_TPU_STAGE1`` as the JAX package's does
 (``ops/device.py:80-94``): the f32 flat store's stage-1 dot mode, read per
 query. ``split3`` (the default) and ``native`` run on the tensor cores
@@ -137,6 +139,19 @@ def device_report(device, flags: tuple = ()) -> dict:
         "disabled_flags": disabled,
         "degraded": tier != "cuda" or bool(disabled),
     }
+
+
+def tpu_kernel_enabled(env_flag: str) -> bool:
+    """Gate of an optional kernel route (``ops/device.py:148-158`` of the
+    JAX package, under its name): False when ``env_flag`` is set in the
+    environment, read at each call.
+
+    It reads only the switch: the stores and indexes keep the TPU routing
+    on every device, so that a CPU tensor takes the kernel's plain version
+    along the same route, and only the switch sends a query to the plain
+    route.
+    """
+    return not os.environ.get(env_flag)
 
 
 #: Stage-1 dot modes for an f32 database, cheapest first

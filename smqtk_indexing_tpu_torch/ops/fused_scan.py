@@ -118,15 +118,14 @@ _TILED_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16",
 
 #: The form of the kernel each stage-1 C entry point launches, by the
 #: source that defines it and the instruction its products run on: ``ffma``
-#: (``segment_minima.cu``, ``segment_minima_tiled.cu``,
-#: ``stage1_variants.cu``), ``wgmma`` (a bf16 query on the tensor cores),
-#: ``wgmma_s8`` (an int8 query on the tensor cores; both
-#: ``segment_minima_wgmma.cu``, ``segment_minima_tiled_wgmma.cu``),
+#: (``segment_minima.cu``, ``segment_minima_tiled.cu``), ``wgmma`` (a bf16
+#: query on the tensor cores), ``wgmma_s8`` (an int8 query on the tensor
+#: cores; both ``segment_minima_wgmma.cu``,
+#: ``segment_minima_tiled_wgmma.cu``, K9's variants included), or
 #: ``wgmma_split3`` and ``wgmma_native`` (an f32 database split to bf16 on
-#: the tensor cores, ``segment_minima_wgmma.cu``), or ``i8i8`` (an int8
-#: query, ``__dp4a``: K9's ``stage1_variants.cu`` only). The launchers
-#: choose the entry point, take its form from here and give the query in
-#: the form's operand type.
+#: the tensor cores, ``segment_minima_wgmma.cu``). The launchers choose the
+#: entry point, take its form from here and give the query in the form's
+#: operand type.
 _ENTRY_FORM = {
     "segment_minima_f32": "ffma", "segment_minima_bf16": "wgmma",
     "segment_minima_i8": "wgmma", "segment_minima_i8i8": "wgmma_s8",
@@ -136,7 +135,7 @@ _ENTRY_FORM = {
        for entry in ("segment_minima_tiled", "segment_minima_tiled2")
        for suffix, form in (("f32", "ffma"), ("bf16", "ffma"),
                             ("i8", "wgmma"), ("i8i8", "wgmma_s8"))},
-    "stage1_variant_i8": "ffma", "stage1_variant_i8i8": "i8i8"}
+    "stage1_variant_i8": "wgmma", "stage1_variant_i8i8": "wgmma_s8"}
 
 #: The stage-1 wrappers: K1, K2, K4, K5.
 _STAGE1_WRAPPERS = ("segment_minima", "segment_minima_tiled",
@@ -798,10 +797,10 @@ def tiled_cuda(db3, db_sq, penalty, q, g: int, bw: int, *,
       float query as bf16, or with an int8 query (the int8 x int8 form,
       its products times ``scale``); over an f32 or bf16 database, FFMA
       (``csrc/segment_minima_tiled.cu``).
-    - ``variant`` one of ``csrc/tiled_minima.cuh``'s ``Variant`` values
-      (``csrc/stage1_variants.cu``, K9): that epilogue over int8 codes into
-      the step-major (n_steps, B, g) layout, FFMA or int8 x int8
-      (``__dp4a``); ``bw`` is 1 and the products are not scaled.
+    - ``variant`` one of ``csrc/segment_minima_tiled_wgmma.cu``'s
+      ``Variant`` values (K9): the same kernel with that epilogue, over
+      int8 codes into the step-major (n_steps, B, g) layout, with a bf16
+      or an int8 query; ``bw`` is 1 and the products are not scaled.
 
     The FFMA kernels read an f32 query (rounded to bf16 first for a bf16
     or int8 database), the ``wgmma`` ones a bf16 query, the int8 x int8
@@ -809,8 +808,7 @@ def tiled_cuda(db3, db_sq, penalty, q, g: int, bw: int, *,
 
     :return: (out (n_steps, B, g), group minima (n_steps, B, g // bw) or
         None for ``bw == 1``, the form of the entry point it launched:
-        ``ffma``, ``wgmma``, ``wgmma_s8`` or ``i8i8``, from
-        :data:`_ENTRY_FORM`).
+        ``ffma``, ``wgmma`` or ``wgmma_s8``, from :data:`_ENTRY_FORM`).
     :raises ValueError: the kernels cannot take these tensors.
     """
     n_tiles, d, tile_n = db3.shape

@@ -728,9 +728,9 @@ def _ivf_list_scores_tiled_pq_cuda(db3c, s2t, lut, ti, c0, lo,
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"ivf_list_scores_tiled_pq: {name} must be "
                              "contiguous and 16-byte aligned")
-    if b * -(-p // 8) >= 2 ** 31:
-        raise ValueError("ivf_list_scores_tiled_pq: grid exceeds 2^31 "
-                         "blocks")
+    if b >= 2 ** 31 or p >= 2 ** 31:
+        raise ValueError("ivf_list_scores_tiled_pq: 2^31 queries or slots "
+                         "a query, or more")
     ti, c0, lo, hi = (x.to(torch.int32).contiguous()
                       for x in (ti, c0, lo, hi))
     out = torch.empty((b, p, W_TILED), dtype=torch.float32,

@@ -24,6 +24,10 @@ routing of ``store.py:479-545``):
   switch, same name and values), read per query: ``split3`` by default,
   ``native`` or ``highest``.
 - float32 / bfloat16, hik, chi_square -> ``ops/scan.flat_topk``.
+- ``SMQTK_TPU_NO_FUSED`` set (the JAX store's opt-out, same name, read
+  per query) takes K1 out of both routes: float32 / bfloat16 go to
+  ``ops/scan.flat_topk`` for every metric, and sq8 runs ``sq8_topk``'s
+  streamed stage 1 (``fused=False``).
 - sq8 -> ``ops/sq8.sq8_topk``; euclidean and inner_product at a capacity
   past one 65,536-row block (and a multiple of 4096) run its stage 1
   through K1's int8 form over the row-major codes, or, with
@@ -51,6 +55,7 @@ import torch
 from smqtk_indexing_tpu_torch.ops import scan
 from smqtk_indexing_tpu_torch.ops.device import (
     capacity_for, pad_dim, pad_rows_np, resolve_device, stage1_precision,
+    tpu_kernel_enabled,
 )
 from smqtk_indexing_tpu_torch.ops.fused_scan import (
     FUSED_METRICS, flat_topk_fused, normalized_rows,
@@ -339,12 +344,20 @@ class VectorStore:
         self._dev_valid[start:stop] = True
         self._cos_mirror = None
 
+    def _fused_eligible(self, metric: str) -> bool:
+        """A float32 / bfloat16 query runs ``flat_topk_fused`` (K1) for
+        the matmul-form metrics unless ``SMQTK_TPU_NO_FUSED`` is set
+        (``store.py:76-87``), read per query."""
+        return (tpu_kernel_enabled("SMQTK_TPU_NO_FUSED")
+                and metric in FUSED_METRICS)
+
     def _sq8_fused_eligible(self, metric: str) -> bool:
         """The SQ8 scan's stage 1 runs through K1's int8 form
-        (``store.py:90-103``, the TPU routing): euclidean or
-        inner_product, a capacity past one streamed block and a multiple
-        of the TPU kernel's row tile."""
+        (``store.py:89-103``, the TPU routing): ``SMQTK_TPU_NO_FUSED``
+        unset, euclidean or inner_product, a capacity past one streamed
+        block and a multiple of the TPU kernel's row tile."""
         return (self._dtype_name == "sq8"
+                and tpu_kernel_enabled("SMQTK_TPU_NO_FUSED")
                 and metric in ("euclidean", "inner_product")
                 and self._capacity > DEFAULT_CHUNK
                 and self._capacity % _FUSED_TILE == 0)
@@ -399,7 +412,7 @@ class VectorStore:
                     self._dev, self._sq8_a, self._sq8_b, self._dev_sq,
                     self._dev_norm, self._dev_valid, qd, k=k_eff,
                     metric=metric, fused=fused, i8dot=i8dot)
-            elif metric in FUSED_METRICS:
+            elif self._fused_eligible(metric):
                 if metric == "cosine" and self._cos_mirror is None:
                     self._cos_mirror = normalized_rows(
                         self._dev, self._dev_norm, self._dev.dtype)

@@ -1,0 +1,220 @@
+"""
+Time K8 (``ops/ivf_scan.ivf_list_scores_tiled_pq``,
+``csrc/ivf_list_scores_tiled_pq.cu``) beside another checkout's K8 on one
+CUDA card: alone, and inside the IVF-PQ code tier's query, at the serving
+batch and at small ones.
+
+The index is ``chip_smoke.py``'s code tier: ``IvfNearestNeighborsIndex(
+n_lists=4096, dtype="opq16", storage="code", pq_residual=True,
+rerank="exact")`` over 1,000,000 x 96 vectors of ``bench_all.py``'s rank-8
+correlated recipe (seed 2, 1,024 held-out queries), built once with this
+checkout's package. ``--against CHECKOUT`` compiles that checkout's
+``csrc/ivf_list_scores_tiled_pq.cu`` alone into a library of its own (the
+C entry point keeps its name and signature), so that every case runs the
+same index, queries and Python with K8 from either library, in the order
+against, this, this, against. For each (nprobe, B) in :data:`CASES`:
+
+- ``k8_ms``: K8 alone on the windows of B queries
+  (``ivf_scan.tiled_windows_pq``, all B in one launch), the mean over
+  ``--reps`` launches between two CUDA events after a warm-up; ``equal``:
+  both libraries' outputs bit for bit;
+- ``query_ms``: ``nn_many`` over the same B queries, the median of
+  ``--query-reps`` calls (the index cuts a batch into launches that keep
+  its scores under ``ivf_scan.SCORE_BYTES``: ``launches``).
+
+    python -m smqtk_indexing_tpu_torch.tools.k8_times [--against CHECKOUT]
+        [--reps 20] [--query-reps 5]
+
+prints one JSON line: the card, the shapes, and each library's times in
+each case. It needs a card and raises without one.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import ctypes
+import json
+import statistics
+import subprocess
+import time
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+import torch
+
+from smqtk_indexing_tpu_torch.ops import _kernels, ivf_scan
+
+#: chip_smoke.py's IVF-PQ code tier: vectors, dims, lists, top-k.
+N, DIM, N_LISTS, K = 1_000_000, 96, 4096, 10
+#: (nprobe, B): the serving batch, then 128 queries and one, at the
+#: serving nprobe and at nprobe = n_lists (the exhaustive probe).
+CASES = ((16, 1024), (16, 128), (16, 1), (N_LISTS, 128), (N_LISTS, 1))
+ENTRY = "ivf_list_scores_tiled_pq"
+
+
+def pq_data(n: int = N, n_queries: int = 1024, dim: int = DIM):
+    """``bench_all.py``'s correlated recipe (``bench_all.py:65-85``; rank 8,
+    seed 2, scale 1.0): a 1,024-cluster mixture in a rank-8 latent space
+    mixed into ``dim`` dims; (vectors, held-out queries)."""
+    rng = np.random.default_rng(2)
+    n_clusters, rank, scale = 1024, 8, 1.0
+    total = n + n_queries
+    lat = rng.random((n_clusters, rank), dtype=np.float32) * scale
+    w = rng.standard_normal((rank, dim)).astype(np.float32) / np.sqrt(rank)
+    z = lat[rng.integers(0, n_clusters, size=total)]
+    z += rng.normal(size=(total, rank)).astype(np.float32) * (scale / 12)
+    pts = (z @ w + rng.normal(size=(total, dim)).astype(np.float32)
+           * (scale / 50)).astype(np.float32)
+    pts = pts[rng.permutation(total)]
+    return pts[:n], pts[n:]
+
+
+def build_entry(checkout: str):
+    """Compile ``checkout``'s K8 source alone into a library of its own
+    and return its C entry point, typed as this checkout's."""
+    csrc = Path(checkout) / "smqtk_indexing_tpu_torch" / "csrc"
+    out_dir = _kernels.BUILD_DIR / "k8_against"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib = out_dir / "libk8_against.so"
+    _kernels._run([[_kernels.nvcc(), *_kernels.NVCC_FLAGS, "-I", str(csrc),
+                    "-shared", "-o", str(lib),
+                    str(csrc / "ivf_list_scores_tiled_pq.cu")]])
+    fn = getattr(ctypes.CDLL(str(lib)), ENTRY)
+    fn.argtypes = _kernels._ENTRY_POINTS[ENTRY]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@contextlib.contextmanager
+def k8_from(fn):
+    """Route ``ivf_scan``'s K8 launches to ``fn`` (another library's entry
+    point) inside the block; every other kernel stays this checkout's."""
+    lib = _kernels.library()
+
+    class _Lib:
+        def __getattr__(self, name):
+            return fn if name == ENTRY else getattr(lib, name)
+
+    real = _kernels.library
+    _kernels.library = _Lib
+    try:
+        yield
+    finally:
+        _kernels.library = real
+
+
+def _k8_ms(fn, args, reps: int):
+    """K8 through the C entry point ``fn`` on the query's operands: (its
+    output, mean ms over ``reps`` launches)."""
+    db3c, s2t, lut, ti, c0, lo, hi = args
+    _, m_sub, tile_n = db3c.shape
+    b, p = ti.shape
+    codes = db3c.view(torch.uint8)
+    ti, c0, lo, hi = (x.to(torch.int32).contiguous()
+                      for x in (ti, c0, lo, hi))
+    out = torch.empty((b, p, ivf_scan.W_TILED), device=db3c.device)
+    stream = torch.cuda.current_stream(db3c.device).cuda_stream
+
+    def launch():
+        _kernels.check(fn(lut.data_ptr(), codes.data_ptr(), s2t.data_ptr(),
+                          ti.data_ptr(), c0.data_ptr(), lo.data_ptr(),
+                          hi.data_ptr(), out.data_ptr(), b, p, m_sub,
+                          tile_n, ivf_scan.W_TILED, db3c.device.index,
+                          stream), ENTRY)
+
+    launch()                                                  # warm-up
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        launch()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end) / reps
+
+
+def _query_ms(index, elems, reps: int):
+    """Median ms of ``nn_many`` over ``elems``, and its K8 launches."""
+    index.nn_many(elems, K)                                   # warm-up
+    before = ivf_scan.LAUNCHES[ENTRY]
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index.nn_many(elems, K)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), (ivf_scan.LAUNCHES[ENTRY]
+                                      - before) // reps
+
+
+def main(argv: Optional[list] = None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--against", default=None,
+                    help="time this checkout's K8 beside ours")
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--query-reps", type=int, default=5)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("k8_times needs a CUDA card")
+    from smqtk_indexing_tpu_torch.data import DescriptorMemoryElement
+    from smqtk_indexing_tpu_torch.models.nn_index.ivf import (
+        IvfNearestNeighborsIndex,
+    )
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    libs = {"this": _kernels.library().ivf_list_scores_tiled_pq}
+    if args.against:
+        libs["against"] = build_entry(args.against)
+    order = ["against", "this", "this", "against"] if args.against \
+        else ["this", "this"]
+    dev = torch.device("cuda")
+    data, queries = pq_data()
+    index = IvfNearestNeighborsIndex(
+        n_lists=N_LISTS, nprobe=16, kmeans_iterations=10,
+        max_points_per_centroid=64, random_seed=0, dtype="opq16",
+        storage="code", pq_residual=True, rerank="exact", device="cuda")
+    index.build_index([DescriptorMemoryElement(i, data[i])
+                       for i in range(N)])
+    q_elems = [DescriptorMemoryElement(("q", i), queries[i])
+               for i in range(len(queries))]
+    d_pad = index._centroids_np.shape[1]
+    q_pad = torch.from_numpy(
+        np.pad(queries, ((0, 0), (0, d_pad - DIM)))).to(dev)
+    result = {"card": smi, "against": args.against, "reps": args.reps,
+              "query_reps": args.query_reps, "m_sub":
+              int(index._dev3.shape[1]), "cases": []}
+    for nprobe, b in CASES:
+        _, lut, ti, c0, lo, hi, _ = ivf_scan.tiled_windows_pq(
+            index._cb_dev, index._perm_dev, index._dev_centroids,
+            index._slot_table, index._v_tile, index._v_col, index._v_len,
+            q_pad[:b], nprobe_orig=nprobe, residual=True)
+        k8_args = (index._dev3, index._s2t, lut, ti, c0, lo, hi)
+        index.nprobe = nprobe
+        case = {"nprobe": nprobe, "batch": b, "slots": int(ti.shape[1]),
+                "live": int((hi > lo).sum()),
+                **{f"{w}_{name}": [] for name in libs
+                   for w in ("k8_ms", "query_ms")}}
+        outs = {}
+        for name in order:
+            outs[name], ms = _k8_ms(libs[name], k8_args, args.reps)
+            case[f"k8_ms_{name}"].append(ms)
+            with k8_from(libs[name]):
+                ms, case["launches"] = _query_ms(index, q_elems[:b],
+                                                 args.query_reps)
+            case[f"query_ms_{name}"].append(ms)
+        if args.against:
+            case["equal"] = bool(torch.equal(outs["this"],
+                                             outs["against"]))
+        result["cases"].append(case)
+        del k8_args, lut, ti, c0, lo, hi, outs
+        torch.cuda.empty_cache()
+    print(json.dumps(result), flush=True)
+    return result
+
+
+if __name__ == "__main__":
+    main()

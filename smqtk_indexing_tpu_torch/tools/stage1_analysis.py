@@ -3,16 +3,19 @@ The stage-1 decomposition probe on one CUDA card: the port's counterpart of
 ``tools/stage1_analysis.py`` (K9, ``_run_variant`` -> ``_variant_kernel``).
 
 Where does the time of the capacity scan's stage 1 go: the products, the
-segment-minimum epilogue, or the bytes? Each variant runs the capacity
-stage 1 (``csrc/tiled_minima.cuh``) with one part changed, so that the
+segment-minimum epilogue, or the bytes? Each variant runs production's
+stage 1 on the tensor cores (``csrc/segment_minima_tiled_wgmma.cu``, the
+kernel of K2, K4 and K5) with its epilogue changed, so that the
 differences between their times split it:
 
-- ``full``: the production stage 1 (K5's minima);
+- ``full``: the production stage 1 (K2's instantiation itself, writing
+  K5's step-major minima);
 - ``folded``: no penalty (one score operand fewer);
 - ``nomin``: the first tile_n / 128 scores of each tile written in place of
   the segment minima (the products stay, the minimum goes);
 - ``nodot``: no products (``sq - 2 x[r, 0] + pen`` for every query; the
-  tile is still staged), the minimum stays: bytes + epilogue;
+  codes are still staged through shared memory), the minimum stays:
+  bytes, staging and epilogue;
 - ``bf16min``: each score rounded to bf16 before the minimum;
 - ``staged``, ``minfirst``: TPU instruction orders whose output is
   ``full``'s bit for bit; the port runs ``full``'s kernel for them and
@@ -20,21 +23,22 @@ differences between their times split it:
 
 :func:`run_variant` returns a variant's whole (n_steps, B, t_step * tile_n
 / 128) output, K5's step-major layout, and :func:`sum_first_column` the
-scalar the JAX probe reduces it to. On a CUDA tensor it runs
-``csrc/stage1_variants.cu`` through ``fused_scan.tiled_cuda``, the
-launcher of the kernels it shares with K2, K4 and K5; on a CPU tensor
+scalar the JAX probe reduces it to. On a CUDA tensor it runs the
+variant's instantiation of ``csrc/segment_minima_tiled_wgmma.cu`` through
+``fused_scan.tiled_cuda``, the launcher of K2, K4 and K5; on a CPU tensor
 :func:`run_variant_reference`.
 The query is f32 (rounded to bf16 over the int8 codes, as the JAX probe's
-main() runs it) or int8 (the int8 x int8 form).
+main() runs it: ``wgmma`` bf16) or int8 (the int8 x int8 form, ``wgmma``
+s8).
 
     python -m smqtk_indexing_tpu_torch.tools.stage1_analysis \\
         [--n-tiles 24576] [--reps 3] [--variants full,nodot]
 
 builds the capacity layout (24,576 tiles of (128, 4096) int8, 12.9 GB) on
 the card from a ``torch.Generator`` seeded with 0 and prints, as JSON
-lines, the card's ideal times (``stage1_ideal``), the production K2 time
-and each variant x t_step in {2, 4, 8}'s milliseconds and GB/s. It needs
-a card and raises without one.
+lines, the card's ideal times (``stage1_ideal``), the production K2 and
+K5 times and each variant x t_step in {2, 4, 8}'s milliseconds and GB/s.
+It needs a card and raises without one.
 """
 from __future__ import annotations
 
@@ -61,7 +65,8 @@ HBM_BYTES_S = 3.35e12
 BF16_FLOPS = 989e12
 INT8_OPS = 1979e12
 
-#: Each variant's epilogue in ``csrc/tiled_minima.cuh`` (``Variant``).
+#: Each variant's epilogue in ``csrc/segment_minima_tiled_wgmma.cu``
+#: (``Variant``).
 KERNEL_VARIANT = {"full": 0, "folded": 1, "nomin": 2, "nodot": 3,
                   "bf16min": 4, "staged": 0, "minfirst": 0}
 VARIANTS = tuple(KERNEL_VARIANT)
@@ -71,6 +76,14 @@ SAME_AS = {"staged": "full", "minfirst": "full"}
 #: Launches of K9's kernel by the variant it ran; the wrapper adds one
 #: where it launches and nowhere else.
 LAUNCHES = {v: 0 for v in VARIANTS if v not in SAME_AS}
+
+
+def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
+    """One bf16 unit in the last place of each value: 2^(e - 8) for |v| in
+    [2^(e - 1), 2^e), 0 at 0. ``bf16min``'s allowance against its plain
+    version: a score summed in f32 in another order and then rounded to
+    bf16 may land on the neighbouring bf16 (127.6 -> 127.5 or 128.0)."""
+    return torch.ldexp(torch.ones_like(v), torch.frexp(v)[1] - 8) * (v != 0)
 
 
 def steps(n_tiles: int, t_step: int) -> int:
@@ -104,6 +117,8 @@ def run_variant(db3: torch.Tensor, db_sq: torch.Tensor,
     :param t_step: tiles a step, halved until it divides n_tiles; it sets
         the output layout only.
     :return: (n_tiles / t_step, B, t_step * tile_n / 128) f32.
+    :raises ValueError: on CUDA tensors, a variant other than ``full`` (and
+        those run as it) given more than :data:`B` queries.
     :raises RuntimeError: on CUDA tensors, if the kernel cannot be built or
         launched. There is no fallback to the plain version.
     """
@@ -115,6 +130,10 @@ def run_variant(db3: torch.Tensor, db_sq: torch.Tensor,
     kv = KERNEL_VARIANT[variant]
     if kv == KERNEL_VARIANT["nomin"] and tile_n > SEG * SEG:
         raise ValueError(f"run_variant: nomin takes tile_n <= {SEG * SEG}")
+    if kv != KERNEL_VARIANT["full"] and q.shape[0] > B:
+        # Built for the probe's plan only (B <= 128, the query resident).
+        raise ValueError(f"run_variant: {variant} takes at most {B} "
+                         "queries")
     g = steps(n_tiles, t_step) * tile_n // SEG
     out, _, _ = fused_scan.tiled_cuda(db3, db_sq.reshape(-1),
                                       penalty.reshape(-1), q, g, 1,
@@ -276,12 +295,17 @@ def main(argv: Optional[list] = None) -> list:
           int8_gb=db3.numel() / 1e9, b=B,
           device=torch.cuda.get_device_name(db3.device))
     _emit(metric="stage1_ideal", **ideal(n, B))
-    def prod():
-        return fused_scan.segment_minima_tiled(db3, db_sq, penalty, q)
-    prod()                                                 # warm-up
-    prod_ms = _cuda_ms(prod, args.reps)
-    _emit(metric="stage1_production_ms", value=prod_ms,
-          gb_s=db3.numel() / 1e9 / (prod_ms / 1e3))
+    # Production's K2 (the JAX probe's number) and K5 on the same codes:
+    # K9's full is K2's instantiation with a step-major output.
+    for metric, prod in (
+            ("stage1_production_ms", lambda: fused_scan.segment_minima_tiled(
+                db3, db_sq, penalty, q)),
+            ("stage1_production_k5_ms", lambda: fused_scan
+             .segment_minima_tiled2(db3, db_sq, penalty, q))):
+        prod()                                             # warm-up
+        prod_ms = _cuda_ms(prod, args.reps)
+        _emit(metric=metric, value=prod_ms,
+              gb_s=db3.numel() / 1e9 / (prod_ms / 1e3))
     return sweep(db3, db_sq, penalty, q, args.reps, variants)
 
 

@@ -45,21 +45,24 @@ SOURCE = "segment_minima_tiled_wgmma.cu"
 KNOCKOUTS = {
     "full": (),
     "nofold": ((
-        "    fold_minima<kMTiles>(acc, scale, [&](int jj) {\n"
-        "      const float2 a = *reinterpret_cast<const float2*>(sq + 8 * jj);\n"
-        "      const float2 b = *reinterpret_cast<const float2*>(sq + kSeg + 8 * jj);\n"
-        "      return make_float4(a.x, a.y, b.x, b.y);\n"
-        "    }, m);\n",
+        "      fold_minima<kMTiles, V != kFolded, V == kBf16Min>(\n"
+        "          acc, scale, [&](int jj) {\n"
+        "            const float2 a = *reinterpret_cast<const float2*>(sq + 8 * jj);\n"
+        "            const float2 b = V == kFolded\n"
+        "                ? make_float2(0.0f, 0.0f)\n"
+        "                : *reinterpret_cast<const float2*>(sq + kSeg + 8 * jj);\n"
+        "            return make_float4(a.x, a.y, b.x, b.y);\n"
+        "          }, m);\n",
         "#pragma unroll\n"
-        "    for (int i = 0; i < kMTiles; ++i) {\n"
-        "      m[i][0] = acc[i][0];\n"
-        "      m[i][1] = acc[i][1];\n"
-        "    }\n"),),
+        "      for (int i = 0; i < kMTiles; ++i) {\n"
+        "        m[i][0] = acc[i][0];\n"
+        "        m[i][1] = acc[i][1];\n"
+        "      }\n"),),
     "nostage": ((
         "      store_codes(t + 1);\n"
         "      if (t + 2 < n_steps) load_codes();\n", ""),),
     "noproducts": ((
-        "        wgmma_step(acc[i], a_desc, b_desc, (c | k) != 0);\n",
+        "          wgmma_step(acc[i], a_desc, b_desc, (c | k) != 0);\n",
         ""),),
 }
 BATCHES = (128, 256)
@@ -68,35 +71,38 @@ ENTRIES = {"bf16": "segment_minima_tiled2_i8",
            "s8": "segment_minima_tiled2_i8i8"}
 
 
-def variant_source(name: str) -> str:
+def variant_source(name: str, source: str = SOURCE,
+                   knockouts: dict = KNOCKOUTS) -> str:
     """The kernel's source with ``name``'s knock-outs applied.
 
     :raises ValueError: a knock-out's text is not in the source (the
         kernel changed under this tool).
     """
-    text = (_kernels.CSRC / SOURCE).read_text()
-    for old, new in KNOCKOUTS[name]:
+    text = (_kernels.CSRC / source).read_text()
+    for old, new in knockouts[name]:
         if text.count(old) != 1:
             raise ValueError(f"{name}: the text to knock out is not in "
-                             f"{SOURCE} once")
+                             f"{source} once")
         text = text.replace(old, new)
     return text
 
 
-def build_variants() -> dict:
-    """Compile every variant into its own library, all at once.
+def build_variants(source: str = SOURCE, knockouts: dict = KNOCKOUTS
+                   ) -> dict:
+    """Compile every variant of ``source`` into its own library, all at
+    once (also ``tools/pq_adc_split.py``'s, for K8).
 
     :return: variant -> (library path, ptxas register and spill lines).
     """
     digest = hashlib.sha256()
-    for name in (SOURCE,) + _kernels.HEADERS:
+    for name in (source,) + _kernels.HEADERS:
         digest.update((_kernels.CSRC / name).read_bytes())
     out_dir = _kernels.BUILD_DIR / f"split_{digest.hexdigest()[:16]}"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in KNOCKOUTS:
+    for name in knockouts:
         src = out_dir / f"{name}.cu"
-        src.write_text(variant_source(name))
+        src.write_text(variant_source(name, source, knockouts))
         lib = out_dir / f"lib{name}.so"
         procs[name] = (lib, subprocess.Popen(
             [_kernels.nvcc(), *_kernels.NVCC_FLAGS, "-I",

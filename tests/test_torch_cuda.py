@@ -570,14 +570,11 @@ def _k8_inputs(m, n_tiles, b, p, seed):
     return db3c, s2t, lut, ti, c0, lo, hi
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("m", [16, 12, 64])
-def test_k8_matches_plain_version(card, m):
-    # M=64: a 64 KB table, past the 48 KB a block stages at once, so the
-    # kernel walks it in subspace chunks.
+def _k8_check(args, card):
+    """K8 on the card against its plain version and float64 (within 1e-5
+    of each score's sum of absolute terms); +inf exactly where float64 has
+    it. Returns the kernel's output."""
     from smqtk_indexing_tpu_torch.ops import ivf_scan
-    args = [torch.from_numpy(a).to(card)
-            for a in _k8_inputs(m, 3, 21, 37, seed=16 + m)]
     before = ivf_scan.LAUNCHES["ivf_list_scores_tiled_pq"]
     out = ivf_scan.ivf_list_scores_tiled_pq(*args)
     torch.cuda.synchronize()
@@ -585,14 +582,14 @@ def test_k8_matches_plain_version(card, m):
     ref = ivf_scan.ivf_list_scores_tiled_pq_reference(*args)
     assert ivf_scan.LAUNCHES["ivf_list_scores_tiled_pq"] == before + 1
     assert torch.equal(torch.isinf(out), torch.isinf(ref))
-    assert torch.isinf(out[:, 1]).all() and torch.isinf(out[:, -5:]).all()
-    # Against float64: within 1e-5 of each score's sum of absolute terms.
     db3c, s2t, lut, ti, c0, lo, hi = args
+    m = db3c.shape[1]
     lane = torch.arange(ivf_scan.W_TILED, device=card)
     cols = c0.long()[..., None] + lane
     codes = db3c[ti.long()[..., None, None],
                  torch.arange(m, device=card)[:, None], cols[:, :, None]]
-    idx = (torch.arange(m, device=card)[:, None] * 256 + codes.long())
+    idx = (torch.arange(m, device=card)[:, None] * 256
+           + (codes.long() & 0xFF))
     vals = torch.gather(lut.double()[:, None, :].expand(-1, ti.shape[1], -1),
                         2, idx.flatten(2)).view(idx.shape)
     s2 = s2t[ti.long()[..., None], 0, cols].double()
@@ -603,6 +600,59 @@ def test_k8_matches_plain_version(card, m):
     fin = torch.isfinite(exact)
     assert ((out.double() - exact)[fin].abs() <= 1e-5 * mag[fin]).all()
     assert ((out - ref)[fin].abs() <= 1e-5 * mag[fin]).all()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [8, 12, 16, 32, 64, 96])
+def test_k8_matches_plain_version(card, m):
+    # M=96: a 96 KB table, past the 64 subspaces a block stages at once, so
+    # the kernel walks it in subspace chunks. 21 queries of 37 slots, each
+    # cut into runs of 8 (the last of 5): odd counts for the two windows a
+    # block scores at once.
+    args = [torch.from_numpy(a).to(card)
+            for a in _k8_inputs(m, 3, 21, 37, seed=16 + m)]
+    out = _k8_check(args, card)
+    assert torch.isinf(out[:, 1]).all() and torch.isinf(out[:, -5:]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,p", [(1, 1001), (3, 250), (1100, 10)])
+def test_k8_runs_of_slots(card, b, p):
+    # A query's slots are cut into runs, a block each, while the queries
+    # alone do not fill the card's resident blocks (8 an SM at M=16): one
+    # query's 1001 slots into runs of 8 (the last of 1), three queries'
+    # 250 into 32 runs each, and none cut where 1100 queries fill an H100.
+    _k8_check([torch.from_numpy(x).to(card)
+               for x in _k8_inputs(16, 4, b, p, seed=62 + b)], card)
+
+
+@pytest.mark.cuda
+def test_k8_one_block(card):
+    # One query, six slots: live windows at the last tile's end (slot 0)
+    # and tile 0's end (slot 2), the others dead.
+    _k8_check([torch.from_numpy(x).to(card)
+               for x in _k8_inputs(16, 2, 1, 6, seed=60)], card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [16, 96])
+def test_k8_dead_queries_inf_stats_and_tile_ends(card, m):
+    # Query 0 has no live slot (it stages no table, writes +inf); query 1
+    # scores windows that end at each tile's end, over rows whose stats
+    # are all +inf in tile 1; codes 128..255 everywhere in tile 0.
+    from smqtk_indexing_tpu_torch.ops.ivf_scan import TILE_ROWS, W_TILED
+    db3c, s2t, lut, ti, c0, lo, hi = _k8_inputs(m, 3, 9, 24, seed=61)
+    hi[0] = lo[0]
+    ti[1], c0[1], lo[1], hi[1] = np.arange(24) % 3, TILE_ROWS - W_TILED, 0, \
+        W_TILED
+    db3c[0] |= 0x80
+    s2t[1] = np.inf
+    out = _k8_check([torch.from_numpy(x).to(card)
+                     for x in (db3c, s2t, lut, ti, c0, lo, hi)], card)
+    assert torch.isinf(out[0]).all()
+    assert torch.isinf(out[1, 1::3]).all()
+    assert torch.isfinite(out[1, 0::3]).any()
 
 
 @pytest.mark.cuda
@@ -1182,22 +1232,64 @@ def test_k10_arms_match_plain_version(card):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("query", ["int8", "bf16"])
-def test_k9_variants_match_plain_versions(card, query):
+def test_k9_variants_one_block(card, query):
+    # One block a variant: 64 queries, one tile of 1024 rows (8 segments,
+    # so nomin fills 8 slots), d = 128.
     from smqtk_indexing_tpu_torch.tools import stage1_analysis as k9
-    codes, sq, pen, q = _i8i8_case(card, 6 * 4096, 200, seed=34)
+    codes, sq, pen, q = _i8i8_case(card, 1024, 64, seed=52)
+    if query == "bf16":
+        q = q.float() * 0.01
+    db3 = fused_scan.tiled_layout(codes, 1024)
+    for variant in ("full", "folded", "nomin", "nodot", "bf16min"):
+        out = k9.run_variant(db3, sq, pen, q, variant=variant, t_step=1)
+        torch.cuda.synchronize()
+        ref = k9.run_variant_reference(db3, sq, pen, q, variant=variant,
+                                       t_step=1)
+        assert out.shape == ref.shape == (1, 64, 8)
+        assert torch.equal(torch.isinf(out), torch.isinf(ref)), variant
+        fin = torch.isfinite(ref)
+        tol = 0.0 if query == "int8" or variant == "nodot" else \
+            STAGE1_RTOL * ref[fin].abs().max().item() + (
+                k9.bf16_ulp(ref[fin]) if variant == "bf16min" else 0.0)
+        assert ((out - ref)[fin].abs() <= tol).all(), variant
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t_step", [2, 4, 8])
+@pytest.mark.parametrize("query", ["int8", "bf16"])
+def test_k9_variants_match_plain_versions(card, query, t_step):
+    # Every variant on its instantiation of the tiled tensor-core kernel
+    # (wgmma bf16 or s8), over 8 tiles: t_step tiles a step. 120 queries:
+    # the variants but full are built for the probe's plan (at most 128
+    # queries resident), here with its second 64-row tile part empty.
+    from smqtk_indexing_tpu_torch.tools import stage1_analysis as k9
+    codes, sq, pen, q = _i8i8_case(card, 8 * 4096, 120, seed=34)
     if query == "bf16":
         q = torch.from_numpy(np.random.default_rng(35).normal(
-            size=(200, 128)).astype(np.float32)).to(card)
+            size=(120, 128)).astype(np.float32)).to(card)
     db3 = fused_scan.tiled_layout(codes)
+    form = "wgmma_s8" if query == "int8" else "wgmma"
+    k2 = fused_scan.segment_minima_tiled(db3, sq, pen, q)
     for variant in k9.VARIANTS:
         before = dict(k9.LAUNCHES)
-        out = k9.run_variant(db3, sq, pen, q, variant=variant, t_step=4)
+        out = k9.run_variant(db3, sq, pen, q, variant=variant,
+                             t_step=t_step)
         torch.cuda.synchronize()
         ran = k9.SAME_AS.get(variant, variant)
         assert k9.LAUNCHES[ran] == before[ran] + 1
+        assert fused_scan._ENTRY_FORM[
+            "stage1_variant_" + ("i8i8" if query == "int8" else "i8")] \
+            == form
         ref = k9.run_variant_reference(db3, sq, pen, q, variant=variant,
-                                       t_step=4)
-        assert out.shape == ref.shape == (3, 200, 64)
+                                       t_step=t_step)
+        assert out.shape == ref.shape == (8 // t_step, 120, 32 * t_step)
+        if ran == "full":
+            # Production's K2, bit for bit: the same instantiation.
+            assert torch.equal(out.transpose(0, 1).reshape(120, -1), k2)
+            full = out
+        if variant == "bf16min":
+            # The same products, each score rounded: full's rounded.
+            assert torch.equal(out, full.to(torch.bfloat16).float())
         assert torch.equal(torch.isinf(out), torch.isinf(ref)), variant
         if query == "int8" or variant == "nodot":
             assert torch.equal(out, ref), variant
@@ -1207,8 +1299,15 @@ def test_k9_variants_match_plain_versions(card, query):
         tol = STAGE1_RTOL * ref[fin].abs().max().item()
         if variant == "bf16min":
             # f32 sums in another order may round to the neighbouring bf16.
-            tol = tol + 2.0 ** -8 * ref[fin].abs()
+            tol = tol + k9.bf16_ulp(ref[fin])
         assert (err <= tol).all(), variant
+    # Past the probe's plan: full (K2's own) runs, the others refuse.
+    q2 = torch.cat([q, q])
+    out = k9.run_variant(db3, sq, pen, q2, variant="full", t_step=t_step)
+    assert torch.equal(out.transpose(0, 1).reshape(240, -1),
+                       fused_scan.segment_minima_tiled(db3, sq, pen, q2))
+    with pytest.raises(ValueError, match="at most 128"):
+        k9.run_variant(db3, sq, pen, q2, variant="nodot", t_step=t_step)
     with pytest.raises(ValueError, match="CUDA"):
         k9.sweep(db3.cpu(), sq.cpu(), pen.cpu(), q.cpu())
     rows = k9.sweep(db3, sq, pen, q, reps=1, variants=("full", "staged"),
@@ -1281,3 +1380,111 @@ def test_capacity_module_i8dot_on_card_at_a_mini_size(card):
     ms = capacity_100m.stages(cap, reps=1, i8dot=True)
     assert _launched(before)[("segment_minima_tiled", "wgmma_s8")] > 0
     assert all(v > 0 for v in ms.values())
+
+
+# ---------------------------------------------------------------------------
+# The JAX kernel opt-outs: the same route as the JAX package, on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "sq8"])
+def test_flat_store_honours_no_fused(card, monkeypatch, dtype):
+    # 70,000 rows: the sq8 store's capacity (131,072) takes K1's int8
+    # form. Under SMQTK_TPU_NO_FUSED no K1 form launches and the results
+    # are the CPU store's under the same switch.
+    from smqtk_indexing_tpu_torch.ops.store import VectorStore
+    rng = np.random.default_rng(70)
+    x = rng.random((70000, 48), dtype=np.float32)
+    q = rng.random((9, 48), dtype=np.float32)
+    stores = {dev: VectorStore(dtype, device=dev) for dev in (card, "cpu")}
+    for s in stores.values():
+        s.build(x, list(range(len(x))))
+        s.remove(list(range(0, len(x), 17)))
+    before = dict(fused_scan.LAUNCHES)
+    stores[card].knn(q, 10, "euclidean")
+    assert sum(_launched(before).values()) == 1
+    monkeypatch.setenv("SMQTK_TPU_NO_FUSED", "1")
+    for metric in ("euclidean", "inner_product"):
+        before = dict(fused_scan.LAUNCHES)
+        d_g, u_g, _ = stores[card].knn(q, 10, metric)
+        assert _launched(before) == {}
+        d_c, u_c, _ = stores["cpu"].knn(q, 10, metric)
+        assert_same_neighbours(np.array(u_g), d_g, np.array(u_c), d_c,
+                               DIST_RTOL, 1e-5)
+    report = FlatNearestNeighborsIndex.usability_report()
+    assert report["disabled_flags"] == ["SMQTK_TPU_NO_FUSED"]
+    assert report["degraded"] and report["kernel_tier"] == "cuda"
+
+
+def _ivf_switch_case(card, monkeypatch, switch, dtype, rerank):
+    """A rows-tier index on the card and on the CPU, the card's loading
+    the CPU's payload, with ``switch`` set before either lays out; their
+    launches of ivf_scan's kernels (card) over one query batch, and their
+    results."""
+    from smqtk_indexing_tpu_torch.data.data_element import DataMemoryElement
+    from smqtk_indexing_tpu_torch.models.nn_index.ivf import (
+        IvfNearestNeighborsIndex,
+    )
+    from smqtk_indexing_tpu_torch.ops import ivf_scan
+    monkeypatch.setenv(switch, "1")
+    rng = np.random.default_rng(71)
+    centres = rng.random((32, 96), dtype=np.float32)
+    x = (centres[rng.integers(0, 32, size=6000)]
+         + rng.normal(size=(6000, 96)) / 12).astype(np.float32)
+    els = [DescriptorMemoryElement(i, x[i]) for i in range(6000)]
+    kw = dict(n_lists=16, nprobe=4, random_seed=0, dtype=dtype,
+              storage="rows", rerank=rerank, pq_residual=dtype == "pq16")
+    elem = DataMemoryElement()
+    cpu = IvfNearestNeighborsIndex(index_element=elem, device="cpu", **kw)
+    cpu.build_index(els)
+    gpu = IvfNearestNeighborsIndex(
+        index_element=DataMemoryElement(elem.get_bytes()), device="cuda",
+        **kw)
+    before = dict(ivf_scan.LAUNCHES)
+    res = gpu.nn_many(els[1:80:2], 10)
+    launched = {k: n - before[k] for k, n in ivf_scan.LAUNCHES.items()
+                if n != before[k]}
+    ref = cpu.nn_many(els[1:80:2], 10)
+    report = IvfNearestNeighborsIndex.usability_report()
+    # The JAX index lists its two opt-outs; SMQTK_TPU_ROWS_TILED forces a
+    # kernel route and is not one.
+    listed = switch != "SMQTK_TPU_ROWS_TILED"
+    assert (switch in report["disabled_flags"]) == listed
+    assert report["degraded"] == listed
+    return gpu, launched, [
+        (np.array([[e.uuid() for e in r[0]] for r in rr]),
+         np.array([r[1] for r in rr])) for rr in (res, ref)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rerank", [("float32", "exact"),
+                                          ("sq8", "score"),
+                                          ("pq16", "exact")])
+def test_ivf_rows_tier_honours_no_dma_ivf(card, monkeypatch, dtype, rerank):
+    # No K6, and no tiled routing (K7 / K8): the plain list gathers.
+    gpu, launched, ((u_g, d_g), (u_c, d_c)) = _ivf_switch_case(
+        card, monkeypatch, "SMQTK_TPU_NO_DMA_IVF", dtype, rerank)
+    assert gpu._dev3 is None and launched == {}
+    assert u_g.shape == (40, 10) and np.isfinite(d_g).all()
+    if dtype != "pq16":  # a PQ codec trained on each device differs
+        assert_same_neighbours(u_g, d_g, u_c, d_c, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_ivf_rows_tier_honours_no_rows_tiled(card, monkeypatch):
+    # sq8 score mode lays out row-major and takes K6, not K7.
+    gpu, launched, ((u_g, d_g), (u_c, d_c)) = _ivf_switch_case(
+        card, monkeypatch, "SMQTK_TPU_NO_ROWS_TILED", "sq8", "score")
+    assert gpu._dev3 is None and launched == {"ivf_list_scores": 1}
+    assert_same_neighbours(u_g, d_g, u_c, d_c, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_ivf_rows_tier_honours_rows_tiled(card, monkeypatch):
+    # sq8 exact mode, which the rows tier lays out row-major, is forced
+    # onto the tiled engine: K7, then K3 for the exact re-rank.
+    gpu, launched, ((u_g, d_g), (u_c, d_c)) = _ivf_switch_case(
+        card, monkeypatch, "SMQTK_TPU_ROWS_TILED", "sq8", "exact")
+    assert gpu._dev3 is not None
+    assert launched == {"ivf_list_scores_tiled": 1}
+    assert_same_neighbours(u_g, d_g, u_c, d_c, rtol=1e-4, atol=1e-4)

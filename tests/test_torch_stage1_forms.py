@@ -44,9 +44,8 @@ def test_entry_form_follows_the_source_that_defines_it(entry):
     files = _defined_entries().get(entry, [])
     assert len(files) == 1, f"{entry} defined in {files}"
     assert entry in _kernels._ENTRY_POINTS
-    # An int8 query runs wgmma s8 in the tensor-core sources and __dp4a
-    # (K9's variant) elsewhere; an f32 database split to bf16 on the
-    # tensor cores names its precision.
+    # An int8 query runs wgmma s8 in the tensor-core sources; an f32
+    # database split to bf16 on the tensor cores names its precision.
     int8_query = entry.endswith("_i8i8")
     if files[0] in WGMMA_SOURCES:
         want = "wgmma_s8" if int8_query else "wgmma"
@@ -59,15 +58,19 @@ def test_entry_form_follows_the_source_that_defines_it(entry):
 
 
 def test_only_k9_keeps_the_dp4a_form():
-    # The four stage-1 wrappers run the tensor cores for an int8 query;
-    # the __dp4a form is K9's variant probe alone, and no launch count of
-    # the wrappers names it.
-    assert [e for e, f in fused_scan._ENTRY_FORM.items() if f == "i8i8"] \
-        == ["stage1_variant_i8i8"]
+    # The __dp4a form was K9's variant probe alone; K9 now runs the
+    # tensor-core kernel of K2, K4 and K5, so no entry point, launch count
+    # or source keeps __dp4a, and K9's int8 query runs wgmma s8.
+    assert "i8i8" not in fused_scan._ENTRY_FORM.values()
+    assert fused_scan._ENTRY_FORM["stage1_variant_i8i8"] == "wgmma_s8"
+    assert fused_scan._ENTRY_FORM["stage1_variant_i8"] == "wgmma"
     assert {f for _, f in fused_scan.LAUNCHES} == {
         "ffma", "wgmma", "wgmma_s8", "wgmma_split3", "wgmma_native", "copy"}
+    for path in CSRC.glob("*.cu*"):
+        assert "__dp4a" not in path.read_text(), path.name
+    assert not (CSRC / "stage1_variants.cu").exists()
     src = (CSRC / "segment_minima.cu").read_text()
-    assert "__dp4a" not in src and "i8i8" not in src
+    assert "i8i8" not in src
 
 
 def test_every_stage1_entry_has_a_form():

@@ -240,3 +240,46 @@ def test_k9_steps_variants_and_refusals():
     assert abs(ideal["tc_bf16_ms"] / ideal["tc_int8_ms"] - 1979 / 989) < 1e-9
     with pytest.raises(ValueError, match="CUDA"):
         stage1_analysis.sweep(*args)
+
+
+def test_k9_variant_map_matches_jax_and_the_kernel():
+    # Every variant of the JAX probe (its main()'s list) is one of the
+    # port's, each runs the tensor-core kernel's instantiation of the
+    # Variant value it names, and staged / minfirst run full's.
+    import ast
+    import re
+    src = open(os.path.join(REPO, "tools", "stage1_analysis.py")).read()
+    listed = re.search(r"all_variants = (\([^)]*\))", src).group(1)
+    assert set(ast.literal_eval(listed)) == set(stage1_analysis.VARIANTS)
+    cu = (stage1_analysis.fused_scan._kernels.CSRC
+          / "segment_minima_tiled_wgmma.cu").read_text()
+    enum = dict((name, int(v)) for name, v in re.findall(
+        r"(k\w+) = (\d)", cu[cu.index("enum Variant"):cu.index("};")]))
+    names = {"full": "kFull", "folded": "kFolded", "nomin": "kNoMin",
+             "nodot": "kNoDot", "bf16min": "kBf16Min"}
+    for variant, value in stage1_analysis.KERNEL_VARIANT.items():
+        ran = stage1_analysis.SAME_AS.get(variant, variant)
+        assert value == enum[names[ran]], variant
+        assert f"case {names[ran]}:\n      return launch<Q, {names[ran]}>(" \
+            in cu
+    assert set(stage1_analysis.LAUNCHES) == set(names)
+    for entry, q in (("stage1_variant_i8", "uint16_t"),
+                     ("stage1_variant_i8i8", "int8_t")):
+        body = cu[cu.index(f'extern "C" int {entry}('):]
+        assert f"return launch_probe<{q}>(" in body[:body.index("\n}")]
+
+
+def test_bf16_ulp_is_the_spacing_above_each_value():
+    # Every positive normal bf16 but the largest: the next bf16 up is the
+    # value plus its ulp; the same magnitude for the negative ones; 0 at 0.
+    bits = torch.arange(0x0080, 0x7F7F, dtype=torch.int32).to(torch.int16)
+    v = bits.view(torch.bfloat16).float()
+    up = (bits + 1).view(torch.bfloat16).float()
+    ulp = stage1_analysis.bf16_ulp(v)
+    assert torch.equal(ulp, up - v)
+    assert torch.equal(stage1_analysis.bf16_ulp(-v), ulp)
+    assert stage1_analysis.bf16_ulp(torch.zeros(1)).item() == 0.0
+    # The case that needs it: 127.6 rounds to 127.5, or past 128 to 128.0
+    # after a sum in another order; both lie within one ulp of 127.5.
+    assert stage1_analysis.bf16_ulp(torch.tensor([127.5])).item() == 0.5
+    assert stage1_analysis.bf16_ulp(torch.tensor([128.0])).item() == 1.0

@@ -524,7 +524,7 @@ def test_accumulator_fragment_and_quad_reduction():
     assert "__shfl_xor_sync(0xffffffffu, v, 1)" in SHARED_SRC
     assert "__shfl_xor_sync(0xffffffffu, v, 2)" in SHARED_SRC
     for src in (KERNEL_SRC, TILED_SRC):
-        assert "quad_min(m[i][h])" in src and "fold_minima<kMTiles>" in src
+        assert "quad_min(m[i][h])" in src and "fold_minima<kMTiles" in src
 
 
 WGMMA_SRC = (CSRC / "wgmma.cuh").read_text()
@@ -551,7 +551,9 @@ def test_s8_product_and_epilogue():
     # K1 passes scale 1, the tiled kernel its argument.
     assert "const float ip0 = inner(acc[i][4 * j + 2 * h], scale);" \
         in SHARED_SRC
-    assert "m[i][h] = fminf(m[i][h], (sp.x - 2.0f * ip0) + sp.z);" \
+    assert "m[i][h] = fminf(m[i][h], score(sp.x, ip0, sp.z));" \
+        in SHARED_SRC
+    assert "float v = sq - 2.0f * ip;\n    if constexpr (kPen) v = v + pen;" \
         in SHARED_SRC
     assert "fold_minima<kMTiles>(acc, 1.0f, [&](int j) {" in KERNEL_SRC
     assert "return static_cast<float>(acc) * scale;" in LOADS_SRC
@@ -668,7 +670,8 @@ TILED_LINES = (
     "constexpr bool kWiden = sizeof(Q) == 2;",
     "constexpr int kDims = chunk_dims<Q>();",
     "constexpr int kPiece = piece_dims<Q>();",
-    "fold_minima<kMTiles>(acc, scale, [&](int jj) {",
+    "fold_minima<kMTiles, V != kFolded, V == kBf16Min>(\n"
+    "          acc, scale, [&](int jj) {",
 )
 #: The query type of each form, as the tiled kernel's entry points
 #: instantiate it.
@@ -906,6 +909,15 @@ def _check_tiled_staging(tile_n: int, where: str, dim: int, form: str):
                 smem[stage + off:stage + off + 16] = v.view(np.uint8)
                 writes[off // 16] += 1
         assert (writes == 1).all()             # a bijection onto the stage
+        if c == 0:
+            # K9's nodot reads x[r, 0] of each row from here: the first
+            # element of the row's piece 0, widened back from bf16.
+            x0 = np.array([smem[stage + swizzle_offset(r, 0):][:elem]
+                           .view(NP_TYPE[form])[0]
+                           for r in range(T["kSeg"])])
+            if form == "bf16":
+                x0 = (x0.astype(np.uint32) << 16).view(np.float32)
+            np.testing.assert_array_equal(x0, seg_codes[:, 0])
         view = smem.view(NP_TYPE[form])
         for k in range(H["kSwizzleBytes"] // H["kKStepBytes"]):
             desc = smem_desc(stage + k * H["kKStepBytes"])
@@ -1075,3 +1087,98 @@ def test_tiled_outputs_are_each_written_once(case, n_queries):
             m1.reshape(n_steps, n_queries, g // bw, bw).min(-1))
     else:
         assert not n2.any()
+
+
+# -- K9: the variant epilogues of the tiled kernel --------------------------
+
+K9_LINES = (
+    "const int r = 8 * (e / 2) + 2 * (lane & 3) + e % 2;",
+    "const uint8_t* x = chunk0 + swizzle_offset(r, 0);",
+    "v = fminf(v, (a.x - 2.0f * x0[2 * jj]) + b.x);",
+    "if ((seg0 + j) % nseg_t == 0) {",
+    "const int col = 8 * jj + 2 * (lane & 3) + e;",
+    "if (col < nseg_t && qi < n_queries) {",
+    "out1[(step * n_queries + qi) * g + gi + col] =",
+    "(sv[e] - 2.0f * inner(acc[i][4 * jj + 2 * h + e],",
+    "V != kNoMin && (lane & 3) == 0 && qi < n_queries;",
+    "if (tid < (V == kFolded ? 1 : 2) * 32 && j < n_segs) {",
+    "(V == kNoMin && tile_n / kSeg > kSeg)) {",
+)
+
+
+def test_k9_epilogue_source_matches_the_model():
+    for line in K9_LINES:
+        assert line in TILED_SRC, line
+    # nodot's x0[2 jj + e] is column 8 jj + 2 (lane % 4) + e: the fold's
+    # fragment columns (test_accumulator_fragment_and_quad_reduction).
+    for lane in range(32):
+        cols = [8 * (e // 2) + 2 * (lane & 3) + e % 2 for e in range(32)]
+        assert cols == [8 * jj + 2 * (lane % 4) + e for jj in range(16)
+                        for e in range(2)]
+
+
+def k9_nomin_outputs(scores: np.ndarray, g: int, nseg_t: int, m_tiles: int):
+    """K9 nomin's writes over (B, N) scores: (out1, writes of each slot).
+    A block of a strip writes, for each of its segments that opens a
+    tile, the scores of the segment's rows below nseg_t into the tile's
+    slots, from the fragment's (query, column) map."""
+    n_queries, n_rows = scores.shape
+    n_seg = n_rows // T["kSeg"]
+    strip = T["kStrip"]
+    q_rows = 2 * T["kMTile"] * m_tiles
+    n_qtiles = -(-n_queries // q_rows)
+    out1 = np.full(n_seg * n_queries, np.nan)
+    n1 = np.zeros(out1.size, np.int64)
+    for blk in range(n_qtiles * -(-n_seg // strip)):
+        q0 = (blk % n_qtiles) * q_rows
+        seg0 = (blk // n_qtiles) * strip
+        for seg in range(seg0, min(seg0 + strip, n_seg)):
+            if seg % nseg_t:
+                continue
+            step, gi = divmod(seg, g)
+            for t in range(256):                     # two warpgroups
+                wg, warp, lane = t // 128, (t // 32) % 4, t % 32
+                for i in range(m_tiles):
+                    for h in range(2):
+                        qi = q0 + (wg * m_tiles + i) * T["kMTile"] \
+                            + warp * 16 + lane // 4 + 8 * h
+                        for jj in range(16):
+                            for e in range(2):
+                                col = 8 * jj + 2 * (lane & 3) + e
+                                if col < nseg_t and qi < n_queries:
+                                    idx = (step * n_queries + qi) * g \
+                                        + gi + col
+                                    out1[idx] = scores[qi, seg * 128 + col]
+                                    n1[idx] += 1
+    return out1, n1
+
+
+@pytest.mark.parametrize("t_step", [2, 4, 8])
+@pytest.mark.parametrize("n_queries", [1, 200])
+def test_k9_outputs_are_each_written_once(t_step, n_queries):
+    # K9 runs K2's strip of kStrip segments with g = t_step * tile_n / 128
+    # and bw = 1: every step-major slot once, for t_step 2 and 4 as for
+    # production's 8; nomin fills each tile's tile_n / 128 slots with its
+    # first rows' scores.
+    from smqtk_indexing_tpu_torch.tools.stage1_analysis import steps
+    n_tiles, tile_n = 12, 1024
+    nseg_t = tile_n // T["kSeg"]
+    n_seg = n_tiles * nseg_t
+    g = steps(n_tiles, t_step) * nseg_t
+    n_steps = n_seg // g
+    m_tiles, _, _ = tiled_plan(n_queries, 128)
+    m = np.random.default_rng(t_step).random((n_queries, n_seg))
+    out1, n1, _, n2 = tiled_outputs(m, g, 1, False, m_tiles)
+    assert (n1 == 1).all() and not n2.any()
+    np.testing.assert_array_equal(
+        out1.reshape(n_steps, n_queries, g),
+        m.reshape(n_queries, n_steps, g).transpose(1, 0, 2))
+    scores = np.random.default_rng(t_step + 1).random(
+        (n_queries, n_seg * T["kSeg"]))
+    out1, n1 = k9_nomin_outputs(scores, g, nseg_t, m_tiles)
+    assert (n1 == 1).all()
+    first = (np.arange(n_tiles)[:, None] * tile_n
+             + np.arange(nseg_t)).reshape(-1)
+    np.testing.assert_array_equal(
+        out1.reshape(n_steps, n_queries, g),
+        scores[:, first].reshape(n_queries, n_steps, g).transpose(1, 0, 2))
