@@ -17,8 +17,9 @@ not 0:
    int8 query, and K9's variants of that kernel), read with ``cuobjdump
    -sass`` (HGMMA for the bf16 products, IGMMA for the int8 ones), must
    not be 0 (and must be 0 in K9's ``nodot``, which takes no product),
-   and ptxas must report no spill in any of them (their registers are
-   printed);
+   and ptxas must report no spill in any of them nor in the IVF list
+   scans (K8, K7 and K6's f32, bf16 and int8 forms; their registers are
+   printed, and go on the IVF kernels' rows of the ``kernels`` line);
 2. flat kernels: K1 (``segment_minima``) against its plain PyTorch version
    at the flat path's shapes (B=2048 queries, N=1,048,576 rows, d=128; f32
    with dead rows in its three precisions: the exact FFMA form
@@ -55,9 +56,13 @@ not 0:
    be >= 0.95; then ``rerank="exact"`` on the same index (K3), whose
    recall must be no worse than score mode's less 0.01;
 5. IVF rows tier: ``storage="rows"`` with float32 and sq8 over the same
-   vectors at nprobe=4 (K6, ``ivf_list_scores``, held against its plain
-   version and float64 at each index's operands), then nprobe = n_lists
-   on 128 queries, which must give recall@10 = 1.0 for float32;
+   vectors at nprobe=4 (K6, ``ivf_list_scores``: its f32 and int8 forms
+   held against their plain versions and float64 at each index's
+   operands, and its bf16 form on the f32 index's rows cast to bf16),
+   then nprobe = n_lists on 128 queries, which must give recall@10 = 1.0
+   for float32, then two batches of the float32 index with its rows cast
+   to bf16 (K6's bf16 form), whose recall@10 must be within 0.02 of
+   float32's;
 6. IVF-PQ code tier: ``IvfNearestNeighborsIndex(n_lists=4096,
    nprobe=16, dtype="opq16", storage="code", pq_residual=True,
    rerank="exact", device="cuda")`` (the 'OPQ16,IVF4096,PQ16' by_residual
@@ -884,12 +889,13 @@ def ivf_phases(smi: str, dev) -> list:
     k7_bound = bound(cols * (d_k7 + 4) + 4 * t.numel() + 16 * ti.numel()
                      + 4 * ti.numel() * ivf_scan.W_TILED,
                      2.0 * d_k7 * pairs, FP32_FLOPS)
+    k7_live = int((hi > lo).sum())
     k7 = hold("ivf_list_scores_tiled",
               lambda: ivf_scan.ivf_list_scores_tiled(*k7_args),
               lambda: ivf_scan.ivf_list_scores_tiled_reference(*k7_args),
               smi, compare="f64", f64=lambda: _f64_tiled(*k7_args),
               shape=[IVF_BATCH, ti.shape[1], ivf_scan.W_TILED],
-              live_slots=int((hi > lo).sum()))
+              live_slots=k7_live)
     # K3 on the winner segments the exact re-rank gathers: the top k + 8
     # of those scores (k rounds up to 16 in the index).
     scores = ivf_scan.ivf_list_scores_tiled(*k7_args).reshape(IVF_BATCH, -1)
@@ -949,7 +955,10 @@ def ivf_phases(smi: str, dev) -> list:
     torch.cuda.empty_cache()
 
     # -- 5. the rows tier ----------------------------------------------
-    k6_rows, k6_bounds, k6_launches = [], [], 0
+    # K6's forms: f32 and int8 on their indexes' paths, bf16 on the f32
+    # index's rows cast to bf16 (held on the f32 path's operands, then
+    # driven through two batches on the cast rows).
+    k6 = {}
     for dtype in ("float32", "sq8"):
         index = IvfNearestNeighborsIndex(
             n_lists=IVF_LISTS, nprobe=IVF_NPROBE, kmeans_iterations=10,
@@ -966,28 +975,38 @@ def ivf_phases(smi: str, dev) -> list:
             index._dev, index._dev_centroids, index._dev_offsets,
             index._dev_lens, qd, n_probe=n_probe, first_virt=first_virt,
             nprobe_orig=nprobe_orig, dq=dq)
-        k6_args = (index._dev, t, a, starts, lo, hi)
         rows_read, pairs = distinct_positions(
             starts, lo, hi, ivf_scan.L_MAX, index._dev.shape[0])
-        k6_bounds.append(bound(
-            rows_read * index._dev.shape[1] * index._dev.element_size()
-            + 4 * (t.numel() + a.numel()) + 12 * starts.numel()
-            + 4 * starts.numel() * ivf_scan.L_MAX,
-            2.0 * index._dev.shape[1] * pairs, FP32_FLOPS))
-        k6_rows.append(hold(
-            "ivf_list_scores",
-            lambda: ivf_scan.ivf_list_scores(*k6_args),
-            lambda: ivf_scan.ivf_list_scores_reference(*k6_args),
-            smi, compare="f64", f64=lambda: _f64_rows(*k6_args),
-            dtype=dtype,
-            shape=[IVF_BATCH, n_probe, ivf_scan.L_MAX],
-            live_slots=int((hi > lo).sum())))
-        del k6_args, t, a, starts, lo, hi
+        form = "ivf_list_scores_f32" if dtype == "float32" \
+            else "ivf_list_scores_i8"
+        forms = [(form, index._dev)]
+        if dtype == "float32":
+            forms.append(("ivf_list_scores_bf16",
+                          index._dev.to(torch.bfloat16)))
+        for name, db in forms:
+            k6_args = (db, t, a, starts, lo, hi)
+            live = int((hi > lo).sum())
+            k6[name] = {
+                "hold": hold(
+                    name, lambda: ivf_scan.ivf_list_scores(*k6_args),
+                    lambda: ivf_scan.ivf_list_scores_reference(*k6_args),
+                    smi, compare="f64", f64=lambda: _f64_rows(*k6_args),
+                    dtype=str(db.dtype),
+                    shape=[IVF_BATCH, n_probe, ivf_scan.L_MAX],
+                    live_slots=live),
+                "bound": bound(
+                    rows_read * db.shape[1] * db.element_size()
+                    + 4 * (t.numel() + a.numel()) + 12 * starts.numel()
+                    + 4 * starts.numel() * ivf_scan.L_MAX,
+                    2.0 * db.shape[1] * pairs, FP32_FLOPS),
+                "live_slots": live, "launches": 0}
+            del k6_args, db
+        del forms, t, a, starts, lo, hi
         index.nn_many(q_elems, K)                          # warm-up
         reset_counts()
         res, batch_s, split_ms = _timed_batches(index, q_elems, 2)
         counts = read_counts()
-        k6_launches += counts["ivf_list_scores"]
+        k6[form]["launches"] += counts["ivf_list_scores"]
         rec = _checked(res, truth, IVF_BATCH)
         emit("main", path=f"ivf rows tier {dtype}", n=IVF_N, d=IVF_DIM,
              n_lists=IVF_LISTS, nprobe=IVF_NPROBE, batch=IVF_BATCH, k=K,
@@ -1002,20 +1021,38 @@ def ivf_phases(smi: str, dev) -> list:
             res = index.nn_many(q_elems[:N_ORACLE], K)
             ex_s = time.perf_counter() - t0
             counts = read_counts()
-            k6_launches += counts["ivf_list_scores"]
-            rec = _checked(res, truth, N_ORACLE)
+            k6[form]["launches"] += counts["ivf_list_scores"]
+            rec_ex = _checked(res, truth, N_ORACLE)
             emit("main", path="ivf rows tier float32, nprobe=n_lists",
-                 batch=N_ORACLE, k=K, batch_s=[ex_s], recall_at_10=rec,
+                 batch=N_ORACLE, k=K, batch_s=[ex_s], recall_at_10=rec_ex,
                  launches=counts, card=smi)
-            if rec != 1.0:
-                raise RuntimeError(f"exhaustive rows tier: recall@10 {rec}"
-                                   " != 1.0")
+            if rec_ex != 1.0:
+                raise RuntimeError(f"exhaustive rows tier: recall@10 "
+                                   f"{rec_ex} != 1.0")
+            # The same index over its rows cast to bf16: K6's bf16 form.
+            index.nprobe = IVF_NPROBE
+            index._dev = index._dev.to(torch.bfloat16)
+            index.nn_many(q_elems, K)                      # warm-up
+            reset_counts()
+            res, batch_s, split_ms = _timed_batches(index, q_elems, 2)
+            counts = read_counts()
+            k6["ivf_list_scores_bf16"]["launches"] += \
+                counts["ivf_list_scores"]
+            rec_bf16 = _checked(res, truth, IVF_BATCH)
+            emit("main", path="ivf rows tier float32 rows cast to bf16",
+                 nprobe=IVF_NPROBE, batch=IVF_BATCH, k=K, batch_s=batch_s,
+                 qps=IVF_BATCH / statistics.median(batch_s),
+                 split_ms=split_ms, recall_at_10=rec_bf16, launches=counts,
+                 card=smi)
+            if rec_bf16 < rec - 0.02:
+                raise RuntimeError(f"rows tier bf16: recall@10 {rec_bf16} "
+                                   f"< float32's {rec} - 0.02")
         del index, res
         torch.cuda.empty_cache()
 
     for name, n in (("ivf_list_scores_tiled", k7_launches),
                     ("seg_gather_tiled", k3_launches),
-                    ("ivf_list_scores", k6_launches)):
+                    *((name, row["launches"]) for name, row in k6.items())):
         if n == 0:
             raise RuntimeError(f"the IVF paths never launched {name}")
     return [
@@ -1023,19 +1060,22 @@ def ivf_phases(smi: str, dev) -> list:
          "source": "smqtk_indexing_tpu_torch/csrc/ivf_list_scores_tiled.cu",
          "replaces": "smqtk_indexing_tpu/ops/pallas_ivf.py:469",
          "launches": k7_launches, "max_abs_err": k7[0], "ms": k7[1],
-         "plain_ms": k7[2], **k7_bound, "library_ms": None},
+         "plain_ms": k7[2], **k7_bound, "library_ms": None,
+         "share": k7_bound["bound_ms"] / k7[1], "live_slots": k7_live},
         {"name": "seg_gather_tiled", "route": "cuda",
          "source": "smqtk_indexing_tpu_torch/csrc/seg_gather.cu",
          "replaces": "smqtk_indexing_tpu/ops/pallas_scan.py:406",
          "launches": k3_launches, "max_abs_err": k3[0], "ms": k3[1],
          "plain_ms": k3[2], **k3_bound, "library_ms": k3_library_ms},
-        {"name": "ivf_list_scores", "route": "cuda",
+    ] + [
+        {"name": name, "route": "cuda",
          "source": "smqtk_indexing_tpu_torch/csrc/ivf_list_scores.cu",
          "replaces": "smqtk_indexing_tpu/ops/pallas_ivf.py:128",
-         "launches": k6_launches,
-         "max_abs_err": max(r[0] for r in k6_rows), "ms": k6_rows[0][1],
-         "plain_ms": k6_rows[0][2], **k6_bounds[0], "library_ms": None},
-    ]
+         "launches": row["launches"], "max_abs_err": row["hold"][0],
+         "ms": row["hold"][1], "plain_ms": row["hold"][2], **row["bound"],
+         "library_ms": None, "share": row["bound"]["bound_ms"]
+         / row["hold"][1], "live_slots": row["live_slots"]}
+        for name, row in k6.items()]
 
 
 def pq_data():
@@ -1879,6 +1919,16 @@ def gmma_counts(kernels_mod) -> dict:
     return counts
 
 
+#: The IVF list scans' kernel functions (a part of each mangled name) ->
+#: their names in the build line and the kernels line: K8, K7, and K6's
+#: instantiations over f32 (f), bf16 bit patterns (t) and int8 (a).
+IVF_KERNELS = {"ivf_list_scores_tiled_pq_kernel": "ivf_list_scores_tiled_pq",
+               "ivf_list_scores_tiled_kernel": "ivf_list_scores_tiled",
+               "ivf_list_scores_kernelIfE": "ivf_list_scores_f32",
+               "ivf_list_scores_kernelItE": "ivf_list_scores_bf16",
+               "ivf_list_scores_kernelIaE": "ivf_list_scores_i8"}
+
+
 def ptxas_usage(log: str, kernel: str) -> dict:
     """Spill bytes (stores and loads) and registers of each entry function
     whose mangled name holds ``kernel``, from the build's ``ptxas -v``
@@ -1949,13 +1999,14 @@ def main() -> None:
         if len(found) != 1:
             raise RuntimeError(f"{name}: {len(found)} ptxas entries")
         usage[name] = next(iter(found.values()))
-    # K8 holds no wgmma, but its registers decide how many blocks share an
-    # SM; it must not spill either.
-    found = ptxas_usage(info["log"], "ivf_list_scores_tiled_pq_kernel")
-    if len(found) != 1:
-        raise RuntimeError(f"ivf_list_scores_tiled_pq: {len(found)} ptxas "
-                           "entries")
-    usage["ivf_list_scores_tiled_pq"] = next(iter(found.values()))
+    # The IVF list scans (K8, K7 and K6's three forms) hold no wgmma, but
+    # their registers decide how many blocks share an SM; they must not
+    # spill either.
+    for key, name in IVF_KERNELS.items():
+        found = ptxas_usage(info["log"], key)
+        if len(found) != 1:
+            raise RuntimeError(f"{name}: {len(found)} ptxas entries")
+        usage[name] = next(iter(found.values()))
     spills = {name: u.get("spill_bytes") for name, u in usage.items()}
     emit("build", seconds=time.perf_counter() - t0, nvcc=info["cmd"],
          ptxas=ptxas, gmma=gmma, wgmma_spill_bytes=spills,
@@ -1968,7 +2019,9 @@ def main() -> None:
         if op is not None and gmma[name].get(op, 0) == 0:
             raise RuntimeError(f"{name} holds no {op}: {gmma[name]}")
     if any(v != 0 for v in spills.values()):
-        raise RuntimeError(f"a wgmma kernel or K8 spills: {spills}")
+        raise RuntimeError(f"a wgmma or IVF kernel spills: {spills}")
+    ivf_registers = {name: usage[name]["registers"]
+                     for name in IVF_KERNELS.values()}
 
     t0 = time.perf_counter()
     kernels = flat_phases(smi, dev)
@@ -2001,6 +2054,9 @@ def main() -> None:
            for name, mod in sys.modules.items()):
         raise RuntimeError("jax was imported")
     emit("seconds", of="whole script", seconds=time.perf_counter() - t_start)
+    for row in kernels:
+        if row["name"] in ivf_registers:
+            row["registers"] = ivf_registers[row["name"]]
 
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

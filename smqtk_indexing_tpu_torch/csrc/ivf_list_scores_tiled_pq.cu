@@ -34,7 +34,8 @@
 //   queries alone fill the card (the serving batch); with fewer queries
 //   than resident blocks (a small batch, or thousands of slots a query
 //   under nprobe = n_lists) each query's slots are cut into runs of at
-//   least kMinRun, so that the grid still fills every SM once. A dead
+//   least kMinRun, so that the grid still fills every SM once
+//   (csrc/slot_runs.cuh, the plan K6 and K7 share). A dead
 //   slot's +inf goes out at once, so the dead slots' stores overlap the
 //   live windows' loads and lookups.
 //   (These stores alone run at half a fill's rate for the same bytes; the
@@ -71,6 +72,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "slot_runs.cuh"
 
 namespace {
 
@@ -322,24 +325,12 @@ extern "C" int ivf_list_scores_tiled_pq(
   }
   // Runs a query: as many as fill the card's resident blocks once, each of
   // at least kMinRun slots; one (all its slots) when the queries fill it.
-  int n_sm = 0;
-  int per_sm = 0;
-  cudaError_t err = cudaDeviceGetAttribute(
-      &n_sm, cudaDevAttrMultiProcessorCount, device);
+  int64_t run = 0;
+  int64_t runs = 0;
+  const cudaError_t err = plan_slot_runs(
+      ivf_list_scores_tiled_pq_kernel, kThreads, static_cast<size_t>(smem),
+      device, n_queries, n_probe, kMinRun, 1, &run, &runs);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, ivf_list_scores_tiled_pq_kernel, kThreads,
-      static_cast<size_t>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t resident =
-      static_cast<int64_t>(n_sm) * (per_sm > 0 ? per_sm : 1);
-  int64_t runs = resident / n_queries;
-  const int64_t most = (n_probe + kMinRun - 1) / kMinRun;
-  if (runs > most) runs = most;
-  if (runs > 65535) runs = 65535;  // gridDim.y
-  if (runs < 1) runs = 1;
-  const int64_t run = (n_probe + runs - 1) / runs;
-  runs = (n_probe + run - 1) / run;  // no empty run
   ivf_list_scores_tiled_pq_kernel<<<
       dim3(static_cast<unsigned>(n_queries), static_cast<unsigned>(runs)),
       kThreads, static_cast<size_t>(smem),

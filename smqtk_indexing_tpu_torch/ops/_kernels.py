@@ -37,8 +37,8 @@ SOURCES = ("segment_minima.cu", "segment_minima_wgmma.cu",
            "ivf_list_scores.cu", "ivf_list_scores_tiled.cu",
            "ivf_list_scores_tiled_pq.cu", "seg_gather.cu")
 #: Headers the sources include; hashed with them.
-HEADERS = ("scan_loads.cuh", "tiled_minima.cuh", "wgmma.cuh",
-           "wgmma_minima.cuh")
+HEADERS = ("scan_loads.cuh", "slot_runs.cuh", "tiled_minima.cuh",
+           "wgmma.cuh", "wgmma_minima.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                      "-Xptxas", "-v")

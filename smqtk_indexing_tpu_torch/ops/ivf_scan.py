@@ -303,6 +303,8 @@ def _ivf_list_scores_cuda(db, t, a, starts, lo, hi) -> torch.Tensor:
     if b * p >= 2 ** 31:
         raise ValueError("ivf_list_scores: grid exceeds 2^31 blocks")
     t, a = t.contiguous(), a.contiguous()
+    # The kernel reads t and a as 16-byte vectors: a copy aligns them.
+    t, a = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (t, a))
     starts, lo, hi = (x.to(torch.int32).contiguous()
                       for x in (starts, lo, hi))
     out = torch.empty((b, p, L_MAX), dtype=torch.float32, device=db.device)

@@ -31,19 +31,14 @@ each case. It needs a card and raises without one.
 from __future__ import annotations
 
 import argparse
-import contextlib
-import ctypes
 import json
-import statistics
-import subprocess
-import time
-from pathlib import Path
 from typing import Optional
 
 import numpy as np
 import torch
 
 from smqtk_indexing_tpu_torch.ops import _kernels, ivf_scan
+from smqtk_indexing_tpu_torch.tools import ivf_times
 
 #: chip_smoke.py's IVF-PQ code tier: vectors, dims, lists, top-k.
 N, DIM, N_LISTS, K = 1_000_000, 96, 4096, 10
@@ -51,6 +46,7 @@ N, DIM, N_LISTS, K = 1_000_000, 96, 4096, 10
 #: serving nprobe and at nprobe = n_lists (the exhaustive probe).
 CASES = ((16, 1024), (16, 128), (16, 1), (N_LISTS, 128), (N_LISTS, 1))
 ENTRY = "ivf_list_scores_tiled_pq"
+SOURCE = "ivf_list_scores_tiled_pq.cu"
 
 
 def pq_data(n: int = N, n_queries: int = 1024, dim: int = DIM):
@@ -68,40 +64,6 @@ def pq_data(n: int = N, n_queries: int = 1024, dim: int = DIM):
            * (scale / 50)).astype(np.float32)
     pts = pts[rng.permutation(total)]
     return pts[:n], pts[n:]
-
-
-def build_entry(checkout: str):
-    """Compile ``checkout``'s K8 source alone into a library of its own
-    and return its C entry point, typed as this checkout's."""
-    csrc = Path(checkout) / "smqtk_indexing_tpu_torch" / "csrc"
-    out_dir = _kernels.BUILD_DIR / "k8_against"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    lib = out_dir / "libk8_against.so"
-    _kernels._run([[_kernels.nvcc(), *_kernels.NVCC_FLAGS, "-I", str(csrc),
-                    "-shared", "-o", str(lib),
-                    str(csrc / "ivf_list_scores_tiled_pq.cu")]])
-    fn = getattr(ctypes.CDLL(str(lib)), ENTRY)
-    fn.argtypes = _kernels._ENTRY_POINTS[ENTRY]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@contextlib.contextmanager
-def k8_from(fn):
-    """Route ``ivf_scan``'s K8 launches to ``fn`` (another library's entry
-    point) inside the block; every other kernel stays this checkout's."""
-    lib = _kernels.library()
-
-    class _Lib:
-        def __getattr__(self, name):
-            return fn if name == ENTRY else getattr(lib, name)
-
-    real = _kernels.library
-    _kernels.library = _Lib
-    try:
-        yield
-    finally:
-        _kernels.library = real
 
 
 def _k8_ms(fn, args, reps: int):
@@ -123,29 +85,7 @@ def _k8_ms(fn, args, reps: int):
                           tile_n, ivf_scan.W_TILED, db3c.device.index,
                           stream), ENTRY)
 
-    launch()                                                  # warm-up
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        launch()
-    end.record()
-    end.synchronize()
-    return out, start.elapsed_time(end) / reps
-
-
-def _query_ms(index, elems, reps: int):
-    """Median ms of ``nn_many`` over ``elems``, and its K8 launches."""
-    index.nn_many(elems, K)                                   # warm-up
-    before = ivf_scan.LAUNCHES[ENTRY]
-    times = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        index.nn_many(elems, K)
-        times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times), (ivf_scan.LAUNCHES[ENTRY]
-                                      - before) // reps
+    return out, ivf_times.kernel_ms(launch, reps)
 
 
 def main(argv: Optional[list] = None) -> dict:
@@ -162,13 +102,11 @@ def main(argv: Optional[list] = None) -> dict:
         IvfNearestNeighborsIndex,
     )
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = ivf_times.card_name()
     libs = {"this": _kernels.library().ivf_list_scores_tiled_pq}
     if args.against:
-        libs["against"] = build_entry(args.against)
+        libs["against"] = ivf_times.build_entries(
+            args.against, {ENTRY: (SOURCE, (ENTRY,))})[ENTRY]
     order = ["against", "this", "this", "against"] if args.against \
         else ["this", "this"]
     dev = torch.device("cuda")
@@ -202,9 +140,9 @@ def main(argv: Optional[list] = None) -> dict:
         for name in order:
             outs[name], ms = _k8_ms(libs[name], k8_args, args.reps)
             case[f"k8_ms_{name}"].append(ms)
-            with k8_from(libs[name]):
-                ms, case["launches"] = _query_ms(index, q_elems[:b],
-                                                 args.query_reps)
+            with ivf_times.entries_from({ENTRY: libs[name]}):
+                ms, case["launches"] = ivf_times.query_ms(
+                    index, q_elems[:b], args.query_reps, ENTRY)
             case[f"query_ms_{name}"].append(ms)
         if args.against:
             case["equal"] = bool(torch.equal(outs["this"],

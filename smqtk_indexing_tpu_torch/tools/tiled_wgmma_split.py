@@ -34,6 +34,7 @@ import ctypes
 import hashlib
 import json
 import subprocess
+from pathlib import Path
 from typing import Optional
 
 import torch
@@ -72,13 +73,14 @@ ENTRIES = {"bf16": "segment_minima_tiled2_i8",
 
 
 def variant_source(name: str, source: str = SOURCE,
-                   knockouts: dict = KNOCKOUTS) -> str:
-    """The kernel's source with ``name``'s knock-outs applied.
+                   knockouts: dict = KNOCKOUTS, csrc=None) -> str:
+    """The kernel's source (in ``csrc``, by default this checkout's
+    ``csrc/``) with ``name``'s knock-outs applied.
 
     :raises ValueError: a knock-out's text is not in the source (the
         kernel changed under this tool).
     """
-    text = (_kernels.CSRC / source).read_text()
+    text = Path(csrc or _kernels.CSRC, source).read_text()
     for old, new in knockouts[name]:
         if text.count(old) != 1:
             raise ValueError(f"{name}: the text to knock out is not in "
@@ -87,26 +89,30 @@ def variant_source(name: str, source: str = SOURCE,
     return text
 
 
-def build_variants(source: str = SOURCE, knockouts: dict = KNOCKOUTS
-                   ) -> dict:
-    """Compile every variant of ``source`` into its own library, all at
-    once (also ``tools/pq_adc_split.py``'s, for K8).
+def build_variants(source: str = SOURCE, knockouts: dict = KNOCKOUTS,
+                   csrc=None) -> dict:
+    """Compile every variant of ``source`` (in ``csrc``, by default this
+    checkout's ``csrc/``, whose headers it includes) into its own library,
+    all at once (also ``tools/pq_adc_split.py``'s, for K8, and
+    ``tools/ivf_scan_split.py``'s, for K6 and K7).
 
     :return: variant -> (library path, ptxas register and spill lines).
     """
+    csrc = Path(csrc or _kernels.CSRC)
     digest = hashlib.sha256()
     for name in (source,) + _kernels.HEADERS:
-        digest.update((_kernels.CSRC / name).read_bytes())
+        if (csrc / name).exists():
+            digest.update((csrc / name).read_bytes())
     out_dir = _kernels.BUILD_DIR / f"split_{digest.hexdigest()[:16]}"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in knockouts:
         src = out_dir / f"{name}.cu"
-        src.write_text(variant_source(name, source, knockouts))
+        src.write_text(variant_source(name, source, knockouts, csrc))
         lib = out_dir / f"lib{name}.so"
         procs[name] = (lib, subprocess.Popen(
             [_kernels.nvcc(), *_kernels.NVCC_FLAGS, "-I",
-             str(_kernels.CSRC), "-shared", "-o", str(lib), str(src)],
+             str(csrc), "-shared", "-o", str(lib), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     built = {}
     for name, (lib, proc) in procs.items():

@@ -441,6 +441,196 @@ def test_k6_matches_plain_version(card, dtype):
     assert (out - ref)[fin].abs().max().item() <= STAGE1_RTOL * scale
 
 
+def _k7_first_version(db3, s2t, t, ti, c0, lo, hi):
+    """K7's output as its first version computes it (a block a slot,
+    every column read): each column's sum_k t_k u_k as a chain of f32
+    fmas in the order k = 0 .. d - 1 from 0.0, then ``s2 - 2 acc``. Each
+    fma is emulated in float64, which holds ``acc + t_k u_k`` exactly
+    (asserted), so one rounding to f32 gives the fma's result."""
+    from smqtk_indexing_tpu_torch.ops.ivf_scan import W_TILED
+    lane = torch.arange(W_TILED, device=db3.device)
+    tt = ti.long()[..., None]
+    cols = c0.long()[..., None] + lane
+    acc = torch.zeros(cols.shape, dtype=torch.float64, device=db3.device)
+    for k in range(db3.shape[1]):
+        prod = t[:, k, None, None].double() * db3[tt, k, cols].double()
+        s = acc + prod
+        back = s - acc
+        assert ((acc - (s - back)) + (prod - back) == 0).all()
+        acc = s.float().double()
+    scores = s2t[tt, 0, cols] - 2.0 * acc.float()
+    ok = (lane >= lo[..., None]) & (lane < hi[..., None])
+    return torch.where(ok, scores, math.inf)
+
+
+def _k7_inputs(n_tiles, b, p, seed):
+    """K7's operands with a quarter of the slots dead inside each query's
+    run, query 1 (when there is one) without a live slot, and window
+    edges anywhere, most of them off the 16-column chunks."""
+    from smqtk_indexing_tpu_torch.ops.ivf_scan import W_TILED
+    db3, s2t, t, ti, c0, lo, hi = _tiled_inputs(n_tiles, b, p, seed)
+    rng = np.random.default_rng(seed + 1)
+    dead = rng.random((b, p)) < 0.25
+    dead[:, 0] = False
+    hi[dead] = lo[dead]
+    short = rng.random((b, p)) < 0.1                  # edges in one chunk
+    short[:, 0] = False
+    lo[short] = rng.integers(0, W_TILED - 16, size=short.sum())
+    hi[short] = lo[short] + rng.integers(0, 17, size=short.sum())
+    if b > 1:
+        hi[1] = lo[1]
+    return db3, s2t, t, ti, c0, lo, hi
+
+
+def _k7_check(args):
+    """K7 on the card: one launch, bit for bit its first version's output,
+    and within 1e-5 of the largest score of its plain version."""
+    from smqtk_indexing_tpu_torch.ops import ivf_scan
+    before = ivf_scan.LAUNCHES["ivf_list_scores_tiled"]
+    out = ivf_scan.ivf_list_scores_tiled(*args)
+    torch.cuda.synchronize()
+    assert ivf_scan.LAUNCHES["ivf_list_scores_tiled"] == before + 1
+    assert torch.equal(out, _k7_first_version(*args))
+    ref = ivf_scan.ivf_list_scores_tiled_reference(*args)
+    assert torch.equal(torch.isinf(out), torch.isinf(ref))
+    fin = torch.isfinite(ref)
+    if fin.any():
+        scale = ref[fin].abs().max().item()
+        assert (out - ref)[fin].abs().max().item() <= STAGE1_RTOL * scale
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,p", [(1, 1001), (3, 250), (1100, 10)])
+def test_k7_runs_of_slots(card, b, p):
+    # A block walks a run of one query's slots, 160 a pass: one query's
+    # 1001 slots over runs of 8 or more, three queries' 250, and 1100
+    # queries of 10 (one run a query, the queries fill the card).
+    args = [torch.from_numpy(x).to(card) for x in _k7_inputs(3, b, p, 70)]
+    out = _k7_check(args)
+    if b > 1:
+        assert torch.isinf(out[1]).all()
+
+
+@pytest.mark.cuda
+def test_k7_edges_dead_slots_and_the_last_tile(card):
+    # Window edges on and off the 16-column chunks, windows inside one
+    # chunk, empty windows between live ones, and windows ending at the
+    # last column of the last tile, at d=96 (the rows are read 8 ahead).
+    from smqtk_indexing_tpu_torch.ops.ivf_scan import TILE_ROWS, W_TILED
+    db3, s2t, t, ti, c0, lo, hi = _tiled_inputs(2, 4, 12, 71, d=96)
+    edges = [(0, 640), (16, 32), (17, 18), (15, 17), (5, 5), (0, 1),
+             (639, 640), (128, 129), (100, 356), (320, 320), (33, 639),
+             (624, 640)]
+    lo[:] = [e[0] for e in edges]
+    hi[:] = [e[1] for e in edges]
+    ti[:, ::3], c0[:, ::3] = 1, TILE_ROWS - W_TILED
+    hi[3] = lo[3]
+    out = _k7_check([torch.from_numpy(x).to(card)
+                     for x in (db3, s2t, t, ti, c0, lo, hi)])
+    assert torch.isinf(out[3]).all() and torch.isinf(out[:, 4]).all()
+
+
+def _k6_inputs(n, d, b, p, dtype, seed):
+    """K6's operands: random rows of ``dtype`` (int8 codes with a codec
+    scale), a quarter of the slots dead inside each query's run, query 1
+    (when there is one) without a live slot, window edges on and off the
+    32-row tiles, and slot 0 the window of the database's last rows."""
+    rng = np.random.default_rng(seed)
+    if dtype == "int8":
+        db = torch.from_numpy(rng.integers(-127, 128, size=(n, d))
+                              .astype(np.int8))
+        a = torch.from_numpy(rng.random(d).astype(np.float32) * 0.1)
+    else:
+        db = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)) \
+            .to(getattr(torch, dtype))
+        a = torch.ones(d)
+    t = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32))
+    starts = torch.from_numpy(
+        rng.integers(0, (n - 512) // 32 + 1, size=(b, p)) * 32).int()
+    lo = torch.from_numpy(rng.integers(0, 32, size=(b, p))).int()
+    hi = torch.clamp(lo + torch.from_numpy(
+        rng.integers(0, 481, size=(b, p))).int(), max=512)
+    short = torch.from_numpy(rng.random((b, p)) < 0.1)
+    lo[short] = torch.from_numpy(rng.integers(0, 500, size=int(short.sum()))
+                                 ).int()
+    hi[short] = lo[short] + torch.from_numpy(
+        rng.integers(0, 13, size=int(short.sum()))).int()
+    dead = torch.from_numpy(rng.random((b, p)) < 0.25)
+    hi[dead] = lo[dead]
+    starts[:, 0], lo[:, 0], hi[:, 0] = n - 512, 0, 512          # last rows
+    if b > 1:
+        hi[1] = lo[1]
+    return db, t, a, starts, lo, hi
+
+
+def _k6_check(args, card):
+    """K6 on the card: one launch, +inf exactly outside the windows, and
+    within 1e-5 of each score's sum of absolute terms of float64 and of
+    its plain version. Returns the kernel's output."""
+    from smqtk_indexing_tpu_torch.ops import ivf_scan
+    db, t, a, starts, lo, hi = args
+    before = ivf_scan.LAUNCHES["ivf_list_scores"]
+    out = ivf_scan.ivf_list_scores(*args)
+    torch.cuda.synchronize()
+    assert ivf_scan.LAUNCHES["ivf_list_scores"] == before + 1
+    ref = ivf_scan.ivf_list_scores_reference(*args)
+    lane = torch.arange(ivf_scan.L_MAX, device=card)
+    ok = (lane >= lo[..., None]) & (lane < hi[..., None])
+    assert torch.equal(torch.isinf(out), ~ok)
+    assert torch.equal(torch.isinf(ref), ~ok)
+    for q0 in range(0, t.shape[0], 64):
+        sl = slice(q0, q0 + 64)
+        u = db[starts[sl].long()[..., None] + lane].double()
+        au2 = ((u * a.double()) ** 2).sum(-1)
+        prod = u * t[sl, None, None, :].double()
+        exact = au2 - 2.0 * prod.sum(-1)
+        mag = au2 + 2.0 * prod.abs().sum(-1)
+        okq = ok[sl]
+        tol = 1e-5 * mag[okq]
+        assert ((out[sl].double() - exact)[okq].abs() <= tol).all()
+        assert ((out[sl] - ref[sl]).double()[okq].abs() <= tol).all()
+        del u, prod
+    return out
+
+
+K6_DTYPES = ["float32", "bfloat16", "int8"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", K6_DTYPES)
+@pytest.mark.parametrize("b,p", [(1, 1001), (3, 250), (1100, 10)])
+def test_k6_runs_of_slots(card, b, p, dtype):
+    # A block walks a run of one query's slots, 256 a pass: one query's
+    # 1001 slots over runs of 8 or more, three queries' 250, and 1100
+    # queries of 10 (one run a query, the queries fill the card).
+    args = [x.to(card) for x in _k6_inputs(8192, 128, b, p, dtype, 72)]
+    out = _k6_check(args, card)
+    if b > 1:
+        assert torch.isinf(out[1]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", K6_DTYPES)
+@pytest.mark.parametrize("d", [128, 256])
+def test_k6_edges_dead_slots_and_the_last_rows(card, d, dtype):
+    # Window edges on and off the 32-row tiles and the 16-byte pieces,
+    # one-row windows, empty windows between live ones, windows ending at
+    # the database's last row; t a slice of a larger batch.
+    db, t, a, starts, lo, hi = _k6_inputs(4096, d, 5, 13, dtype, 73 + d)
+    edges = [(0, 512), (31, 33), (32, 64), (5, 5), (0, 1), (511, 512),
+             (17, 18), (200, 200), (1, 480), (33, 63), (480, 512),
+             (64, 96), (3, 500)]
+    lo[:] = torch.tensor([e[0] for e in edges]).int()
+    hi[:] = torch.tensor([e[1] for e in edges]).int()
+    starts[:, ::4] = 4096 - 512
+    hi[2] = lo[2]
+    t_big = torch.cat([t, t]).to(card)
+    out = _k6_check([db.to(card), t_big[1:6], a.to(card), starts.to(card),
+                     lo.to(card), hi.to(card)], card)
+    assert torch.isinf(out[2]).all() and torch.isinf(out[:, 3]).all()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["int8", "bfloat16", "float32"])
 def test_k3_is_bit_equal_to_plain_version(card, dtype):
