@@ -110,6 +110,26 @@ not 0:
    prefix with both query forms, beside production's K2 and K5 times of
    the same form (``full`` must give K2's output bit for bit), and the K9
    sweep (every variant x t_step in {2, 4, 8}) on the resident index.
+11. hashing and LSH, at ``bench_all.py``'s LSH record's size
+   (``bench_all.py:122-175``, ``:355-420``): 1,000,000 x 128 rows of its
+   rank-None SIFT-shaped mixture (``lsh_data``, seed 0) and 1,024 held-out
+   queries; ``ItqFunctor(bit_length=128, random_seed=0)`` fitted on a
+   100,000-row sample in 50 iterations (fit seconds, cold and warm);
+   whether the native host library built; a ``LinearHashIndex`` over the
+   1M codes (~970K unique, capacity 2^20: the ±1 route) queried at
+   B=1024, top-16 (queries/s, median of 5; every launch K1's bf16 form);
+   on 128 queries its distances must equal the XOR route's on the same
+   card and a numpy byte-table popcount's, its codes below the 16th
+   distance theirs; K1 alone at (1024, 2^20, 128) held bit for bit
+   against its plain version (±1 products and their f32 sums are exact)
+   beside ``torch.mm`` bf16; then ``LSHNearestNeighborIndex(
+   distance_method="euclidean")`` over the 1M rows (build and fused-state
+   seconds, unique codes, l_max, engine), ``nn_many(., 10)`` at B=128 and
+   1,024, fused and under ``SMQTK_TPU_NO_LSH_FUSED=1`` (queries/s, K1
+   launches, span split, ``count()`` ms); on 128 queries every answer must
+   be valid against float64 for its choice among codes tied at the 10th
+   Hamming distance, and both paths equal where no code ties there;
+   recall@10 against float64 is printed, with no bar.
 
 Each path sets the kernels' launch counts to 0 just before it runs and
 reads them just after. Then a ``{"kernels": [...]}`` line with each
@@ -1860,6 +1880,312 @@ def capacity_phases(smi: str, dev) -> list:
     return out, launches["seg_gather_tiled:copy"]
 
 
+#: The hashing / LSH phase: ``bench_all.py``'s LSH record at its size
+#: (``bench_all.py:122-175`` and ``:355-420``): 1,000,000 x 128 rows of
+#: its rank-None SIFT-shaped mixture, ITQ-128 fitted on a 100,000-row
+#: sample in 50 iterations, Hamming top-16 at B=1024, LSH serving at n=10.
+LSH_N = 1_000_000
+LSH_DIM = 128
+LSH_BITS = 128
+LSH_QUERIES = 1024
+LSH_FIT_SAMPLE = 100_000
+LSH_HAMMING_K = 16
+LSH_REPS = 5
+
+
+def lsh_data():
+    """``bench_all._load_or_make("sift_base.fvecs", 1_000_000, 128, 218.0,
+    seed=0, nq=1024)`` without the file (``bench_all.py:65-91``, rank
+    None): 1,024 clusters, noise scale / 12, clipped to [0, scale],
+    shuffled; the queries are independent draws from the mixture."""
+    scale, n_clusters, total = 218.0, 1024, LSH_N + LSH_QUERIES
+    rng = np.random.default_rng(0)
+    centers = rng.random((n_clusters, LSH_DIM), dtype=np.float32) * scale
+    pts = centers[rng.integers(0, n_clusters, size=total)]
+    pts += rng.normal(size=(total, LSH_DIM)).astype(np.float32) \
+        * (scale / 12)
+    pts = np.clip(pts, 0, scale).astype(np.float32)
+    pts = pts[rng.permutation(total)]
+    return pts[:LSH_N], pts[LSH_N:]
+
+
+def popcount_rows(q_packed, table):
+    """Hamming distances of packed uint32 codes ``q_packed`` (B, W) to
+    ``table`` (N, W), by a byte table on the host: (B, N) int32."""
+    lut = np.array([bin(i).count("1") for i in range(256)], dtype=np.int32)
+    out = np.empty((q_packed.shape[0], table.shape[0]), dtype=np.int32)
+    t8 = table.view(np.uint8)
+    for i, qv in enumerate(q_packed.view(np.uint8)):
+        out[i] = lut[t8 ^ qv].sum(-1)
+    return out
+
+
+def timed(fn, reps: int, warm: bool = True):
+    """(the last result, host seconds of each of ``reps`` calls, after a
+    warm-up call unless ``warm`` is False); each call ends in a copy to
+    the host."""
+    if warm:
+        fn()
+    secs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        res = fn()
+        secs.append(time.perf_counter() - t0)
+    return res, secs
+
+
+def lsh_answer_ok(uids, dists, q64, ham_rows, d_n, x, k) -> bool:
+    """One query's LSH answer over the rows of ``x``: every row's code
+    within the n-th Hamming distance ``d_n`` (``ham_rows``: each row's
+    code distance), distances the float64 ones within REL_TOL, ascending,
+    and no row of a code strictly inside ``d_n`` left out with a smaller
+    distance than the last one returned."""
+    uids = np.asarray(uids, dtype=np.int64)
+    must = np.flatnonzero(ham_rows < d_n)
+    rows = np.union1d(must, uids)
+    exact = dict(zip(rows.tolist(), np.sqrt(
+        ((x[rows].astype(np.float64) - q64) ** 2).sum(1)).tolist()))
+    want = np.array([exact[u] for u in uids.tolist()])
+    ok = (bool((ham_rows[uids] <= d_n).all())
+          and np.allclose(dists, want, rtol=REL_TOL, atol=1e-4)
+          and list(dists) == sorted(dists)
+          and len(set(uids.tolist())) == len(uids)
+          and len(uids) >= min(k, len(must)))
+    if ok and len(uids) == k:
+        left = np.setdiff1d(must, uids)
+        ok = all(exact[r] >= dists[-1] - 1e-4 for r in left.tolist())
+    return ok
+
+
+def lsh_phases(smi: str, dev) -> list:
+    """Phase 11, hashing and LSH: ITQ-128, the code store's ±1 route (K1's
+    bf16 form) against its XOR route and a numpy popcount, K1 alone at the
+    Hamming shape, and ``LSHNearestNeighborIndex`` fused and two-call;
+    returns the kernels line's row of K1's bf16 form at the Hamming
+    shape."""
+    import torch
+    from smqtk_indexing_tpu_torch import native
+    from smqtk_indexing_tpu_torch.data import DescriptorMemoryElement
+    from smqtk_indexing_tpu_torch.models.hash_index.linear import (
+        LinearHashIndex,
+    )
+    from smqtk_indexing_tpu_torch.models.lsh_functor.itq import ItqFunctor
+    from smqtk_indexing_tpu_torch.models.nn_index.lsh import (
+        LSHNearestNeighborIndex,
+    )
+    from smqtk_indexing_tpu_torch.ops import fused_scan, itq
+    from smqtk_indexing_tpu_torch.ops.hamming import HOST_SCAN_MAX
+    from smqtk_indexing_tpu_torch.utils.bits import pack_bit_vectors_u32
+    from smqtk_indexing_tpu_torch.utils.tracing import COUNTERS
+
+    device = str(dev)
+    t0 = time.perf_counter()
+    data, queries = lsh_data()
+    elems = [DescriptorMemoryElement(i, data[i]) for i in range(LSH_N)]
+    emit("lsh data", n=LSH_N, d=LSH_DIM, queries=LSH_QUERIES,
+         native_available=native.available(),
+         seconds=time.perf_counter() - t0, card=smi)
+    if not native.available():
+        raise RuntimeError("the native host library did not build")
+
+    # -- (a) ITQ-128 and the Hamming engine ------------------------------
+    sample = data[np.random.default_rng(0).choice(
+        LSH_N, LSH_FIT_SAMPLE, replace=False)]
+    functor = ItqFunctor(bit_length=LSH_BITS, random_seed=0, device=device)
+    t0 = time.perf_counter()
+    functor.fit([DescriptorMemoryElement(i, v)
+                 for i, v in enumerate(sample)])
+    fit_s = time.perf_counter() - t0
+    # The same fit again, warm, on the device arrays alone.
+    x_dev = torch.from_numpy(sample).to(dev)
+    r_init = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (LSH_BITS, LSH_BITS)).astype(np.float32)).to(dev)
+    t0 = time.perf_counter()
+    mean_w, _ = itq.itq_fit(x_dev, r_init, bits=LSH_BITS, n_iter=50)
+    mean_w.cpu()
+    warm_fit_s = time.perf_counter() - t0
+    del x_dev
+    rot = functor.rotation.double()
+    ortho_err = (rot.T @ rot - torch.eye(LSH_BITS, dtype=torch.float64,
+                                         device=dev)).abs().max().item()
+    codes, hash_s = timed(lambda: functor.get_hash_batch(data), 1)
+    q_codes = functor.get_hash_batch(queries)
+    balance = codes.mean(0)
+    emit("itq", bits=LSH_BITS, sample=LSH_FIT_SAMPLE, iterations=50,
+         fit_s=fit_s, warm_fit_s=warm_fit_s, rotation_ortho_err=ortho_err,
+         hash_s=hash_s[0], hash_rows_per_s=LSH_N / hash_s[0],
+         bit_balance=[float(balance.min()), float(balance.max())],
+         card=smi)
+
+    hi = LinearHashIndex(device=device)
+    t0 = time.perf_counter()
+    hi.build_index(codes)
+    hi_build_s = time.perf_counter() - t0
+    store = hi._store
+    if not (store._mxu_eligible() and store.n_valid > HOST_SCAN_MAX):
+        raise RuntimeError(f"hash index capacity {store._capacity}: not "
+                           "served by the ±1 route")
+    reset_counts()
+    (dists_pm1, codes_pm1), knn_s = timed(
+        lambda: store.knn(q_codes, LSH_HAMMING_K), LSH_REPS)
+    pm1_counts = read_counts()
+    k1_ham = pm1_counts["segment_minima:wgmma"]
+    if k1_ham != LSH_REPS + 1 or sum(pm1_counts.values()) != k1_ham:
+        raise RuntimeError(f"±1 route: launches {pm1_counts}, not K1's "
+                           f"bf16 form once a query batch")
+    # The same 128 queries on the XOR route of the same store, and a
+    # numpy popcount over its host table: equal distances; codes may
+    # differ only among those at the 16th distance.
+    qo = q_codes[:N_ORACLE]
+    os.environ["SMQTK_TPU_NO_MXU_HAMMING"] = "1"
+    try:
+        (dists_xor, codes_xor), xor_s = timed(
+            lambda: store.knn(qo, LSH_HAMMING_K), 1)
+    finally:
+        os.environ.pop("SMQTK_TPU_NO_MXU_HAMMING", None)
+    xor_counts = read_counts()
+    if xor_counts != pm1_counts:
+        raise RuntimeError("the XOR route launched a kernel")
+    table_ham = popcount_rows(pack_bit_vectors_u32(qo), store._host)
+    oracle = np.sort(np.partition(table_ham, LSH_HAMMING_K, axis=1)
+                     [:, :LSH_HAMMING_K], axis=1)
+    same_d = bool(np.array_equal(dists_pm1[:N_ORACLE], oracle)
+                  and np.array_equal(dists_xor, oracle))
+    codes_ok = True
+    for i in range(N_ORACLE):
+        below = oracle[i] < oracle[i, -1]
+        got = codes_pm1[i]
+        codes_ok &= bool(
+            np.array_equal((qo[i] ^ got).sum(-1), oracle[i])
+            and {c.tobytes() for c in got[below]}
+            == {c.tobytes() for c in codes_xor[i][below]})
+    emit("hamming", n_codes=store.n_valid, capacity=store._capacity,
+         batch=LSH_QUERIES, k=LSH_HAMMING_K, build_s=hi_build_s,
+         batch_s=knn_s, qps=LSH_QUERIES / statistics.median(knn_s),
+         xor_batch_s_128=xor_s[0],
+         launches={key: n for key, n in pm1_counts.items() if n},
+         oracle_queries=N_ORACLE,
+         distances_equal=same_d, codes_equal_below_kth=codes_ok, card=smi)
+    if not (same_d and codes_ok):
+        raise RuntimeError("the ±1 route disagrees with the XOR route or "
+                           "numpy")
+
+    # K1 alone at the Hamming shape: bit for bit against its plain
+    # version (±1 products and their f32 sums are exact integers).
+    q_pm1 = torch.zeros((LSH_QUERIES, store._dev_pm1.shape[1]), device=dev)
+    q_pm1[:, :LSH_BITS] = torch.from_numpy(q_codes).to(dev).float() * 2 - 1
+    pen = torch.where(store._dev_valid, 0.0, math.inf)
+    args = (store._dev_pm1, store._dev_pm1_sq, pen, q_pm1)
+    n_pad = store._capacity
+    ham_lib_ms = library_mm(q_pm1.to(torch.bfloat16), store._dev_pm1.T)
+    ham_k1 = hold("segment_minima_bf16_hamming",
+                  lambda: fused_scan.segment_minima(*args),
+                  lambda: fused_scan.segment_minima_reference(*args), smi,
+                  compare="equal", shape=[LSH_QUERIES, n_pad, LSH_BITS],
+                  library_ms=ham_lib_ms)
+    del args, q_pm1, pen, hi, store
+    torch.cuda.empty_cache()
+
+    # -- (b) LSH serving ----------------------------------------------------
+    index = LSHNearestNeighborIndex(lsh_functor=functor, device=device,
+                                    distance_method="euclidean")
+    t0 = time.perf_counter()
+    index.build_index(elems)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    st = index._fused_ready(K, LSH_QUERIES)
+    state_s = time.perf_counter() - t0
+    if st is None or st["pm1"] is None:
+        raise RuntimeError("LSH: the fused serve is not eligible or not on "
+                           "the ±1 engine")
+    emit("lsh build", build_s=build_s, fused_state_s=state_s,
+         unique_codes=st["n_codes_live"], l_max=st["l_max"],
+         rows=len(st["row2elem"]), engine="mxu", card=smi)
+    q_elems = [DescriptorMemoryElement(("q", i), queries[i])
+               for i in range(LSH_QUERIES)]
+    # nn_many first asks count(), which sums the bucket sizes over every
+    # key of the KV store on the host.
+    _, count_s = timed(index.count, 3)
+    serve, serve_counts, serve_split = {}, {}, {}
+    for path in ("fused", "two_call"):
+        if path == "two_call":
+            os.environ["SMQTK_TPU_NO_LSH_FUSED"] = "1"
+        try:
+            for b in (128, LSH_QUERIES):
+                def run():
+                    return index.nn_many(q_elems[:b], K)
+                # The warm-up outside the counts and spans: the two-call
+                # path's first query builds its hash index.
+                run()
+                reset_counts()
+                COUNTERS.reset()
+                res, secs = timed(run, LSH_REPS if path == "fused" else 2,
+                                  warm=False)
+                serve[path, b] = (res, secs)
+                serve_counts[path, b] = read_counts()["segment_minima:wgmma"]
+                serve_split[f"{path}_b{b}"] = split_of_spans(
+                    ("lsh.query_batch", "hamming.knn"))
+        finally:
+            os.environ.pop("SMQTK_TPU_NO_LSH_FUSED", None)
+    k1_lsh = sum(serve_counts.values())
+    # Checks on the first N_ORACLE queries: each path's answer valid for
+    # its choice among codes tied at the 10th Hamming distance; both
+    # paths equal where no such tie exists; recall@10 against float64.
+    row_packed = pack_bit_vectors_u32(codes)
+    q_packed = pack_bit_vectors_u32(q_codes[:N_ORACLE])
+    truth = oracle_topk(data, queries[:N_ORACLE], K, "euclidean")
+    valid = {"fused": 0, "two_call": 0}
+    untied = agree = 0
+    for i in range(N_ORACLE):
+        ham_rows = popcount_rows(q_packed[i:i + 1], row_packed)[0]
+        s = np.partition(table_ham[i], K)[:K + 1]
+        s.sort()
+        d_n = s[K - 1]
+        answers = {}
+        for path in valid:
+            r = serve[path, LSH_QUERIES][0][i]
+            answers[path] = ([e.uuid() for e in r[0]], list(r[1]))
+            valid[path] += lsh_answer_ok(*answers[path],
+                                         queries[i].astype(np.float64),
+                                         ham_rows, d_n, data, K)
+        if s[K - 1] < s[K]:
+            untied += 1
+            (uf, df), (u2, d2) = answers["fused"], answers["two_call"]
+            agree += uf == u2 and np.allclose(df, d2, rtol=REL_TOL, atol=0)
+    recall10 = {path: recall([[e.uuid() for e in r[0]] for r in
+                              serve[path, LSH_QUERIES][0][:N_ORACLE]], truth)
+                for path in valid}
+    emit("lsh", n=LSH_N, k=K, qps={
+        f"{path}_b{b}": b / statistics.median(secs)
+        for (path, b), (_, secs) in serve.items()},
+        batch_s={f"{path}_b{b}": secs
+                 for (path, b), (_, secs) in serve.items()},
+        k1_launches={f"{path}_b{b}": n
+                     for (path, b), n in serve_counts.items()},
+        split_ms=serve_split, count_ms=1e3 * statistics.median(count_s),
+        valid_answers=valid, oracle_queries=N_ORACLE,
+        untied_queries=untied, fused_equals_two_call_untied=agree,
+        recall_at_10=recall10, card=smi)
+    if any(n != N_ORACLE for n in valid.values()) or agree != untied:
+        raise RuntimeError("LSH: an invalid answer, or the fused and "
+                           "two-call paths disagree")
+    if any(serve_counts[p, b] == 0 for p, b in serve_counts):
+        raise RuntimeError(f"LSH: a path never launched K1: {serve_counts}")
+    del index, serve, elems
+    torch.cuda.empty_cache()
+    err, ms, plain_ms = ham_k1
+    return [{"name": "segment_minima_bf16_hamming", "route": "cuda",
+             "source": "smqtk_indexing_tpu_torch/csrc/"
+                       "segment_minima_wgmma.cu",
+             "replaces": "smqtk_indexing_tpu/ops/pallas_scan.py:173",
+             "launches": k1_ham + k1_lsh, "max_abs_err": err, "ms": ms,
+             "plain_ms": plain_ms,
+             **stage1_bound(LSH_QUERIES, n_pad, LSH_BITS, 2,
+                            LSH_QUERIES * n_pad // 128),
+             "library_ms": ham_lib_ms,
+             "shape": [LSH_QUERIES, n_pad, LSH_BITS]}]
+
+
 #: The instantiations of the two wgmma kernels, by their mangled names
 #: (template arguments: It = uint16_t, the bf16 query; Ia = int8_t; f =
 #: float, the f32 database; then kMTiles, kStreamQ and, for K1, kPasses,
@@ -2050,6 +2376,10 @@ def main() -> None:
         if row["name"] == "seg_gather_tiled":
             row["launches"] += cap_k3
     kernels += cap_rows
+    t0 = time.perf_counter()
+    kernels += lsh_phases(smi, dev)
+    emit("seconds", of="hashing / lsh phase",
+         seconds=time.perf_counter() - t0)
     if any(mod is not None and (name == "jax" or name.startswith("jax."))
            for name, mod in sys.modules.items()):
         raise RuntimeError("jax was imported")

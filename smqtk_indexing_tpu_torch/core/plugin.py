@@ -32,6 +32,11 @@ PLUGIN_ENTRYPOINT_GROUP = "smqtk_plugins"
 _BUILTIN_IMPL_MODULES = (
     "smqtk_indexing_tpu_torch.models.nn_index.flat",
     "smqtk_indexing_tpu_torch.models.nn_index.ivf",
+    "smqtk_indexing_tpu_torch.models.nn_index.lsh",
+    "smqtk_indexing_tpu_torch.models.hash_index.linear",
+    "smqtk_indexing_tpu_torch.models.hash_index.block",
+    "smqtk_indexing_tpu_torch.models.lsh_functor.itq",
+    "smqtk_indexing_tpu_torch.models.lsh_functor.simple_rp",
     "smqtk_indexing_tpu_torch.data.data_element",
     "smqtk_indexing_tpu_torch.data.descriptor",
     "smqtk_indexing_tpu_torch.data.key_value",

@@ -9,7 +9,10 @@ cores (``csrc/segment_minima_tiled_wgmma.cu``) and over f32 and bf16
 K5 on the tensor cores (``wgmma`` s8, bit for bit), and the probes K10 and
 K9 of ``smqtk_indexing_tpu_torch/tools/``),
 against their plain PyTorch versions and against the port's CPU path, for
-the flat and the IVF indexes and the capacity scan. Every test here is marked
+the flat and the IVF indexes and the capacity scan; and the hashing slice:
+the code store's ±1 route (K1's bf16 form) against its XOR route and a
+numpy popcount, the XOR route on the card against the CPU, and the LSH
+index's serves on the card against the CPU. Every test here is marked
 ``cuda`` and skips without a card. This file imports neither jax nor the
 JAX package's compute, so it runs on a machine with the card and no jax:
 
@@ -1678,3 +1681,128 @@ def test_ivf_rows_tier_honours_rows_tiled(card, monkeypatch):
     assert gpu._dev3 is not None
     assert launched == {"ivf_list_scores_tiled": 1}
     assert_same_neighbours(u_g, d_g, u_c, d_c, rtol=1e-4, atol=1e-4)
+
+
+# -- hashing and LSH: the ±1 route through K1's bf16 form -------------------
+
+def _bool_codes(n, width, seed):
+    return np.random.default_rng(seed).integers(
+        0, 2, size=(n, width)).astype(bool)
+
+
+def _popcount_rows(a, b):
+    """Hamming distances of packed uint32 rows ``a`` (B, W) to ``b`` (N,
+    W), by a byte table: (B, N) int64."""
+    lut = np.array([bin(i).count("1") for i in range(256)], dtype=np.int64)
+    x = (a[:, None, :] ^ b[None, :, :]).view(np.uint8)
+    return lut[x].sum(-1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [128, 256])
+def test_pm1_route_matches_xor_route_and_numpy(card, monkeypatch, width):
+    from smqtk_indexing_tpu_torch.ops.hamming import CodeStore
+    from smqtk_indexing_tpu_torch.utils.bits import pack_bit_vectors_u32
+    mat = _bool_codes(20000, width, seed=width)
+    q = np.vstack([mat[:4], _bool_codes(28, width, seed=width + 1)])
+    store = CodeStore(device="cuda")
+    store.build(mat)
+    before = dict(fused_scan.LAUNCHES)
+    d, codes = store.knn(q, 16)
+    assert _launched(before) == {("segment_minima", "wgmma"): 1}
+    assert store._dev_pm1.shape == (32768, width)
+    monkeypatch.setenv("SMQTK_TPU_NO_MXU_HAMMING", "1")
+    before = dict(fused_scan.LAUNCHES)
+    d_xor, codes_xor = store.knn(q, 16)
+    assert _launched(before) == {}
+    full = _popcount_rows(pack_bit_vectors_u32(q), store._host)
+    oracle = np.sort(full, axis=1)[:, :16]
+    assert np.array_equal(d, oracle) and np.array_equal(d_xor, oracle)
+    assert (d[:4, 0] == 0).all()
+    assert np.array_equal((q[:, None, :] ^ codes).sum(-1), d)
+    for i in range(len(q)):
+        below = d[i] < d[i, -1]
+        assert {c.tobytes() for c in codes[i][below]} == \
+            {c.tobytes() for c in codes_xor[i][below]}
+
+
+@pytest.mark.cuda
+def test_xor_route_on_card_matches_cpu(card):
+    from smqtk_indexing_tpu_torch.ops import hamming
+    from smqtk_indexing_tpu_torch.utils.bits import pack_bit_vectors_u32
+    db = pack_bit_vectors_u32(_bool_codes(70000, 64, seed=1))
+    q = pack_bit_vectors_u32(_bool_codes(40, 64, seed=2))
+    valid = np.random.default_rng(3).random(70000) > 0.05
+    out = []
+    for dev in ("cuda", "cpu"):
+        dd, rr = hamming.hamming_topk(
+            hamming.words_to_tensor(db, dev),
+            torch.from_numpy(valid).to(dev), hamming.words_to_tensor(q, dev),
+            k=24, chunk=16384)
+        out.append((dd.cpu().numpy(), rr.cpu().numpy()))
+    assert np.array_equal(out[0][0], out[1][0])
+    assert np.array_equal(out[0][1], out[1][1])
+
+
+def _lsh_pair(engine_env, monkeypatch):
+    from smqtk_indexing_tpu_torch.data import DataMemoryElement
+    from smqtk_indexing_tpu_torch.models.lsh_functor.itq import ItqFunctor
+    from smqtk_indexing_tpu_torch.models.nn_index.lsh import (
+        LSHNearestNeighborIndex,
+    )
+    for var, val in engine_env.items():
+        monkeypatch.setenv(var, val)
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(6000, 32)).astype(np.float32)
+    q = rng.normal(size=(40, 32)).astype(np.float32)
+    mv, rot = DataMemoryElement(), DataMemoryElement()
+    cpu_f = ItqFunctor(mv, rot, bit_length=16, random_seed=0, device="cpu")
+    cpu_f.fit([DescriptorMemoryElement(i, v) for i, v in enumerate(x[:3000])])
+    gpu_f = ItqFunctor(DataMemoryElement(mv.get_bytes()),
+                       DataMemoryElement(rot.get_bytes()), bit_length=16,
+                       device="cuda")
+    out = []
+    for dev, f in (("cuda", gpu_f), ("cpu", cpu_f)):
+        index = LSHNearestNeighborIndex(lsh_functor=f, device=dev,
+                                        distance_method="euclidean")
+        index.build_index([DescriptorMemoryElement(i, v)
+                           for i, v in enumerate(x)])
+        before = dict(fused_scan.LAUNCHES)
+        res = index.nn_many([DescriptorMemoryElement(("q", i), v)
+                             for i, v in enumerate(q)], 10)
+        out.append(([[e.uuid() for e in r[0]] for r in res],
+                    [list(r[1]) for r in res], _launched(before), index))
+    return x, q, cpu_f.get_hash_batch(x), cpu_f.get_hash_batch(q), out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["xor", "two_call"])
+def test_lsh_serve_on_card_matches_cpu(card, monkeypatch, path):
+    env = {"SMQTK_TPU_NO_LSH_FUSED": "1"} if path == "two_call" else {}
+    _, _, _, _, ((u, d, launched, gpu), (u_c, d_c, _, _)) = _lsh_pair(
+        env, monkeypatch)
+    assert launched == {}          # 6000 rows: XOR route, host scan
+    assert (gpu._fused is None) == (path == "two_call")
+    for i in range(len(u_c)):
+        assert_same_neighbours([u[i]], [d[i]], [u_c[i]], [d_c[i]],
+                               rtol=DIST_RTOL, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_lsh_fused_mxu_engine_on_card(card, monkeypatch):
+    from tests.test_torch_helpers import assert_valid_lsh_answer
+    x, q, row_codes, q_codes, ((u, d, launched, gpu), (u_c, d_c, _, _)) = \
+        _lsh_pair({"SMQTK_TPU_LSH_FUSED_MXU": "1"}, monkeypatch)
+    assert gpu._fused["pm1"] is not None
+    assert launched == {("segment_minima", "wgmma"): 1}
+    uniq = np.unique(row_codes, axis=0)
+    untied = 0
+    for i in range(len(q)):
+        assert_valid_lsh_answer(u[i], d[i], q[i], q_codes[i], row_codes, x,
+                                10, rtol=DIST_RTOL, atol=1e-5)
+        s = np.sort((uniq ^ q_codes[i]).sum(-1))
+        if s[9] < s[10]:
+            untied += 1
+            assert_same_neighbours([u[i]], [d[i]], [u_c[i]], [d_c[i]],
+                                   rtol=DIST_RTOL, atol=1e-5)
+    assert untied > 0

@@ -37,6 +37,32 @@ def assert_same_neighbours(ids_port, d_port, ids_ref, d_ref, rtol,
                 f"query {i}: id {u} at {lookup[u]} is not a tie with {kth}"
 
 
+def assert_valid_lsh_answer(uids, dists, qv, q_code, row_codes, x, n,
+                            rtol, atol):
+    """``uids`` / ``dists`` (one query's euclidean LSH answer, uids being
+    rows of ``x``) come from the n nearest codes for some choice among the
+    codes tied at the n-th Hamming distance: every row's code lies within
+    the n-th distance, the distances are the float64 ones of those rows
+    within (rtol, atol), ascending, and no row of a code strictly inside
+    the n-th distance is left out with a smaller distance than the last
+    one returned. ``row_codes`` holds each row's (bits,) bool code."""
+    uids = np.asarray(uids, dtype=np.int64)
+    dists = list(dists)
+    uniq = np.unique(row_codes, axis=0)
+    d_n = np.sort((uniq ^ q_code).sum(-1))[n - 1]
+    ham = (row_codes ^ q_code).sum(-1)
+    qv = np.asarray(qv, dtype=np.float64)
+    exact = np.sqrt(((x.astype(np.float64) - qv) ** 2).sum(-1))
+    assert (ham[uids] <= d_n).all()
+    np.testing.assert_allclose(dists, exact[uids], rtol=rtol, atol=atol)
+    assert dists == sorted(dists) and len(set(uids.tolist())) == len(uids)
+    must = np.flatnonzero(ham < d_n)
+    assert len(uids) >= min(n, len(must))
+    if len(uids) == n:
+        left_out = np.setdiff1d(must, uids)
+        assert (exact[left_out] >= dists[-1] - atol).all()
+
+
 def elements_for(index, elems):
     """``elems`` as descriptor elements of ``index``'s own package, with the
     same uids and vectors: each package's index gets its own elements, built

@@ -2,8 +2,9 @@
 The port imports nothing of the JAX package and runs with jax blocked: in a
 fresh interpreter where ``import jax`` fails, every module of
 ``smqtk_indexing_tpu_torch`` imports without loading any
-``smqtk_indexing_tpu`` module, tiny CPU builds and queries of the flat and
-IVF indexes run (the SQ8, PQ and OPQ codecs included), ``get_impls()``
+``smqtk_indexing_tpu`` module, tiny CPU builds and queries of the flat,
+IVF and LSH indexes run (the SQ8, PQ and OPQ codecs included; ITQ and a
+hash index too), ``get_impls()``
 returns the port's classes with no failed plugin import, the bare class
 names of a config resolve to them, and a file-backed key-value store the
 JAX package wrote loads into the port's copy. A source scan pins that no
@@ -72,6 +73,21 @@ for name, index in (
     index.build_index(els)
     res = index.nn_many(els[:4], 3)
     out[name] = [[r[0][0].uuid() for r in res], [r[1][0] for r in res]]
+# The hashing slice: ITQ, then LSH (fused serve) and a hash index.
+from smqtk_indexing_tpu_torch.models.lsh_functor.itq import ItqFunctor
+from smqtk_indexing_tpu_torch.models.nn_index.lsh import (
+    LSHNearestNeighborIndex)
+from smqtk_indexing_tpu_torch.models.hash_index.linear import LinearHashIndex
+functor = ItqFunctor(bit_length=8, random_seed=0, device="cpu")
+functor.fit(els)
+index = LSHNearestNeighborIndex(lsh_functor=functor,
+                                distance_method="euclidean", device="cpu")
+index.build_index(els)
+res = index.nn_many(els[:4], 3)
+out["lsh"] = [[r[0][0].uuid() for r in res], [r[1][0] for r in res]]
+hi = LinearHashIndex(device="cpu")
+hi.build_index(functor.get_hash_batch(x))
+out["hash_index"] = [hi.count(), list(hi.nn(functor.get_hash(x[5]), 2)[1])]
 # The port's registry holds the port's classes, so a bare class name
 # resolves to them.
 impls = NearestNeighborsIndex.get_impls()
@@ -80,6 +96,12 @@ out["bare"] = {
     bare: type(from_config_dict(
         {"type": bare, bare: {"device": "cpu"}}, impls)).__module__
     for bare in ("FlatNearestNeighborsIndex", "IvfNearestNeighborsIndex")}
+from smqtk_indexing_tpu_torch.interfaces import HashIndex, LshFunctor
+for iface in (HashIndex, LshFunctor):
+    for c in iface.get_impls():
+        out["bare"][c.__name__] = type(from_config_dict(
+            {"type": c.__name__, c.__name__: {"device": "cpu"}},
+            iface.get_impls())).__module__
 # A store the JAX package wrote: its elements load as the port's classes.
 kvs = FileKeyValueStore(sys.argv[1], readonly=True)
 out["kvs"] = {str(k): [type(v).__module__, v.uuid(), v.vector().tolist()]
@@ -150,7 +172,12 @@ def test_port_runs_with_jax_blocked(tmp_path):
                 "models.nn_index._ivf_matrix", "ops.fused_scan", "ops.ivf",
                 "ops.ivf_scan", "ops.kmeans", "ops.sq8", "ops.pq",
                 "ops.opq", "ops.store", "tools.probe_int8_mxu",
-                "tools.stage1_analysis", "examples.capacity_100m"):
+                "tools.stage1_analysis", "examples.capacity_100m",
+                "models.nn_index.lsh", "models.hash_index.linear",
+                "models.hash_index.block", "models.lsh_functor.itq",
+                "models.lsh_functor.simple_rp", "ops.hamming", "ops.itq",
+                "ops.lsh_fused", "ops.metrics", "native", "utils.bits",
+                "examples.building_and_querying"):
         assert "smqtk_indexing_tpu_torch." + mod in out["modules"]
     assert out["loaded_jax"] == []
     assert out["flat"] == [[0, 1, 2, 3], [0.0] * 4]
@@ -166,9 +193,19 @@ def test_port_runs_with_jax_blocked(tmp_path):
         "smqtk_indexing_tpu_torch.models.nn_index.flat."
         "FlatNearestNeighborsIndex",
         "smqtk_indexing_tpu_torch.models.nn_index.ivf."
-        "IvfNearestNeighborsIndex"]
+        "IvfNearestNeighborsIndex",
+        "smqtk_indexing_tpu_torch.models.nn_index.lsh."
+        "LSHNearestNeighborIndex"]
     assert out["bare"] == {
         "FlatNearestNeighborsIndex":
             "smqtk_indexing_tpu_torch.models.nn_index.flat",
         "IvfNearestNeighborsIndex":
-            "smqtk_indexing_tpu_torch.models.nn_index.ivf"}
+            "smqtk_indexing_tpu_torch.models.nn_index.ivf",
+        "LinearHashIndex": "smqtk_indexing_tpu_torch.models.hash_index.linear",
+        "BallTreeHashIndex":
+            "smqtk_indexing_tpu_torch.models.hash_index.block",
+        "ItqFunctor": "smqtk_indexing_tpu_torch.models.lsh_functor.itq",
+        "SimpleRPFunctor":
+            "smqtk_indexing_tpu_torch.models.lsh_functor.simple_rp"}
+    assert out["lsh"] == [[0, 1, 2, 3], [0.0] * 4]
+    assert out["hash_index"][0] > 1 and out["hash_index"][1][0] == 0.0
