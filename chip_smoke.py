@@ -130,6 +130,28 @@ not 0:
    be valid against float64 for its choice among codes tied at the 10th
    Hamming distance, and both paths equal where no code ties there;
    recall@10 against float64 is printed, with no bar.
+12. MRPT at the GIST1M shape (``BASELINE.md``'s config 4): 1,000,000 x 960
+   rows of ``bench_all.py``'s rank-None mixture (``mrpt_data``, seed 4)
+   and 64 held-out queries, k=10, with a float64 top-10 on the card.
+   ``MRPTNearestNeighborsIndex(num_trees=8, depth=9)`` builds its
+   leaf-ordered SQ8 mirror (8 GiB, exactly ``MIRROR_BUDGET``) and serves
+   through K6's int8 form, held against its plain version and float64 at
+   the mirror's windows (all 64 queries, d=1,024); ``(16, 7)`` is over
+   the budget and takes the gather route; the (8, 9) payload reloaded
+   under ``SMQTK_TPU_NO_MRPT_MIRROR=1`` takes the gather route on the
+   same trees. Each: build seconds, 5 timed batches (queries/s, the
+   ``mrpt.query`` / ``mrpt.assemble`` split), K6 launches (none on the
+   gather route), recall@10 (read, no bar), every distance the float64
+   one of its row and no row twice; the two routes' recall@10 on the same
+   trees within 0.02;
+13. the front ends on phase 4's vectors: ``FaissNearestNeighborsIndex``
+   from a config written for the reference's FAISS wrapper
+   (``"IVF4096,SQ8"``, ``"l2"``, ``ivf_nprobe`` 4, seed 0), whose answers
+   must equal those of ``IvfNearestNeighborsIndex`` built directly with
+   the same parameters (both builds under deterministic algorithms, so
+   one seed trains one set of centroids), then
+   ``AutotunedNearestNeighborsIndex(autotune=True,
+   target_precision=0.95)``: the nprobe it chose and its recall@10.
 
 Each path sets the kernels' launch counts to 0 just before it runs and
 reads them just after. Then a ``{"kernels": [...]}`` line with each
@@ -365,7 +387,7 @@ def plain_kernels():
 
 
 def hold(name: str, kernel, plain, smi: str, *, compare: str, f64=None,
-         reps=(10, 3), q_axis: int = 0, **info):
+         reps=(10, 3), q_axis: int = 0, n_f64: int = N_ORACLE, **info):
     """
     Hold a kernel against its plain version (all queries) and time both
     with CUDA events as plain, kernel, kernel, plain. ``compare`` is the
@@ -373,7 +395,7 @@ def hold(name: str, kernel, plain, smi: str, *, compare: str, f64=None,
 
     - ``"equal"``: bit for bit (a copy, or exact integer products);
     - ``"f64"``: within REL_TOL of the largest sum of absolute terms, of
-      the plain version and of float64 on the first N_ORACLE queries along
+      the plain version and of float64 on the first ``n_f64`` queries along
       ``q_axis`` of the output; ``f64()`` returns (exact scores, the sum of
       the absolute terms of each score);
     - ``"plain"``: within REL_TOL of the plain version's largest magnitude
@@ -412,7 +434,7 @@ def hold(name: str, kernel, plain, smi: str, *, compare: str, f64=None,
     else:
         exact, mag = f64()
         fin64 = torch.isfinite(exact)
-        f64_err = (out.narrow(q_axis, 0, N_ORACLE).double()
+        f64_err = (out.narrow(q_axis, 0, n_f64).double()
                    - exact)[fin64].abs().max().item()
         tol = REL_TOL * mag[fin64].max().item()
         ok = inf_match and err <= tol and f64_err <= tol
@@ -820,30 +842,36 @@ def _f64_tiled(db3, s2t, t, ti, c0, lo, hi):
     return torch.cat(exact), torch.cat(mag)
 
 
-def _f64_rows(db, t, a, starts, lo, hi):
-    """K6's scores in float64 for the first N_ORACLE queries, and the sum
-    of each score's absolute terms."""
+def _f64_rows(db, t, a, starts, lo, hi, n_q: int = N_ORACLE):
+    """K6's scores in float64 for the first ``n_q`` queries, and the sum
+    of each score's absolute terms; dead slots read nothing and are
+    +inf, the live ones go 16 at a time."""
     import torch
     from smqtk_indexing_tpu_torch.ops.ivf_scan import L_MAX
     lane = torch.arange(L_MAX, device=db.device)
-    exact, mag = [], []
-    for q0 in range(0, N_ORACLE, 8):
-        u = db[starts[q0:q0 + 8].long()[..., None] + lane].double()
+    shape = (n_q, starts.shape[1], L_MAX)
+    exact = torch.full(shape, math.inf, dtype=torch.float64,
+                       device=db.device)
+    mag = torch.full_like(exact, math.inf)
+    qi, pi = torch.nonzero(hi[:n_q] > lo[:n_q], as_tuple=True)
+    for s0 in range(0, qi.numel(), 16):
+        bq, bp = qi[s0:s0 + 16], pi[s0:s0 + 16]
+        u = db[starts[bq, bp, None].long() + lane].double()  # (s, L, d)
         au2 = ((u * a.double()) ** 2).sum(-1)
-        prod = u * t[q0:q0 + 8, None, None, :].double()
-        ok = (lane >= lo[q0:q0 + 8, :, None]) & (lane < hi[q0:q0 + 8, :,
-                                                          None])
-        exact.append(torch.where(ok, au2 - 2.0 * prod.sum(-1),
-                                 float("inf")))
-        mag.append(torch.where(ok, au2 + 2.0 * prod.abs().sum(-1),
-                               float("inf")))
+        prod = u * t[bq, None, :].double()
+        ok = (lane >= lo[bq, bp, None]) & (lane < hi[bq, bp, None])
+        exact[bq, bp] = torch.where(ok, au2 - 2.0 * prod.sum(-1), math.inf)
+        mag[bq, bp] = torch.where(ok, au2 + 2.0 * prod.abs().sum(-1),
+                                  math.inf)
         del u, prod
-    return torch.cat(exact), torch.cat(mag)
+    return exact, mag
 
 
-def _timed_batches(index, q_elems, n_batches: int):
+def _timed_batches(index, q_elems, n_batches: int,
+                   spans=("ivf.query", "ivf.assemble")):
     """``nn_many`` over all of ``q_elems`` ``n_batches`` times; (results of
-    the last, per-batch seconds, the mean span ms of the batches)."""
+    the last, per-batch seconds, the mean ms of each of ``spans`` over the
+    batches)."""
     from smqtk_indexing_tpu_torch.utils.tracing import COUNTERS
     COUNTERS.reset()
     batch_s = []
@@ -851,10 +879,10 @@ def _timed_batches(index, q_elems, n_batches: int):
         t0 = time.perf_counter()
         res = index.nn_many(q_elems, K)
         batch_s.append(time.perf_counter() - t0)
-    spans = COUNTERS.snapshot()
-    split_ms = {name: 1e3 * spans[f"span.{name}.seconds"]
-                / spans[f"span.{name}.calls"]
-                for name in ("ivf.query", "ivf.assemble")}
+    counts = COUNTERS.snapshot()
+    split_ms = {name: 1e3 * counts[f"span.{name}.seconds"]
+                / counts[f"span.{name}.calls"]
+                for name in spans}
     return res, batch_s, split_ms
 
 
@@ -2186,6 +2214,342 @@ def lsh_phases(smi: str, dev) -> list:
              "shape": [LSH_QUERIES, n_pad, LSH_BITS]}]
 
 
+#: The MRPT phase: ``BASELINE.md``'s config 4 (``docs/benchmarks.md:268-288``,
+#: run there at 256K rows) at the GIST1M size: 1,000,000 x 960 rows of
+#: ``bench_all.py``'s rank-None mixture (``:44-91``, scale 1.0, seed 4),
+#: whose 128 held-out draws give the 64 queries of its MRPT batch
+#: (``:424-455``), k=10. (8, 9) takes the mirror (8 trees x 2^20 rows x
+#: 1,024 bytes: exactly ``MIRROR_BUDGET``), (16, 7) the gather route (its
+#: mirror would take 16 GiB).
+MRPT_N = 1_000_000
+MRPT_DIM = 960
+MRPT_HELD_OUT = 128
+MRPT_QUERIES = 64
+MRPT_CONFIGS = ((8, 9), (16, 7))
+MRPT_REPS = 5
+#: Recall@10 of the mirror and the gather route on the same trees may
+#: differ by at most this (the SQ8 selection at the rank-k boundary).
+MRPT_ROUTE_GAP = 0.02
+MRPT_SWITCH = "SMQTK_TPU_NO_MRPT_MIRROR"
+
+
+def mrpt_data():
+    """``bench_all._load_or_make("gist_base.fvecs", 1_000_000, 960, 1.0,
+    seed=4)`` without the file (``bench_all.py:65-91``, rank None): 1,024
+    clusters in [0, 1]^960, noise 1/12, clipped, shuffled; the first 64 of
+    its 128 held-out draws. The noise is drawn in row chunks, the same
+    numbers as one call, so no float64 copy of the whole matrix is made."""
+    scale, n_clusters = 1.0, 1024
+    total = MRPT_N + MRPT_HELD_OUT
+    rng = np.random.default_rng(4)
+    centers = rng.random((n_clusters, MRPT_DIM), dtype=np.float32) * scale
+    pts = centers[rng.integers(0, n_clusters, size=total)]
+    for lo in range(0, total, 1 << 16):
+        hi = min(lo + (1 << 16), total)
+        pts[lo:hi] += rng.normal(size=(hi - lo, MRPT_DIM)) \
+            .astype(np.float32) * (scale / 12)
+    np.clip(pts, 0, scale, out=pts)
+    pts = pts[rng.permutation(total)]
+    return pts[:MRPT_N], pts[MRPT_N:MRPT_N + MRPT_QUERIES]
+
+
+def f64_topk_rows(data: np.ndarray, queries: np.ndarray, k: int, dev,
+                  chunk: int = 1 << 16) -> np.ndarray:
+    """Float64 top-k row ids over ``data``'s rows, on the card, in row
+    chunks (no float64 copy of the whole database)."""
+    import torch
+    q = torch.from_numpy(queries).to(dev).double()
+    q_sq = (q * q).sum(1, keepdim=True)
+    best_d = torch.full((q.shape[0], k), math.inf, dtype=torch.float64,
+                        device=dev)
+    best_i = torch.zeros((q.shape[0], k), dtype=torch.long, device=dev)
+    for lo in range(0, data.shape[0], chunk):
+        x = torch.from_numpy(data[lo:lo + chunk]).to(dev).double()
+        d2 = q_sq + (x * x).sum(1)[None] - 2.0 * (q @ x.T)
+        ids = torch.arange(lo, lo + x.shape[0], device=dev) \
+            .expand(q.shape[0], -1)
+        best_d, sel = torch.topk(torch.cat([best_d, d2], 1), k, dim=1,
+                                 largest=False)
+        best_i = torch.gather(torch.cat([best_i, ids], 1), 1, sel)
+    return best_i.cpu().numpy()
+
+
+def mrpt_checked(res, data, queries, truth):
+    """(recall@10 against ``truth``, whether every answer is valid: K rows,
+    none twice, distances ascending and the float64 ones within REL_TOL
+    (atol 1e-4))."""
+    ok = len(res) == len(queries)
+    for (elems, dists), qv in zip(res, queries):
+        uids = np.array([e.uuid() for e in elems], dtype=np.int64)
+        exact = np.sqrt(((data[uids].astype(np.float64) - qv) ** 2).sum(1))
+        ok = ok and len(uids) == K and len(set(uids.tolist())) == K \
+            and list(dists) == sorted(dists) \
+            and np.allclose(dists, exact, rtol=REL_TOL, atol=1e-4)
+    return recall([[e.uuid() for e in r[0]] for r in res], truth), ok
+
+
+def mrpt_phases(smi: str, dev) -> list:
+    """Phase 12, MRPT at the GIST1M shape: t8/d9 on the mirror (K6's int8
+    form, held against its plain version and float64 at the mirror's
+    windows), t16/d7 on the gather route, and the t8 payload reloaded
+    under ``SMQTK_TPU_NO_MRPT_MIRROR=1`` (the gather route on the same
+    trees); returns the kernels line's row of K6 on the mirror."""
+    import torch
+    from smqtk_indexing_tpu_torch.data import DescriptorMemoryElement
+    from smqtk_indexing_tpu_torch.data.data_element import DataMemoryElement
+    from smqtk_indexing_tpu_torch.models.nn_index.mrpt import (
+        MRPTNearestNeighborsIndex,
+    )
+
+    device = str(dev)
+    t0 = time.perf_counter()
+    data, queries = mrpt_data()
+    elems = [DescriptorMemoryElement(i, data[i]) for i in range(MRPT_N)]
+    q_elems = [DescriptorMemoryElement(("q", i), queries[i])
+               for i in range(MRPT_QUERIES)]
+    data_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    truth = f64_topk_rows(data, queries, K, dev)
+    emit("mrpt data", n=MRPT_N, d=MRPT_DIM, queries=MRPT_QUERIES,
+         data_s=data_s, oracle_s=time.perf_counter() - t0, card=smi)
+
+    spans = ("mrpt.query", "mrpt.assemble")
+    recalls, k6_row, payload = {}, None, None
+    for trees, depth in MRPT_CONFIGS:
+        torch.cuda.reset_peak_memory_stats(dev)
+        index = MRPTNearestNeighborsIndex(num_trees=trees, depth=depth,
+                                          random_seed=0, device=device)
+        t0 = time.perf_counter()
+        index.build_index(elems)
+        build_s = time.perf_counter() - t0
+        build_peak = torch.cuda.max_memory_allocated(dev)
+        route = "mirror" if index._mirror is not None else "gather"
+        want = "mirror" if index.mirror_bytes() \
+            <= index.MIRROR_BUDGET else "gather"
+        if route != want:
+            raise RuntimeError(f"mrpt t{trees}/d{depth}: the {route} route, "
+                               f"not the {want} route")
+        index.nn_many(q_elems, K)                          # warm-up
+        reset_counts()
+        res, batch_s, split_ms = _timed_batches(index, q_elems, MRPT_REPS,
+                                                spans)
+        counts = read_counts()
+        rec, ok = mrpt_checked(res, data, queries, truth)
+        recalls[trees, depth, route] = rec
+        emit("main", path=f"mrpt t{trees}/d{depth} {route} route",
+             n=MRPT_N, d=MRPT_DIM, trees=trees, depth=depth,
+             leaf_max=index._leaf_max, batch=MRPT_QUERIES, k=K,
+             build_s=build_s, mirror_bytes=index.mirror_bytes(),
+             mirror_built=route == "mirror", batch_s=batch_s,
+             batch_ms=1e3 * statistics.median(batch_s),
+             qps=MRPT_QUERIES / statistics.median(batch_s),
+             split_ms=split_ms, launches=counts, recall_at_10=rec,
+             answers_valid=ok, peak_device_bytes_build=build_peak,
+             card=smi)
+        k6_launches = counts["ivf_list_scores"]
+        if not ok:
+            raise RuntimeError(f"mrpt t{trees}/d{depth}: an answer is short, "
+                               "repeats a row or misstates a distance")
+        if (k6_launches > 0) != (route == "mirror"):
+            raise RuntimeError(f"mrpt t{trees}/d{depth} {route} route: K6 "
+                               f"launched {k6_launches} times")
+        if route == "mirror":
+            k6_row = mrpt_k6(index, queries, smi, dev)
+            k6_row["launches"] = k6_launches
+            index.index_element = DataMemoryElement()
+            t0 = time.perf_counter()
+            index._save_index()
+            save_s = time.perf_counter() - t0
+            payload = index.index_element.get_bytes()
+            descriptor_set = index.descriptor_set
+        del index, res
+        torch.cuda.empty_cache()
+
+    # The t8 trees again, from their payload, under the switch: the gather
+    # route on the same trees.
+    os.environ[MRPT_SWITCH] = "1"
+    try:
+        t0 = time.perf_counter()
+        index = MRPTNearestNeighborsIndex(
+            descriptor_set=descriptor_set,
+            index_element=DataMemoryElement(payload), num_trees=8, depth=9,
+            random_seed=0, device=device)
+        load_s = time.perf_counter() - t0
+        del payload
+        if index._mirror is not None:
+            raise RuntimeError(f"{MRPT_SWITCH}=1 still built the mirror")
+        index.nn_many(q_elems, K)                          # warm-up
+        reset_counts()
+        res, batch_s, split_ms = _timed_batches(index, q_elems, MRPT_REPS,
+                                                spans)
+        counts = read_counts()
+    finally:
+        os.environ.pop(MRPT_SWITCH)
+    rec, ok = mrpt_checked(res, data, queries, truth)
+    gap = abs(rec - recalls[8, 9, "mirror"])
+    emit("main", path="mrpt t8/d9 payload reloaded, gather route",
+         switch=f"{MRPT_SWITCH}=1", save_s=save_s, load_s=load_s,
+         batch=MRPT_QUERIES, k=K, batch_s=batch_s,
+         batch_ms=1e3 * statistics.median(batch_s),
+         qps=MRPT_QUERIES / statistics.median(batch_s), split_ms=split_ms,
+         launches=counts, recall_at_10=rec,
+         mirror_recall_at_10=recalls[8, 9, "mirror"], recall_gap=gap,
+         answers_valid=ok, card=smi)
+    if not ok or counts["ivf_list_scores"] or gap > MRPT_ROUTE_GAP:
+        raise RuntimeError(f"mrpt reloaded under the switch: valid {ok}, "
+                           f"K6 launches {counts['ivf_list_scores']}, "
+                           f"recall gap {gap} > {MRPT_ROUTE_GAP}?")
+    del index, res, elems, descriptor_set
+    torch.cuda.empty_cache()
+    return [k6_row]
+
+
+def mrpt_k6(index, queries, smi: str, dev) -> dict:
+    """K6's int8 form at the mirror's windows for the batch's queries, held
+    against its plain version and float64 (all 64 queries); the kernels
+    line's row but its launches."""
+    import torch
+    from smqtk_indexing_tpu_torch.ops import ivf_scan, mrpt
+    d_pad = index._bases_np.shape[1]
+    qd = torch.from_numpy(np.pad(queries, ((0, 0), (0, d_pad - MRPT_DIM)))) \
+        .to(dev)
+    leaves = mrpt.descend_leaves(
+        torch.einsum("bd,tdl->btl", qd, index._dev_bases),
+        index._dev_splits, index._depth_eff)
+    tn = index._mirror.shape[0]
+    starts, lo, hi = mrpt.mirror_windows(index._dev_offsets, leaves,
+                                         index._capacity, tn,
+                                         index._leaf_max)
+    t_q = (qd - index._mir_b) * index._mir_a
+    args = (index._mirror, t_q, index._mir_a, starts, lo, hi)
+    rows_read, pairs = distinct_positions(starts, lo, hi, ivf_scan.L_MAX, tn)
+    live = int((hi > lo).sum())
+    shape = [MRPT_QUERIES, starts.shape[1], ivf_scan.L_MAX]
+    err, ms, plain_ms = hold(
+        "ivf_list_scores_i8_mrpt",
+        lambda: ivf_scan.ivf_list_scores(*args),
+        lambda: ivf_scan.ivf_list_scores_reference(*args), smi,
+        compare="f64",
+        f64=lambda: _f64_rows(*args, n_q=MRPT_QUERIES),
+        n_f64=MRPT_QUERIES, dtype="torch.int8", shape=shape + [d_pad],
+        live_slots=live, rows_read=rows_read, operand_rows=tn,
+        operand_bytes=tn * d_pad)
+    k6_bound = bound(rows_read * d_pad + 4 * (t_q.numel() + d_pad)
+                     + 12 * starts.numel() + 4 * starts.numel()
+                     * ivf_scan.L_MAX, 2.0 * d_pad * pairs, FP32_FLOPS)
+    return {"name": "ivf_list_scores_i8_mrpt", "route": "cuda",
+            "source": "smqtk_indexing_tpu_torch/csrc/ivf_list_scores.cu",
+            "replaces": "smqtk_indexing_tpu/ops/pallas_ivf.py:128",
+            "launches": 0, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, **k6_bound, "library_ms": None,
+            "share": k6_bound["bound_ms"] / ms, "live_slots": live,
+            "shape": shape + [d_pad], "operand_bytes": tn * d_pad}
+
+
+@contextlib.contextmanager
+def deterministic():
+    """``torch.use_deterministic_algorithms(True, warn_only=True)`` in the
+    block, so two builds from one seed train the same centroids (the
+    k-means sums take ``index_add_``, whose CUDA atomics otherwise sum in
+    any order)."""
+    import warnings
+    import torch
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def front_end_phase(smi: str, dev) -> None:
+    """Phase 13, the front ends on the IVF phase's 1M x 96 vectors:
+    ``FaissNearestNeighborsIndex`` from a reference-shaped JSON config,
+    whose answers must equal ``IvfNearestNeighborsIndex``'s built directly
+    with the same parameters, then ``AutotunedNearestNeighborsIndex``'s
+    calibration and recall@10."""
+    import torch
+    from smqtk_indexing_tpu_torch.core.configuration import from_config_dict
+    from smqtk_indexing_tpu_torch.data import DescriptorMemoryElement
+    from smqtk_indexing_tpu_torch.interfaces.nearest_neighbor_index import (
+        NearestNeighborsIndex,
+    )
+    from smqtk_indexing_tpu_torch.models.nn_index.autotune import (
+        AutotunedNearestNeighborsIndex,
+    )
+    from smqtk_indexing_tpu_torch.models.nn_index.ivf import (
+        IvfNearestNeighborsIndex,
+    )
+
+    device = str(dev)
+    data, queries = ivf_data()
+    elems = [DescriptorMemoryElement(i, data[i]) for i in range(IVF_N)]
+    q_elems = [DescriptorMemoryElement(("q", i), queries[i])
+               for i in range(IVF_BATCH)]
+    truth = oracle_topk(data, queries[:N_ORACLE], K, "euclidean")
+
+    # A config written for the reference's FAISS wrapper, unchanged.
+    config = {"type": "FaissNearestNeighborsIndex",
+              "FaissNearestNeighborsIndex": {
+                  "factory_string": f"IVF{IVF_LISTS},SQ8",
+                  "metric_type": "l2", "ivf_nprobe": IVF_NPROBE,
+                  "random_seed": 0}}
+    with deterministic():
+        t0 = time.perf_counter()
+        faiss = from_config_dict(config, NearestNeighborsIndex.get_impls())
+        faiss.build_index(elems)
+        faiss_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        direct = IvfNearestNeighborsIndex(n_lists=IVF_LISTS,
+                                          nprobe=IVF_NPROBE, dtype="sq8",
+                                          random_seed=0, device=device)
+        direct.build_index(elems)
+        direct_s = time.perf_counter() - t0
+    same_centroids = bool(np.array_equal(faiss._inner._centroids_np,
+                                         direct._centroids_np))
+    faiss.nn_many(q_elems, K)                              # warm-up
+    reset_counts()
+    res_f, batch_s, _ = _timed_batches(faiss, q_elems, 2, spans=())
+    counts = read_counts()
+    res_d = direct.nn_many(q_elems, K)
+    equal = all([e.uuid() for e in a[0]] == [e.uuid() for e in b[0]]
+                and a[1] == b[1] for a, b in zip(res_f, res_d))
+    rec = _checked(res_f, truth, IVF_BATCH)
+    emit("main", path=f"faiss adapter 'IVF{IVF_LISTS},SQ8' from a "
+         "reference config",
+         inner=type(faiss._inner).__name__, inner_device=faiss._inner.device,
+         n=IVF_N, d=IVF_DIM, nprobe=faiss._inner.nprobe, build_s=faiss_s,
+         direct_build_s=direct_s, same_centroids=same_centroids,
+         answers_equal_direct=equal, batch=IVF_BATCH, k=K, batch_s=batch_s,
+         qps=IVF_BATCH / statistics.median(batch_s), launches=counts,
+         recall_at_10=rec, card=smi)
+    if not equal or counts["ivf_list_scores"] == 0:
+        raise RuntimeError("faiss adapter: answers differ from the direct "
+                           "IVF index's, or K6 never launched")
+    del faiss, direct, res_f, res_d
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    auto = AutotunedNearestNeighborsIndex(autotune=True, target_precision=0.95,
+                                          random_seed=0, device=device)
+    auto.build_index(elems)
+    tune_s = time.perf_counter() - t0
+    if auto._ivf is None:
+        raise RuntimeError("autotune chose the exhaustive scan at 1M rows")
+    reset_counts()
+    res, batch_s, _ = _timed_batches(auto, q_elems[:N_ORACLE], 2, spans=())
+    counts = read_counts()
+    rec = _checked(res, truth, N_ORACLE)
+    emit("main", path="autotuned index, target_precision=0.95", n=IVF_N,
+         d=IVF_DIM, build_and_tune_s=tune_s,
+         n_lists=int(auto._ivf._centroids_np.shape[0]),
+         nprobe=auto._tuned_nprobe, batch=N_ORACLE, k=K, batch_s=batch_s,
+         launches=counts, recall_at_10=rec, card=smi)
+    del auto, res, elems
+    torch.cuda.empty_cache()
+
+
 #: The instantiations of the two wgmma kernels, by their mangled names
 #: (template arguments: It = uint16_t, the bf16 query; Ia = int8_t; f =
 #: float, the f32 database; then kMTiles, kStreamQ and, for K1, kPasses,
@@ -2380,6 +2744,12 @@ def main() -> None:
     kernels += lsh_phases(smi, dev)
     emit("seconds", of="hashing / lsh phase",
          seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    kernels += mrpt_phases(smi, dev)
+    emit("seconds", of="mrpt phase", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    front_end_phase(smi, dev)
+    emit("seconds", of="front-end phase", seconds=time.perf_counter() - t0)
     if any(mod is not None and (name == "jax" or name.startswith("jax."))
            for name, mod in sys.modules.items()):
         raise RuntimeError("jax was imported")

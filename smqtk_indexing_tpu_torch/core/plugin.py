@@ -33,6 +33,9 @@ _BUILTIN_IMPL_MODULES = (
     "smqtk_indexing_tpu_torch.models.nn_index.flat",
     "smqtk_indexing_tpu_torch.models.nn_index.ivf",
     "smqtk_indexing_tpu_torch.models.nn_index.lsh",
+    "smqtk_indexing_tpu_torch.models.nn_index.mrpt",
+    "smqtk_indexing_tpu_torch.models.nn_index.faiss_compat",
+    "smqtk_indexing_tpu_torch.models.nn_index.autotune",
     "smqtk_indexing_tpu_torch.models.hash_index.linear",
     "smqtk_indexing_tpu_torch.models.hash_index.block",
     "smqtk_indexing_tpu_torch.models.lsh_functor.itq",

@@ -270,23 +270,26 @@ def _window_mask(lo, hi, width: int, device) -> torch.Tensor:
 
 def ivf_list_scores_reference(db, t, a, starts, lo, hi) -> torch.Tensor:
     """The plain PyTorch version of :func:`ivf_list_scores`: a gather of
-    each window's rows and elementwise f32 products, in query blocks under
-    ``REFERENCE_BYTES``."""
+    each live window's rows and elementwise f32 products, in blocks of
+    live slots under ``REFERENCE_BYTES``; dead slots (``lo == hi``) read
+    nothing and are +inf."""
     _check_rows(db, t, a, starts, lo, hi)
     b, p = starts.shape
     d = db.shape[1]
     lane = torch.arange(L_MAX, device=db.device)
-    out = torch.empty((b, p, L_MAX), dtype=torch.float32, device=db.device)
-    q_block = max(1, REFERENCE_BYTES // (4 * max(p, 1) * L_MAX * d))
-    for q0 in range(0, b, q_block):
-        q1 = min(q0 + q_block, b)
-        rows = starts[q0:q1, :, None].long() + lane       # (b, P, L)
-        u = db[rows].float()                               # (b, P, L, d)
+    out = torch.full((b, p, L_MAX), math.inf, dtype=torch.float32,
+                     device=db.device)
+    qi, pi = torch.nonzero(hi > lo, as_tuple=True)
+    s_block = max(1, REFERENCE_BYTES // (4 * L_MAX * d))
+    for s0 in range(0, qi.numel(), s_block):
+        bq, bp = qi[s0:s0 + s_block], pi[s0:s0 + s_block]
+        rows = starts[bq, bp, None].long() + lane          # (s, L)
+        u = db[rows].float()                                # (s, L, d)
         au = u * a
-        ip = (u * t[q0:q1, None, None, :]).sum(-1)
+        ip = (u * t[bq, None, :]).sum(-1)
         scores = (au * au).sum(-1) - 2.0 * ip
-        ok = _window_mask(lo[q0:q1], hi[q0:q1], L_MAX, db.device)
-        out[q0:q1] = torch.where(ok, scores, math.inf)
+        ok = _window_mask(lo[bq, bp], hi[bq, bp], L_MAX, db.device)
+        out[bq, bp] = torch.where(ok, scores, math.inf)
     return out
 
 

@@ -1806,3 +1806,133 @@ def test_lsh_fused_mxu_engine_on_card(card, monkeypatch):
             assert_same_neighbours([u[i]], [d[i]], [u_c[i]], [d_c[i]],
                                    rtol=DIST_RTOL, atol=1e-5)
     assert untied > 0
+
+
+# ---------------------------------------------------------------------------
+# MRPT: K6's int8 form on the leaf-ordered mirror
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_k6_int8_d1024_past_4gib_operand(card):
+    # The mirror's shape: int8 rows of 1,024 bytes, an operand past 2^32
+    # bytes (row 2^22 starts at byte 2^32), windows near its end and across
+    # that row. Codes in [-64, 64), a = 1 and integer t keep every sum an
+    # integer below 2^24, so the kernel equals its plain version bit for
+    # bit.
+    from smqtk_indexing_tpu_torch.ops import ivf_scan
+    d, n = 1024, (1 << 22) + (1 << 16)
+    assert n * d > 1 << 32
+    gen = torch.Generator(device=card).manual_seed(7)
+    db = torch.randint(-64, 64, (n, d), dtype=torch.int8, device=card,
+                       generator=gen)
+    rng = np.random.default_rng(8)
+    b, p = 3, 16
+    t = torch.from_numpy(rng.integers(-8, 9, size=(b, d))
+                         .astype(np.float32)).to(card)
+    a = torch.ones(d, device=card)
+    starts = torch.from_numpy(
+        (n - 512 - 32 * rng.integers(0, 64, size=(b, p))).astype(np.int32))
+    starts[:, 1] = (1 << 22) - 256                   # across byte 2^32
+    starts[:, 2] = n - 512                           # the last rows
+    lo = torch.from_numpy(rng.integers(0, 32, size=(b, p))).int()
+    hi = torch.clamp(lo + torch.from_numpy(
+        rng.integers(1, 481, size=(b, p))).int(), max=512)
+    lo[:, 2], hi[:, 2] = 0, 512
+    hi[:, 3] = lo[:, 3]                              # dead
+    args = [db, t, a] + [x.to(card) for x in (starts, lo, hi)]
+    before = ivf_scan.LAUNCHES["ivf_list_scores"]
+    out = ivf_scan.ivf_list_scores(*args)
+    torch.cuda.synchronize()
+    assert ivf_scan.LAUNCHES["ivf_list_scores"] == before + 1
+    ref = ivf_scan.ivf_list_scores_reference(*args)
+    assert torch.equal(out, ref)
+    assert torch.isinf(out[:, 3]).all() and torch.isfinite(out[:, 2]).all()
+    # One window against float64 straight from the codes past byte 2^32.
+    u = db[n - 512:].double()
+    exact = (u * u).sum(1) - 2.0 * (u @ t[0].double())
+    assert torch.equal(out[0, 2].double(), exact)
+    del db
+
+
+def _mrpt_state(n=3000, d=48, t_count=4, depth=3):
+    """A clustered MRPT state from the port's own CPU build (numpy
+    arrays): rows padded to 128, bases, trees, the SQ8 mirror."""
+    from smqtk_indexing_tpu_torch.ops import mrpt, sq8
+    rng = np.random.default_rng(21)
+    centers = rng.normal(size=(24, d)).astype(np.float32) * 4
+    x = np.zeros((n, 128), np.float32)
+    x[:, :d] = centers[rng.integers(0, 24, n)] \
+        + rng.normal(size=(n, d)).astype(np.float32) * 0.3
+    bases = np.zeros((t_count, 128, depth), np.float32)
+    bases[:, :d] = rng.standard_normal((t_count, d, depth))
+    projs = mrpt.project_all(torch.from_numpy(x),
+                             torch.from_numpy(bases)).numpy()
+    splits, leaf_table, offsets = mrpt.build_trees(projs, depth)
+    a, b = sq8.sq8_train(x)
+    leaf_flat = leaf_table.reshape(-1).astype(np.int32)
+    q = x[rng.integers(0, n, 16)] \
+        + rng.normal(size=(16, 128)).astype(np.float32) * 0.05
+    q[:, d:] = 0
+    return dict(db=x, sq=np.einsum("ij,ij->i", x, x), bases=bases,
+                splits=splits, mirror=sq8.sq8_encode_np(x, a, b)[leaf_flat],
+                a=a, b=b, leaf_flat=leaf_flat, offsets=offsets), q, depth, \
+        int(np.diff(offsets).max())
+
+
+@pytest.mark.cuda
+def test_mrpt_query_mirror_on_card_matches_cpu(card):
+    from smqtk_indexing_tpu_torch.ops import ivf_scan, mrpt
+    state, q, depth, leaf_max = _mrpt_state()
+    out = []
+    for dev in (card, torch.device("cpu")):
+        names = ("db", "sq", "bases", "splits", "mirror", "a", "b",
+                 "leaf_flat", "offsets")
+        before = ivf_scan.LAUNCHES["ivf_list_scores"]
+        d_, r_ = mrpt.mrpt_query_mirror(
+            *(torch.from_numpy(np.ascontiguousarray(state[x])).to(dev)
+              for x in names), torch.from_numpy(q).to(dev), k=10,
+            depth=depth, leaf_max=leaf_max)
+        launched = ivf_scan.LAUNCHES["ivf_list_scores"] - before
+        out.append((d_.cpu().numpy(), r_.cpu().numpy(), launched))
+    (d_g, r_g, n_g), (d_c, r_c, n_c) = out
+    assert (n_g, n_c) == (1, 0)
+    assert_same_neighbours(r_g, d_g, r_c, d_c, rtol=DIST_RTOL, atol=1e-5)
+    for row in r_g:
+        assert len(set(row.tolist())) == 10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("switch", [False, True])
+def test_mrpt_index_on_card_with_and_without_switch(card, monkeypatch,
+                                                   switch):
+    from smqtk_indexing_tpu_torch.data import DataMemoryElement
+    from smqtk_indexing_tpu_torch.models.nn_index.mrpt import (
+        MRPTNearestNeighborsIndex,
+    )
+    from smqtk_indexing_tpu_torch.ops import ivf_scan
+    if switch:
+        monkeypatch.setenv("SMQTK_TPU_NO_MRPT_MIRROR", "1")
+    rng = np.random.default_rng(22)
+    centers = rng.normal(size=(20, 40)).astype(np.float32) * 3
+    x = centers[rng.integers(0, 20, 4000)] \
+        + rng.normal(size=(4000, 40)).astype(np.float32) * 0.4
+    elems = [DescriptorMemoryElement(i, v) for i, v in enumerate(x)]
+    queries = [DescriptorMemoryElement(("q", i), x[i * 7] + 0.01)
+               for i in range(24)]
+    elem = DataMemoryElement()
+    cpu = MRPTNearestNeighborsIndex(index_element=elem, num_trees=6,
+                                    depth=4, random_seed=0, device="cpu")
+    cpu.build_index(elems)
+    gpu = MRPTNearestNeighborsIndex(
+        index_element=DataMemoryElement(elem.get_bytes()), num_trees=6,
+        depth=4, random_seed=0, device="cuda")
+    assert (gpu._mirror is None) == switch == (cpu._mirror is None)
+    before = ivf_scan.LAUNCHES["ivf_list_scores"]
+    res = gpu.nn_many(queries, 10)
+    assert ivf_scan.LAUNCHES["ivf_list_scores"] - before == (0 if switch
+                                                             else 1)
+    ref = cpu.nn_many(queries, 10)
+    for (e_g, d_g), (e_c, d_c) in zip(res, ref):
+        assert_same_neighbours([[e.uuid() for e in e_g]], [d_g],
+                               [[e.uuid() for e in e_c]], [d_c],
+                               rtol=DIST_RTOL, atol=1e-5)

@@ -3,8 +3,8 @@ The port imports nothing of the JAX package and runs with jax blocked: in a
 fresh interpreter where ``import jax`` fails, every module of
 ``smqtk_indexing_tpu_torch`` imports without loading any
 ``smqtk_indexing_tpu`` module, tiny CPU builds and queries of the flat,
-IVF and LSH indexes run (the SQ8, PQ and OPQ codecs included; ITQ and a
-hash index too), ``get_impls()``
+IVF, LSH and MRPT indexes run (the SQ8, PQ and OPQ codecs included; ITQ
+and a hash index too; the FAISS adapter and the autotuned index), ``get_impls()``
 returns the port's classes with no failed plugin import, the bare class
 names of a config resolve to them, and a file-backed key-value store the
 JAX package wrote loads into the port's copy. A source scan pins that no
@@ -49,6 +49,12 @@ from smqtk_indexing_tpu_torch.models.nn_index.flat import (
     FlatNearestNeighborsIndex)
 from smqtk_indexing_tpu_torch.models.nn_index.ivf import (
     IvfNearestNeighborsIndex)
+from smqtk_indexing_tpu_torch.models.nn_index.mrpt import (
+    MRPTNearestNeighborsIndex)
+from smqtk_indexing_tpu_torch.models.nn_index.faiss_compat import (
+    FaissNearestNeighborsIndex)
+from smqtk_indexing_tpu_torch.models.nn_index.autotune import (
+    AutotunedNearestNeighborsIndex)
 from smqtk_indexing_tpu_torch.core.configuration import from_config_dict
 from smqtk_indexing_tpu_torch.interfaces.nearest_neighbor_index import (
     NearestNeighborsIndex)
@@ -69,7 +75,13 @@ for name, index in (
         ("ivf_pq_rows", IvfNearestNeighborsIndex(
             n_lists=4, nprobe=4, random_seed=0, dtype="pq4", device="cpu")),
         ("flat_sq8", FlatNearestNeighborsIndex(dtype="sq8", device="cpu")),
-        ("flat_pq", FlatNearestNeighborsIndex(dtype="pq4", device="cpu"))):
+        ("flat_pq", FlatNearestNeighborsIndex(dtype="pq4", device="cpu")),
+        ("mrpt", MRPTNearestNeighborsIndex(num_trees=4, depth=2,
+                                           random_seed=0, device="cpu")),
+        ("faiss", FaissNearestNeighborsIndex(
+            factory_string="IVF4,SQ8", ivf_nprobe=4, random_seed=0,
+            device="cpu")),
+        ("autotune", AutotunedNearestNeighborsIndex(device="cpu"))):
     index.build_index(els)
     res = index.nn_many(els[:4], 3)
     out[name] = [[r[0][0].uuid() for r in res], [r[1][0] for r in res]]
@@ -95,7 +107,9 @@ out["impls"] = sorted(f"{c.__module__}.{c.__name__}" for c in impls)
 out["bare"] = {
     bare: type(from_config_dict(
         {"type": bare, bare: {"device": "cpu"}}, impls)).__module__
-    for bare in ("FlatNearestNeighborsIndex", "IvfNearestNeighborsIndex")}
+    for bare in ("FlatNearestNeighborsIndex", "IvfNearestNeighborsIndex",
+                 "MRPTNearestNeighborsIndex", "FaissNearestNeighborsIndex",
+                 "AutotunedNearestNeighborsIndex")}
 from smqtk_indexing_tpu_torch.interfaces import HashIndex, LshFunctor
 for iface in (HashIndex, LshFunctor):
     for c in iface.get_impls():
@@ -177,7 +191,11 @@ def test_port_runs_with_jax_blocked(tmp_path):
                 "models.hash_index.block", "models.lsh_functor.itq",
                 "models.lsh_functor.simple_rp", "ops.hamming", "ops.itq",
                 "ops.lsh_fused", "ops.metrics", "native", "utils.bits",
-                "examples.building_and_querying"):
+                "examples.building_and_querying", "models.nn_index.mrpt",
+                "models.nn_index.factory", "models.nn_index.faiss_compat",
+                "models.nn_index.autotune", "ops.mrpt", "utils.metrics",
+                "utils.parallel", "utils.progress_reporter",
+                "examples.config_driven"):
         assert "smqtk_indexing_tpu_torch." + mod in out["modules"]
     assert out["loaded_jax"] == []
     assert out["flat"] == [[0, 1, 2, 3], [0.0] * 4]
@@ -185,22 +203,37 @@ def test_port_runs_with_jax_blocked(tmp_path):
     assert out["ivf_code"][0] == [0, 1, 2, 3]
     assert max(out["ivf_code"][1]) < 0.1      # the SQ8 step only
     assert out["flat_sq8"][0] == [0, 1, 2, 3]
+    for name in ("mrpt", "autotune"):
+        assert out[name] == [[0, 1, 2, 3], [0.0] * 4], name
+    assert out["faiss"][0] == [0, 1, 2, 3]
     # PQ4 over 20 dims is lossy: every query still finds a neighbour.
     for name in ("ivf_opq", "ivf_pq_rows", "flat_pq"):
         assert len(out[name][0]) == 4 and all(
             d >= 0.0 for d in out[name][1]), name
     assert out["impls"] == [
+        "smqtk_indexing_tpu_torch.models.nn_index.autotune."
+        "AutotunedNearestNeighborsIndex",
+        "smqtk_indexing_tpu_torch.models.nn_index.faiss_compat."
+        "FaissNearestNeighborsIndex",
         "smqtk_indexing_tpu_torch.models.nn_index.flat."
         "FlatNearestNeighborsIndex",
         "smqtk_indexing_tpu_torch.models.nn_index.ivf."
         "IvfNearestNeighborsIndex",
         "smqtk_indexing_tpu_torch.models.nn_index.lsh."
-        "LSHNearestNeighborIndex"]
+        "LSHNearestNeighborIndex",
+        "smqtk_indexing_tpu_torch.models.nn_index.mrpt."
+        "MRPTNearestNeighborsIndex"]
     assert out["bare"] == {
         "FlatNearestNeighborsIndex":
             "smqtk_indexing_tpu_torch.models.nn_index.flat",
         "IvfNearestNeighborsIndex":
             "smqtk_indexing_tpu_torch.models.nn_index.ivf",
+        "MRPTNearestNeighborsIndex":
+            "smqtk_indexing_tpu_torch.models.nn_index.mrpt",
+        "FaissNearestNeighborsIndex":
+            "smqtk_indexing_tpu_torch.models.nn_index.faiss_compat",
+        "AutotunedNearestNeighborsIndex":
+            "smqtk_indexing_tpu_torch.models.nn_index.autotune",
         "LinearHashIndex": "smqtk_indexing_tpu_torch.models.hash_index.linear",
         "BallTreeHashIndex":
             "smqtk_indexing_tpu_torch.models.hash_index.block",
