@@ -3,7 +3,7 @@
 Smoke run of the PyTorch port (``smqtk_indexing_tpu_torch``) on one CUDA
 card.
 
-    python3 chip_smoke.py          # from the repository root
+    python3 chip_smoke.py                  # from the repository root
 
 Phases, each printing JSON lines; any failure raises, so the exit code is
 not 0:
@@ -151,7 +151,31 @@ not 0:
    the same parameters (both builds under deterministic algorithms, so
    one seed trains one set of centroids), then
    ``AutotunedNearestNeighborsIndex(autotune=True,
-   target_precision=0.95)``: the nprobe it chose and its recall@10.
+   target_precision=0.95)``: the nprobe it chose and its recall@10;
+14. ``sharded-deep10m-shape`` (``BASELINE.md:51``'s config 5): bench.py's
+   clustered recipe at 10,000,000 x 96 (drawn on the card, seed 2) with
+   1,024 held-out queries, n_devices=4 on four cards where four are
+   visible, else on ``["cuda:0"] * 4`` (printed). Each index beside the
+   same index on one device, the sharded one loading the single one's
+   payload: ``FlatNearestNeighborsIndex`` (the same rows but near ties at
+   the k-th place, float64 distances over the rows found, recall@10 = 1.0
+   against float64 on 128 queries), then ``IvfNearestNeighborsIndex(
+   n_lists=4096, nprobe=4, dtype="sq8", storage="code", rerank="score")``
+   (K7 a shard), its ``rerank="exact"`` (K3) and ``dtype="pq16"`` (K8),
+   each with the same rows and bit-equal distances; queries/s at B=1024,
+   the span split, each shard's device bytes and each card's peak, and
+   each shard's launches of K7, K3 and K8 (read around each shard's
+   search); K7, K3 and K8 held against their plain versions (and float64)
+   on shard 0's operands, and timed on every shard's own operands;
+15. every other sharded route once, each against its single-device
+   counterpart: the IVF rows tier (float32, sq8; the list gathers a shard
+   against K6) and MRPT t8/d9 (the gather route on both) on phase 4's
+   vectors, one ``sharded_kmeans_step`` (against the same Lloyd step on
+   one device), LSH (SimpleRP-10, two calls), the flat store's sq8 and
+   pq16 on phase 3's vectors (both built under deterministic algorithms,
+   so one codec), the flat store on a 2-D (dcn=2) mesh (equal to the 1-D
+   mesh) and ``LinearHashIndex`` over 64-bit codes (the XOR route a shard
+   against K1's ±1 route: equal distances).
 
 Each path sets the kernels' launch counts to 0 just before it runs and
 reads them just after. Then a ``{"kernels": [...]}`` line with each
@@ -168,6 +192,7 @@ query form; and last ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -2550,6 +2575,695 @@ def front_end_phase(smi: str, dev) -> None:
     torch.cuda.empty_cache()
 
 
+#: The sharded phase: ``BASELINE.md:51``'s config 5 ("Sharded index ...
+#: Deep10M, per-chip scan + all-gather top-k merge"): bench.py's clustered
+#: recipe (``bench.py:183-190``) at 10,000,000 x 96 with 1,024 held-out
+#: queries, over n_devices = 4 shards (four cards where there are four,
+#: else four shards of one card).
+SHARD_N = 10_000_000
+SHARD_DIM = 96
+SHARD_BATCH = 1024
+SHARD_DEVICES = 4
+SHARD_REPS = 3
+#: IVF-PQ's held-out recall at nprobe=4 is the codec's (read, no bar).
+SHARD_IVF_KW = dict(n_lists=IVF_LISTS, nprobe=IVF_NPROBE,
+                    kmeans_iterations=10, max_points_per_centroid=64,
+                    random_seed=0, storage="code")
+
+
+def shard_devices():
+    """(device of each shard, which placement): four cards when four are
+    visible, else four shards of ``cuda:0``."""
+    import torch
+    if torch.cuda.device_count() >= SHARD_DEVICES:
+        return [f"cuda:{i}" for i in range(SHARD_DEVICES)], "four cards"
+    return ["cuda:0"] * SHARD_DEVICES, "four shards of one card"
+
+
+def sharded_data(dev):
+    """bench.py's clustered recipe (1,024 uniform centres in [0, 1]^96,
+    Gaussian noise of sigma 1/12, clipped to [0, 1]) at SHARD_N rows plus
+    SHARD_BATCH held-out queries, drawn on the card from a
+    ``torch.Generator`` seeded 2 in blocks of 2^21 rows, then copied to
+    the host: (rows, queries) float32."""
+    import torch
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    total = SHARD_N + SHARD_BATCH
+    centres = torch.rand((1024, SHARD_DIM), generator=g, device=dev)
+    out = np.empty((total, SHARD_DIM), dtype=np.float32)
+    for lo in range(0, total, 1 << 21):
+        hi = min(lo + (1 << 21), total)
+        pick = torch.randint(0, 1024, (hi - lo,), generator=g, device=dev)
+        noise = torch.randn((hi - lo, SHARD_DIM), generator=g, device=dev)
+        out[lo:hi] = (centres[pick] + noise / 12).clamp_(0, 1).cpu().numpy()
+    return out[:SHARD_N], out[SHARD_N:]
+
+
+def shard_bytes(holder, n_shards: int) -> list:
+    """Device bytes of each shard's tensors: every list of ``n_shards``
+    tensors among ``holder``'s attributes (sharded or replicated), a
+    tensor shared by shards of one card counted for each."""
+    import torch
+    out = [0] * n_shards
+    for value in vars(holder).values():
+        if isinstance(value, list) and len(value) == n_shards \
+                and all(isinstance(t, torch.Tensor) for t in value):
+            for s, t in enumerate(value):
+                out[s] += t.numel() * t.element_size()
+    return out
+
+
+def peak_bytes(devs) -> dict:
+    """Each card's peak allocated bytes since its last reset."""
+    import torch
+    return {d: torch.cuda.max_memory_allocated(d) for d in sorted(set(devs))}
+
+
+def _uid_rows(res):
+    """(uids (B, k), distances (B, k) float64) of ``nn_many`` results, or
+    such a pair itself."""
+    if isinstance(res, tuple):
+        return np.asarray(res[0]), np.asarray(res[1], dtype=np.float64)
+    return (np.array([[e.uuid() for e in r[0]] for r in res]),
+            np.array([r[1] for r in res], dtype=np.float64))
+
+
+def same_answers(res, ref, what: str, bit_equal: bool) -> dict:
+    """``res`` against ``ref``, query by query: the same rows except for
+    entries tied with the k-th distance, and at every rank where both
+    hold the same row, bit-equal distances (``bit_equal``) or within
+    REL_TOL. Raises on a difference; returns the counts."""
+    u, d = _uid_rows(res)
+    u_r, d_r = _uid_rows(ref)
+    if u.shape != u_r.shape:
+        raise RuntimeError(f"{what}: result shapes {u.shape} {u_r.shape}")
+    same_rank = u == u_r
+    if bit_equal:
+        ok_d = bool(np.array_equal(d[same_rank], d_r[same_rank]))
+    else:
+        ok_d = bool(np.allclose(d[same_rank], d_r[same_rank],
+                                rtol=REL_TOL, atol=0.0))
+    swapped = 0
+    for i in range(u.shape[0]):
+        kth = float(d_r[i, -1])
+        look = dict(zip(u_r[i].tolist(), d_r[i].tolist()))
+        look.update(zip(u[i].tolist(), d[i].tolist()))
+        for x in set(u[i].tolist()) ^ set(u_r[i].tolist()):
+            swapped += 1
+            if abs(look[x] - kth) > REL_TOL * (1.0 + abs(kth)):
+                raise RuntimeError(f"{what}: row {x} at {look[x]} is not "
+                                   f"a tie with the k-th distance {kth}")
+    if not ok_d:
+        raise RuntimeError(f"{what}: distances of the same rows differ")
+    return {"ranks_equal": int(same_rank.sum()), "tie_swaps": swapped,
+            "distances_bit_equal": bool(np.array_equal(d[same_rank],
+                                                        d_r[same_rank]))}
+
+
+def _timed_pair(single, sharded, q_elems, spans, devs):
+    """Warm each index, then time SHARD_REPS batches of it, the single
+    device first; returns per index (results, batch seconds, span split,
+    launches, the cards' peak bytes over the queries, each shard's
+    launches)."""
+    import torch
+    out = {}
+    for name, index in (("single", single), ("sharded", sharded)):
+        index.nn_many(q_elems, K)                          # warm-up
+        for d in set(devs):
+            torch.cuda.reset_peak_memory_stats(d)
+        reset_counts()
+        with shard_launches(SHARD_DEVICES) as tallies:
+            res, batch_s, split_ms = _timed_batches(
+                index, q_elems, SHARD_REPS, spans=spans)
+        out[name] = (res, batch_s, split_ms, read_counts(),
+                     peak_bytes(devs), tallies)
+    return out
+
+
+def _shard(index, s: int, *names):
+    return tuple(getattr(index, n)[s] for n in names)
+
+
+@contextlib.contextmanager
+def shard_launches(n_shards: int):
+    """Each shard's kernel launches while the block runs: the launch
+    counts read just before and just after each shard's search inside
+    ``sharded_topk`` (the body every sharded code-tier query shares),
+    the difference added to that shard's tally. Yields the tallies, one
+    dict a shard (global shard order)."""
+    from smqtk_indexing_tpu_torch.parallel import sharded_ivf_code
+    tallies = [{} for _ in range(n_shards)]
+    inner = sharded_ivf_code.sharded_topk
+
+    def counting(mesh, k, local):
+        def counted(s, kk):
+            before = read_counts()
+            out = local(s, kk)
+            for name, n in read_counts().items():
+                if n != before[name]:
+                    tallies[s][name] = tallies[s].get(name, 0) \
+                        + n - before[name]
+            return out
+        return inner(mesh, k, counted)
+
+    sharded_ivf_code.sharded_topk = counting
+    try:
+        yield tallies
+    finally:
+        sharded_ivf_code.sharded_topk = inner
+
+
+def _shard_ms(kernel, args) -> float:
+    """Mean ms of ``kernel(*args)`` over 10 calls after a warm-up, with
+    CUDA events on the card its operands lie on."""
+    import torch
+    with torch.cuda.device(args[0].device):
+        kernel(*args)
+        return cuda_ms(lambda: kernel(*args), 10)
+
+
+def _k7_operands(index, s: int, qd):
+    """K7's operands on shard ``s`` of the sharded SQ8 code tier at the
+    query batch, its bound and its live slots."""
+    from smqtk_indexing_tpu_torch.ops import ivf_scan
+    db3, s2t, a, b, cents, st, vt, vc, vl = _shard(
+        index, s, "_dev3", "_s2t", "_sq8_a", "_sq8_b", "_dev_centroids",
+        "_slot_table", "_v_tile", "_v_col", "_v_len")
+    t, ti, c0, lo, hi = ivf_scan.tiled_windows(
+        a, b, cents, st[0], vt[0], vc[0], vl[0], qd.to(db3.device),
+        nprobe_orig=IVF_NPROBE)
+    n_tiles, d_k7, tile = db3.shape
+    cols, pairs = distinct_positions(ti.long() * tile + c0.long(), lo, hi,
+                                     ivf_scan.W_TILED, n_tiles * tile)
+    k7_bound = bound(cols * (d_k7 + 4) + 4 * t.numel() + 16 * ti.numel()
+                     + 4 * ti.numel() * ivf_scan.W_TILED,
+                     2.0 * d_k7 * pairs, FP32_FLOPS)
+    return (db3, s2t, t, ti, c0, lo, hi), k7_bound, int((hi > lo).sum())
+
+
+def _k3_operands(k7_args):
+    """K3's operands after K7 on one shard (the segments of the best 24
+    columns of each query, as the exact re-rank picks them) and bound."""
+    import torch
+    from smqtk_indexing_tpu_torch.ops import fused_scan, ivf_scan
+    db3, ti, c0 = k7_args[0], k7_args[3], k7_args[4]
+    scores = ivf_scan.ivf_list_scores_tiled(*k7_args).reshape(
+        SHARD_BATCH, -1)
+    _, sel = fused_scan.topk_smallest(scores, 16 + 8)
+    base = ti.long() * ivf_scan.TILE_ROWS + c0.long()
+    sid = (torch.gather(base, 1, sel // ivf_scan.W_TILED)
+           + sel % ivf_scan.W_TILED) // fused_scan.SEG
+    seg_bytes = db3.shape[1] * fused_scan.SEG * db3.element_size()
+    k3_bound = bound(torch.unique(sid).numel() * seg_bytes
+                     + sid.numel() * (seg_bytes + 8), 0.0, FP32_FLOPS)
+    return (db3, sid), k3_bound
+
+
+def _k8_operands(index, s: int, qd):
+    """K8's operands on shard ``s`` of the sharded PQ16 code tier at the
+    query batch, its bound and its live slots."""
+    from smqtk_indexing_tpu_torch.ops import ivf_scan
+    db3c, s2t, cb, perm, cents, st, vt, vc, vl = _shard(
+        index, s, "_dev3", "_s2t", "_cb_dev", "_perm_dev", "_dev_centroids",
+        "_slot_table", "_v_tile", "_v_col", "_v_len")
+    _, lut, ti, c0, lo, hi, _ = ivf_scan.tiled_windows_pq(
+        cb, perm, cents, st[0], vt[0], vc[0], vl[0], qd.to(db3c.device),
+        nprobe_orig=IVF_NPROBE)
+    n_tiles, m_k8, tile = db3c.shape
+    cols, pairs = distinct_positions(ti.long() * tile + c0.long(), lo, hi,
+                                     ivf_scan.W_TILED, n_tiles * tile)
+    k8_bound = bound(cols * (m_k8 + 4) + 4 * lut.numel() + 16 * ti.numel()
+                     + 4 * ti.numel() * ivf_scan.W_TILED,
+                     float(m_k8) * pairs, FP32_FLOPS)
+    return (db3c, s2t, lut, ti, c0, lo, hi), k8_bound, int((hi > lo).sum())
+
+
+def _per_shard(rows: list) -> dict:
+    """Each shard's ms, bound, share of the bound (and live slots)."""
+    out = {"per_shard_ms": [r["ms"] for r in rows],
+           "per_shard_bound_ms": [r["bound_ms"] for r in rows],
+           "per_shard_share": [r["bound_ms"] / r["ms"] for r in rows]}
+    if "live" in rows[0]:
+        out["per_shard_live_slots"] = [r["live"] for r in rows]
+    return out
+
+
+def sharded_k7_k3(index, qd, smi: str) -> tuple:
+    """K7 and K3 of the sharded SQ8 code tier at the query batch: held
+    against their plain versions (K7 also float64) on shard 0's operands,
+    with shard 0's times and bound on the row, and timed with their
+    bounds on every shard's own operands; (K7 row fields, K3 row
+    fields)."""
+    from smqtk_indexing_tpu_torch.ops import fused_scan, ivf_scan
+    k7_rows, k3_rows = [], []
+    for s in range(SHARD_DEVICES):
+        args, k7_bound, live = _k7_operands(index, s, qd)
+        g_args, k3_bound = _k3_operands(args)
+        k7_rows.append({"ms": _shard_ms(ivf_scan.ivf_list_scores_tiled,
+                                        args), "live": live, **k7_bound})
+        k3_rows.append({"ms": _shard_ms(fused_scan.seg_gather_tiled,
+                                        g_args), **k3_bound})
+        if s == 0:
+            args0, g_args0, k7_bound0, k3_bound0, live0 = \
+                args, g_args, k7_bound, k3_bound, live
+    args, g_args = args0, g_args0
+    ti = args[3]
+    k7 = hold("ivf_list_scores_tiled_shard0",
+              lambda: ivf_scan.ivf_list_scores_tiled(*args),
+              lambda: ivf_scan.ivf_list_scores_tiled_reference(*args),
+              smi, compare="f64", n_f64=N_ORACLE, f64=lambda: _f64_tiled(*args),
+              shape=[SHARD_BATCH, ti.shape[1], ivf_scan.W_TILED],
+              live_slots=live0, slots=int(ti.numel()),
+              **_per_shard(k7_rows))
+    db3, sid = g_args
+    k3 = hold("seg_gather_tiled_shard0",
+              lambda: fused_scan.seg_gather_tiled(*g_args),
+              lambda: fused_scan.seg_gather_tiled_reference(*g_args),
+              smi, compare="equal",
+              shape=list(sid.shape) + [db3.shape[1], fused_scan.SEG],
+              **_per_shard(k3_rows))
+    k3_lib = library_gather(db3, sid)
+    return ({"max_abs_err": k7[0], "ms": k7[1], "plain_ms": k7[2],
+             **k7_bound0, "library_ms": None,
+             "share": k7_bound0["bound_ms"] / k7[1], "live_slots": live0,
+             "slots": int(ti.numel()), **_per_shard(k7_rows)},
+            {"max_abs_err": k3[0], "ms": k3[1], "plain_ms": k3[2],
+             **k3_bound0, "library_ms": k3_lib,
+             "share": k3_bound0["bound_ms"] / k3[1],
+             **_per_shard(k3_rows)})
+
+
+def sharded_k8(index, qd, smi: str) -> dict:
+    """K8 of the sharded PQ16 code tier at the query batch: held against
+    its plain version and float64 on shard 0's operands, with shard 0's
+    time and bound on the row, and timed with its bound on every shard's
+    own operands."""
+    from smqtk_indexing_tpu_torch.ops import ivf_scan
+    k8_rows = []
+    for s in range(SHARD_DEVICES):
+        args, k8_bound, live = _k8_operands(index, s, qd)
+        k8_rows.append({"ms": _shard_ms(ivf_scan.ivf_list_scores_tiled_pq,
+                                        args), "live": live, **k8_bound})
+        if s == 0:
+            args0, k8_bound0, live0 = args, k8_bound, live
+    args = args0
+    ti, m_k8 = args[3], args[0].shape[1]
+    k8 = hold("ivf_list_scores_tiled_pq_shard0",
+              lambda: ivf_scan.ivf_list_scores_tiled_pq(*args),
+              lambda: ivf_scan.ivf_list_scores_tiled_pq_reference(*args),
+              smi, compare="f64", n_f64=N_ORACLE, f64=lambda: _f64_tiled_pq(*args),
+              shape=[SHARD_BATCH, ti.shape[1], ivf_scan.W_TILED],
+              m_sub=int(m_k8), live_slots=live0, slots=int(ti.numel()),
+              **_per_shard(k8_rows))
+    return {"max_abs_err": k8[0], "ms": k8[1], "plain_ms": k8[2],
+            **k8_bound0, "library_ms": None,
+            "share": k8_bound0["bound_ms"] / k8[1], "live_slots": live0,
+            "slots": int(ti.numel()), **_per_shard(k8_rows)}
+
+
+def sharded_phase(smi: str, dev) -> list:
+    """Phase 14, ``sharded-deep10m-shape``; returns the kernels line's rows
+    of K7, K3 and K8 on the shards."""
+    import torch
+    from smqtk_indexing_tpu_torch.utils.tracing import COUNTERS
+    from smqtk_indexing_tpu_torch.data import (
+        DataMemoryElement, DescriptorMemoryElement,
+    )
+    from smqtk_indexing_tpu_torch.models.nn_index.flat import (
+        FlatNearestNeighborsIndex,
+    )
+    from smqtk_indexing_tpu_torch.models.nn_index.ivf import (
+        IvfNearestNeighborsIndex,
+    )
+
+    devs, placement = shard_devices()
+    emit("sharded placement", phase_name="sharded-deep10m-shape",
+         devices=devs, placement=placement,
+         cards_visible=torch.cuda.device_count(), card=smi)
+    t0 = time.perf_counter()
+    data, queries = sharded_data(dev)
+    data_s = time.perf_counter() - t0
+    # 10M long-lived elements: made with the collector off, then frozen
+    # out of its scans (each full collection would walk all of them, in
+    # the builds and in every batch's assembly) until the phase ends.
+    t0 = time.perf_counter()
+    gc.disable()
+    elems = [DescriptorMemoryElement(i, data[i]) for i in range(SHARD_N)]
+    q_elems = [DescriptorMemoryElement(("q", i), queries[i])
+               for i in range(SHARD_BATCH)]
+    gc.freeze()
+    gc.enable()
+    elems_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    truth = f64_topk_rows(data, queries[:N_ORACLE], K, dev)
+    oracle_s = time.perf_counter() - t0
+    emit("sharded data", n=SHARD_N, d=SHARD_DIM, queries=SHARD_BATCH,
+         data_s=data_s, elements_s=elems_s, oracle_s=oracle_s, card=smi)
+
+    def pair(cls, **kw):
+        """The single-device index built, then the sharded one loading its
+        payload over the same descriptor set."""
+        elem = DataMemoryElement()
+        single = cls(index_element=elem, device=str(dev), **kw)
+        COUNTERS.reset()
+        t_b = time.perf_counter()
+        single.build_index(elems)
+        build_s = time.perf_counter() - t_b
+        train_s = COUNTERS.snapshot().get("span.ivf.train.seconds")
+        t_b = time.perf_counter()
+        sharded = cls(index_element=DataMemoryElement(elem.get_bytes()),
+                      descriptor_set=single.descriptor_set,
+                      n_devices=SHARD_DEVICES, device=devs, **kw)
+        load_s = time.perf_counter() - t_b
+        single.index_element = sharded.index_element = None
+        return single, sharded, {"build_s": build_s, "train_s": train_s,
+                                 "sharded_load_s": load_s}
+
+    def report(path, single, sharded, setup, spans, holder, bit_equal,
+               **extra):
+        runs = _timed_pair(single, sharded, q_elems, spans, devs)
+        res_1, res_s = runs["single"][0], runs["sharded"][0]
+        match = same_answers(res_s, res_1, path, bit_equal)
+        rec = {name: recall([[e.uuid() for e in r[0]]
+                             for r in runs[name][0][:N_ORACLE]], truth)
+               for name in runs}
+        fields = {}
+        for name, (_, batch_s, split_ms, counts, peak, _) in runs.items():
+            fields[name] = {
+                "batch_s": batch_s,
+                "qps": SHARD_BATCH / statistics.median(batch_s),
+                "split_ms": split_ms, "launches": _nonzero(counts),
+                "peak_device_bytes": peak, "recall_at_10": rec[name]}
+        per_shard = runs["sharded"][5]
+        fields["sharded"]["per_shard_launches"] = per_shard
+        emit("main", path=path, phase_name="sharded-deep10m-shape",
+             n=SHARD_N, d=SHARD_DIM, batch=SHARD_BATCH, k=K,
+             n_devices=SHARD_DEVICES, devices=devs, placement=placement,
+             **setup, match=match,
+             shard_device_bytes=shard_bytes(holder, SHARD_DEVICES),
+             card=smi, **fields, **extra)
+        return res_1, res_s, rec, runs["sharded"][3], per_shard
+
+    # -- the flat index ------------------------------------------------
+    single, sharded, setup = pair(FlatNearestNeighborsIndex)
+    res_1, res_s, rec, _, _ = report(
+        "sharded flat", single, sharded, setup,
+        ("flat.query", "store.knn", "flat.assemble"), sharded._store,
+        bit_equal=False)
+    if not exact_dists_ok(res_s, data, queries) or rec["sharded"] != 1.0:
+        raise RuntimeError(f"sharded flat: distances are not float64's "
+                           f"or recall@10 {rec['sharded']} != 1.0")
+    del single, sharded, res_1, res_s
+    torch.cuda.empty_cache()
+
+    # -- the IVF code tier: SQ8 score (K7), exact (K3), PQ16 (K8) ------
+    qd = torch.from_numpy(np.pad(queries, ((0, 0),
+                                           (0, 128 - SHARD_DIM)))).to(dev)
+    rows = []
+    single, sharded, setup = pair(
+        IvfNearestNeighborsIndex, dtype="sq8", rerank="score",
+        **SHARD_IVF_KW)
+    k7, k3 = sharded_k7_k3(sharded, qd, smi)
+    _, _, _, counts, per_shard = report(
+        "sharded ivf sq8 code tier, rerank=score", single, sharded, setup,
+        ("ivf.query", "ivf.assemble"), sharded, bit_equal=True)
+    k7_shards = [t.get("ivf_list_scores_tiled", 0) for t in per_shard]
+    single.rerank = sharded.rerank = "exact"
+    _, _, _, counts_x, per_shard = report(
+        "sharded ivf sq8 code tier, rerank=exact", single, sharded,
+        {"build_s": 0.0, "train_s": 0.0, "sharded_load_s": 0.0},
+        ("ivf.query", "ivf.assemble"), sharded, bit_equal=True)
+    k7_shards = [a + t.get("ivf_list_scores_tiled", 0)
+                 for a, t in zip(k7_shards, per_shard)]
+    k3_shards = [t.get("seg_gather_tiled:copy", 0) for t in per_shard]
+    launches = {"K7": (counts["ivf_list_scores_tiled"]
+                       + counts_x["ivf_list_scores_tiled"], k7_shards),
+                "K3": (counts_x["seg_gather_tiled:copy"], k3_shards)}
+    del single, sharded
+    torch.cuda.empty_cache()
+    single, sharded, setup = pair(
+        IvfNearestNeighborsIndex, dtype="pq16", rerank="score",
+        **SHARD_IVF_KW)
+    k8 = sharded_k8(sharded, qd, smi)
+    _, _, _, counts, per_shard = report(
+        "sharded ivf pq16 code tier, rerank=score", single, sharded, setup,
+        ("ivf.query", "ivf.assemble"), sharded, bit_equal=True)
+    launches["K8"] = (counts["ivf_list_scores_tiled_pq"],
+                      [t.get("ivf_list_scores_tiled_pq", 0)
+                       for t in per_shard])
+    del single, sharded, elems
+    gc.unfreeze()
+    torch.cuda.empty_cache()
+    # Every shard runs its search once a batch, so each must have
+    # launched each kernel, and the shards' tallies must add up to the
+    # whole run's count.
+    for name, (n, each) in launches.items():
+        if n == 0 or 0 in each or sum(each) != n:
+            raise RuntimeError(f"the sharded code tier's {name} launches: "
+                               f"{n} in all, {each} by shard")
+    src = "smqtk_indexing_tpu_torch/csrc/"
+    for name, source, replaces, key, row in (
+            ("ivf_list_scores_tiled_sharded", "ivf_list_scores_tiled.cu",
+             "pallas_ivf.py:469", "K7", k7),
+            ("seg_gather_tiled_sharded", "seg_gather.cu",
+             "pallas_scan.py:406", "K3", k3),
+            ("ivf_list_scores_tiled_pq_sharded",
+             "ivf_list_scores_tiled_pq.cu", "pallas_ivf.py:785", "K8",
+             k8)):
+        n, each = launches[key]
+        rows.append({"name": name, "route": "cuda", "source": src + source,
+                     "replaces": "smqtk_indexing_tpu/ops/" + replaces,
+                     "launches": n, **row, "n_devices": SHARD_DEVICES,
+                     "placement": placement, "per_shard_launches": each,
+                     "timed_on": "max_abs_err, ms, plain_ms and bound_ms: "
+                                 "shard 0's operands at B=1024; "
+                                 "per_shard_*: each shard's own"})
+    return rows
+
+
+#: The other sharded routes' query count and LSH sizes.
+ROUTE_QUERIES = 128
+ROUTE_LSH_N = 200_000
+ROUTE_LSH_BITS = 10
+
+
+def _route(what: str, single_res, sharded_res, launches: dict, smi: str,
+           bit_equal: bool = False, **extra) -> None:
+    match = same_answers(sharded_res, single_res, what, bit_equal)
+    if "single_launches" in extra:
+        extra["single_launches"] = _nonzero(extra["single_launches"])
+    emit("sharded route", path=what, match=match,
+         launches=_nonzero(launches), card=smi, **extra)
+
+
+def _nonzero(counts: dict) -> dict:
+    """The launch counts that are not 0."""
+    return {name: n for name, n in counts.items() if n}
+
+
+def sharded_routes(smi: str, dev) -> None:
+    """Phase 15: every other sharded route once on the card, each against
+    its single-device counterpart on an earlier phase's data: the IVF rows
+    tier (float32 and sq8) on phase 4's 1M x 96 vectors, MRPT t8/d9 on
+    them (the gather route on both sides), one ``sharded_kmeans_step``,
+    the flat store's sq8 and pq16 on phase 3's 1M x 128 vectors,
+    ``LinearHashIndex`` over codes of those vectors, LSH (SimpleRP-10, two
+    calls) on 200,000 of phase 4's, and a 2-D (dcn=2) mesh."""
+    import torch
+    from smqtk_indexing_tpu_torch.data import (
+        DataMemoryElement, DescriptorMemoryElement,
+    )
+    from smqtk_indexing_tpu_torch.models.hash_index.linear import (
+        LinearHashIndex,
+    )
+    from smqtk_indexing_tpu_torch.models.lsh_functor.simple_rp import (
+        SimpleRPFunctor,
+    )
+    from smqtk_indexing_tpu_torch.models.nn_index.flat import (
+        FlatNearestNeighborsIndex,
+    )
+    from smqtk_indexing_tpu_torch.models.nn_index.ivf import (
+        IvfNearestNeighborsIndex,
+    )
+    from smqtk_indexing_tpu_torch.models.nn_index.lsh import (
+        LSHNearestNeighborIndex,
+    )
+    from smqtk_indexing_tpu_torch.models.nn_index.mrpt import (
+        MRPTNearestNeighborsIndex,
+    )
+    from smqtk_indexing_tpu_torch.ops.kmeans import kmeans_assign
+    from smqtk_indexing_tpu_torch.ops.store import VectorStore
+    from smqtk_indexing_tpu_torch.parallel import (
+        make_mesh, shard_rows, sharded_kmeans_step,
+    )
+
+    devs, placement = shard_devices()
+    t_all = time.perf_counter()
+
+    def pair(cls, elems, **kw):
+        elem = DataMemoryElement()
+        single = cls(index_element=elem, device=str(dev), **kw)
+        single.build_index(elems)
+        sharded = cls(index_element=DataMemoryElement(elem.get_bytes()),
+                      descriptor_set=single.descriptor_set,
+                      n_devices=SHARD_DEVICES, device=devs, **kw)
+        single.index_element = sharded.index_element = None
+        return single, sharded
+
+    def run(index, q_elems):
+        reset_counts()
+        res = index.nn_many(q_elems, K)
+        return res, read_counts()
+
+    data, queries = ivf_data()
+    elems = [DescriptorMemoryElement(i, data[i]) for i in range(IVF_N)]
+    q_elems = [DescriptorMemoryElement(("q", i), queries[i])
+               for i in range(ROUTE_QUERIES)]
+    for dtype in ("float32", "sq8"):
+        single, sharded = pair(IvfNearestNeighborsIndex, elems,
+                               n_lists=IVF_LISTS, nprobe=IVF_NPROBE,
+                               kmeans_iterations=10,
+                               max_points_per_centroid=64, random_seed=0,
+                               dtype=dtype)
+        res_1, c_1 = run(single, q_elems)
+        res_s, c_s = run(sharded, q_elems)
+        if c_1["ivf_list_scores"] == 0 or c_s["ivf_list_scores"] != 0:
+            raise RuntimeError(f"rows tier {dtype}: K6 must run on one "
+                               "device only")
+        _route(f"ivf rows tier {dtype}", res_1, res_s, c_s, smi,
+               single_launches=c_1)
+        del single, sharded
+    with _env("SMQTK_TPU_NO_MRPT_MIRROR", "1"):
+        single, sharded = pair(MRPTNearestNeighborsIndex, elems,
+                               num_trees=8, depth=9, random_seed=0)
+    res_1, c_1 = run(single, q_elems)
+    res_s, c_s = run(sharded, q_elems)
+    if single._mirror is not None or sharded._mesh is None:
+        raise RuntimeError("mrpt: both sides must take the gather route")
+    _route("mrpt t8/d9, gather route", res_1, res_s, c_s, smi)
+    del single, sharded
+    # One data-parallel Lloyd step against the same step on one device.
+    x = torch.from_numpy(data).to(dev)
+    valid = torch.ones(IVF_N, dtype=torch.bool, device=dev)
+    init = x[:IVF_LISTS].clone()
+    mesh = make_mesh(SHARD_DEVICES, devices=devs)
+    new_c, assigns = sharded_kmeans_step(
+        mesh, shard_rows(mesh, x), shard_rows(mesh, valid), init)
+    a_1 = kmeans_assign(x, init)
+    sums = torch.zeros_like(init).index_add_(0, a_1, x)
+    counts = torch.zeros(IVF_LISTS, device=dev).index_add_(
+        0, a_1, torch.ones(IVF_N, device=dev))
+    c_1 = torch.where(counts[:, None] > 0,
+                      sums / counts.clamp(min=1)[:, None], init)
+    agree = float((torch.cat([a.to(dev) for a in assigns]) == a_1)
+                  .float().mean())
+    c_err = float((new_c.to(dev) - c_1).abs().max())
+    emit("sharded route", path="sharded_kmeans_step", n=IVF_N,
+         lists=IVF_LISTS, assignments_agree=agree,
+         centroid_max_abs_err=c_err, card=smi)
+    if agree < 0.9999 or c_err > 1e-4:
+        raise RuntimeError("sharded_kmeans_step disagrees with one device")
+    del x, valid, init, new_c, assigns, a_1, sums, counts, c_1
+    # LSH: SimpleRP-10 two-call on both sides (few codes: the host scan
+    # on one device, the XOR route a shard).
+    lsh_elems = elems[:ROUTE_LSH_N]
+    out = []
+    functor = SimpleRPFunctor(bit_length=ROUTE_LSH_BITS, random_seed=0,
+                              device=str(dev))
+    functor.fit(lsh_elems[:10000])
+    with _env("SMQTK_TPU_NO_LSH_FUSED", "1"):
+        for kw in ({"device": str(dev)},
+                   {"device": devs, "n_devices": SHARD_DEVICES}):
+            index = LSHNearestNeighborIndex(
+                lsh_functor=functor, distance_method="euclidean", **kw)
+            index.build_index(lsh_elems)
+            out.append(run(index, q_elems))
+    _route("lsh simple-rp-10, two calls", out[0][0], out[1][0],
+           out[1][1], smi, n=ROUTE_LSH_N)
+    del lsh_elems, elems, data, out, index
+    torch.cuda.empty_cache()
+
+    flat, fq = flat_data()
+    f_elems = [DescriptorMemoryElement(i, flat[i]) for i in range(N_MAIN)]
+    fq_elems = [DescriptorMemoryElement(("q", i), fq[i])
+                for i in range(ROUTE_QUERIES)]
+    for dtype in ("sq8", "pq16"):
+        with deterministic():
+            single, sharded = pair(FlatNearestNeighborsIndex, f_elems,
+                                   dtype=dtype)
+        same_codec = all(
+            a is None and b is None or np.array_equal(a, b)
+            for a, b in zip(single._store._codec, sharded._store._codec))
+        res_1, c_1 = run(single, fq_elems)
+        res_s, c_s = run(sharded, fq_elems)
+        if not same_codec or any(n for n in c_s.values()):
+            raise RuntimeError(f"flat {dtype}: codecs differ, or the "
+                               "sharded store launched a kernel")
+        _route(f"flat store {dtype}", res_1, res_s, c_s, smi,
+               single_launches=c_1)
+        del single, sharded
+    # The 2-D mesh: the flat store over ("dcn", "shard") against the 1-D
+    # mesh (the same shards, merged per slice first) and one device.
+    stores = []
+    for mesh in (make_mesh(SHARD_DEVICES, devices=devs, dcn=2),
+                 make_mesh(SHARD_DEVICES, devices=devs), None):
+        store = VectorStore(mesh=mesh, device=dev)
+        store.build(flat, list(range(N_MAIN)))
+        stores.append(store.knn(fq[:ROUTE_QUERIES], K))
+        del store
+    d2, _, r2 = stores[0]
+    d1, _, r1 = stores[1]
+    if not (np.array_equal(r2, r1) and np.array_equal(d2, d1)):
+        raise RuntimeError("the 2-D mesh differs from the 1-D mesh")
+    _route("flat store float32 on a 2-D (dcn=2) mesh",
+           (stores[2][2], stores[2][0]), (r2, d2), {}, smi,
+           equal_to_1d_mesh=True)
+    del stores
+    # LinearHashIndex over 64-bit codes of the flat vectors.
+    rng = np.random.default_rng(0)
+    proj = rng.standard_normal((DIM, 64)).astype(np.float32)
+    codes = (flat - flat.mean(0)) @ proj > 0
+    out = []
+    for kw in ({"device": str(dev)},
+               {"device": devs, "n_devices": SHARD_DEVICES}):
+        index = LinearHashIndex(**kw)
+        index.build_index(codes)
+        reset_counts()
+        out.append(([index.nn(h, 16) for h in codes[:32]], read_counts()))
+    def inside(codes, dists):
+        """The codes strictly inside the k-th distance, as a set (the
+        routes may order codes of one distance differently)."""
+        inner = np.asarray(dists) < dists[-1]
+        return {bytes(row) for row in np.packbits(np.asarray(codes)[inner],
+                                                  axis=1)}
+    for (c_1, d_1), (c_s, d_s) in zip(out[0][0], out[1][0]):
+        if d_1 != d_s or inside(c_1, d_1) != inside(c_s, d_s):
+            raise RuntimeError("sharded LinearHashIndex differs from one "
+                               "device")
+    emit("sharded route", path="linear hash index, 64-bit codes",
+         n=N_MAIN, distances_equal=True, launches=_nonzero(out[1][1]),
+         single_launches=_nonzero(out[0][1]), card=smi)
+    del flat, f_elems, codes, out, index
+    torch.cuda.empty_cache()
+    emit("seconds", of="sharded routes", placement=placement,
+         seconds=time.perf_counter() - t_all)
+
+
+@contextlib.contextmanager
+def _env(name: str, value: str):
+    """``name=value`` in the environment inside the block."""
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = old
+
+
 #: The instantiations of the two wgmma kernels, by their mangled names
 #: (template arguments: It = uint16_t, the bf16 query; Ia = int8_t; f =
 #: float, the f32 database; then kMTiles, kStreamQ and, for K1, kPasses,
@@ -2750,6 +3464,11 @@ def main() -> None:
     t0 = time.perf_counter()
     front_end_phase(smi, dev)
     emit("seconds", of="front-end phase", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    kernels += sharded_phase(smi, dev)
+    emit("seconds", of="sharded-deep10m-shape phase",
+         seconds=time.perf_counter() - t0)
+    sharded_routes(smi, dev)
     if any(mod is not None and (name == "jax" or name.startswith("jax."))
            for name, mod in sys.modules.items()):
         raise RuntimeError("jax was imported")

@@ -22,6 +22,17 @@ from smqtk_indexing_tpu_torch.core.configuration import Configurable
 from smqtk_indexing_tpu_torch.core.plugin import Pluggable
 
 
+def stack_vectors(elems: Sequence["DescriptorElement"]) -> np.ndarray:
+    """
+    The vectors of ``elems`` (non-empty) as one float32 (n, d) matrix, d
+    from the first: filled in one pass by ``np.fromiter``, without the
+    per-row 2-D views that ``np.vstack`` makes.
+    """
+    d = np.asarray(elems[0].vector()).shape[-1]
+    return np.fromiter((e.vector() for e in elems),
+                       dtype=np.dtype((np.float32, d)), count=len(elems))
+
+
 class DescriptorElement (Configurable, Pluggable, metaclass=abc.ABCMeta):
     """A UID paired with an optional float descriptor vector."""
 
@@ -221,5 +232,4 @@ class MemoryDescriptorSet (DescriptorSet):
             elems = [self._table[u] for u in uuids]
         if not elems:
             return np.zeros((0, 0), dtype=np.float32), []
-        mat = np.vstack([e.vector() for e in elems]).astype(np.float32)
-        return mat, [e.uuid() for e in elems]
+        return stack_vectors(elems), [e.uuid() for e in elems]

@@ -21,6 +21,7 @@ from smqtk_indexing_tpu_torch.data.exceptions import ReadOnlyError
 from smqtk_indexing_tpu_torch.interfaces.hash_index import HashIndex
 from smqtk_indexing_tpu_torch.ops.device import device_report
 from smqtk_indexing_tpu_torch.ops.hamming import CodeStore
+from smqtk_indexing_tpu_torch.parallel.mesh import primary_device
 
 LOG = logging.getLogger(__name__)
 
@@ -29,7 +30,7 @@ class _CodeStoreHashIndex (HashIndex):
     """
     HashIndex backed by a ``CodeStore``; subclasses set
     ``self.cache_element`` and ``self.device`` before calling
-    ``_init_store()``.
+    ``_init_store()``, and may override ``_make_mesh``.
     """
 
     @classmethod
@@ -47,8 +48,13 @@ class _CodeStoreHashIndex (HashIndex):
     def _init_store(self) -> None:
         """Call at the end of subclass ``__init__`` (after config attrs)."""
         self._model_lock = threading.RLock()
-        self._store = CodeStore(device=self.device)
+        self._store = CodeStore(mesh=self._make_mesh(),
+                                device=primary_device(self.device))
         self._load_cache()
+
+    def _make_mesh(self):
+        """The store's device mesh; None (one device) by default."""
+        return None
 
     # ------------------------------------------------------------------
     # persistence
@@ -76,7 +82,8 @@ class _CodeStoreHashIndex (HashIndex):
     def _build_index(self, hashes: Iterable[np.ndarray]) -> None:
         with self._model_lock:
             mat = np.vstack([np.asarray(h) for h in hashes]).astype(bool)
-            new_store = CodeStore(device=self.device)
+            new_store = CodeStore(mesh=self._make_mesh(),
+                                  device=primary_device(self.device))
             new_store.build(mat)
             self._store = new_store
             self._save_cache()

@@ -21,7 +21,7 @@ from smqtk_indexing_tpu_torch.data.data_element import DataElement
 from smqtk_indexing_tpu_torch.models.hash_index._base import (
     _CodeStoreHashIndex,
 )
-from smqtk_indexing_tpu_torch.ops.device import resolve_device
+from smqtk_indexing_tpu_torch.parallel.mesh import device_config, mesh_for
 
 
 class LinearHashIndex (_CodeStoreHashIndex):
@@ -32,10 +32,14 @@ class LinearHashIndex (_CodeStoreHashIndex):
         (write-through on every mutation; auto-loaded at construction —
         reference cache semantics, linear.py:121-142). The payload is the
         JAX index's: either package loads the other's.
-    :param n_devices: None or 1. Sharding over several cards is a later
-        slice of the port.
+    :param n_devices: Row-shard the packed codes across this many devices
+        (a power of two); queries run the per-shard Hamming scan and the
+        k-sized merge (``parallel/sharded_scan.py``). None or 1: one
+        device.
     :param device: torch device of the codes: 'cuda' (default; raises
-        when no card is present) or 'cpu'.
+        when no card is present) or 'cpu'. With ``n_devices=n``: 'cuda'
+        is cards 0 .. n-1, 'cpu' n CPU shards, and a list of n device
+        strings places each shard.
     """
 
     @classmethod
@@ -62,14 +66,14 @@ class LinearHashIndex (_CodeStoreHashIndex):
     def __init__(self, cache_element: Optional[DataElement] = None,
                  n_devices: Optional[int] = None, device: str = "cuda"):
         super().__init__()
-        if n_devices is not None and n_devices > 1:
-            raise ValueError(
-                f"n_devices={n_devices} is not ported yet: sharding is the "
-                "'Multi-device' slice of ROADMAP.md (queue 1, item 7).")
         self.cache_element = cache_element
         self.n_devices = n_devices
-        self.device = str(resolve_device(device))
+        self.device = device_config(device)
+        self._mesh = mesh_for(n_devices, device)
         self._init_store()
+
+    def _make_mesh(self):
+        return self._mesh
 
     def get_config(self) -> Dict[str, Any]:
         c = self.get_default_config()

@@ -2,7 +2,8 @@
 Tiled (code-tier) engine of the port's ``IvfNearestNeighborsIndex``:
 ``smqtk_indexing_tpu/models/nn_index/_ivf_code.py`` (``encode_rows``
 :19-54, ``upload_tiled`` single-device :57-187 and :243-261,
-``query_tiled`` :264-349).
+``query_tiled`` :264-349; the mesh branches :86-92, :191-241 and
+:271-311).
 
 It serves ``storage='code'`` always, and the rows tier's routed cells
 (``ivf._tiled_rows_ok``: SQ8 with ``rerank='score'``, euclidean PQ). The
@@ -12,6 +13,13 @@ hold the same tiles, stats and sublist tables for the same codes; the
 device then holds them as tensors. SQ8 tiles are int8 (n_tiles, d_pad,
 TILE_ROWS) and run K7; PQ tiles are uint8 (n_tiles, M, TILE_ROWS) and run
 K8. Functions take the index instance as ``idx`` and run under its lock.
+
+Under a mesh (``idx._make_mesh()``) the tile count rounds up to a multiple
+of the shard count, the tiles and stats go from host memory straight to
+each shard's device (sharded on the tile axis), each shard gets its
+clipped sublist CSR and slot table (``parallel.sharded_ivf_code.
+shard_tiled_layout``), the codec and centroids are replicated once, and
+queries run ``sharded_ivf_query_tiled[_pq]``: K7 or K8 (and K3) a shard.
 """
 from __future__ import annotations
 
@@ -27,6 +35,10 @@ from smqtk_indexing_tpu_torch.ops.ivf_scan import (
 from smqtk_indexing_tpu_torch.ops.opq import compose_transform, opq_train
 from smqtk_indexing_tpu_torch.ops.pq import pq_encode_np, pq_train
 from smqtk_indexing_tpu_torch.ops.sq8 import sq8_encode_np, sq8_train
+from smqtk_indexing_tpu_torch.parallel.mesh import replicate, shard_rows
+from smqtk_indexing_tpu_torch.parallel.sharded_ivf_code import (
+    shard_tiled_layout, sharded_ivf_query_tiled, sharded_ivf_query_tiled_pq,
+)
 
 
 def encode_rows(idx, mat: np.ndarray, assigns: np.ndarray,
@@ -88,7 +100,8 @@ def _pq_stats(idx, codes: np.ndarray, cb: np.ndarray,
             s2 += 2.0 * ipc[asg_pad, mi, codes[:, mi]]
         idx._cents_codec_dev = torch.from_numpy(
             cents_c.astype(np.float32)).to(idx._device)
-        idx._row2list_dev = torch.from_numpy(asg_pad).to(idx._device)
+        # Host numpy until the upload places it (one device or sharded).
+        idx._row2list_dev = asg_pad
     return s2
 
 
@@ -117,6 +130,11 @@ def upload_tiled(idx, sq8_codes: Optional[np.ndarray] = None, sq8_ab=None,
     dim = idx._dim
     d_pad = idx._centroids_np.shape[1]
     n_tiles = max(1, -(-n // TILE_ROWS))
+    mesh = idx._make_mesh()
+    if mesh is not None:
+        # Every shard owns whole tiles: round the tile count up to the
+        # shard count (the surplus rows are dead).
+        n_tiles = -(-n_tiles // mesh.size) * mesh.size
     n_pad = n_tiles * TILE_ROWS
     dead = np.ones(n_pad, dtype=bool)
     dead[:n] = ~idx._valid_host
@@ -165,10 +183,17 @@ def upload_tiled(idx, sq8_codes: Optional[np.ndarray] = None, sq8_ab=None,
         idx._sq8_a = torch.from_numpy(a_p).to(dev)
         idx._sq8_b = torch.from_numpy(b_p).to(dev)
     s2[dead] = np.inf
-    idx._dev3 = torch.from_numpy(np.ascontiguousarray(tiles)).to(dev)
-    idx._s2t = torch.from_numpy(s2.reshape(n_tiles, 1, TILE_ROWS)).to(dev)
     c_count = idx._centroids_np.shape[0]
     lens = np.bincount(idx._assign_host, minlength=c_count).astype(np.int64)
+    idx._capacity = n_pad
+    if mesh is not None:
+        _upload_sharded(idx, mesh, tiles, s2, lens)
+        return
+    idx._mesh = None
+    idx._dev3 = torch.from_numpy(np.ascontiguousarray(tiles)).to(dev)
+    idx._s2t = torch.from_numpy(s2.reshape(n_tiles, 1, TILE_ROWS)).to(dev)
+    if idx._row2list_dev is not None:
+        idx._row2list_dev = torch.from_numpy(idx._row2list_dev).to(dev)
     v_tile, v_col, v_len, v_orig, _ = build_tiled_csr(
         lens[None, :], np.zeros(1, dtype=np.int64))
     idx._v_tile = torch.from_numpy(v_tile).to(dev)
@@ -178,8 +203,60 @@ def upload_tiled(idx, sq8_codes: Optional[np.ndarray] = None, sq8_ab=None,
         build_slot_table(v_orig, c_count)).long().to(dev)
     idx._dev_centroids = torch.from_numpy(
         idx._centroids_np.astype(np.float32)).to(dev)
-    idx._capacity = n_pad
     idx._n_virtual = len(v_len)
+
+
+def _upload_sharded(idx, mesh, tiles: np.ndarray, s2: np.ndarray,
+                    lens: np.ndarray) -> None:
+    """The mesh branch of :func:`upload_tiled` (``_ivf_code.py:191-241``):
+    per-shard clipped CSR and slot tables (a list cut by a shard boundary
+    is probed by both owners), the tiles, stats and row -> list map
+    sharded on the tile axis straight from host memory (the multi-GB tile
+    buffer is never staged on one device), the codec and centroids
+    replicated once."""
+    n_tiles = tiles.shape[0]
+    c_count = idx._centroids_np.shape[0]
+    vt, vc, vl, st = shard_tiled_layout(lens, idx._capacity, mesh.size,
+                                        c_count)
+    idx._dev3 = shard_rows(mesh, tiles)
+    idx._s2t = shard_rows(mesh, s2.reshape(n_tiles, 1, TILE_ROWS))
+    idx._v_tile = shard_rows(mesh, vt)
+    idx._v_col = shard_rows(mesh, vc)
+    idx._v_len = shard_rows(mesh, vl)
+    idx._slot_table = shard_rows(mesh, st.astype(np.int64))
+    if idx._row2list_dev is not None:
+        idx._row2list_dev = shard_rows(mesh, idx._row2list_dev)
+    if idx._pq_m(idx.dtype) is not None:
+        idx._cb_dev = replicate(mesh, idx._cb_dev)
+        idx._perm_dev = replicate(mesh, idx._perm_dev)
+        if idx._cents_codec_dev is not None:
+            idx._cents_codec_dev = replicate(mesh, idx._cents_codec_dev)
+    else:
+        idx._sq8_a = replicate(mesh, idx._sq8_a)
+        idx._sq8_b = replicate(mesh, idx._sq8_b)
+    idx._dev_centroids = replicate(
+        mesh, idx._centroids_np.astype(np.float32))
+    # The total slot count over the shards' clipped tables, as JAX.
+    idx._n_virtual = int(vl.size)
+    idx._mesh = mesh
+
+
+def poison_rows(idx, rows) -> None:
+    """Set removed rows' stats to +inf in place, on their shard under a
+    mesh: the tiled kernels score ``s2 - 2<t, u>`` (K7) and
+    ``s2 - 2 sum LUT`` (K8), so a +inf row never wins."""
+    r = np.asarray(rows, dtype=np.int64)
+    tile, col = r // TILE_ROWS, r % TILE_ROWS
+    if idx._mesh is None:
+        idx._s2t[torch.as_tensor(tile, device=idx._s2t.device), 0,
+                 torch.as_tensor(col, device=idx._s2t.device)] = float("inf")
+        return
+    per = idx._s2t[0].shape[0]
+    for s, part in enumerate(idx._s2t):
+        sel = tile // per == s
+        if sel.any():
+            part[torch.as_tensor(tile[sel] - s * per, device=part.device), 0,
+                 torch.as_tensor(col[sel], device=part.device)] = float("inf")
 
 
 def query_tiled(idx, q_p: torch.Tensor, k_dev: int):
@@ -188,6 +265,8 @@ def query_tiled(idx, q_p: torch.Tensor, k_dev: int):
     row-major engines of ``_ivf_rows.query_rows`` serve it)."""
     if idx._dev3 is None:
         return None
+    if idx._mesh is not None:
+        return _query_sharded(idx, q_p, k_dev)
     kw = dict(k=k_dev, nprobe_orig=min(idx.nprobe, idx._centroids_np.shape[0]),
               rerank="score" if idx.rerank == "score" else "gather",
               metric=idx.metric)
@@ -200,3 +279,22 @@ def query_tiled(idx, q_p: torch.Tensor, k_dev: int):
     return ivf_query_dma_tiled_table(
         idx._dev3, idx._s2t, idx._sq8_a, idx._sq8_b, idx._dev_centroids,
         idx._slot_table, idx._v_tile, idx._v_col, idx._v_len, q_p, **kw)
+
+
+def _query_sharded(idx, q_p: torch.Tensor, k_dev: int):
+    """The mesh branch of :func:`query_tiled` (``_ivf_code.py:271-311``):
+    K7 or K8 (and K3) on every shard, the k-sized merge."""
+    mesh = idx._mesh
+    kw = dict(k=k_dev, nprobe_orig=min(idx.nprobe, idx._centroids_np.shape[0]),
+              rerank="score" if idx.rerank == "score" else "gather",
+              metric=idx.metric)
+    if idx._pq_m(idx.dtype) is not None:
+        return sharded_ivf_query_tiled_pq(
+            mesh, idx._dev3, idx._s2t, idx._cb_dev, idx._perm_dev,
+            idx._dev_centroids, idx._slot_table, idx._v_tile, idx._v_col,
+            idx._v_len, q_p, res_cents=idx._cents_codec_dev,
+            row2list=idx._row2list_dev, **kw)
+    return sharded_ivf_query_tiled(
+        mesh, idx._dev3, idx._s2t, idx._sq8_a, idx._sq8_b,
+        idx._dev_centroids, idx._slot_table, idx._v_tile, idx._v_col,
+        idx._v_len, q_p, **kw)

@@ -2,9 +2,10 @@
 The IVF configuration matrix of the port, and its one enforcement point.
 
 Counterpart of ``smqtk_indexing_tpu/models/nn_index/_ivf_matrix.py``: the
-same cells are accepted, minus sharding (``n_devices > 1``), which raises
-``ValueError`` naming its slice. Every accepted cell is built and queried
-by ``tests/test_torch_ivf_contract.py``.
+same cells are accepted, on one device or sharded over ``n_devices``
+(checked by ``parallel.mesh.make_mesh``: a power of two, no more than the
+devices there are). Every accepted cell is built and queried by
+``tests/test_torch_ivf_contract.py``.
 
 storage='rows' (float32 host mirror):
 
@@ -19,6 +20,10 @@ storage='rows' (float32 host mirror):
 
     pq_residual=True: pq/opq<M>, euclidean only (through K8).
 
+    n_devices > 1: every dtype and metric above, through the list gathers
+    a shard (ivf.ivf_query / ivf_query_pq, residual PQ included): K6 and
+    the tiled routing are single-device, as in JAX.
+
 Layouts whose sublists exceed ``L_MAX - 32`` rows, or whose capacity is
 under ``L_MAX``, take ``ivf.ivf_query`` too.
 
@@ -32,6 +37,7 @@ storage='code' (int8 / uint8 code host mirror, the capacity tier):
                 rerank='exact').
     pq_residual=True: pq/opq<M>, euclidean or cosine (the euclidean
                 residual pipeline over unit-sphere codes).
+    n_devices > 1: every cell above, K7 / K8 (and K3) a shard.
 
 rerank='score' changes results only on the tiled paths; elsewhere
 distances are exact already, so it is accepted and has no effect.
@@ -50,8 +56,7 @@ def validate_ivf_combination(metric: str, dtype: str, storage: str,
 
     :raises ValueError: an unknown metric, dtype, storage or rerank value;
         storage='code' with a float dtype; pq_residual with a non-PQ dtype,
-        with inner_product, or with cosine on the rows tier; n_devices > 1
-        (the multi-device slice).
+        with inner_product, or with cosine on the rows tier.
     """
     is_pq = pq_m(dtype) is not None
     if metric not in METRICS:
@@ -87,7 +92,3 @@ def validate_ivf_combination(metric: str, dtype: str, storage: str,
         raise ValueError(
             "storage='code' (code-resident capacity tier) requires "
             f"dtype='sq8', 'pq<M>' or 'opq<M>', got {dtype!r}")
-    if n_devices is not None and n_devices > 1:
-        raise ValueError(
-            f"n_devices={n_devices} is not ported yet: sharding is the "
-            "'Multi-device' slice of ROADMAP.md (queue 1, item 9).")

@@ -1,7 +1,7 @@
 """
 Rows-tier engine of the port's ``IvfNearestNeighborsIndex``:
 ``smqtk_indexing_tpu/models/nn_index/_ivf_rows.py`` (``upload_rows``
-:24-187, ``query_rows`` :226-300, single device).
+:24-187, ``query_rows`` :226-300).
 
 The host mirror is the float32 rows, sorted by list. The device holds
 them row-major (f32, bf16, SQ8 codes or PQ codes, with a codec trained per
@@ -14,6 +14,13 @@ when a switch takes the routing away (``SMQTK_TPU_NO_ROWS_TILED`` or
 ``SMQTK_TPU_NO_DMA_IVF`` at the layout); ``SMQTK_TPU_NO_DMA_IVF`` at a
 query also takes K6 away (``ops/ivf.ivf_query``).
 Functions take the index instance as ``idx`` and run under its lock.
+
+Under a mesh (``_ivf_rows.py:187-219`` and ``:232-263``) the tiled routing
+and K6 are off, as in JAX (``ivf.py:298, :329``): the row-major tensors
+are built on the mesh's first device and row-sharded, each shard gets its
+clipped sublist CSR (``parallel.sharded_ivf.shard_csr``), and queries run
+``ops/ivf.ivf_query`` or ``ivf_query_pq`` a shard
+(``parallel.sharded_ivf``).
 """
 from __future__ import annotations
 
@@ -33,6 +40,10 @@ from smqtk_indexing_tpu_torch.ops.pq import (
 )
 from smqtk_indexing_tpu_torch.ops.sq8 import (
     sq8_build_store, sq8_encode_np, sq8_train,
+)
+from smqtk_indexing_tpu_torch.parallel.mesh import replicate, shard_rows
+from smqtk_indexing_tpu_torch.parallel.sharded_ivf import (
+    shard_csr, sharded_ivf_query, sharded_ivf_query_pq,
 )
 
 _FLOAT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -173,6 +184,33 @@ def upload_rows(idx) -> None:
         dev, torch.bfloat16 if idx.dtype == "bfloat16" else torch.float32)
     idx._dev_offsets = torch.from_numpy(v_off).long().to(dev)
     idx._dev_lens = torch.from_numpy(v_len).long().to(dev)
+    idx._mesh = idx._make_mesh()
+    if idx._mesh is not None:
+        _shard_rows_state(idx, v_off, v_len)
+
+
+def _shard_rows_state(idx, v_off: np.ndarray, v_len: np.ndarray) -> None:
+    """Row-shard the rows tier's device state (``_ivf_rows.py:187-219``):
+    rows, stats, liveness and (residual PQ) the row -> list map sharded,
+    each shard's clipped CSR view, the centroids and codecs replicated.
+    The query transform stays on the first device."""
+    mesh = idx._mesh
+    loc_off, loc_len = shard_csr(v_off, v_len, idx._capacity, mesh.size)
+    idx._dev, idx._dev_sq, idx._dev_norm, idx._dev_valid = (
+        shard_rows(mesh, t) for t in (idx._dev, idx._dev_sq,
+                                      idx._dev_norm, idx._dev_valid))
+    idx._dev_offsets = shard_rows(mesh, loc_off.astype(np.int64))
+    idx._dev_lens = shard_rows(mesh, loc_len.astype(np.int64))
+    idx._dev_centroids = replicate(mesh, idx._dev_centroids)
+    idx._dev_first_virt = replicate(mesh, idx._dev_first_virt)
+    if idx.dtype == "sq8":
+        idx._sq8_a = replicate(mesh, idx._sq8_a)
+        idx._sq8_b = replicate(mesh, idx._sq8_b)
+    if idx._pq_m(idx.dtype) is not None:
+        idx._pq_cb_dev = replicate(mesh, idx._pq_cb_dev)
+        if idx._row2list_dev is not None:
+            idx._row2list_dev = shard_rows(mesh, idx._row2list_dev)
+            idx._cents_codec_dev = replicate(mesh, idx._cents_codec_dev)
 
 
 def query_rows(idx, q_p: torch.Tensor, k_dev: int, nprobe: int,
@@ -180,6 +218,22 @@ def query_rows(idx, q_p: torch.Tensor, k_dev: int, nprobe: int,
     """Serve one padded query batch through K6 (``_dma_eligible``) or the
     plain list gathers (``ops/ivf.ivf_query``, ``ivf_query_pq``)."""
     dq = (idx._sq8_a, idx._sq8_b) if idx.dtype == "sq8" else None
+    if idx._mesh is not None and idx._pq_m(idx.dtype) is not None:
+        return sharded_ivf_query_pq(
+            idx._mesh, idx._dev, idx._pq_cb_dev, idx._dev_sq,
+            idx._dev_valid, idx._dev_centroids, idx._dev_offsets,
+            idx._dev_lens, pq_transform_queries(q_p, idx._perm_dev),
+            k=k_dev, nprobe=nprobe, l_max=idx._l_max, metric=idx.metric,
+            first_virt=first_virt, nprobe_orig=nprobe_orig,
+            has_dead=has_dead, res_cents=idx._cents_codec_dev,
+            row2list=idx._row2list_dev)
+    if idx._mesh is not None:
+        return sharded_ivf_query(
+            idx._mesh, idx._dev, idx._dev_sq, idx._dev_norm,
+            idx._dev_valid, idx._dev_centroids, idx._dev_offsets,
+            idx._dev_lens, q_p, k=k_dev, nprobe=nprobe, l_max=idx._l_max,
+            metric=idx.metric, dq=dq, first_virt=first_virt,
+            nprobe_orig=nprobe_orig, has_dead=has_dead)
     if idx._pq_m(idx.dtype) is not None:
         return ivf_query_pq(
             idx._dev, idx._pq_cb_dev, idx._dev_sq, idx._dev_valid,

@@ -36,7 +36,7 @@ from smqtk_indexing_tpu_torch.core.configuration import (
 from smqtk_indexing_tpu_torch.data.data_element import DataElement
 from smqtk_indexing_tpu_torch.data.descriptor import (
     DescriptorElement, DescriptorMemoryElement, DescriptorSet,
-    MemoryDescriptorSet,
+    MemoryDescriptorSet, stack_vectors,
 )
 from smqtk_indexing_tpu_torch.data.exceptions import ReadOnlyError
 from smqtk_indexing_tpu_torch.interfaces.nearest_neighbor_index import (
@@ -294,8 +294,7 @@ class AutotunedNearestNeighborsIndex (NearestNeighborsIndex):
             elems = list(descriptors)
             by_uid = {e.uuid(): e for e in elems}
             uids = list(by_uid.keys())
-            mat = np.vstack([by_uid[u].vector() for u in uids]) \
-                .astype(np.float32)
+            mat = stack_vectors([by_uid[u] for u in uids])
             store = VectorStore(device=self.device)
             store.build(mat, uids)
             self._store = store
@@ -316,8 +315,7 @@ class AutotunedNearestNeighborsIndex (NearestNeighborsIndex):
                     f"Skipped {skipped} already-indexed descriptor UID(s) "
                     "during update.")
             if fresh:
-                mat = np.vstack([by_uid[u].vector() for u in fresh]) \
-                    .astype(np.float32)
+                mat = stack_vectors([by_uid[u] for u in fresh])
                 self._store.add(mat, fresh)
                 self.descriptor_set.add_many_descriptors(
                     by_uid[u] for u in fresh)

@@ -31,7 +31,6 @@ import warnings
 from typing import Any, Dict, Hashable, Iterable, List, Optional, Sequence
 
 import numpy as np
-import torch
 
 from smqtk_indexing_tpu_torch.core.configuration import (
     from_config_dict, make_default_config, merge_dict, to_config_dict,
@@ -39,7 +38,7 @@ from smqtk_indexing_tpu_torch.core.configuration import (
 from smqtk_indexing_tpu_torch.data.data_element import DataElement
 from smqtk_indexing_tpu_torch.data.descriptor import (
     DescriptorElement, DescriptorMemoryElement, DescriptorSet,
-    MemoryDescriptorSet,
+    MemoryDescriptorSet, stack_vectors,
 )
 from smqtk_indexing_tpu_torch.data.exceptions import ReadOnlyError
 from smqtk_indexing_tpu_torch.data.key_value import KeyValueStore
@@ -54,6 +53,9 @@ from smqtk_indexing_tpu_torch.ops.device import device_report
 from smqtk_indexing_tpu_torch.ops.pq import PQ_METRICS, pq_m, pq_rotate
 from smqtk_indexing_tpu_torch.ops.scan import METRICS
 from smqtk_indexing_tpu_torch.ops.store import VectorStore
+from smqtk_indexing_tpu_torch.parallel.mesh import (
+    device_config, mesh_for, primary_device,
+)
 from smqtk_indexing_tpu_torch.utils.tracing import COUNTERS, trace_span
 
 LOG = logging.getLogger(__name__)
@@ -76,12 +78,16 @@ class FlatNearestNeighborsIndex (NearestNeighborsIndex):
         learned OPQ rotation; not with 'hik'). The compressed codecs serve
         'euclidean', 'inner_product', 'cosine' and 'hik'.
     :param read_only: Refuse mutations when True.
-    :param n_devices: None or 1. Sharding over several cards is a later
-        slice of the port.
+    :param n_devices: Row-shard the database across this many devices (a
+        power of two); each query runs the per-shard exact scan and the
+        k-sized merge (``parallel/sharded_scan.py``). None or 1: one
+        device.
     :param storage: 'device'. The host-streamed tier is a later slice.
     :param device: torch device holding the index: 'cuda' (default; raises
         when no card is present) or 'cpu' (the plain PyTorch versions of
-        the kernels).
+        the kernels). With ``n_devices=n``: 'cuda' is cards 0 .. n-1 (too
+        few raise), 'cpu' n CPU shards, and a list of n device strings
+        places each shard (a card may repeat).
     """
 
     # is_usable() keeps the default True: this module imports torch, so
@@ -146,11 +152,7 @@ class FlatNearestNeighborsIndex (NearestNeighborsIndex):
             raise ValueError(
                 f"storage={storage!r} is not ported yet: the port serves "
                 "storage='device'; 'host_stream' is the 'Host-streamed "
-                "tier' slice of ROADMAP.md (queue 1, item 8).")
-        if n_devices is not None and n_devices > 1:
-            raise ValueError(
-                f"n_devices={n_devices} is not ported yet: sharding is the "
-                "'Multi-device' slice of ROADMAP.md (queue 1, item 9).")
+                "tier' slice of ROADMAP.md (queue 1, item 6).")
         if pq_rotate(dtype) and metric == "hik":
             raise ValueError(
                 "metric 'hik' is not supported with OPQ dtypes (min() is "
@@ -170,7 +172,8 @@ class FlatNearestNeighborsIndex (NearestNeighborsIndex):
         self.read_only = bool(read_only)
         self.n_devices = n_devices
         self.storage = storage
-        self.device = str(torch.device(device))
+        self.device = device_config(device)
+        self._mesh = mesh_for(n_devices, device)
         # Optional external uid<->idx mirrors (see _kvs.py).
         self.uid2idx_kvs = uid2idx_kvs
         self.idx2uid_kvs = idx2uid_kvs
@@ -180,7 +183,8 @@ class FlatNearestNeighborsIndex (NearestNeighborsIndex):
         self._load_index()
 
     def _new_store(self) -> VectorStore:
-        return VectorStore(dtype=self.dtype, device=self.device)
+        return VectorStore(dtype=self.dtype, mesh=self._mesh,
+                           device=primary_device(self.device))
 
     def get_config(self) -> Dict[str, Any]:
         c = self.get_default_config()
@@ -269,8 +273,7 @@ class FlatNearestNeighborsIndex (NearestNeighborsIndex):
             # Last occurrence of a duplicated UID wins (dict semantics).
             by_uid = {e.uuid(): e for e in descriptors}
             uids = list(by_uid.keys())
-            mat = np.vstack([by_uid[u].vector() for u in uids]) \
-                .astype(np.float32)
+            mat = stack_vectors([by_uid[u] for u in uids])
             new_store = self._new_store()
             new_store.build(mat, uids)
             # Swap once the device tensors are ready.
@@ -293,8 +296,7 @@ class FlatNearestNeighborsIndex (NearestNeighborsIndex):
                     f"Skipped {skipped} already-indexed descriptor UID(s) "
                     "during update.")
             if fresh:
-                mat = np.vstack([by_uid[u].vector() for u in fresh]) \
-                    .astype(np.float32)
+                mat = stack_vectors([by_uid[u] for u in fresh])
                 self._store.add(mat, fresh)
                 self.descriptor_set.add_many_descriptors(
                     by_uid[u] for u in fresh)

@@ -61,7 +61,7 @@ from smqtk_indexing_tpu_torch.core.configuration import (
 )
 from smqtk_indexing_tpu_torch.data.data_element import DataElement
 from smqtk_indexing_tpu_torch.data.descriptor import (
-    DescriptorElement, DescriptorSet, MemoryDescriptorSet,
+    DescriptorElement, DescriptorSet, MemoryDescriptorSet, stack_vectors,
 )
 from smqtk_indexing_tpu_torch.data.exceptions import ReadOnlyError
 from smqtk_indexing_tpu_torch.data.key_value import KeyValueStore
@@ -79,14 +79,17 @@ from smqtk_indexing_tpu_torch.models.nn_index._results import (
     assemble_results,
 )
 from smqtk_indexing_tpu_torch.ops.device import (
-    device_report, pad_dim, pad_rows_np, pow2_at_least, resolve_device,
+    device_report, pad_dim, pad_rows_np, pow2_at_least,
     tpu_kernel_enabled,
 )
-from smqtk_indexing_tpu_torch.ops.ivf_scan import L_MAX, TILE_ROWS
+from smqtk_indexing_tpu_torch.ops.ivf_scan import L_MAX
 from smqtk_indexing_tpu_torch.ops.kmeans import kmeans_assign, kmeans_lloyd
 from smqtk_indexing_tpu_torch.ops.pq import (
     pq_codec_dim, pq_decode_np, pq_m, pq_perm,
     pq_prep_queries, pq_rotate,
+)
+from smqtk_indexing_tpu_torch.parallel.mesh import (
+    device_config, mesh_for, primary_device, shard_rows,
 )
 from smqtk_indexing_tpu_torch.utils.tracing import COUNTERS, trace_span
 
@@ -121,11 +124,19 @@ class IvfNearestNeighborsIndex (NearestNeighborsIndex):
         winners from their decoded codes; 'score' reports the kernel's
         surrogate distance and skips the gather.
     :param read_only: Refuse mutations when True.
-    :param n_devices: None or 1. Sharding is a later slice of the port.
+    :param n_devices: Row-shard the list-sorted database across this many
+        devices (a power of two): the code tier shards its tiles (K7 / K8
+        a shard, ``parallel/sharded_ivf_code.py``), the rows tier its rows
+        (the list gathers a shard, ``parallel/sharded_ivf.py``); lists cut
+        by a shard boundary are probed by both owners, and the per-shard
+        winners merge. None or 1: one device.
     :param pq_residual: PQ dtypes only: encode residuals to the list
         centroid (euclidean; cosine on the code tier).
     :param device: torch device holding the index: 'cuda' (default; raises
         when no card is present) or 'cpu' (the kernels' plain versions).
+        With ``n_devices=n``: 'cuda' is cards 0 .. n-1 (too few raise),
+        'cpu' n CPU shards, and a list of n device strings places each
+        shard (a card may repeat).
     """
 
     # is_usable() keeps the default True: this module imports torch, so
@@ -207,8 +218,9 @@ class IvfNearestNeighborsIndex (NearestNeighborsIndex):
         self.read_only = bool(read_only)
         self.n_devices = n_devices
         self.pq_residual = bool(pq_residual)
-        self._device = resolve_device(device)
-        self.device = str(self._device)
+        self._device = primary_device(device)
+        self.device = device_config(device)
+        self._mesh_cfg = mesh_for(n_devices, device)
         # Optional external uid<->idx mirrors (see _kvs.py).
         self.uid2idx_kvs = uid2idx_kvs
         self.idx2uid_kvs = idx2uid_kvs
@@ -253,6 +265,7 @@ class IvfNearestNeighborsIndex (NearestNeighborsIndex):
         kernel's window less its alignment slack, and a capacity of at
         least one window."""
         return (tpu_kernel_enabled("SMQTK_TPU_NO_DMA_IVF")
+                and self._mesh is None
                 and self.metric == "euclidean"
                 and 0 < self._l_max_raw <= L_MAX - 32
                 and self._capacity >= L_MAX)
@@ -260,7 +273,8 @@ class IvfNearestNeighborsIndex (NearestNeighborsIndex):
     def _tiled_rows_ok(self) -> bool:
         """The rows tier's routed cells take the tiled engine
         (``ivf.py:304-337``, the TPU routing, read at each layout): only
-        euclidean PQ / OPQ and sq8 qualify, then in the JAX order
+        single-device euclidean PQ / OPQ and sq8 qualify, then in the JAX
+        order
 
         1. ``SMQTK_TPU_NO_ROWS_TILED`` set: row-major;
         2. ``SMQTK_TPU_ROWS_TILED`` set: tiled;
@@ -272,6 +286,7 @@ class IvfNearestNeighborsIndex (NearestNeighborsIndex):
         if self.storage != "rows" \
                 or (self.dtype != "sq8" and self._pq_m(self.dtype) is None) \
                 or self.metric != "euclidean" \
+                or self._mesh_cfg is not None \
                 or os.environ.get("SMQTK_TPU_NO_ROWS_TILED"):
             return False
         if os.environ.get("SMQTK_TPU_ROWS_TILED"):
@@ -280,7 +295,13 @@ class IvfNearestNeighborsIndex (NearestNeighborsIndex):
             return False
         return tpu_kernel_enabled("SMQTK_TPU_NO_DMA_IVF")
 
+    def _make_mesh(self):
+        """The device mesh of ``n_devices`` / ``device``, or None."""
+        return self._mesh_cfg
+
     def _reset_state(self) -> None:
+        # Device mesh of the uploaded state (None: one device).
+        self._mesh = None
         # Host source of truth, in list-sorted order.
         self._dim: Optional[int] = None
         self._host: Optional[np.ndarray] = None        # f32 rows / codes
@@ -467,8 +488,7 @@ class IvfNearestNeighborsIndex (NearestNeighborsIndex):
             self._guard_read_only()
             by_uid = {e.uuid(): e for e in descriptors}
             uids = list(by_uid.keys())
-            mat = np.vstack([by_uid[u].vector() for u in uids]) \
-                .astype(np.float32)
+            mat = stack_vectors([by_uid[u] for u in uids])
             self._dim = int(mat.shape[1])
             # A full build retrains the codec too (FAISS train()).
             self._code_a = self._code_b = None
@@ -496,8 +516,7 @@ class IvfNearestNeighborsIndex (NearestNeighborsIndex):
                     f"Skipped {skipped} already-indexed descriptor UID(s) "
                     "during update.")
             if fresh:
-                new_mat = np.vstack([by_uid[u].vector() for u in fresh]) \
-                    .astype(np.float32)
+                new_mat = stack_vectors([by_uid[u] for u in fresh])
                 new_assigns = self._assign(new_mat)
                 keep = np.flatnonzero(self._valid_host)
                 if self.storage == "code":
@@ -542,12 +561,12 @@ class IvfNearestNeighborsIndex (NearestNeighborsIndex):
                              [self._row2uid[i] for i in keep],
                              self._assign_host[keep])
             elif self._dev3 is not None:
-                # Poison the removed rows' stats in place: the tiled
-                # kernels score s2 - 2<t, u> (K7) and s2 - 2 sum LUT (K8),
-                # so a +inf row never wins.
-                r = torch.as_tensor(rows, dtype=torch.long,
-                                    device=self._device)
-                self._s2t[r // TILE_ROWS, 0, r % TILE_ROWS] = float("inf")
+                _ivf_code.poison_rows(self, rows)
+            elif self._mesh is not None:
+                # The validity mask is sharded anew (ivf.py:703-710).
+                valid = np.zeros(self._capacity, dtype=bool)
+                valid[:len(self._valid_host)] = self._valid_host
+                self._dev_valid = shard_rows(self._mesh, valid)
             else:
                 self._dev_valid[torch.as_tensor(
                     rows, dtype=torch.long, device=self._device)] = False

@@ -53,8 +53,7 @@ from smqtk_indexing_tpu_torch.interfaces.nearest_neighbor_index import (
 )
 from smqtk_indexing_tpu_torch.models.hash_index.linear import LinearHashIndex
 from smqtk_indexing_tpu_torch.ops.device import (
-    device_report, pow2_at_least as _pow2_at_least, resolve_device,
-    round_up,
+    device_report, pow2_at_least as _pow2_at_least, round_up,
 )
 from smqtk_indexing_tpu_torch.ops.fused_scan import TILE_N
 from smqtk_indexing_tpu_torch.ops.hamming import MXU_SCAN_MIN
@@ -63,6 +62,12 @@ from smqtk_indexing_tpu_torch.ops.metrics import candidate_distances
 from smqtk_indexing_tpu_torch.utils.bits import (
     bit_matrix_to_ints, bit_vector_to_int_large, int_to_bit_vector_large,
     ints_to_packed_u32, unpack_bit_vectors_u32,
+)
+from smqtk_indexing_tpu_torch.parallel.mesh import (
+    device_config, mesh_for, primary_device, shard_rows,
+)
+from smqtk_indexing_tpu_torch.parallel.sharded_scan import (
+    sharded_rerank_topk,
 )
 from smqtk_indexing_tpu_torch.utils.tracing import COUNTERS, trace_span
 
@@ -96,12 +101,18 @@ class LSHNearestNeighborIndex (NearestNeighborsIndex):
     :param distance_method: Candidate re-rank distance:
         'euclidean' | 'cosine' | 'hik'.
     :param read_only: Refuse mutations when True.
-    :param n_devices: None or 1. Sharding over several cards is a later
-        slice of the port.
+    :param n_devices: Ride a device mesh (power of two): the on-the-fly
+        fallback ``LinearHashIndex`` row-shards its codes across it, and
+        the exact re-rank splits each query's candidate block across it
+        (``parallel/sharded_scan.sharded_rerank_topk``). The fused serve
+        is single-device, so it is off. A configured ``hash_index`` keeps
+        its own placement. None or 1: one device.
     :param device: torch device of the bucket table, the re-rank and the
         fallback hash index: 'cuda' (default; raises when no card is
         present) or 'cpu'. The functor and a configured ``hash_index``
-        keep their own.
+        keep their own. With ``n_devices=n``: 'cuda' is cards 0 .. n-1,
+        'cpu' n CPU shards, and a list of n device strings places each
+        shard.
 
     >>> import numpy as np
     >>> from smqtk_indexing_tpu_torch.data.descriptor import (
@@ -186,10 +197,6 @@ class LSHNearestNeighborIndex (NearestNeighborsIndex):
                  n_devices: Optional[int] = None,
                  device: str = "cuda"):
         super().__init__()
-        if n_devices is not None and n_devices > 1:
-            raise ValueError(
-                f"n_devices={n_devices} is not ported yet: sharding is the "
-                "'Multi-device' slice of ROADMAP.md (queue 1, item 7).")
         if distance_method not in VALID_DISTANCES:
             raise ValueError(
                 f"distance_method must be one of {VALID_DISTANCES}, got "
@@ -203,7 +210,9 @@ class LSHNearestNeighborIndex (NearestNeighborsIndex):
         self.distance_method = distance_method
         self.read_only = bool(read_only)
         self.n_devices = n_devices
-        self.device = str(resolve_device(device))
+        self.device = device_config(device)
+        self._device = primary_device(device)
+        self._mesh = mesh_for(n_devices, device)
         self._model_lock = threading.RLock()
         # Cached on-the-fly fallback hash index (the reference rebuilds it
         # on EVERY query, lsh.py:481-487 — an O(N) host pass per lookup;
@@ -367,7 +376,8 @@ class LSHNearestNeighborIndex (NearestNeighborsIndex):
         if self.hash_index is not None:
             return self.hash_index
         if self._fallback_hi is None:
-            hi = LinearHashIndex(device=self.device)
+            hi = LinearHashIndex(n_devices=self.n_devices,
+                                 device=self.device)
             keys = list(self.hash2uuids_kvstore.keys())
             hi.build_index(
                 np.vstack([int_to_bit_vector_large(c, bits) for c in keys]))
@@ -386,14 +396,15 @@ class LSHNearestNeighborIndex (NearestNeighborsIndex):
 
         Eligible when: no configured ``hash_index`` (the fused near-code
         scan IS the on-the-fly-linear fallback semantics, reference
-        lsh.py:481-487), the functor exposes its affine form
+        lsh.py:481-487), one device, the functor exposes its affine form
         (``LshFunctor.hash_model``), and the padded candidate budget is
         sane. SMQTK_TPU_NO_LSH_FUSED=1 opts out (A/B against the two-call
         path). The near-code engine is "mxu" (the ±1 bf16 code table,
         K1's bf16 form) from ``MXU_SCAN_MIN`` unique codes on or under
         SMQTK_TPU_LSH_FUSED_MXU=1, else "xor"."""
         if os.environ.get("SMQTK_TPU_NO_LSH_FUSED") \
-                or self.hash_index is not None:
+                or self.hash_index is not None \
+                or self._mesh is not None:
             return None
         model = self.lsh_functor.hash_model()
         if model is None:
@@ -453,7 +464,7 @@ class LSHNearestNeighborIndex (NearestNeighborsIndex):
             mat[:n_rows] = np.vstack([e.vector() for e in elems])
         row_valid = np.zeros(n_pad, dtype=bool)
         row_valid[:n_rows] = True
-        dev = torch.device(self.device)
+        dev = self._device
 
         def put(a):
             return torch.from_numpy(a).to(dev)
@@ -527,8 +538,10 @@ class LSHNearestNeighborIndex (NearestNeighborsIndex):
                          sum(len(c) for c in cand_elems_per_q))
 
             d_dim = q_mat.shape[1]
+            mesh = self._mesh
             m_pad = _pow2_at_least(
-                max(len(c) for c in cand_elems_per_q), lo=8)
+                max(len(c) for c in cand_elems_per_q),
+                lo=max(8, mesh.size if mesh is not None else 8))
             cand = np.zeros((len(ds), m_pad, d_dim), dtype=np.float32)
             valid = np.zeros((len(ds), m_pad), dtype=bool)
             for i, elems in enumerate(cand_elems_per_q):
@@ -536,11 +549,19 @@ class LSHNearestNeighborIndex (NearestNeighborsIndex):
                     cand[i, :len(elems)] = np.vstack(
                         [e.vector() for e in elems])
                     valid[i, :len(elems)] = True
-            dev = torch.device(self.device)
-            dists, order = _rerank_batch(
-                torch.from_numpy(q_mat).to(dev),
-                torch.from_numpy(cand).to(dev),
-                torch.from_numpy(valid).to(dev), self.distance_method)
+            if mesh is not None:
+                # The candidate block splits on its M axis (lsh.py:547-575).
+                dists, order = sharded_rerank_topk(
+                    mesh, q_mat, shard_rows(mesh, cand, axis=1),
+                    shard_rows(mesh, valid, axis=1),
+                    k=min(_pow2_at_least(n, lo=1), m_pad),
+                    metric=self.distance_method)
+            else:
+                dev = self._device
+                dists, order = _rerank_batch(
+                    torch.from_numpy(q_mat).to(dev),
+                    torch.from_numpy(cand).to(dev),
+                    torch.from_numpy(valid).to(dev), self.distance_method)
             dists = dists.cpu().numpy()
             order = order.cpu().numpy()
 
@@ -625,7 +646,7 @@ class LSHNearestNeighborIndex (NearestNeighborsIndex):
         pad[0, :m] = cand
         valid = np.zeros((1, m_pad), dtype=bool)
         valid[0, :m] = True
-        dev = torch.device(self.device)
+        dev = self._device
         dists, order = _rerank_batch(
             torch.from_numpy(q_vec[None, :]).to(dev),
             torch.from_numpy(pad).to(dev), torch.from_numpy(valid).to(dev),

@@ -27,6 +27,10 @@ port keeps the TPU routing on every device (``ops/device.
 tpu_kernel_enabled``), so on the CPU the mirror route runs K6's plain
 version where the JAX index builds no mirror.
 
+With ``n_devices > 1`` the rows and the per-shard leaf tables are sharded
+and every query takes the gather route a shard
+(``parallel.sharded_mrpt``), as in JAX: no mirror is built.
+
 Example, on the CPU::
 
     index = MRPTNearestNeighborsIndex(num_trees=8, depth=3, random_seed=0,
@@ -51,7 +55,7 @@ from smqtk_indexing_tpu_torch.core.configuration import (
 from smqtk_indexing_tpu_torch.data.data_element import DataElement
 from smqtk_indexing_tpu_torch.data.descriptor import (
     DescriptorElement, DescriptorMemoryElement, DescriptorSet,
-    MemoryDescriptorSet,
+    MemoryDescriptorSet, stack_vectors,
 )
 from smqtk_indexing_tpu_torch.data.exceptions import ReadOnlyError
 from smqtk_indexing_tpu_torch.interfaces.nearest_neighbor_index import (
@@ -63,11 +67,17 @@ from smqtk_indexing_tpu_torch.models.nn_index._results import (
 from smqtk_indexing_tpu_torch.ops import sq8 as sq8_ops
 from smqtk_indexing_tpu_torch.ops.device import (
     capacity_for, device_report, pad_dim, pad_rows_np, pow2_at_least,
-    resolve_device, tpu_kernel_enabled,
+    tpu_kernel_enabled,
 )
 from smqtk_indexing_tpu_torch.ops.ivf_scan import L_MAX
 from smqtk_indexing_tpu_torch.ops.mrpt import (
     build_trees, mrpt_query, mrpt_query_mirror, project_all,
+)
+from smqtk_indexing_tpu_torch.parallel.mesh import (
+    device_config, mesh_for, primary_device, replicate, shard_rows,
+)
+from smqtk_indexing_tpu_torch.parallel.sharded_mrpt import (
+    shard_leaf_tables, sharded_mrpt_query,
 )
 from smqtk_indexing_tpu_torch.utils.tracing import COUNTERS, trace_span
 
@@ -89,9 +99,15 @@ class MRPTNearestNeighborsIndex (NearestNeighborsIndex):
     :param random_seed: Seed of the Gaussian projection bases (numpy, as
         the JAX package draws them).
     :param read_only: Refuse mutations when True.
-    :param n_devices: None or 1. Sharding is a later slice of the port.
+    :param n_devices: Row-shard the database and leaf tables across this
+        many devices (a power of two); queries run the per-shard leaf scan
+        (the gather route: the mirror is single-device) and the k-sized
+        merge (``parallel/sharded_mrpt.py``). None or 1: one device.
     :param device: torch device holding the index: 'cuda' (default; raises
         when no card is present) or 'cpu' (the kernels' plain versions).
+        With ``n_devices=n``: 'cuda' is cards 0 .. n-1 (too few raise),
+        'cpu' n CPU shards, and a list of n device strings places each
+        shard (a card may repeat).
     """
 
     #: Mirror residency budget (bytes): T leaf-ordered int8 copies.
@@ -145,10 +161,6 @@ class MRPTNearestNeighborsIndex (NearestNeighborsIndex):
         device: str = "cuda",
     ):
         super().__init__()
-        if n_devices is not None and n_devices > 1:
-            raise ValueError(
-                f"n_devices={n_devices} is not ported yet: sharding is the "
-                "'Multi-device' slice of ROADMAP.md (queue 1, item 7).")
         self.descriptor_set = descriptor_set if descriptor_set is not None \
             else MemoryDescriptorSet()
         self.index_element = index_element
@@ -157,8 +169,9 @@ class MRPTNearestNeighborsIndex (NearestNeighborsIndex):
         self.random_seed = random_seed
         self.read_only = bool(read_only)
         self.n_devices = n_devices
-        self._device = resolve_device(device)
-        self.device = str(self._device)
+        self._device = primary_device(device)
+        self.device = device_config(device)
+        self._mesh_cfg = mesh_for(n_devices, device)
 
         self._model_lock = threading.RLock()
         self._reset_state()
@@ -189,6 +202,11 @@ class MRPTNearestNeighborsIndex (NearestNeighborsIndex):
         self._mir_a = None
         self._mir_b = None
         self._leaf_flat = None
+        # sharded state (n_devices > 1)
+        self._mesh = None
+        self._leaf_max_sh = 0
+        self._dev_leaf_local = None
+        self._dev_off_local = None
 
     def get_config(self) -> Dict[str, Any]:
         c = self.get_default_config()
@@ -264,6 +282,11 @@ class MRPTNearestNeighborsIndex (NearestNeighborsIndex):
         valid = np.zeros(self._capacity, dtype=bool)
         valid[:n] = True
         # leaf_table indexes real rows only; pad with clamped zeros.
+        mesh = self._mesh_cfg
+        if mesh is not None:
+            self._upload_sharded(mesh, dev, sq, valid)
+            return
+        self._mesh = None
         leaf_pad = np.zeros((self.num_trees, self._capacity), dtype=np.int32)
         leaf_pad[:, :n] = self._leaf_np
         self._dev = dev
@@ -274,6 +297,24 @@ class MRPTNearestNeighborsIndex (NearestNeighborsIndex):
         self._dev_leaf = self._to_dev(leaf_pad)
         self._dev_offsets = self._to_dev(self._offsets_np)
         self._maybe_build_mirror(leaf_pad, n)
+
+    def _upload_sharded(self, mesh, dev: torch.Tensor, sq: np.ndarray,
+                        valid: np.ndarray) -> None:
+        """The mesh branch of ``_upload`` (``mrpt.py:251-271``): rows,
+        norms and liveness row-sharded, the leaf permutation laid out per
+        shard (``shard_leaf_tables``), bases and splits replicated; no
+        mirror."""
+        leaf_loc, off_loc, lmax = shard_leaf_tables(
+            self._leaf_np, self._offsets_np, mesh.size, self._capacity)
+        self._leaf_max_sh = pow2_at_least(max(lmax, 1))
+        self._dev = shard_rows(mesh, dev)
+        self._dev_sq = shard_rows(mesh, sq)
+        self._dev_valid = shard_rows(mesh, valid)
+        self._dev_bases = replicate(mesh, self._bases_np)
+        self._dev_splits = replicate(mesh, self._splits_np)
+        self._dev_leaf_local = shard_rows(mesh, leaf_loc)
+        self._dev_off_local = shard_rows(mesh, off_loc)
+        self._mesh = mesh
 
     def mirror_bytes(self) -> int:
         """Bytes the T leaf-ordered copies take: T * capacity * d_pad."""
@@ -359,8 +400,7 @@ class MRPTNearestNeighborsIndex (NearestNeighborsIndex):
             self._guard_read_only()
             by_uid = {e.uuid(): e for e in descriptors}
             uids = list(by_uid.keys())
-            mat = np.vstack([by_uid[u].vector() for u in uids]) \
-                .astype(np.float32)
+            mat = stack_vectors([by_uid[u] for u in uids])
             self._rebuild(mat, uids)
             self.descriptor_set.clear()
             self.descriptor_set.add_many_descriptors(by_uid.values())
@@ -387,8 +427,7 @@ class MRPTNearestNeighborsIndex (NearestNeighborsIndex):
                 uids = list(self._row2uid) + fresh
             else:
                 uids = list(by_uid.keys())
-                mat = np.vstack([by_uid[u].vector() for u in uids]) \
-                    .astype(np.float32)
+                mat = stack_vectors([by_uid[u] for u in uids])
             self._rebuild(np.ascontiguousarray(mat, dtype=np.float32), uids)
             self.descriptor_set.add_many_descriptors(by_uid.values())
 
@@ -438,7 +477,14 @@ class MRPTNearestNeighborsIndex (NearestNeighborsIndex):
                          b * self.num_trees * self._leaf_max)
             with trace_span("mrpt.query"):
                 qd = self._to_dev(q_p)
-                if self._mirror is not None and k_dev <= 64:
+                if self._mesh is not None:
+                    dists, rows = sharded_mrpt_query(
+                        self._mesh, self._dev, self._dev_sq,
+                        self._dev_valid, self._dev_bases, self._dev_splits,
+                        self._dev_leaf_local, self._dev_off_local, qd,
+                        k=k_dev, depth=self._depth_eff,
+                        leaf_max=self._leaf_max_sh)
+                elif self._mirror is not None and k_dev <= 64:
                     # The mirror's selection margin scales with
                     # k * num_trees, so large k takes the gather route.
                     dists, rows = mrpt_query_mirror(

@@ -180,7 +180,13 @@ def build() -> dict:
 
 
 def library() -> ctypes.CDLL:
-    """Build (once per source hash) and load the kernel library."""
+    """Build (once per source hash) and load the kernel library.
+
+    Each entry point selects its device with ``cudaSetDevice`` and leaves
+    it selected, so a caller launches inside ``torch.cuda.device`` of the
+    operands' card: the guard gives the caller's current device back, and
+    a later ``.to("cuda")`` does not land on the last card a shard ran
+    on."""
     global _lib
     with _lock:
         if _lib is None:

@@ -340,9 +340,11 @@ def _segment_minima_cuda(db, db_sq, penalty, q,
     out = torch.empty((b, n // SEG), dtype=torch.float32, device=db.device)
     lib = _kernels.library()
     stream = torch.cuda.current_stream(db.device).cuda_stream
-    err = getattr(lib, name)(
-        qk.data_ptr(), db.data_ptr(), db_sq.data_ptr(), penalty.data_ptr(),
-        out.data_ptr(), b, n, d, db.device.index, stream)
+    with torch.cuda.device(db.device):           # see _kernels.library
+        err = getattr(lib, name)(
+            qk.data_ptr(), db.data_ptr(), db_sq.data_ptr(),
+            penalty.data_ptr(), out.data_ptr(), b, n, d, db.device.index,
+            stream)
     _kernels.check(err, name)
     LAUNCHES["segment_minima", form] += 1
     return out
@@ -418,9 +420,10 @@ def _seg_gather_cuda(db3: torch.Tensor, sid: torch.Tensor) -> torch.Tensor:
         raise ValueError("seg_gather_tiled: db3 must be 16-byte aligned")
     lib = _kernels.library()
     stream = torch.cuda.current_stream(db3.device).cuda_stream
-    err = lib.seg_gather_tiled(db3.data_ptr(), flat.data_ptr(),
-                               out.data_ptr(), flat.shape[0], d, tile_n,
-                               esize, db3.device.index, stream)
+    with torch.cuda.device(db3.device):          # see _kernels.library
+        err = lib.seg_gather_tiled(db3.data_ptr(), flat.data_ptr(),
+                                   out.data_ptr(), flat.shape[0], d, tile_n,
+                                   esize, db3.device.index, stream)
     _kernels.check(err, "seg_gather_tiled")
     LAUNCHES["seg_gather_tiled", "copy"] += 1
     return out.reshape(*sid.shape, d, SEG)
@@ -841,25 +844,25 @@ def tiled_cuda(db3, db_sq, penalty, q, g: int, bw: int, *,
     lib = _kernels.library()
     scale_arg = (float(scale),) if i8i8 else ()
     stream = torch.cuda.current_stream(db3.device).cuda_stream
-    if variant is not None:
-        groups = None
-        err = getattr(lib, name)(
-            qk.data_ptr(), db3.data_ptr(), db_sq.data_ptr(),
-            penalty.data_ptr(), out.data_ptr(), b, n_tiles, d, tile_n, g,
-            variant, db3.device.index, stream)
-    elif bw == 1:
-        groups = None
-        err = getattr(lib, name)(
-            qk.data_ptr(), db3.data_ptr(), db_sq.data_ptr(),
-            penalty.data_ptr(), out.data_ptr(), b, n_tiles, d, tile_n,
-            *scale_arg, db3.device.index, stream)
-    else:
-        groups = torch.empty((nseg // g, b, g // bw), dtype=torch.float32,
-                             device=db3.device)
-        err = getattr(lib, name)(
-            qk.data_ptr(), db3.data_ptr(), db_sq.data_ptr(),
-            penalty.data_ptr(), out.data_ptr(), groups.data_ptr(), b,
-            n_tiles, d, tile_n, g, bw, *scale_arg, db3.device.index, stream)
+    groups = None if variant is not None or bw == 1 else torch.empty(
+        (nseg // g, b, g // bw), dtype=torch.float32, device=db3.device)
+    with torch.cuda.device(db3.device):          # see _kernels.library
+        if variant is not None:
+            err = getattr(lib, name)(
+                qk.data_ptr(), db3.data_ptr(), db_sq.data_ptr(),
+                penalty.data_ptr(), out.data_ptr(), b, n_tiles, d, tile_n,
+                g, variant, db3.device.index, stream)
+        elif bw == 1:
+            err = getattr(lib, name)(
+                qk.data_ptr(), db3.data_ptr(), db_sq.data_ptr(),
+                penalty.data_ptr(), out.data_ptr(), b, n_tiles, d, tile_n,
+                *scale_arg, db3.device.index, stream)
+        else:
+            err = getattr(lib, name)(
+                qk.data_ptr(), db3.data_ptr(), db_sq.data_ptr(),
+                penalty.data_ptr(), out.data_ptr(), groups.data_ptr(), b,
+                n_tiles, d, tile_n, g, bw, *scale_arg, db3.device.index,
+                stream)
     _kernels.check(err, name)
     return out, groups, form
 

@@ -33,7 +33,11 @@ not, so the selection runs on one int64 key, distance then row).
 
 The switch is read per query through ``ops/device.tpu_kernel_enabled``,
 which reads only the switch: a CPU tensor takes K1's plain version along
-the same route. Sharding (``mesh``) is a later slice of the port.
+the same route.
+
+Under a mesh (``CodeStore(mesh=)``, ``hamming.py:290-293, 325-327,
+420-432``) every query takes the per-shard XOR route and the k-sized
+merge, whatever the store's size.
 """
 from __future__ import annotations
 
@@ -50,6 +54,7 @@ from smqtk_indexing_tpu_torch.ops.device import (
     capacity_for, pow2_at_least, resolve_device, round_up,
     tpu_kernel_enabled,
 )
+from smqtk_indexing_tpu_torch.parallel.mesh import shard_rows
 from smqtk_indexing_tpu_torch.utils import bits as bits_util
 from smqtk_indexing_tpu_torch.utils.tracing import trace_span
 
@@ -151,19 +156,21 @@ class CodeStore:
 
     :param bit_length: code length, or None to take it from the first
         build.
-    :param mesh: must be None: sharding is a later slice of the port.
+    :param mesh: Optional ``parallel.mesh.Mesh``: the packed codes are
+        row-sharded over it and every query runs the per-shard XOR scan
+        and the k-sized merge (``parallel.sharded_scan.
+        sharded_hamming_topk``), as the JAX store does under a mesh (no
+        host scan, no ±1 route). ``device`` is then ignored.
     :param device: torch device of the tensors ('cuda' raises when no card
         is present).
     """
 
     def __init__(self, bit_length: Optional[int] = None, mesh=None,
                  device="cuda"):
-        if mesh is not None:
-            raise ValueError(
-                "CodeStore(mesh=...) is not ported yet: sharding is the "
-                "'Multi-device' slice of ROADMAP.md (queue 1, item 7).")
         self._lock = threading.RLock()
-        self._device = resolve_device(device)
+        self._mesh = mesh
+        self._device = mesh.first if mesh is not None \
+            else resolve_device(device)
         self._bits = None if bit_length is None else int(bit_length)
         self._clear_state()
 
@@ -293,6 +300,8 @@ class CodeStore:
             if self._n_live < self._host.shape[0] // 2 \
                     and self._host.shape[0] > 1024:
                 self._compact()
+            elif self._mesh is not None:
+                self._dev_valid = shard_rows(self._mesh, self._valid_pad())
             else:
                 self._dev_valid[rows] = False
 
@@ -313,11 +322,20 @@ class CodeStore:
         padded = np.zeros((self._capacity, self._host.shape[1]),
                           dtype=np.uint32)
         padded[:n] = self._host
-        valid = np.zeros(self._capacity, dtype=bool)
-        valid[:n] = self._valid_host
+        valid = self._valid_pad()
+        self._dev_pm1 = self._dev_pm1_sq = None
+        if self._mesh is not None:
+            self._dev = shard_rows(self._mesh, padded.view(np.int32))
+            self._dev_valid = shard_rows(self._mesh, valid)
+            return
         self._dev = words_to_tensor(padded, self._device)
         self._dev_valid = torch.from_numpy(valid).to(self._device)
-        self._dev_pm1 = self._dev_pm1_sq = None
+
+    def _valid_pad(self) -> np.ndarray:
+        """(capacity,) liveness of the host rows, False past them."""
+        valid = np.zeros(self._capacity, dtype=bool)
+        valid[:self._host.shape[0]] = self._valid_host
+        return valid
 
     def _pm1_rows(self, packed: np.ndarray) -> torch.Tensor:
         """(n, bits_pad) bf16 ±1 rows of packed codes, zero past ``bits``."""
@@ -329,7 +347,11 @@ class CodeStore:
 
     def _upload_rows(self, start: int, packed: np.ndarray) -> None:
         """Write new rows [start, start + len(packed)) in place, the ±1
-        mirror too when it exists (only the new rows are unpacked)."""
+        mirror too when it exists (only the new rows are unpacked). Under
+        a mesh the shards are placed anew."""
+        if self._mesh is not None:
+            self._upload_full()
+            return
         stop = start + packed.shape[0]
         self._dev[start:stop] = words_to_tensor(packed, self._device)
         self._dev_valid[start:stop] = True
@@ -342,6 +364,7 @@ class CodeStore:
     # ------------------------------------------------------------------
     def _mxu_eligible(self) -> bool:
         return (tpu_kernel_enabled("SMQTK_TPU_NO_MXU_HAMMING")
+                and self._mesh is None
                 and self._capacity >= MXU_SCAN_MIN
                 and self._capacity % fused_scan.TILE_N == 0)
 
@@ -399,7 +422,20 @@ class CodeStore:
             q_packed = bits_util.pack_bit_vectors_u32(q_bool)
             k_eff = min(k, self._n_live)
             k_dev = min(pow2_at_least(k_eff), self._capacity)
-            if host.shape[0] <= HOST_SCAN_MAX:
+            if self._mesh is not None:
+                # Imported here: the sharded scan imports this module.
+                from smqtk_indexing_tpu_torch.parallel.sharded_scan import (
+                    sharded_hamming_topk,
+                )
+                qp = np.zeros((pow2_at_least(b, 8), q_packed.shape[1]),
+                              dtype=np.uint32)
+                qp[:b] = q_packed
+                dd, rr = sharded_hamming_topk(
+                    self._mesh, self._dev, self._dev_valid,
+                    qp.view(np.int32), k=k_dev)
+                dists = dd[:b, :k_eff].cpu().numpy()
+                rows = rr[:b, :k_eff].cpu().numpy()
+            elif host.shape[0] <= HOST_SCAN_MAX:
                 # Tiny index: the native (C++) host scan over the host
                 # mirror; ties in ascending row order, as the XOR route.
                 dists, rows = native.hamming_topk(

@@ -315,10 +315,11 @@ def _ivf_list_scores_cuda(db, t, a, starts, lo, hi) -> torch.Tensor:
             torch.bfloat16: "ivf_list_scores_bf16",
             torch.int8: "ivf_list_scores_i8"}[db.dtype]
     stream = torch.cuda.current_stream(db.device).cuda_stream
-    err = getattr(_kernels.library(), name)(
-        t.data_ptr(), a.data_ptr(), db.data_ptr(), starts.data_ptr(),
-        lo.data_ptr(), hi.data_ptr(), out.data_ptr(), b, p, d, L_MAX,
-        db.device.index, stream)
+    with torch.cuda.device(db.device):           # see _kernels.library
+        err = getattr(_kernels.library(), name)(
+            t.data_ptr(), a.data_ptr(), db.data_ptr(), starts.data_ptr(),
+            lo.data_ptr(), hi.data_ptr(), out.data_ptr(), b, p, d, L_MAX,
+            db.device.index, stream)
     _kernels.check(err, name)
     LAUNCHES["ivf_list_scores"] += 1
     return out
@@ -497,10 +498,11 @@ def _ivf_list_scores_tiled_cuda(db3, s2t, t, ti, c0, lo,
     out = torch.empty((b, p, W_TILED), dtype=torch.float32,
                       device=db3.device)
     stream = torch.cuda.current_stream(db3.device).cuda_stream
-    err = _kernels.library().ivf_list_scores_tiled_i8(
-        t.data_ptr(), db3.data_ptr(), s2t.data_ptr(), ti.data_ptr(),
-        c0.data_ptr(), lo.data_ptr(), hi.data_ptr(), out.data_ptr(), b, p,
-        d, tile_n, W_TILED, db3.device.index, stream)
+    with torch.cuda.device(db3.device):          # see _kernels.library
+        err = _kernels.library().ivf_list_scores_tiled_i8(
+            t.data_ptr(), db3.data_ptr(), s2t.data_ptr(), ti.data_ptr(),
+            c0.data_ptr(), lo.data_ptr(), hi.data_ptr(), out.data_ptr(), b,
+            p, d, tile_n, W_TILED, db3.device.index, stream)
     _kernels.check(err, "ivf_list_scores_tiled_i8")
     LAUNCHES["ivf_list_scores_tiled"] += 1
     return out
@@ -741,10 +743,11 @@ def _ivf_list_scores_tiled_pq_cuda(db3c, s2t, lut, ti, c0, lo,
     out = torch.empty((b, p, W_TILED), dtype=torch.float32,
                       device=db3c.device)
     stream = torch.cuda.current_stream(db3c.device).cuda_stream
-    err = _kernels.library().ivf_list_scores_tiled_pq(
-        lut.data_ptr(), db3c.data_ptr(), s2t.data_ptr(), ti.data_ptr(),
-        c0.data_ptr(), lo.data_ptr(), hi.data_ptr(), out.data_ptr(), b, p,
-        m_sub, tile_n, W_TILED, db3c.device.index, stream)
+    with torch.cuda.device(db3c.device):         # see _kernels.library
+        err = _kernels.library().ivf_list_scores_tiled_pq(
+            lut.data_ptr(), db3c.data_ptr(), s2t.data_ptr(), ti.data_ptr(),
+            c0.data_ptr(), lo.data_ptr(), hi.data_ptr(), out.data_ptr(), b,
+            p, m_sub, tile_n, W_TILED, db3c.device.index, stream)
     _kernels.check(err, "ivf_list_scores_tiled_pq")
     LAUNCHES["ivf_list_scores_tiled_pq"] += 1
     return out

@@ -131,6 +131,9 @@ def flat_topk(db: torch.Tensor, db_sq: torch.Tensor, db_norm: torch.Tensor,
         cand_r = torch.cat([best_r, rows], dim=1)
         best_s, sel = torch.topk(cand_s, k, dim=1, largest=False)
         best_r = torch.gather(cand_r, 1, sel)
+    # A dead row's +inf may win a slot past the live rows over a -1 slot:
+    # such slots are -1 whichever the top-k picked.
+    best_r = torch.where(torch.isinf(best_s), -1, best_r)
     return _exact_selected(metric, db, q, q_sq, best_s, best_r)
 
 

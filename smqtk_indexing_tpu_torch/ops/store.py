@@ -36,6 +36,13 @@ routing of ``store.py:479-545``):
 - pq<M> / opq<M> -> ``ops/pq.pq_topk`` over codec-grid queries. hik is
   refused under OPQ (a rotation does not preserve it).
 
+Under a mesh (``VectorStore(mesh=)``) the device tensors are row-sharded
+and every query takes the JAX package's sharded routes
+(``store.py:482-534``): ``parallel.sharded_scan.sharded_flat_topk``
+(``ops/scan.flat_topk`` a shard, not K1), ``sharded_sq8_topk``
+(``sq8_topk``'s streamed stage 1) and ``sharded_pq_topk``. A mutation
+places the shards anew.
+
 Unlike the JAX store, batch and k are not rounded up to powers of two:
 PyTorch has no compile cache to bound.
 
@@ -67,6 +74,10 @@ from smqtk_indexing_tpu_torch.ops.pq import (
 from smqtk_indexing_tpu_torch.ops.sq8 import (
     DEFAULT_CHUNK, sq8_build_store, sq8_encode_np, sq8_row_stats, sq8_topk,
 )
+from smqtk_indexing_tpu_torch.parallel.mesh import shard_rows
+from smqtk_indexing_tpu_torch.parallel.sharded_scan import (
+    sharded_flat_topk, sharded_pq_topk, sharded_sq8_topk,
+)
 from smqtk_indexing_tpu_torch.utils.tracing import trace_span
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -85,15 +96,20 @@ class VectorStore:
         rotation).
     :param device: torch device of the tensors ('cuda' raises when no card
         is present).
+    :param mesh: Optional ``parallel.mesh.Mesh``: the tensors are
+        row-sharded over it (capacities are powers of two, so any mesh
+        divides them) and ``device`` is ignored.
     """
 
-    def __init__(self, dtype: str = "float32", device="cuda"):
+    def __init__(self, dtype: str = "float32", device="cuda", mesh=None):
         if dtype not in _DTYPES and dtype != "sq8" and pq_m(dtype) is None:
             raise ValueError(
                 f"dtype must be one of {sorted(_DTYPES) + ['sq8']}, "
                 f"'pq<M>' or 'opq<M>', got {dtype!r}")
         self._dtype_name = dtype
-        self._device = resolve_device(device)
+        self._mesh = mesh
+        self._device = mesh.first if mesh is not None \
+            else resolve_device(device)
         self._lock = threading.RLock()
         self._clear_state()
 
@@ -268,6 +284,10 @@ class VectorStore:
             if self._n_live < self._host.shape[0] // 2 \
                     and self._host.shape[0] > 1024:
                 self._compact()
+            elif self._mesh is not None:
+                valid = np.zeros(self._capacity, dtype=bool)
+                valid[:self._host.shape[0]] = self._valid_host
+                self._dev_valid = shard_rows(self._mesh, valid)
             else:
                 self._dev_valid[rows] = False
 
@@ -300,8 +320,7 @@ class VectorStore:
                 self._dim, self._device, codec=self._codec)
             self._codec = (self._sq8_a[:self._dim].cpu().numpy(),
                            self._sq8_b[:self._dim].cpu().numpy())
-            return
-        if pq_m(self._dtype_name) is not None:
+        elif pq_m(self._dtype_name) is not None:
             perm, rot, cb, self._pq_cb_dev, self._dev, self._dev_sq = \
                 pq_build_store(self._host, self._valid_host, self._capacity,
                                d_pad, pq_m(self._dtype_name), self._device,
@@ -309,17 +328,41 @@ class VectorStore:
                                codec=self._codec)
             self._codec = (perm, rot, cb)
             self._dev_norm = torch.sqrt(torch.clamp(self._dev_sq, min=0.0))
+        elif self._mesh is not None:
+            # Float rows go from host memory straight to each shard.
+            sq = np.zeros(self._capacity, dtype=np.float32)
+            sq[:n] = np.einsum("ij,ij->i", self._host, self._host)
+            rows = torch.from_numpy(
+                pad_rows_np(self._host, self._capacity, d_pad))
+            self._dev = shard_rows(self._mesh,
+                                   rows.to(_DTYPES[self._dtype_name]))
+            del rows
+            self._dev_sq = shard_rows(self._mesh, sq)
+            self._dev_norm = [torch.sqrt(t) for t in self._dev_sq]
+            self._dev_valid = shard_rows(self._mesh, valid)
             return
-        padded = pad_rows_np(self._host, self._capacity, d_pad)
-        sq = np.zeros(self._capacity, dtype=np.float32)
-        sq[:n] = np.einsum("ij,ij->i", self._host, self._host)
-        self._dev = self._to_dev(padded, _DTYPES[self._dtype_name])
-        self._dev_sq = self._to_dev(sq)
-        self._dev_norm = torch.sqrt(self._dev_sq)
+        else:
+            padded = pad_rows_np(self._host, self._capacity, d_pad)
+            sq = np.zeros(self._capacity, dtype=np.float32)
+            sq[:n] = np.einsum("ij,ij->i", self._host, self._host)
+            self._dev = self._to_dev(padded, _DTYPES[self._dtype_name])
+            self._dev_sq = self._to_dev(sq)
+            self._dev_norm = torch.sqrt(self._dev_sq)
+            return
+        if self._mesh is not None:
+            # Codes are built on the mesh's first device, then sharded.
+            self._dev, self._dev_sq, self._dev_norm, self._dev_valid = (
+                shard_rows(self._mesh, t) for t in (
+                    self._dev, self._dev_sq, self._dev_norm,
+                    self._dev_valid))
 
     def _upload_rows(self, start: int, mat: np.ndarray) -> None:
         """Append rows [start, start + len(mat)) in place on the device;
-        a codec store encodes them with its build-time codec."""
+        a codec store encodes them with its build-time codec. Under a
+        mesh the shards are placed anew."""
+        if self._mesh is not None:
+            self._upload_full()
+            return
         stop = start + mat.shape[0]
         block = pad_rows_np(mat, mat.shape[0], pad_dim(self._dim))
         if self._dtype_name == "sq8":
@@ -396,6 +439,9 @@ class VectorStore:
                     # matmul-form metrics only, as FAISS's OPQ does.
                     raise ValueError("metric 'hik' is not supported with "
                                      "OPQ (rotation-variant); use 'pq<M>'")
+            if self._mesh is not None:
+                dists, rows = self._knn_sharded(q_pad, k_eff, metric)
+            elif pq_m(self._dtype_name) is not None:
                 dists, rows = pq_topk(
                     self._dev, self._pq_cb_dev, self._dev_sq,
                     self._dev_valid,
@@ -437,6 +483,24 @@ class VectorStore:
         uid_lists = [[row2uid[r] for r in row if r >= 0]
                      for row in rows.tolist()]
         return dists, uid_lists, rows
+
+    def _knn_sharded(self, q_pad: np.ndarray, k: int, metric: str):
+        """The JAX store's routes under a mesh (``store.py:482-534``): the
+        plain per-shard scans, never K1."""
+        mesh = self._mesh
+        if pq_m(self._dtype_name) is not None:
+            perm, rot, _ = self._codec
+            return sharded_pq_topk(
+                mesh, self._dev, self._pq_cb_dev, self._dev_sq,
+                self._dev_valid, pq_prep_queries(q_pad, perm, rot), k=k,
+                metric=metric)
+        if self._dtype_name == "sq8":
+            return sharded_sq8_topk(
+                mesh, self._dev, self._sq8_a, self._sq8_b, self._dev_sq,
+                self._dev_norm, self._dev_valid, q_pad, k=k, metric=metric)
+        return sharded_flat_topk(
+            mesh, self._dev, self._dev_sq, self._dev_norm, self._dev_valid,
+            q_pad, k=k, metric=metric)
 
     # ------------------------------------------------------------------
     # persistence

@@ -1936,3 +1936,142 @@ def test_mrpt_index_on_card_with_and_without_switch(card, monkeypatch,
         assert_same_neighbours([[e.uuid() for e in e_g]], [d_g],
                                [[e.uuid() for e in e_c]], [d_c],
                                rtol=DIST_RTOL, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the multi-device layer: each sharded route on two shards of one card
+# (device=["cuda:0", "cuda:0"]) against the same route on two CPU shards,
+# trained state carried by the CPU index's payload.
+# ---------------------------------------------------------------------------
+
+def _sharded_pair(cls, n_devices=2, gpu_device=None, **kw):
+    """(card index, CPU index) with ``n_devices`` shards, the card one
+    (on ``gpu_device``, default ``["cuda:0"] * n_devices``) loading the
+    CPU one's payload."""
+    from smqtk_indexing_tpu_torch.data import DataMemoryElement
+    rng = np.random.default_rng(31)
+    centres = rng.random((32, 40), dtype=np.float32)
+    x = centres[rng.integers(0, 32, 6000)] \
+        + rng.normal(size=(6000, 40)).astype(np.float32) / 12
+    elems = [DescriptorMemoryElement(i, v) for i, v in enumerate(x)]
+    elem = DataMemoryElement()
+    cpu = cls(index_element=elem, n_devices=n_devices, device="cpu", **kw)
+    cpu.build_index(elems)
+    gpu = cls(index_element=DataMemoryElement(elem.get_bytes()),
+              n_devices=n_devices,
+              device=gpu_device or ["cuda:0"] * n_devices, **kw)
+    queries = [DescriptorMemoryElement(("q", i), x[i * 13] + 0.01)
+               for i in range(16)]
+    return gpu, cpu, queries
+
+
+def _same_results(gpu, cpu, queries, atol=1e-5):
+    res, ref = gpu.nn_many(queries, 10), cpu.nn_many(queries, 10)
+    assert_same_neighbours([[e.uuid() for e in r[0]] for r in res],
+                           [r[1] for r in res],
+                           [[e.uuid() for e in r[0]] for r in ref],
+                           [r[1] for r in ref], rtol=DIST_RTOL, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "sq8"])
+def test_sharded_flat_on_card_matches_cpu(card, dtype):
+    gpu, cpu, queries = _sharded_pair(FlatNearestNeighborsIndex,
+                                      dtype=dtype)
+    assert gpu._store._dev[0].device.type == "cuda"
+    before = dict(fused_scan.LAUNCHES)
+    _same_results(gpu, cpu, queries)
+    # Under a mesh the flat store takes the plain per-shard scan.
+    assert _launched(before) == {}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rerank,kernel", [
+    ("sq8", "score", "ivf_list_scores_tiled"),
+    ("sq8", "exact", "seg_gather_tiled"),
+    ("pq8", "score", "ivf_list_scores_tiled_pq")])
+def test_sharded_code_tier_on_card_matches_cpu(card, dtype, rerank,
+                                               kernel):
+    from smqtk_indexing_tpu_torch.models.nn_index.ivf import (
+        IvfNearestNeighborsIndex,
+    )
+    from smqtk_indexing_tpu_torch.ops import ivf_scan
+    gpu, cpu, queries = _sharded_pair(
+        IvfNearestNeighborsIndex, n_lists=16, nprobe=4, random_seed=0,
+        dtype=dtype, storage="code", rerank=rerank)
+
+    def launches():
+        return ivf_scan.LAUNCHES[kernel] if kernel in ivf_scan.LAUNCHES \
+            else fused_scan.LAUNCHES[(kernel, "copy")]
+    before = launches()
+    gpu.nn_many(queries, 10)
+    assert launches() - before == 2                # one launch a shard
+    _same_results(gpu, cpu, queries, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_sharded_rows_tier_mrpt_and_hamming_on_card_match_cpu(card):
+    from smqtk_indexing_tpu_torch.models.hash_index.linear import (
+        LinearHashIndex,
+    )
+    from smqtk_indexing_tpu_torch.models.nn_index.ivf import (
+        IvfNearestNeighborsIndex,
+    )
+    from smqtk_indexing_tpu_torch.models.nn_index.mrpt import (
+        MRPTNearestNeighborsIndex,
+    )
+    _same_results(*_sharded_pair(IvfNearestNeighborsIndex, n_lists=16,
+                                 nprobe=4, random_seed=0))
+    _same_results(*_sharded_pair(MRPTNearestNeighborsIndex, num_trees=6,
+                                 depth=4, random_seed=0))
+    rng = np.random.default_rng(32)
+    codes = rng.random((20000, 32)) > 0.5
+    out = []
+    for device in (["cuda:0"] * 4, "cpu"):
+        index = LinearHashIndex(n_devices=4, device=device)
+        index.build_index(codes)
+        out.append([index.nn(h, 12)[1] for h in codes[:8]])
+    assert out[0] == out[1]
+
+
+@pytest.mark.cuda
+def test_sharded_indexes_on_two_cards_keep_the_current_device(card):
+    """The kernels' C entry points select their card with
+    ``cudaSetDevice``; each wrapper launches inside ``torch.cuda.device``
+    of its operands, so a shard on ``cuda:1`` gives the caller's current
+    device back. Without that, an index on ``device="cuda"`` put its
+    single-device state on one card and its queries on another (the rows
+    tier's residual PQ transform raised)."""
+    from smqtk_indexing_tpu_torch.models.nn_index.ivf import (
+        IvfNearestNeighborsIndex,
+    )
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    torch.cuda.set_device(0)
+    for kw in (dict(dtype="sq8", storage="code", rerank="exact"),
+               dict(dtype="pq4", storage="code", rerank="score"),
+               dict(dtype="pq4", storage="rows", pq_residual=True)):
+        gpu, cpu, queries = _sharded_pair(
+            IvfNearestNeighborsIndex, gpu_device="cuda", n_lists=16,
+            nprobe=4, random_seed=0, **kw)
+        assert [str(d) for d in gpu._mesh.flat] == ["cuda:0", "cuda:1"]
+        _same_results(gpu, cpu, queries)
+        assert torch.cuda.current_device() == 0
+
+
+@pytest.mark.cuda
+def test_sharded_kmeans_step_on_card_matches_cpu(card):
+    from smqtk_indexing_tpu_torch.parallel import mesh, sharded_kmeans_step
+    rng = np.random.default_rng(33)
+    x = rng.normal(size=(8192, 32)).astype(np.float32)
+    valid = rng.random(8192) > 0.05
+    c = x[:64].copy()
+    out = []
+    for m in (mesh.make_mesh(2, devices=["cuda:0"] * 2),
+              mesh.make_mesh(2, device="cpu")):
+        cents, assigns = sharded_kmeans_step(
+            m, mesh.shard_rows(m, x), mesh.shard_rows(m, valid), c)
+        out.append((cents.cpu().numpy(),
+                    torch.cat([a.cpu() for a in assigns]).numpy()))
+    assert (out[0][1] == out[1][1]).mean() > 0.999
+    np.testing.assert_allclose(out[0][0], out[1][0], rtol=1e-4, atol=1e-4)

@@ -224,10 +224,11 @@ def test_contract_probes():
 
 def test_unported_options_raise():
     # The codecs are ported; OPQ under hik and the compressed codecs under
-    # chi_square are refused, as in the JAX package.
+    # chi_square are refused, as in the JAX package, and so is a shard
+    # count that is not a power of two.
     for kw in ({"dtype": "opq16", "metric": "hik"},
                {"dtype": "sq8", "metric": "chi_square"}, {"dtype": "pq4x2"},
-               {"storage": "host_stream"}, {"n_devices": 2},
+               {"storage": "host_stream"}, {"n_devices": 3},
                {"metric": "manhattan"}):
         with pytest.raises(ValueError):
             port_flat.FlatNearestNeighborsIndex(device="cpu", **kw)

@@ -12,7 +12,9 @@ import pytest
 import torch
 
 from smqtk_indexing_tpu_torch.data.data_element import DataMemoryElement
-from smqtk_indexing_tpu_torch.data.descriptor import DescriptorMemoryElement
+from smqtk_indexing_tpu_torch.data.descriptor import (
+    DescriptorMemoryElement, stack_vectors,
+)
 from smqtk_indexing_tpu_torch.data.exceptions import ReadOnlyError
 from smqtk_indexing_tpu_torch.models.nn_index.flat import (
     FlatNearestNeighborsIndex,
@@ -35,6 +37,21 @@ def _small_index():
     idx = _index()
     idx.build_index(descrs)
     return idx, descrs
+
+
+def test_stack_vectors_equals_vstack():
+    """The builds' one-pass stacking gives ``np.vstack(...).astype(
+    np.float32)`` bit for bit, float64 and integer vectors included, and
+    refuses vectors of unequal length as ``np.vstack`` does."""
+    rng = np.random.default_rng(3)
+    vecs = [rng.normal(size=7), rng.normal(size=7).astype(np.float32),
+            rng.integers(-5, 5, size=7)]
+    elems = [DescriptorMemoryElement(i, v) for i, v in enumerate(vecs)]
+    got = stack_vectors(elems)
+    assert got.dtype == np.float32 and got.shape == (3, 7)
+    assert np.array_equal(got, np.vstack(vecs).astype(np.float32))
+    with pytest.raises(ValueError):
+        stack_vectors(elems + [DescriptorMemoryElement(9, np.ones(8))])
 
 
 def test_query_is_own_nearest_neighbor():

@@ -238,8 +238,10 @@ def test_pm1_route_matches_jax_pm1_route(monkeypatch):
 
 
 def test_store_refuses_mesh_and_missing_card():
-    with pytest.raises(ValueError, match="not ported"):
-        hamming.CodeStore(mesh=object(), device="cpu")
+    # A mesh of cards needs the cards: no fallback to the CPU.
+    from smqtk_indexing_tpu_torch.parallel.mesh import make_mesh
     if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            hamming.CodeStore(mesh=make_mesh(2, device="cuda"))
         with pytest.raises(RuntimeError, match="cuda"):
             hamming.CodeStore()

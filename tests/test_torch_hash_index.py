@@ -133,8 +133,8 @@ def test_configuration_and_registry(cls):
 
 
 def test_refusals(monkeypatch):
-    with pytest.raises(ValueError, match="not ported"):
-        LinearHashIndex(n_devices=2, device="cpu")
+    with pytest.raises(ValueError, match="power of two"):
+        LinearHashIndex(n_devices=3, device="cpu")
     if not torch.cuda.is_available():
         for cls in (LinearHashIndex, BallTreeHashIndex):
             with pytest.raises(RuntimeError, match="cuda"):

@@ -64,18 +64,14 @@ def _jax_ok(metric, dtype, storage, residual):
                            ("exact", "score"), (None, 8), (False, True))))
 def test_matrix_cell_validation(metric, dtype, storage, rerank, n_devices,
                                 residual):
-    # The JAX cells, minus n_devices > 1 (the multi-device slice), which
-    # names its slice.
-    ok = _jax_ok(metric, dtype, storage, residual) and n_devices is None
-    if ok:
+    # The JAX cells, on one device and sharded alike.
+    if _jax_ok(metric, dtype, storage, residual):
         validate_ivf_combination(metric, dtype, storage, rerank, n_devices,
                                  residual)
         return
-    with pytest.raises(ValueError) as err:
+    with pytest.raises(ValueError):
         validate_ivf_combination(metric, dtype, storage, rerank, n_devices,
                                  residual)
-    if _jax_ok(metric, dtype, storage, residual):
-        assert "ROADMAP.md" in str(err.value)
 
 
 @pytest.mark.parametrize("bad_kw", [dict(metric="hamming"),

@@ -301,8 +301,8 @@ def test_config_registry_and_refusals():
                              "ItqFunctor": {"device": "cpu"}}}}, impls)
     assert type(inst) is LSHNearestNeighborIndex
     assert type(inst.lsh_functor) is ItqFunctor
-    with pytest.raises(ValueError, match="not ported"):
-        LSHNearestNeighborIndex(lsh_functor=pf, n_devices=2, device="cpu")
+    with pytest.raises(ValueError, match="power of two"):
+        LSHNearestNeighborIndex(lsh_functor=pf, n_devices=3, device="cpu")
     with pytest.raises(ValueError):
         LSHNearestNeighborIndex(lsh_functor=pf, distance_method="l1",
                                 device="cpu")

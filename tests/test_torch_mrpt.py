@@ -345,8 +345,8 @@ def test_plugin_config_and_report():
         assert isinstance(inst, MRPTNearestNeighborsIndex)
         assert (inst.num_trees, inst.depth, inst.random_seed,
                 inst.device) == (5, 3, 7, "cpu")
-    with pytest.raises(ValueError, match="queue 1, item 7"):
-        _index(n_devices=2)
+    with pytest.raises(ValueError, match="power of two"):
+        _index(n_devices=3)
 
 
 def test_usability_report_lists_the_switch(monkeypatch):

@@ -7,6 +7,7 @@ here against a stand-in for the kernel library that records the entry
 point called; the kernels themselves run on the card
 (``tests/test_torch_cuda.py``).
 """
+import contextlib
 import re
 import types
 from pathlib import Path
@@ -100,6 +101,9 @@ def fake_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: types.SimpleNamespace(
                             cuda_stream=0))
+    # The wrappers launch inside the operands' card's device guard.
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
     operands = []
     real = fused_scan._query_operand
 
