@@ -53,8 +53,11 @@ not 0:
    the built index's operands (B=1024); then 5 timed ``nn_many(1024,
    k=10)`` batches with the ``ivf.query`` / ``ivf.assemble`` split, peak
    device bytes and recall@10 against float64 (128 queries), which must
-   be >= 0.95; then ``rerank="exact"`` on the same index (K3), whose
-   recall must be no worse than score mode's less 0.01;
+   be >= 0.95; the index built a second time from the same seed, with no
+   determinism switch, whose centroids, codec, tiles of codes and row
+   stats, slot table and answers must equal the first build's bit for
+   bit; then ``rerank="exact"`` on the same index (K3), whose recall
+   must be no worse than score mode's less 0.01;
 5. IVF rows tier: ``storage="rows"`` with float32 and sq8 over the same
    vectors at nprobe=4 (K6, ``ivf_list_scores``: its f32 and int8 forms
    held against their plain versions and float64 at each index's
@@ -71,8 +74,11 @@ not 0:
    (``ivf_list_scores_tiled_pq``) against its plain version and float64
    at the built index's operands (B=1024); 5 timed batches, recall@10
    against float64 over the raw vectors (>= 0.85); ``rerank="score"``
-   (within 0.01 of exact mode); nprobe = n_lists on 128 queries, whose
-   top-10 must be the float64 top-10 over the index's reconstructions;
+   (within 0.01 of exact mode); the index built a second time from the
+   same seed and held to the first bit for bit (centroids, codebooks,
+   rotation, codes, answers), as phase 4's; nprobe = n_lists on 128
+   queries, whose top-10 must be the float64 top-10 over the index's
+   reconstructions;
 7. IVF-PQ rows tier: ``dtype="pq16", storage="rows", pq_residual=True``
    at nprobe=4 on the same vectors, routed to K8 (recall@10 >= 0.75);
 8. flat codecs: ``FlatNearestNeighborsIndex(dtype="sq8")`` over the flat
@@ -148,8 +154,8 @@ not 0:
    from a config written for the reference's FAISS wrapper
    (``"IVF4096,SQ8"``, ``"l2"``, ``ivf_nprobe`` 4, seed 0), whose answers
    must equal those of ``IvfNearestNeighborsIndex`` built directly with
-   the same parameters (both builds under deterministic algorithms, so
-   one seed trains one set of centroids), then
+   the same parameters (one seed trains one set of centroids: the
+   k-means sums are exact, ``ops/kmeans.cell_sums``), then
    ``AutotunedNearestNeighborsIndex(autotune=True,
    target_precision=0.95)``: the nprobe it chose and its recall@10;
 14. ``sharded-deep10m-shape`` (``BASELINE.md:51``'s config 5): bench.py's
@@ -166,16 +172,33 @@ not 0:
    the span split, each shard's device bytes and each card's peak, and
    each shard's launches of K7, K3 and K8 (read around each shard's
    search); K7, K3 and K8 held against their plain versions (and float64)
-   on shard 0's operands, and timed on every shard's own operands;
+   on shard 0's operands, and timed on every shard's own operands. Then
+   ``host-stream-deep10m-shape``: ``FlatNearestNeighborsIndex(storage=
+   "host_stream")`` loaded from the single-device flat index's payload
+   (the same 10M rows, streamed from host memory in blocks of 2^20 rows,
+   each scanned by ``scan.flat_topk``; no kernel may launch), three
+   B=1,024 batches whose every id and distance must equal the
+   single-device index's bit for bit; queries/s, the copy's GB/s (the
+   staging path alone, and the pinned copy alone), the per-block scans'
+   share of a batch and the peak device bytes;
 15. every other sharded route once, each against its single-device
    counterpart: the IVF rows tier (float32, sq8; the list gathers a shard
    against K6) and MRPT t8/d9 (the gather route on both) on phase 4's
-   vectors, one ``sharded_kmeans_step`` (against the same Lloyd step on
-   one device), LSH (SimpleRP-10, two calls), the flat store's sq8 and
-   pq16 on phase 3's vectors (both built under deterministic algorithms,
-   so one codec), the flat store on a 2-D (dcn=2) mesh (equal to the 1-D
-   mesh) and ``LinearHashIndex`` over 64-bit codes (the XOR route a shard
-   against K1's ±1 route: equal distances).
+   vectors, one ``sharded_kmeans_step`` (bit-equal to the same
+   fixed-point step on one device, within 1e-6 of float64 per-cell
+   means), LSH (SimpleRP-10, two calls), the flat store's sq8 and
+   pq16 on phase 3's vectors (each trains one codec from one seed), the
+   flat store on a 2-D (dcn=2) mesh (equal to the 1-D mesh) and
+   ``LinearHashIndex`` over 64-bit codes (the XOR route a shard against
+   K1's ±1 route: equal distances);
+16. ``ivf16384-100m`` at reduced depth: the ported
+   ``examples/ivf_100m.py`` at ``SMQTK_IVF100M_CHUNKS=2`` (12,582,912 x
+   128 rows at full width, 16,384 lists), SQ8 then residual PQ16, its
+   recall checks raising (>= 0.99 against the exhaustive SQ8 oracle and
+   against the ADC oracle at nprobe 2 to 16); K5 and K3 (the oracle), K7
+   and K8 (nprobe 16, B=128) held against their plain versions (and
+   float64) on the example's operands, their launches in the run read
+   apart from the holds'.
 
 Each path sets the kernels' launch counts to 0 just before it runs and
 reads them just after. Then a ``{"kernels": [...]}`` line with each
@@ -930,6 +953,7 @@ def ivf_phases(smi: str, dev) -> list:
         IvfNearestNeighborsIndex,
     )
     from smqtk_indexing_tpu_torch.ops import fused_scan, ivf_scan
+    from smqtk_indexing_tpu_torch.utils.tracing import COUNTERS
 
     data, queries = ivf_data()
     elems = [DescriptorMemoryElement(i, data[i]) for i in range(IVF_N)]
@@ -939,13 +963,18 @@ def ivf_phases(smi: str, dev) -> list:
 
     # -- 4. the serving line -------------------------------------------
     torch.cuda.reset_peak_memory_stats(dev)
-    index = IvfNearestNeighborsIndex(
-        n_lists=IVF_LISTS, nprobe=IVF_NPROBE, kmeans_iterations=10,
-        max_points_per_centroid=64, random_seed=0, dtype="sq8",
-        storage="code", rerank="score", device="cuda")
+
+    def make():
+        return IvfNearestNeighborsIndex(
+            n_lists=IVF_LISTS, nprobe=IVF_NPROBE, kmeans_iterations=10,
+            max_points_per_centroid=64, random_seed=0, dtype="sq8",
+            storage="code", rerank="score", device="cuda")
+    index = make()
+    COUNTERS.reset()
     t0 = time.perf_counter()
     index.build_index(elems)
     build_s = time.perf_counter() - t0
+    train_s = COUNTERS.snapshot().get("span.ivf.train.seconds")
     build_peak = torch.cuda.max_memory_allocated(dev)
     d_pad = index._centroids_np.shape[1]
     qd = torch.from_numpy(np.pad(queries, ((0, 0), (0, d_pad - IVF_DIM)))) \
@@ -1000,7 +1029,7 @@ def ivf_phases(smi: str, dev) -> list:
     emit("main", path="ivf serving line", n=IVF_N, d=IVF_DIM,
          n_lists=IVF_LISTS, nprobe=IVF_NPROBE, dtype="sq8",
          storage="code", rerank="score", batch=IVF_BATCH, k=K,
-         build_s=build_s, batch_s=batch_s,
+         build_s=build_s, train_s=train_s, batch_s=batch_s,
          qps=IVF_BATCH / statistics.median(batch_s), split_ms=split_ms,
          recall_at_10=rec, launches=counts, index_device_bytes=index_bytes,
          peak_device_bytes_queries=torch.cuda.max_memory_allocated(dev),
@@ -1009,6 +1038,7 @@ def ivf_phases(smi: str, dev) -> list:
         raise RuntimeError(f"serving line: recall@10 {rec} < "
                            f"{IVF_RECALL_FLOOR}")
     k7_launches = counts["ivf_list_scores_tiled"]
+    rebuilt_equal("ivf serving line", index, make, elems, q_elems, smi)
 
     index.rerank = "exact"
     index.nn_many(q_elems, K)                              # warm-up
@@ -1266,10 +1296,14 @@ def ivf_pq_phases(smi: str, dev) -> list:
 
     # -- 6. 'OPQ16,IVF4096,PQ16' by_residual, code tier --------------------
     torch.cuda.reset_peak_memory_stats(dev)
-    index = IvfNearestNeighborsIndex(
-        n_lists=IVF_LISTS, nprobe=PQ_NPROBE, kmeans_iterations=10,
-        max_points_per_centroid=64, random_seed=0, dtype="opq16",
-        storage="code", pq_residual=True, rerank="exact", device="cuda")
+
+    def make():
+        return IvfNearestNeighborsIndex(
+            n_lists=IVF_LISTS, nprobe=PQ_NPROBE, kmeans_iterations=10,
+            max_points_per_centroid=64, random_seed=0, dtype="opq16",
+            storage="code", pq_residual=True, rerank="exact",
+            device="cuda")
+    index = make()
     t0 = time.perf_counter()
     index.build_index(elems)
     build_s = time.perf_counter() - t0
@@ -1320,6 +1354,8 @@ def ivf_pq_phases(smi: str, dev) -> list:
     if k3_launches == 0:
         raise RuntimeError("the PQ exact re-rank never launched "
                            "seg_gather_tiled")
+    rebuilt_equal("ivf-pq code tier (opq16, residual)", index, make, elems,
+                  q_elems, smi)
 
     index.rerank = "score"
     index.nn_many(q_elems, K)                              # warm-up
@@ -2471,21 +2507,54 @@ def mrpt_k6(index, queries, smi: str, dev) -> dict:
             "shape": shape + [d_pad], "operand_bytes": tn * d_pad}
 
 
-@contextlib.contextmanager
-def deterministic():
-    """``torch.use_deterministic_algorithms(True, warn_only=True)`` in the
-    block, so two builds from one seed train the same centroids (the
-    k-means sums take ``index_add_``, whose CUDA atomics otherwise sum in
-    any order)."""
-    import warnings
+#: What two builds of one IVF configuration from one seed must share, bit
+#: for bit: the centroids and the assignment, the codec (SQ8 scale and
+#: offset; PQ codebooks; the OPQ rotation), the tiles of codes and row
+#: stats, and the slot table.
+BUILD_STATE = ("_centroids_np", "_assign_host", "_code_a", "_code_b",
+               "_code_cb", "_code_rot", "_dev3", "_s2t", "_slot_table")
+
+
+def _same_state(a, b, names) -> dict:
+    """Attribute by attribute, whether ``a`` and ``b`` hold the same bits
+    (tensors, numpy arrays, or None on both)."""
     import torch
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore", UserWarning)
-            yield
-    finally:
-        torch.use_deterministic_algorithms(False)
+    out = {}
+    for name in names:
+        x, y = getattr(a, name, None), getattr(b, name, None)
+        if isinstance(x, torch.Tensor) or isinstance(y, torch.Tensor):
+            out[name] = (isinstance(x, torch.Tensor)
+                         and isinstance(y, torch.Tensor)
+                         and x.shape == y.shape and bool(torch.equal(x, y)))
+        elif x is None or y is None:
+            out[name] = x is None and y is None
+        else:
+            out[name] = bool(np.array_equal(np.asarray(x), np.asarray(y)))
+    return out
+
+
+def rebuilt_equal(path: str, index, make, elems, q_elems, smi: str) -> None:
+    """Build ``make()`` over ``elems`` a second time, with no determinism
+    switch, as a user would, and raise unless its trained state
+    (``BUILD_STATE``) and its ``nn_many`` answers (ids and distances)
+    equal ``index``'s bit for bit."""
+    import torch
+    t0 = time.perf_counter()
+    again = make()
+    again.build_index(elems)
+    rebuild_s = time.perf_counter() - t0
+    same = _same_state(index, again, BUILD_STATE)
+    u1, d1 = _uid_rows(index.nn_many(q_elems, K))
+    u2, d2 = _uid_rows(again.nn_many(q_elems, K))
+    answers = bool(np.array_equal(u1, u2) and np.array_equal(d1, d2))
+    emit("determinism", path=path, rebuild_s=rebuild_s,
+         state_bit_equal=same, answers_bit_equal=answers,
+         queries=len(q_elems), k=K, card=smi)
+    del again
+    torch.cuda.empty_cache()
+    if not (answers and all(same.values())):
+        raise RuntimeError(f"{path}: two builds from one seed differ: "
+                           f"{same}, answers equal {answers}")
 
 
 def front_end_phase(smi: str, dev) -> None:
@@ -2520,17 +2589,16 @@ def front_end_phase(smi: str, dev) -> None:
                   "factory_string": f"IVF{IVF_LISTS},SQ8",
                   "metric_type": "l2", "ivf_nprobe": IVF_NPROBE,
                   "random_seed": 0}}
-    with deterministic():
-        t0 = time.perf_counter()
-        faiss = from_config_dict(config, NearestNeighborsIndex.get_impls())
-        faiss.build_index(elems)
-        faiss_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        direct = IvfNearestNeighborsIndex(n_lists=IVF_LISTS,
-                                          nprobe=IVF_NPROBE, dtype="sq8",
-                                          random_seed=0, device=device)
-        direct.build_index(elems)
-        direct_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    faiss = from_config_dict(config, NearestNeighborsIndex.get_impls())
+    faiss.build_index(elems)
+    faiss_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    direct = IvfNearestNeighborsIndex(n_lists=IVF_LISTS, nprobe=IVF_NPROBE,
+                                      dtype="sq8", random_seed=0,
+                                      device=device)
+    direct.build_index(elems)
+    direct_s = time.perf_counter() - t0
     same_centroids = bool(np.array_equal(faiss._inner._centroids_np,
                                          direct._centroids_np))
     faiss.nn_many(q_elems, K)                              # warm-up
@@ -2921,10 +2989,14 @@ def sharded_phase(smi: str, dev) -> list:
     emit("sharded data", n=SHARD_N, d=SHARD_DIM, queries=SHARD_BATCH,
          data_s=data_s, elements_s=elems_s, oracle_s=oracle_s, card=smi)
 
+    payload = {}
+
     def pair(cls, **kw):
         """The single-device index built, then the sharded one loading its
-        payload over the same descriptor set."""
+        payload over the same descriptor set (the payload's element kept
+        in ``payload["last"]``)."""
         elem = DataMemoryElement()
+        payload["last"] = elem
         single = cls(index_element=elem, device=str(dev), **kw)
         COUNTERS.reset()
         t_b = time.perf_counter()
@@ -2974,7 +3046,14 @@ def sharded_phase(smi: str, dev) -> list:
     if not exact_dists_ok(res_s, data, queries) or rec["sharded"] != 1.0:
         raise RuntimeError(f"sharded flat: distances are not float64's "
                            f"or recall@10 {rec['sharded']} != 1.0")
-    del single, sharded, res_1, res_s
+    del sharded, res_s
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    host_stream_phase(smi, dev, payload.pop("last").get_bytes(),
+                      single.descriptor_set, q_elems, res_1)
+    emit("seconds", of="host-stream-deep10m-shape phase",
+         seconds=time.perf_counter() - t0)
+    del single, res_1
     torch.cuda.empty_cache()
 
     # -- the IVF code tier: SQ8 score (K7), exact (K3), PQ16 (K8) ------
@@ -3042,6 +3121,116 @@ def sharded_phase(smi: str, dev) -> list:
     return rows
 
 
+def stream_copy_s(store, reps: int = 2) -> dict:
+    """The host-streamed store's block pipeline alone (``store.blocks``:
+    staging, copy to the card and padding, every block, no scan; seconds
+    on the host clock, mean of ``reps``), and one pinned staging buffer's
+    copy to the card alone, between CUDA events."""
+    import torch
+    dev = store._device
+    snap = store.snapshot()[:3]
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        for _block in store.blocks(*snap):
+            pass
+    torch.cuda.synchronize(dev)
+    wall = (time.perf_counter() - t0) / reps
+    buf = store._staging[1][0]
+    h2d = cuda_ms(lambda: [buf[name].to(dev, non_blocking=True)
+                           for name in ("rows", "sq", "valid")], 5)
+    blk_bytes = sum(t.numel() * t.element_size()
+                    for t in (buf["rows"], buf["sq"], buf["valid"]))
+    return {"copy_s": wall, "h2d_block_ms": h2d, "block_bytes": blk_bytes}
+
+
+def stream_scan_ms(store, q: np.ndarray) -> float:
+    """ms of the host-streamed store's per-block scans alone
+    (``store.scan_block``, k=K) over its blocks (``store.blocks``) held
+    resident on the card, between CUDA events."""
+    import torch
+    qd = store.device_queries(q)
+    blocks = list(store.blocks(*store.snapshot()[:3]))
+
+    def scans():
+        for lo, mat, sq, va in blocks:
+            store.scan_block(lo, mat, sq, va, qd, K, "euclidean")
+    scans()
+    ms = cuda_ms(scans, 2)
+    del blocks
+    torch.cuda.empty_cache()
+    return ms
+
+
+def host_stream_phase(smi: str, dev, payload: bytes, descriptor_set,
+                      q_elems, ref) -> None:
+    """``host-stream-deep10m-shape``: ``FlatNearestNeighborsIndex(storage=
+    "host_stream")`` over the sharded phase's 10M x 96 rows (loaded from
+    the single-device flat index's payload, over its descriptor set), three
+    B=1,024 batches at k=10; every id and distance must equal the
+    single-device index's (``ref``, its answers to the same queries), bit
+    for bit, and no kernel may launch (each block runs the plain scan, as
+    in JAX). Prints queries/s, the copy's GB/s, the scan's share of a
+    batch and the peak device bytes."""
+    import torch
+    from smqtk_indexing_tpu_torch.data import DataMemoryElement
+    from smqtk_indexing_tpu_torch.models.nn_index.flat import (
+        FlatNearestNeighborsIndex,
+    )
+    from smqtk_indexing_tpu_torch.utils.tracing import COUNTERS
+    t0 = time.perf_counter()
+    index = FlatNearestNeighborsIndex(
+        index_element=DataMemoryElement(payload),
+        descriptor_set=descriptor_set, storage="host_stream",
+        device=str(dev))
+    index.index_element = None
+    load_s = time.perf_counter() - t0
+    store = index._store
+    index.nn_many(q_elems, K)                              # warm-up
+    resident = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    res, batch_s, split_ms = _timed_batches(
+        index, q_elems, SHARD_REPS,
+        spans=("flat.query", "store.knn", "flat.assemble",
+               "host_stream.stage"))
+    counts = _nonzero(read_counts())
+    peak = torch.cuda.max_memory_allocated(dev)
+    streamed = COUNTERS.snapshot()
+    blocks = streamed["host_stream.blocks"] / SHARD_REPS
+    moved = streamed["host_stream.bytes"] / SHARD_REPS
+    staging_s = streamed["span.host_stream.stage.seconds"] / SHARD_REPS
+    u, d = _uid_rows(res)
+    u_r, d_r = _uid_rows(ref)
+    ids_equal = bool(np.array_equal(u, u_r))
+    dists_equal = bool(np.array_equal(d, d_r))
+    copy = stream_copy_s(store)
+    q = np.stack([e.vector() for e in q_elems]).astype(np.float32)
+    scan_ms = stream_scan_ms(store, q)
+    batch_ms = 1e3 * statistics.median(batch_s)
+    emit("main", path="flat host_stream", phase_name=
+         "host-stream-deep10m-shape", n=store._host.shape[0],
+         d=store._host.shape[1], batch=len(q_elems), k=K,
+         blocks=blocks, block_rows=store.BLOCK_ROWS,
+         load_s=load_s, batch_s=batch_s,
+         qps=len(q_elems) / statistics.median(batch_s), split_ms=split_ms,
+         bytes_a_batch=moved, host_staging_s_a_batch=staging_s,
+         copy_alone_s=copy["copy_s"],
+         copy_gb_s=moved / copy["copy_s"] / 1e9,
+         h2d_block_ms=copy["h2d_block_ms"],
+         h2d_gb_s=copy["block_bytes"] / copy["h2d_block_ms"] / 1e6,
+         scan_alone_ms=scan_ms, scan_share_of_batch=scan_ms / batch_ms,
+         peak_device_bytes=peak, resident_bytes_before=resident,
+         peak_over_resident_bytes=peak - resident,
+         ids_equal_single=ids_equal,
+         dists_bit_equal_single=dists_equal, launches=counts, card=smi)
+    if not (ids_equal and dists_equal) or counts:
+        raise RuntimeError("host stream: answers differ from the "
+                           "single-device flat index's, or a kernel "
+                           f"launched: {counts}")
+    del index, store, res
+    torch.cuda.empty_cache()
+
+
 #: The other sharded routes' query count and LSH sizes.
 ROUTE_QUERIES = 128
 ROUTE_LSH_N = 200_000
@@ -3092,7 +3281,9 @@ def sharded_routes(smi: str, dev) -> None:
     from smqtk_indexing_tpu_torch.models.nn_index.mrpt import (
         MRPTNearestNeighborsIndex,
     )
-    from smqtk_indexing_tpu_torch.ops.kmeans import kmeans_assign
+    from smqtk_indexing_tpu_torch.ops.kmeans import (
+        cell_means, cell_sums, fixed_point_scale, kmeans_assign, to_fixed,
+    )
     from smqtk_indexing_tpu_torch.ops.store import VectorStore
     from smqtk_indexing_tpu_torch.parallel import (
         make_mesh, shard_rows, sharded_kmeans_step,
@@ -3143,7 +3334,9 @@ def sharded_routes(smi: str, dev) -> None:
         raise RuntimeError("mrpt: both sides must take the gather route")
     _route("mrpt t8/d9, gather route", res_1, res_s, c_s, smi)
     del single, sharded
-    # One data-parallel Lloyd step against the same step on one device.
+    # One data-parallel Lloyd step against the same step on one device
+    # (the fixed-point sums of all rows at once: the same bits whatever
+    # the shard count) and against float64 per-cell means on the host.
     x = torch.from_numpy(data).to(dev)
     valid = torch.ones(IVF_N, dtype=torch.bool, device=dev)
     init = x[:IVF_LISTS].clone()
@@ -3151,20 +3344,30 @@ def sharded_routes(smi: str, dev) -> None:
     new_c, assigns = sharded_kmeans_step(
         mesh, shard_rows(mesh, x), shard_rows(mesh, valid), init)
     a_1 = kmeans_assign(x, init)
-    sums = torch.zeros_like(init).index_add_(0, a_1, x)
-    counts = torch.zeros(IVF_LISTS, device=dev).index_add_(
-        0, a_1, torch.ones(IVF_N, device=dev))
-    c_1 = torch.where(counts[:, None] > 0,
-                      sums / counts.clamp(min=1)[:, None], init)
-    agree = float((torch.cat([a.to(dev) for a in assigns]) == a_1)
-                  .float().mean())
-    c_err = float((new_c.to(dev) - c_1).abs().max())
+    a_s = torch.cat([a.to(dev) for a in assigns])
+    agree = float((a_s == a_1).float().mean())
+    # The sums of the sharded step's own assignments, on one device.
+    scale = fixed_point_scale(x.abs().amax(0), IVF_N)
+    sums, counts = cell_sums(a_s, to_fixed(x, scale), IVF_LISTS)
+    c_1 = cell_means(sums, counts, scale, init)
+    bit_equal = bool(torch.equal(new_c.to(dev), c_1))
+    a_np = a_s.cpu().numpy()
+    n_cell = np.bincount(a_np, minlength=IVF_LISTS)
+    c_64 = np.stack([np.bincount(a_np, weights=data[:, j].astype(np.float64),
+                                 minlength=IVF_LISTS)
+                     for j in range(IVF_DIM)], axis=1)
+    c_64 = np.where(n_cell[:, None] > 0,
+                    c_64 / np.maximum(n_cell, 1)[:, None],
+                    init.cpu().numpy())
+    c_err = float(np.abs(new_c.cpu().numpy() - c_64).max())
     emit("sharded route", path="sharded_kmeans_step", n=IVF_N,
          lists=IVF_LISTS, assignments_agree=agree,
-         centroid_max_abs_err=c_err, card=smi)
-    if agree < 0.9999 or c_err > 1e-4:
-        raise RuntimeError("sharded_kmeans_step disagrees with one device")
-    del x, valid, init, new_c, assigns, a_1, sums, counts, c_1
+         centroids_bit_equal_one_device=bit_equal,
+         centroid_max_abs_err_f64=c_err, card=smi)
+    if agree < 0.9999 or not bit_equal or c_err > 1e-6:
+        raise RuntimeError("sharded_kmeans_step disagrees with one device "
+                           "or with float64")
+    del x, valid, init, new_c, assigns, a_1, a_s, sums, counts, c_1
     # LSH: SimpleRP-10 two-call on both sides (few codes: the host scan
     # on one device, the XOR route a shard).
     lsh_elems = elems[:ROUTE_LSH_N]
@@ -3189,9 +3392,8 @@ def sharded_routes(smi: str, dev) -> None:
     fq_elems = [DescriptorMemoryElement(("q", i), fq[i])
                 for i in range(ROUTE_QUERIES)]
     for dtype in ("sq8", "pq16"):
-        with deterministic():
-            single, sharded = pair(FlatNearestNeighborsIndex, f_elems,
-                                   dtype=dtype)
+        single, sharded = pair(FlatNearestNeighborsIndex, f_elems,
+                               dtype=dtype)
         same_codec = all(
             a is None and b is None or np.array_equal(a, b)
             for a, b in zip(single._store._codec, sharded._store._codec))
@@ -3248,6 +3450,216 @@ def sharded_routes(smi: str, dev) -> None:
     torch.cuda.empty_cache()
     emit("seconds", of="sharded routes", placement=placement,
          seconds=time.perf_counter() - t_all)
+
+
+#: ``ivf16384-100m`` at reduced depth: the ported 100M example at this
+#: many chunks of 6,291,456 rows (full width: d=128, 16,384 lists, PQ16);
+#: its K7 and K8 held at the B=128 batch, nprobe 16.
+IVF100M_CHUNKS = 2
+IVF100M_HOLD_NPROBE = 16
+
+
+def _k5_k3_100m(ctx, smi: str, dev) -> dict:
+    """K5 and K3 of the 100M example's on-card oracle (``sq8_topk_blocked``
+    at B=128 over the example's SQ8 tiles), held against their plain
+    versions (K5 also float64) on the oracle's operands; the kernels
+    line's fields of each."""
+    import torch
+    from smqtk_indexing_tpu_torch.ops import fused_scan, sq8
+    db3, a, b, q = ctx["codes"], ctx["a"], ctx["b"], ctx["q"]
+    n_tiles, d, tile_n = db3.shape
+    n = n_tiles * tile_n
+    sq = ctx["s2t"].reshape(n)
+    pen = torch.zeros(n, device=dev)
+    t = (q - b) * a
+    tb = t.to(torch.bfloat16)
+    nb = t.shape[0]
+    n_steps, g, bw = fused_scan.step_shape(n_tiles, tile_n)
+    rows = db3.transpose(1, 2).reshape(n, d)
+
+    def f64_steps():
+        """K5's m1 in float64 on its operands (the query rounded to
+        bf16), step-major, and the largest sum of absolute terms."""
+        tq = tb.double()
+        exact = torch.empty((nb, n // 128), dtype=torch.float64, device=dev)
+        mag = 0.0
+        for lo in range(0, n, 1 << 18):
+            u = rows[lo:lo + (1 << 18)].double()
+            s = sq[lo:lo + (1 << 18)].double()
+            exact[:, lo // 128:(lo + u.shape[0]) // 128] = (
+                s - 2.0 * (tq @ u.T)).view(nb, -1, 128).amin(-1)
+            mag = max(mag, (s.max() + 2.0 * (tq.abs() @ u.abs().T).max())
+                      .item())
+            del u
+        return (exact.view(nb, n_steps, g).transpose(0, 1),
+                torch.full((n_steps, nb, g), mag, dtype=torch.float64,
+                           device=dev))
+    k5 = hold("segment_minima_tiled2_ivf100m",
+              lambda: fused_scan.segment_minima_tiled2(db3, sq, pen, t)[0],
+              lambda: fused_scan.segment_minima_tiled2_reference(
+                  db3, sq, pen, t)[0], smi, compare="f64", f64=f64_steps,
+              q_axis=1, n_f64=nb, shape=[nb, n, d], steps=[n_steps, g, bw])
+    k5_lib = library_mm(tb, rows.to(torch.bfloat16).T, 10)
+    out_seg = nb * n // 128
+    k5_bound = stage1_bound(nb, n, d, 1, out_seg + out_seg // bw)
+    sid = sq8.blocked_select(db3, sq, pen, t, ctx["k"] + 16)
+    k3 = hold("seg_gather_tiled_ivf100m",
+              lambda: fused_scan.seg_gather_tiled(db3, sid),
+              lambda: fused_scan.seg_gather_tiled_reference(db3, sid),
+              smi, compare="equal",
+              shape=list(sid.shape) + [d, fused_scan.SEG])
+    seg_bytes = d * fused_scan.SEG
+    k3_bound = bound(torch.unique(sid).numel() * seg_bytes
+                     + sid.numel() * (seg_bytes + 8), 0.0, FP32_FLOPS)
+    k3_lib = library_gather(db3, sid)
+    del rows
+    torch.cuda.empty_cache()
+    return {"K5": {"max_abs_err": k5[0], "ms": k5[1], "plain_ms": k5[2],
+                   **k5_bound, "library_ms": k5_lib,
+                   "share": k5_bound["bound_ms"] / k5[1],
+                   "shape": [nb, n, d]},
+            "K3": {"max_abs_err": k3[0], "ms": k3[1], "plain_ms": k3[2],
+                   **k3_bound, "library_ms": k3_lib,
+                   "share": k3_bound["bound_ms"] / k3[1],
+                   "shape": list(sid.shape) + [d, fused_scan.SEG]}}
+
+
+def _k7_100m(ctx, smi: str) -> dict:
+    """K7 of the 100M example's IVF-SQ8 sweep at B=128, nprobe 16, held
+    against its plain version and float64 on the example's operands."""
+    from smqtk_indexing_tpu_torch.ops import ivf_scan
+    db3, s2t = ctx["codes"], ctx["s2t"]
+    t, ti, c0, lo, hi = ivf_scan.tiled_windows(
+        ctx["a"], ctx["b"], ctx["centroids"], *ctx["layout"], ctx["q"],
+        nprobe_orig=IVF100M_HOLD_NPROBE)
+    args = (db3, s2t, t, ti, c0, lo, hi)
+    n_tiles, d, tile = db3.shape
+    cols, pairs = distinct_positions(ti.long() * tile + c0.long(), lo, hi,
+                                     ivf_scan.W_TILED, n_tiles * tile)
+    k7_bound = bound(cols * (d + 4) + 4 * t.numel() + 16 * ti.numel()
+                     + 4 * ti.numel() * ivf_scan.W_TILED,
+                     2.0 * d * pairs, FP32_FLOPS)
+    live = int((hi > lo).sum())
+    k7 = hold("ivf_list_scores_tiled_ivf100m",
+              lambda: ivf_scan.ivf_list_scores_tiled(*args),
+              lambda: ivf_scan.ivf_list_scores_tiled_reference(*args),
+              smi, compare="f64", f64=lambda: _f64_tiled(*args),
+              n_f64=N_ORACLE,
+              shape=[ti.shape[0], ti.shape[1], ivf_scan.W_TILED],
+              live_slots=live)
+    return {"max_abs_err": k7[0], "ms": k7[1], "plain_ms": k7[2],
+            **k7_bound, "library_ms": None,
+            "share": k7_bound["bound_ms"] / k7[1], "live_slots": live,
+            "slots": int(ti.numel()),
+            "shape": [ti.shape[0], ti.shape[1], ivf_scan.W_TILED]}
+
+
+def _k8_100m(ctx, smi: str) -> dict:
+    """K8 of the 100M example's residual PQ16 sweep at B=128, nprobe 16,
+    held against its plain version and float64 on the example's
+    operands."""
+    from smqtk_indexing_tpu_torch.ops import ivf_scan
+    db3c, s2t = ctx["codes"], ctx["s2t"]
+    _, lut, ti, c0, lo, hi, _ = ivf_scan.tiled_windows_pq(
+        ctx["codebooks"], ctx["transform"], ctx["centroids"],
+        *ctx["layout"], ctx["q"], nprobe_orig=IVF100M_HOLD_NPROBE,
+        residual=ctx["res_cents"] is not None)
+    args = (db3c, s2t, lut, ti, c0, lo, hi)
+    n_tiles, m_sub, tile = db3c.shape
+    cols, pairs = distinct_positions(ti.long() * tile + c0.long(), lo, hi,
+                                     ivf_scan.W_TILED, n_tiles * tile)
+    k8_bound = bound(cols * (m_sub + 4) + 4 * lut.numel() + 16 * ti.numel()
+                     + 4 * ti.numel() * ivf_scan.W_TILED,
+                     float(m_sub) * pairs, FP32_FLOPS)
+    live = int((hi > lo).sum())
+    k8 = hold("ivf_list_scores_tiled_pq_ivf100m",
+              lambda: ivf_scan.ivf_list_scores_tiled_pq(*args),
+              lambda: ivf_scan.ivf_list_scores_tiled_pq_reference(*args),
+              smi, compare="f64", f64=lambda: _f64_tiled_pq(*args),
+              n_f64=N_ORACLE,
+              shape=[ti.shape[0], ti.shape[1], ivf_scan.W_TILED],
+              m_sub=int(m_sub), live_slots=live)
+    return {"max_abs_err": k8[0], "ms": k8[1], "plain_ms": k8[2],
+            **k8_bound, "library_ms": None,
+            "share": k8_bound["bound_ms"] / k8[1], "live_slots": live,
+            "slots": int(ti.numel()),
+            "shape": [ti.shape[0], ti.shape[1], ivf_scan.W_TILED]}
+
+
+def ivf_100m_phase(smi: str, dev) -> list:
+    """``ivf16384-100m`` at reduced depth: the ported
+    ``examples/ivf_100m.py`` at ``SMQTK_IVF100M_CHUNKS=2`` (12,582,912 x
+    128 rows, 16,384 lists, SQ8 then residual PQ16) on the card, its recall
+    checks raising (SQ8 against the exhaustive oracle, PQ16 against the ADC
+    oracle, >= 0.99 at nprobe 2 to 16). K5 and K3 (the oracle), K7 (the
+    SQ8 sweep) and K8 (the PQ16 sweep) are held against their plain
+    versions on the example's operands between its phases; those holds'
+    launches are taken out of the path's counts. Returns the kernels
+    line's rows of the four."""
+    import importlib
+    import torch
+    held, hold_launches = {}, {}
+
+    def during_holds(fn):
+        def hook(ctx):
+            before = read_counts()
+            fn(ctx)
+            for name, n in read_counts().items():
+                hold_launches[name] = hold_launches.get(name, 0) \
+                    + n - before[name]
+        return hook
+
+    def on_sq8(ctx):
+        held.update(_k5_k3_100m(ctx, smi, dev))
+        held["K7"] = _k7_100m(ctx, smi)
+
+    def on_pq(ctx):
+        held["K8"] = _k8_100m(ctx, smi)
+
+    for name in ("MINI", "NO_SQ8", "NO_PQ", "OPQ", "RAW_PQ"):
+        os.environ.pop("SMQTK_IVF100M_" + name, None)
+    with _env("SMQTK_IVF100M_CHUNKS", str(IVF100M_CHUNKS)):
+        from smqtk_indexing_tpu_torch.examples import ivf_100m
+        ivf_100m = importlib.reload(ivf_100m)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    reset_counts()
+    records = ivf_100m.main(str(dev), hooks={"sq8": during_holds(on_sq8),
+                                             "pq": during_holds(on_pq)})
+    counts = {name: n - hold_launches.get(name, 0)
+              for name, n in read_counts().items()}
+    ivf_100m.check_recall(records)
+    launches = {"K7": counts["ivf_list_scores_tiled"],
+                "K8": counts["ivf_list_scores_tiled_pq"],
+                "K5": sum(n for key, n in counts.items()
+                          if key.startswith("segment_minima_tiled2:")),
+                "K3": counts["seg_gather_tiled:copy"]}
+    emit("main", path="ivf16384-100m example", phase_name="ivf16384-100m",
+         chunks=IVF100M_CHUNKS, rows=ivf_100m.N, d=ivf_100m.D,
+         n_lists=ivf_100m.C_LISTS, seconds=time.perf_counter() - t0,
+         launches=_nonzero(counts), kernel_launches=launches,
+         recall_checked=True, card=smi)
+    if 0 in launches.values():
+        raise RuntimeError(f"the 100M example skipped a kernel: {launches}")
+    src = "smqtk_indexing_tpu_torch/csrc/"
+    rows = []
+    for name, source, replaces, key in (
+            ("ivf_list_scores_tiled_ivf100m", "ivf_list_scores_tiled.cu",
+             "pallas_ivf.py:469", "K7"),
+            ("ivf_list_scores_tiled_pq_ivf100m",
+             "ivf_list_scores_tiled_pq.cu", "pallas_ivf.py:785", "K8"),
+            ("segment_minima_tiled2_ivf100m",
+             "segment_minima_tiled_wgmma.cu", "pallas_scan.py:807", "K5"),
+            ("seg_gather_tiled_ivf100m", "seg_gather.cu",
+             "pallas_scan.py:406", "K3")):
+        rows.append({"name": name, "route": "cuda", "source": src + source,
+                     "replaces": "smqtk_indexing_tpu/ops/" + replaces,
+                     "launches": launches[key], **held[key],
+                     "timed_on": "the 100M example's operands at "
+                                 f"{IVF100M_CHUNKS} chunks, B=128"})
+    del ivf_100m, records
+    torch.cuda.empty_cache()
+    return rows
 
 
 @contextlib.contextmanager
@@ -3469,6 +3881,10 @@ def main() -> None:
     emit("seconds", of="sharded-deep10m-shape phase",
          seconds=time.perf_counter() - t0)
     sharded_routes(smi, dev)
+    t0 = time.perf_counter()
+    kernels += ivf_100m_phase(smi, dev)
+    emit("seconds", of="ivf16384-100m phase",
+         seconds=time.perf_counter() - t0)
     if any(mod is not None and (name == "jax" or name.startswith("jax."))
            for name, mod in sys.modules.items()):
         raise RuntimeError("jax was imported")

@@ -52,7 +52,9 @@ from smqtk_indexing_tpu_torch.models.nn_index._results import (
 from smqtk_indexing_tpu_torch.ops.device import device_report
 from smqtk_indexing_tpu_torch.ops.pq import PQ_METRICS, pq_m, pq_rotate
 from smqtk_indexing_tpu_torch.ops.scan import METRICS
-from smqtk_indexing_tpu_torch.ops.store import VectorStore
+from smqtk_indexing_tpu_torch.ops.store import (
+    HostStreamedVectorStore, VectorStore,
+)
 from smqtk_indexing_tpu_torch.parallel.mesh import (
     device_config, mesh_for, primary_device,
 )
@@ -82,7 +84,10 @@ class FlatNearestNeighborsIndex (NearestNeighborsIndex):
         power of two); each query runs the per-shard exact scan and the
         k-sized merge (``parallel/sharded_scan.py``). None or 1: one
         device.
-    :param storage: 'device'. The host-streamed tier is a later slice.
+    :param storage: 'device' (the rows live on the device) or
+        'host_stream' (the rows live in host memory only and stream
+        through one device a query batch, float32 / bfloat16 only:
+        ``ops/store.HostStreamedVectorStore``).
     :param device: torch device holding the index: 'cuda' (default; raises
         when no card is present) or 'cpu' (the plain PyTorch versions of
         the kernels). With ``n_devices=n``: 'cuda' is cards 0 .. n-1 (too
@@ -148,11 +153,15 @@ class FlatNearestNeighborsIndex (NearestNeighborsIndex):
         if metric not in METRICS:
             raise ValueError(
                 f"metric must be one of {METRICS}, got {metric!r}")
-        if storage != "device":
+        if storage not in ("device", "host_stream"):
+            raise ValueError(f"storage must be 'device' or 'host_stream', "
+                             f"got {storage!r}")
+        if storage == "host_stream" and n_devices is not None \
+                and n_devices > 1:
             raise ValueError(
-                f"storage={storage!r} is not ported yet: the port serves "
-                "storage='device'; 'host_stream' is the 'Host-streamed "
-                "tier' slice of ROADMAP.md (queue 1, item 6).")
+                "storage='host_stream' streams through one device; "
+                "combine capacity axes via n_devices OR host streaming, "
+                "not both.")
         if pq_rotate(dtype) and metric == "hik":
             raise ValueError(
                 "metric 'hik' is not supported with OPQ dtypes (min() is "
@@ -183,6 +192,9 @@ class FlatNearestNeighborsIndex (NearestNeighborsIndex):
         self._load_index()
 
     def _new_store(self) -> VectorStore:
+        if self.storage == "host_stream":
+            return HostStreamedVectorStore(
+                dtype=self.dtype, device=primary_device(self.device))
         return VectorStore(dtype=self.dtype, mesh=self._mesh,
                            device=primary_device(self.device))
 

@@ -460,7 +460,7 @@ def normalized_rows(db: torch.Tensor, db_norm: torch.Tensor,
     return (db.float() / nrm[:, None]).to(dtype or torch.float32)
 
 
-def _exact_dists(metric: str, cand: torch.Tensor, q: torch.Tensor,
+def exact_dists(metric: str, cand: torch.Tensor, q: torch.Tensor,
                  q_norm: torch.Tensor, cn: Optional[torch.Tensor]
                  ) -> torch.Tensor:
     """Exact distances of (b, M, d) f32 candidates to (b, d) queries.
@@ -512,7 +512,7 @@ def rerank_segments(db: torch.Tensor, valid: torch.Tensor, q: torch.Tensor,
         cand = db_seg[sc].reshape(hi - lo, m, d).float()
         cn = norm_seg[sc].reshape(hi - lo, m) if norm_seg is not None \
             else None
-        exact = _exact_dists(metric, cand, q[lo:hi], q_norm[lo:hi], cn)
+        exact = exact_dists(metric, cand, q[lo:hi], q_norm[lo:hi], cn)
         exact = torch.where(alive, exact, math.inf)
         dd, sel = topk_smallest(exact, k)
         rr = torch.gather(rows, 1, sel)

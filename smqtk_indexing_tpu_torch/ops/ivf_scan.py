@@ -456,25 +456,27 @@ def ivf_list_scores_tiled(db3: torch.Tensor, s2t: torch.Tensor,
 def ivf_list_scores_tiled_reference(db3, s2t, t, ti, c0, lo,
                                     hi) -> torch.Tensor:
     """The plain PyTorch version of :func:`ivf_list_scores_tiled`: a gather
-    of each (d, W_TILED) window and an f32 product with ``t``, in query
-    blocks under ``REFERENCE_BYTES``."""
+    of each live (d, W_TILED) window and an f32 product with ``t``, in
+    blocks of live slots under ``REFERENCE_BYTES``; dead slots (``lo ==
+    hi``) read nothing and are +inf."""
     _check_tiled(db3, s2t, t, ti, c0, lo, hi)
     b, p = ti.shape
     d = db3.shape[1]
     lane = torch.arange(W_TILED, device=db3.device)
     dims = torch.arange(d, device=db3.device)
-    out = torch.empty((b, p, W_TILED), dtype=torch.float32,
-                      device=db3.device)
-    q_block = max(1, REFERENCE_BYTES // (4 * max(p, 1) * W_TILED * d))
-    for q0 in range(0, b, q_block):
-        q1 = min(q0 + q_block, b)
-        tt = ti[q0:q1].long()[..., None]                 # (b, P, 1)
-        cols = c0[q0:q1].long()[..., None] + lane         # (b, P, W)
-        u = db3[tt[..., None], dims[:, None], cols[..., None, :]].float()
-        ip = (u * t[q0:q1, None, :, None]).sum(2)         # (b, P, W)
+    out = torch.full((b, p, W_TILED), math.inf, dtype=torch.float32,
+                     device=db3.device)
+    qi, pi = torch.nonzero(hi > lo, as_tuple=True)
+    s_block = max(1, REFERENCE_BYTES // (4 * W_TILED * d))
+    for s0 in range(0, qi.numel(), s_block):
+        bq, bp = qi[s0:s0 + s_block], pi[s0:s0 + s_block]
+        tt = ti[bq, bp].long()[:, None]                  # (s, 1)
+        cols = c0[bq, bp].long()[:, None] + lane          # (s, W)
+        u = db3[tt[..., None], dims[:, None], cols[:, None, :]].float()
+        ip = (u * t[bq, :, None]).sum(1)                  # (s, W)
         scores = s2t[tt, 0, cols] - 2.0 * ip
-        ok = _window_mask(lo[q0:q1], hi[q0:q1], W_TILED, db3.device)
-        out[q0:q1] = torch.where(ok, scores, math.inf)
+        ok = _window_mask(lo[bq, bp], hi[bq, bp], W_TILED, db3.device)
+        out[bq, bp] = torch.where(ok, scores, math.inf)
     return out
 
 
@@ -699,27 +701,30 @@ def ivf_list_scores_tiled_pq(db3c: torch.Tensor, s2t: torch.Tensor,
 def ivf_list_scores_tiled_pq_reference(db3c, s2t, lut, ti, c0, lo,
                                        hi) -> torch.Tensor:
     """The plain PyTorch version of :func:`ivf_list_scores_tiled_pq`: a
-    gather of each (M, W_TILED) code window and a gather of the table at
-    those codes, in query blocks under ``REFERENCE_BYTES``."""
+    gather of each live (M, W_TILED) code window and a gather of the table
+    at those codes, in blocks of live slots under ``REFERENCE_BYTES``;
+    dead slots (``lo == hi``) read nothing and are +inf."""
     _check_tiled_pq(db3c, s2t, lut, ti, c0, lo, hi)
     b, p = ti.shape
     m_sub = db3c.shape[1]
     dev = db3c.device
     lane = torch.arange(W_TILED, device=dev)
     subs = torch.arange(m_sub, device=dev)
-    out = torch.empty((b, p, W_TILED), dtype=torch.float32, device=dev)
-    q_block = max(1, REFERENCE_BYTES // (8 * max(p, 1) * W_TILED * m_sub))
-    for q0 in range(0, b, q_block):
-        q1 = min(q0 + q_block, b)
-        tt = ti[q0:q1].long()[..., None]                 # (b, P, 1)
-        cols = c0[q0:q1].long()[..., None] + lane         # (b, P, W)
-        codes = db3c[tt[..., None], subs[:, None], cols[..., None, :]]
-        idx = subs[:, None] * K_SUB + (codes.long() & 0xFF)   # (b, P, M, W)
-        vals = torch.gather(lut[q0:q1], 1, idx.reshape(q1 - q0, -1))
-        ip = vals.view(idx.shape).sum(2)                  # (b, P, W)
+    out = torch.full((b, p, W_TILED), math.inf, dtype=torch.float32,
+                     device=dev)
+    qi, pi = torch.nonzero(hi > lo, as_tuple=True)
+    s_block = max(1, REFERENCE_BYTES // (8 * W_TILED * m_sub))
+    for s0 in range(0, qi.numel(), s_block):
+        bq, bp = qi[s0:s0 + s_block], pi[s0:s0 + s_block]
+        tt = ti[bq, bp].long()[:, None]                  # (s, 1)
+        cols = c0[bq, bp].long()[:, None] + lane          # (s, W)
+        codes = db3c[tt[..., None], subs[:, None], cols[:, None, :]]
+        idx = subs[:, None] * K_SUB + (codes.long() & 0xFF)   # (s, M, W)
+        ip = torch.gather(lut[bq], 1, idx.reshape(idx.shape[0], -1)) \
+            .view(idx.shape).sum(1)                       # (s, W)
         scores = s2t[tt, 0, cols] - 2.0 * ip
-        ok = _window_mask(lo[q0:q1], hi[q0:q1], W_TILED, dev)
-        out[q0:q1] = torch.where(ok, scores, math.inf)
+        ok = _window_mask(lo[bq, bp], hi[bq, bp], W_TILED, dev)
+        out[bq, bp] = torch.where(ok, scores, math.inf)
     return out
 
 

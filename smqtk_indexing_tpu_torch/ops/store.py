@@ -52,6 +52,7 @@ its rows), so a query holds the store lock while it reads them.
 from __future__ import annotations
 
 import io
+import math
 import os
 import threading
 from typing import Hashable, List, Optional, Sequence, Tuple
@@ -65,7 +66,7 @@ from smqtk_indexing_tpu_torch.ops.device import (
     tpu_kernel_enabled,
 )
 from smqtk_indexing_tpu_torch.ops.fused_scan import (
-    FUSED_METRICS, flat_topk_fused, normalized_rows,
+    FUSED_METRICS, exact_dists, flat_topk_fused, normalized_rows,
 )
 from smqtk_indexing_tpu_torch.ops.pq import (
     pq_build_store, pq_encode_np, pq_m, pq_prep_queries, pq_rotate,
@@ -78,7 +79,7 @@ from smqtk_indexing_tpu_torch.parallel.mesh import shard_rows
 from smqtk_indexing_tpu_torch.parallel.sharded_scan import (
     sharded_flat_topk, sharded_pq_topk, sharded_sq8_topk,
 )
-from smqtk_indexing_tpu_torch.utils.tracing import trace_span
+from smqtk_indexing_tpu_torch.utils.tracing import COUNTERS, trace_span
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -284,12 +285,8 @@ class VectorStore:
             if self._n_live < self._host.shape[0] // 2 \
                     and self._host.shape[0] > 1024:
                 self._compact()
-            elif self._mesh is not None:
-                valid = np.zeros(self._capacity, dtype=bool)
-                valid[:self._host.shape[0]] = self._valid_host
-                self._dev_valid = shard_rows(self._mesh, valid)
             else:
-                self._dev_valid[rows] = False
+                self._upload_valid(rows)
 
     def _compact(self) -> None:
         keep = np.flatnonzero(self._valid_host)
@@ -355,6 +352,16 @@ class VectorStore:
                 shard_rows(self._mesh, t) for t in (
                     self._dev, self._dev_sq, self._dev_norm,
                     self._dev_valid))
+
+    def _upload_valid(self, rows: List[int]) -> None:
+        """Mark removed ``rows`` dead on the device (under a mesh, the
+        shards' masks are placed anew)."""
+        if self._mesh is not None:
+            valid = np.zeros(self._capacity, dtype=bool)
+            valid[:self._host.shape[0]] = self._valid_host
+            self._dev_valid = shard_rows(self._mesh, valid)
+        else:
+            self._dev_valid[rows] = False
 
     def _upload_rows(self, start: int, mat: np.ndarray) -> None:
         """Append rows [start, start + len(mat)) in place on the device;
@@ -531,3 +538,218 @@ class VectorStore:
             mat = z["matrix"]
             uids = list(z["uids"])
         self.build(mat, uids)
+
+
+class HostStreamedVectorStore (VectorStore):
+    """
+    The tier past the card's memory (``store.py:584-690``): the database
+    lives in host memory only, and each query batch streams it through
+    one device in ``BLOCK_ROWS`` row blocks, runs the exact flat scan
+    ``ops/scan.flat_topk`` on each block (not K1, as in the JAX store) and
+    merges the blocks' (B, k) winners by a stable sort, so a tie goes to
+    the lowest block. Every block's distances are already exact, so the
+    merge is the exact global top-k. Capacity is bounded by host memory;
+    each batch pays one host-to-device copy of the whole matrix.
+
+    On a card, block i + 1's copy overlaps block i's scan: the host copies
+    a block into one of two pinned staging buffers, reused only once a
+    CUDA event says its last copy to the card is done; a side stream
+    copies it to the card, and the scanning stream takes it with
+    ``wait_stream`` / ``record_stream``. The feature dim and the last
+    block's rows are padded on the card. Row norms are the device store's
+    (``np.einsum`` over the host rows, kept on the host), so each block's
+    scan sees the operands the device store holds. On the CPU the same
+    code runs without streams. The liveness mask is snapshotted per query,
+    under the lock; queries stream one at a time (the staging buffers are
+    shared) while mutations go on.
+
+    :param dtype: 'float32' or 'bfloat16' (a codec would re-encode every
+        batch).
+    :param device: the one device the blocks stream through.
+    :param mesh: must be None.
+    :param block_rows: rows a block, a power of two >= 1024 (default
+        ``BLOCK_ROWS``).
+    """
+
+    #: Rows a streamed block.
+    BLOCK_ROWS = 1 << 20
+
+    def __init__(self, dtype: str = "float32", device="cuda", mesh=None,
+                 block_rows: Optional[int] = None):
+        if mesh is not None:
+            raise ValueError(
+                "HostStreamedVectorStore streams through ONE device; use "
+                "the base VectorStore with n_devices for mesh sharding.")
+        if dtype not in _DTYPES:
+            raise ValueError(
+                "Host streaming serves float32/bfloat16 (compressed codecs "
+                "are HBM-resident tiers; combining them with host "
+                "streaming would re-encode per batch).")
+        super().__init__(dtype=dtype, device=device)
+        if block_rows is not None:
+            if block_rows & (block_rows - 1) or block_rows < 1024:
+                raise ValueError("block_rows must be a power of two "
+                                 ">= 1024.")
+            self.BLOCK_ROWS = block_rows
+        self._stream_lock = threading.Lock()
+        self._staging = None
+
+    def _clear_state(self) -> None:
+        super()._clear_state()
+        self._sq_host: Optional[np.ndarray] = None
+
+    # No device mirror: the blocks stream per query batch.
+    def _upload_full(self) -> None:
+        self._capacity = capacity_for(self._host.shape[0])
+        self._sq_host = np.einsum("ij,ij->i", self._host, self._host)
+
+    def _upload_rows(self, start: int, mat: np.ndarray) -> None:
+        self._capacity = capacity_for(self._host.shape[0])
+        self._sq_host = np.concatenate(
+            [self._sq_host[:start],
+             np.einsum("ij,ij->i", mat, mat).astype(np.float32)])
+
+    def _upload_valid(self, rows: List[int]) -> None:
+        pass
+
+    def _staging_buffers(self, block: int, d: int):
+        """Two pinned (block, d) f32 row buffers with their norm and
+        liveness buffers, and the event of each one's last copy."""
+        key = (block, d)
+        if self._staging is None or self._staging[0] != key:
+            self._staging = (key, [
+                {"rows": torch.empty((block, d), pin_memory=True),
+                 "sq": torch.empty((block,), pin_memory=True),
+                 "valid": torch.empty((block,), dtype=torch.bool,
+                                      pin_memory=True),
+                 "done": None} for _ in range(2)])
+        return self._staging[1]
+
+    @trace_span("store.knn")
+    def knn(self, q: np.ndarray, k: int, metric: str = "euclidean"
+            ) -> Tuple[np.ndarray, List[List[Hashable]], np.ndarray]:
+        if metric not in scan.METRICS:
+            raise ValueError(f"Unknown metric {metric!r}; must be one of "
+                             f"{scan.METRICS}")
+        q = np.atleast_2d(np.asarray(q, dtype=np.float32))
+        host, sq_host, valid_host, row2uid, n_live = self.snapshot()
+        if q.shape[1] != host.shape[1]:
+            raise ValueError(
+                f"Query dim {q.shape[1]} != store dim {host.shape[1]}")
+        k_eff = min(k, n_live)
+        qd = self.device_queries(q)
+        parts = []
+        with self._stream_lock:
+            for lo, mat, sq, va in self.blocks(host, sq_host, valid_host):
+                parts.append(self.scan_block(lo, mat, sq, va, qd, k_eff,
+                                             metric))
+        dists = torch.cat([dd for dd, _ in parts], dim=1)
+        rows = torch.cat([rr for _, rr in parts], dim=1)
+        # Ties go to the lowest block, as np.argsort(kind="stable").
+        dists, sel = torch.sort(dists, dim=1, stable=True)
+        rows = torch.gather(rows, 1, sel[:, :k_eff]).cpu().numpy()
+        dists = dists[:, :k_eff].cpu().numpy()
+        uid_lists = [[row2uid[r] for r in row if r >= 0]
+                     for row in rows.tolist()]
+        return dists, uid_lists, rows
+
+    def snapshot(self):
+        """What one query streams, taken under the lock: (host rows, their
+        squared norms, a copy of the liveness mask, the row-to-UID list,
+        the live count). ``remove`` flips the mask in place, so it is
+        copied; the rows and norms are only ever replaced whole, so a
+        reference is a snapshot (a copy could be tens of GB)."""
+        with self._lock:
+            if self._host is None:
+                raise ValueError("Store is empty.")
+            return (self._host, self._sq_host, self._valid_host.copy(),
+                    self._row2uid, self._n_live)
+
+    def device_queries(self, q: np.ndarray) -> torch.Tensor:
+        """(B, d) f32 queries on the device, padded to the blocks' dim."""
+        qd = torch.zeros((q.shape[0], pad_dim(q.shape[1])),
+                         dtype=torch.float32, device=self._device)
+        qd[:, :q.shape[1]] = torch.from_numpy(q).to(self._device)
+        return qd
+
+    def blocks(self, host, sq_host, valid_host):
+        """
+        Each block of a :meth:`snapshot` on the device, padded as its scan
+        takes it: yields (first row, rows (n_pad, d_pad), squared norms,
+        liveness). On a card the host copies a block into a pinned
+        staging buffer (span ``host_stream.stage``) and a side stream
+        copies it to the card while the caller scans the block before.
+        Counters ``host_stream.blocks`` and ``host_stream.bytes`` count
+        what was streamed.
+        """
+        dev = self._device
+        cuda = dev.type == "cuda"
+        n, d = host.shape
+        block = min(self.BLOCK_ROWS, capacity_for(n))
+        d_pad = pad_dim(d)
+        dtype = _DTYPES[self._dtype_name]
+        if cuda:
+            staging = self._staging_buffers(block, d)
+            main = torch.cuda.current_stream(dev)
+            side = torch.cuda.Stream(dev)
+        for i, lo in enumerate(range(0, n, block)):
+            hi = min(lo + block, n)
+            rows_n = hi - lo
+            pad_n = block if rows_n > block // 2 or lo > 0 \
+                else capacity_for(rows_n)
+            parts = (host[lo:hi], sq_host[lo:hi], valid_host[lo:hi])
+            if cuda:
+                raw, sq_blk, va_blk = self._stage(staging[i % 2], parts,
+                                                  side, main)
+            else:
+                raw, sq_blk, va_blk = (torch.from_numpy(p) for p in parts)
+            COUNTERS.add("host_stream.blocks")
+            COUNTERS.add("host_stream.bytes", sum(p.nbytes for p in parts))
+            mat = torch.zeros((pad_n, d_pad), dtype=dtype, device=dev)
+            mat[:rows_n, :d] = raw
+            sq = torch.zeros((pad_n,), dtype=torch.float32, device=dev)
+            sq[:rows_n] = sq_blk
+            va = torch.zeros((pad_n,), dtype=torch.bool, device=dev)
+            va[:rows_n] = va_blk
+            del raw, sq_blk, va_blk
+            yield lo, mat, sq, va
+
+    def _stage(self, buf, parts, side, main):
+        """One block's host arrays through pinned ``buf`` to the card on
+        stream ``side``, handed to stream ``main``."""
+        rows_n = parts[0].shape[0]
+        with trace_span("host_stream.stage"):
+            if buf["done"] is not None:
+                buf["done"].synchronize()
+            for name, arr in zip(("rows", "sq", "valid"), parts):
+                buf[name][:rows_n].copy_(torch.from_numpy(arr))
+        with torch.cuda.stream(side):
+            got = [buf[name][:rows_n].to(self._device, non_blocking=True)
+                   for name in ("rows", "sq", "valid")]
+            buf["done"] = torch.cuda.Event()
+            buf["done"].record(side)
+        main.wait_stream(side)
+        for t in got:
+            t.record_stream(main)
+        return got
+
+    def scan_block(self, lo, mat, sq, va, qd, k_eff, metric):
+        """
+        One block's exact top-k (``scan.flat_topk``): (dists, rows offset
+        by ``lo``), +inf / -1 past its live rows. Where the device store
+        would take K1 for inner_product or cosine, it finishes those by
+        K1's elementwise formula (``fused_scan.exact_dists``), so the two
+        stores give the same bits.
+        """
+        nrm = torch.sqrt(sq)
+        dd, rr = scan.flat_topk(mat, sq, nrm, va, qd,
+                                k=min(k_eff, mat.shape[0]), metric=metric)
+        if metric in ("inner_product", "cosine") \
+                and self._fused_eligible(metric):
+            at = torch.clamp(rr, min=0)
+            exact = exact_dists(metric, mat[at].float(), qd,
+                                torch.sqrt((qd * qd).sum(-1)), nrm[at])
+            dd, order = torch.sort(torch.where(rr >= 0, exact, math.inf),
+                                   dim=1, stable=True)
+            rr = torch.gather(rr, 1, order)
+        return dd, torch.where(rr >= 0, rr + lo, -1)

@@ -19,9 +19,9 @@ the lowest shard first; the port takes a stable sort of that block
 (``torch.topk`` does not promise an order among ties).
 
 ``sharded_kmeans_step`` is one data-parallel Lloyd step: per-shard
-partial sums and counts, added on the first device in shard order (the
-JAX ``psum``), so the result does not depend on which shard finishes
-first.
+partial sums and counts in int64 fixed point (``kmeans.cell_sums``),
+added exactly on the first device (the JAX ``psum``), so the result
+depends neither on which shard finishes first nor on the shard count.
 """
 from __future__ import annotations
 
@@ -31,7 +31,10 @@ from typing import Callable, List, Tuple
 import torch
 
 from smqtk_indexing_tpu_torch.ops import hamming, scan
-from smqtk_indexing_tpu_torch.ops.kmeans import ASSIGN_CHUNK, _assign_block
+from smqtk_indexing_tpu_torch.ops.kmeans import (
+    ASSIGN_CHUNK, _assign_block, cell_means, cell_sums, fixed_point_scale,
+    to_fixed,
+)
 from smqtk_indexing_tpu_torch.ops.metrics import candidate_distances
 from smqtk_indexing_tpu_torch.ops.pq import pq_topk
 from smqtk_indexing_tpu_torch.ops.sq8 import sq8_topk
@@ -210,38 +213,46 @@ def sharded_kmeans_step(mesh: Mesh, db: Shards, valid: Shards, centroids):
     """
     One data-parallel Lloyd step: each shard assigns its rows to the
     centroids (``kmeans._assign_block`` in ``ASSIGN_CHUNK`` blocks) and
-    forms partial sums and counts; the partials are added on the first
-    device in shard order, and empty cells keep their centroid.
+    forms partial sums and counts in int64 fixed point under one scale
+    for all shards (``kmeans.cell_sums``); the partials are added on the
+    first device, exactly, and empty cells keep their centroid. The
+    result does not depend on the shard count.
 
     :param centroids: (C, d), a tensor or replicated.
     :return: (new centroids (C, d) float32 on ``mesh.first``, per-shard
         assignments (row-sharded, int64)).
     """
     cs = replicate(mesh, centroids)
+    amax = torch.stack([
+        torch.where(valid[s].bool()[:, None], db[s].float().abs(), 0.0)
+        .amax(0).to(mesh.first) if db[s].shape[0]
+        else torch.zeros(db[s].shape[1], device=mesh.first)
+        for s in range(mesh.size)]).amax(0)
+    n_rows = sum(int(db[s].shape[0]) for s in range(mesh.size))
+    scale = fixed_point_scale(amax, n_rows)
     partials, assigns = [], []
     for s in range(mesh.size):
         c = cs[s].float()
+        c_count = c.shape[0]
         c_sq = (c * c).sum(-1)
         x = db[s].float()
-        w = valid[s].float()
-        sums = torch.zeros_like(c)
-        counts = torch.zeros(c.shape[0], dtype=torch.float32,
-                             device=c.device)
+        ok = valid[s].bool()
+        sc = scale.to(x.device)
+        sums = torch.zeros(c.shape, dtype=torch.int64, device=c.device)
+        counts = torch.zeros(c_count, dtype=torch.int64, device=c.device)
         blocks = []
         for lo in range(0, max(x.shape[0], 1), ASSIGN_CHUNK):
-            xb, wb = x[lo:lo + ASSIGN_CHUNK], w[lo:lo + ASSIGN_CHUNK]
+            xb = x[lo:lo + ASSIGN_CHUNK]
             a = _assign_block(xb, c, c_sq)
-            sums.index_add_(0, a, xb * wb[:, None])
-            counts.index_add_(0, a, wb)
+            s_b, n_b = cell_sums(
+                torch.where(ok[lo:lo + ASSIGN_CHUNK], a, c_count),
+                to_fixed(xb, sc), c_count)
+            sums += s_b
+            counts += n_b
             blocks.append(a)
         partials.append((sums, counts))
         assigns.append(torch.cat(blocks))
-    sums = torch.zeros_like(partials[0][0]).to(mesh.first)
-    counts = torch.zeros_like(partials[0][1]).to(mesh.first)
-    for p_sum, p_count in partials:
-        sums = sums + p_sum.to(mesh.first)
-        counts = counts + p_count.to(mesh.first)
-    c0 = cs[0].float().to(mesh.first)
-    new_c = torch.where(counts[:, None] > 0,
-                        sums / torch.clamp(counts[:, None], min=1.0), c0)
+    sums = sum(p_sum.to(mesh.first) for p_sum, _ in partials)
+    counts = sum(p_count.to(mesh.first) for _, p_count in partials)
+    new_c = cell_means(sums, counts, scale, cs[0].float().to(mesh.first))
     return new_c, assigns

@@ -2075,3 +2075,128 @@ def test_sharded_kmeans_step_on_card_matches_cpu(card):
                     torch.cat([a.cpu() for a in assigns]).numpy()))
     assert (out[0][1] == out[1][1]).mean() > 0.999
     np.testing.assert_allclose(out[0][0], out[1][0], rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# reproducible training: two builds from one seed, with no determinism
+# switch, bit for bit (k-means sums in int64 fixed point, ops/kmeans.py)
+# ---------------------------------------------------------------------------
+
+#: Trained state two builds from one seed must share bit for bit.
+_BUILD_STATE = ("_centroids_np", "_assign_host", "_code_a", "_code_b",
+                "_code_cb", "_code_rot", "_dev3", "_s2t", "_slot_table")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    dict(dtype="sq8", storage="code", rerank="score", n_lists=64, nprobe=4),
+    dict(dtype="opq16", storage="code", pq_residual=True, rerank="exact",
+         n_lists=64, nprobe=8)], ids=["ivf_sq8", "ivf_opq16_residual"])
+def test_two_builds_from_one_seed_are_bit_equal(card, kw):
+    from smqtk_indexing_tpu_torch.models.nn_index.ivf import (
+        IvfNearestNeighborsIndex,
+    )
+    assert not torch.are_deterministic_algorithms_enabled()
+    rng = np.random.default_rng(41)
+    centres = rng.normal(size=(64, 96)).astype(np.float32)
+    x = centres[rng.integers(0, 64, 30000)] \
+        + rng.normal(size=(30000, 96)).astype(np.float32) * 0.3
+    elems = [DescriptorMemoryElement(i, v) for i, v in enumerate(x)]
+    queries = [DescriptorMemoryElement(("q", i), x[i * 97] + 0.05)
+               for i in range(64)]
+    out = []
+    for _ in range(2):
+        index = IvfNearestNeighborsIndex(kmeans_iterations=10,
+                                         random_seed=0, device="cuda", **kw)
+        index.build_index(elems)
+        res = index.nn_many(queries, 10)
+        out.append((index, [[e.uuid() for e in r[0]] for r in res],
+                    np.array([r[1] for r in res])))
+    (a, ua, da), (b, ub, db) = out
+    for name in _BUILD_STATE:
+        x_a, x_b = getattr(a, name, None), getattr(b, name, None)
+        if isinstance(x_a, torch.Tensor):
+            assert torch.equal(x_a, x_b), name
+        elif x_a is None:
+            assert x_b is None, name
+        else:
+            np.testing.assert_array_equal(np.asarray(x_a), np.asarray(x_b),
+                                          err_msg=name)
+    assert ua == ub
+    np.testing.assert_array_equal(da, db)
+
+
+@pytest.mark.cuda
+def test_kmeans_on_card_equals_cpu_bit_for_bit(card):
+    # Integer sums are exact: with the same assignments, the card and the
+    # CPU train the same centroids.
+    from smqtk_indexing_tpu_torch.ops import kmeans
+    rng = np.random.default_rng(42)
+    centres = rng.normal(size=(16, 32)).astype(np.float32) * 8
+    x = centres[rng.integers(0, 16, 20000)] \
+        + rng.normal(size=(20000, 32)).astype(np.float32)
+    valid = torch.from_numpy(rng.random(20000) > 0.02)
+    out = [kmeans.kmeans_lloyd(torch.from_numpy(x).to(dev),
+                               valid.to(dev),
+                               torch.from_numpy(x[:16]).to(dev), n_iter=5)
+           for dev in (card, "cpu")]
+    assert torch.equal(out[0][1].cpu(), out[1][1])
+    assert torch.equal(out[0][0].cpu(), out[1][0])
+
+
+# ---------------------------------------------------------------------------
+# the host-streamed tier against the device store on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["euclidean", "cosine", "inner_product",
+                                    "hik"])
+def test_host_stream_matches_device_store_on_card(card, metric):
+    from smqtk_indexing_tpu_torch.ops.store import (
+        HostStreamedVectorStore, VectorStore,
+    )
+    from smqtk_indexing_tpu_torch.utils.tracing import COUNTERS
+    rng = np.random.default_rng(0)
+    n, d = 5000, 24
+    db = rng.random((n, d)).astype(np.float32)
+    dev = VectorStore(device="cuda")
+    hst = HostStreamedVectorStore(block_rows=1024, device="cuda")
+    for store in (dev, hst):
+        store.build(db, list(range(n)))
+        store.remove(list(range(3, n, 11)))
+    q = rng.random((33, d)).astype(np.float32)
+    d1, u1, _ = dev.knn(q, 9, metric)
+    COUNTERS.reset()
+    d2, u2, _ = hst.knn(q, 9, metric)
+    assert COUNTERS.get("host_stream.blocks") == 5
+    assert u1 == u2
+    # The same exact formula on the same rows (inner_product and cosine
+    # by K1's elementwise one): bit for bit.
+    np.testing.assert_array_equal(d2, d1)
+    # Again, with the pinned staging buffers reused.
+    d3, u3, _ = hst.knn(q, 9, metric)
+    assert u3 == u2
+    np.testing.assert_array_equal(d3, d2)
+
+
+@pytest.mark.cuda
+def test_ivf_100m_example_mini_on_card(card, monkeypatch):
+    import importlib
+    monkeypatch.setenv("SMQTK_IVF100M_MINI", "1")
+    for name in ("CHUNKS", "NO_SQ8", "NO_PQ", "OPQ", "RAW_PQ"):
+        monkeypatch.delenv("SMQTK_IVF100M_" + name, raising=False)
+    from smqtk_indexing_tpu_torch.examples import ivf_100m
+    from smqtk_indexing_tpu_torch.ops import ivf_scan
+    mod = importlib.reload(ivf_100m)
+    try:
+        before = dict(ivf_scan.LAUNCHES)
+        records = mod.main(device="cuda")
+        mod.check_recall(records)
+        assert ivf_scan.LAUNCHES["ivf_list_scores_tiled"] \
+            > before["ivf_list_scores_tiled"]
+        assert ivf_scan.LAUNCHES["ivf_list_scores_tiled_pq"] \
+            > before["ivf_list_scores_tiled_pq"]
+        assert all(r["peak_device_bytes"] > 0 for r in records)
+    finally:
+        monkeypatch.undo()
+        importlib.reload(ivf_100m)

@@ -223,13 +223,15 @@ def test_contract_probes():
 
 
 def test_unported_options_raise():
-    # The codecs are ported; OPQ under hik and the compressed codecs under
-    # chi_square are refused, as in the JAX package, and so is a shard
-    # count that is not a power of two.
+    # The codecs and the host-streamed tier are ported; OPQ under hik, the
+    # compressed codecs under chi_square or streamed from the host, and
+    # host streaming over a mesh are refused, as in the JAX package, and
+    # so is a shard count that is not a power of two.
     for kw in ({"dtype": "opq16", "metric": "hik"},
                {"dtype": "sq8", "metric": "chi_square"}, {"dtype": "pq4x2"},
-               {"storage": "host_stream"}, {"n_devices": 3},
-               {"metric": "manhattan"}):
+               {"storage": "host_stream", "n_devices": 2},
+               {"storage": "host_stream", "dtype": "sq8"},
+               {"n_devices": 3}, {"metric": "manhattan"}):
         with pytest.raises(ValueError):
             port_flat.FlatNearestNeighborsIndex(device="cpu", **kw)
 

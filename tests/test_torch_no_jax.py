@@ -155,6 +155,9 @@ def test_no_port_file_imports_the_jax_package():
         in _NO_JAX_PACKAGE
     assert "smqtk_indexing_tpu_torch/tools/stage1_analysis.py" \
         in _NO_JAX_PACKAGE
+    for name in ("capacity_tiers", "ivf_100m", "ivf_400m"):
+        assert f"smqtk_indexing_tpu_torch/examples/{name}.py" \
+            in _NO_JAX_PACKAGE
     bad = [(path, mod) for path in _NO_JAX_PACKAGE
            for mod in _imported_modules(path)
            if mod == "smqtk_indexing_tpu"
@@ -195,7 +198,8 @@ def test_port_runs_with_jax_blocked(tmp_path):
                 "models.nn_index.factory", "models.nn_index.faiss_compat",
                 "models.nn_index.autotune", "ops.mrpt", "utils.metrics",
                 "utils.parallel", "utils.progress_reporter",
-                "examples.config_driven"):
+                "examples.config_driven", "examples.capacity_tiers",
+                "examples.ivf_100m", "examples.ivf_400m"):
         assert "smqtk_indexing_tpu_torch." + mod in out["modules"]
     assert out["loaded_jax"] == []
     assert out["flat"] == [[0, 1, 2, 3], [0.0] * 4]
