@@ -198,7 +198,17 @@ not 0:
    against the ADC oracle at nprobe 2 to 16); K5 and K3 (the oracle), K7
    and K8 (nprobe 16, B=128) held against their plain versions (and
    float64) on the example's operands, their launches in the run read
-   apart from the holds'.
+   apart from the holds';
+17. the last two query forms, each run where its operands already live:
+   (a) inside phase 3, ``fused_scan.flat_topk_fused(..., db_seg_lo=...)``
+   (the bf16 stage 2: cohort products, the top k + 16, an exact re-score)
+   on the flat bf16 store with its rows as their own mirror, at B=2048 and
+   B=2000 (32 does not divide it), each equal to the f32 stage 2 and to
+   the float64 top-10 over the stored rows, K1's bf16 form held at the
+   store's operands; (b) inside phase 4, ``ivf_scan.ivf_query_dma_tiled``
+   (virtual-centroid probe selection) on the serving index in score and
+   gather mode, its distances bit-equal to the index's slot-table form and
+   its rows equal but for ties, K7 held at this caller's windows.
 
 Each path sets the kernels' launch counts to 0 just before it runs and
 reads them just after. Then a ``{"kernels": [...]}`` line with each
@@ -377,6 +387,20 @@ def distinct_positions(base, lo, hi, width: int, size: int):
     return int(mark.sum()), int(live.sum())
 
 
+def k7_bound(db3, s2t, t, ti, c0, lo, hi) -> dict:
+    """K7's bound at its arguments: each distinct column of the live
+    windows read once (its d codes and f32 stat), the query folds and the
+    four slot arrays once, the (B, P, W) f32 scores written once; 2 d
+    operations a live (slot, lane) pair at the FP32 rate."""
+    from smqtk_indexing_tpu_torch.ops import ivf_scan
+    n_tiles, d, tile = db3.shape
+    cols, pairs = distinct_positions(ti.long() * tile + c0.long(), lo, hi,
+                                     ivf_scan.W_TILED, n_tiles * tile)
+    return bound(cols * (d + 4) + 4 * t.numel() + 16 * ti.numel()
+                 + 4 * ti.numel() * ivf_scan.W_TILED, 2.0 * d * pairs,
+                 FP32_FLOPS)
+
+
 def library_mm(a, b_t, reps: int = 3) -> float:
     """Mean ms of one ``torch.mm`` of the same product as a stage-1 kernel,
     or of one ``torch._int_mm`` (int32 out) for int8 operands (the
@@ -503,11 +527,10 @@ def hold(name: str, kernel, plain, smi: str, *, compare: str, f64=None,
 
 
 def flat_data():
-    """bench.py's SIFT1M-shaped flat data: uniform * 218, seed 0."""
-    rng = np.random.default_rng(0)
-    data = rng.random((N_MAIN, DIM), dtype=np.float32) * 218.0
-    queries = rng.random((BATCH, DIM), dtype=np.float32) * 218.0
-    return data, queries
+    """bench.py's SIFT1M-shaped flat data: uniform * 218, seed 0 (the
+    port's ``bench.flat_data``, without its recall queries)."""
+    from smqtk_indexing_tpu_torch.bench import flat_data as recipe
+    return recipe(N_MAIN, DIM, BATCH)[:2]
 
 
 def split_of_spans(names) -> dict:
@@ -818,6 +841,7 @@ def flat_phases(smi: str, dev) -> list:
          recall_at_10=rec, launches=bf16_launches, card=smi)
     if rec != 1.0:
         raise RuntimeError(f"flat bfloat16: recall {rec} != 1.0")
+    seg_lo_caller = seg_lo_phase(smi, index._store, queries)
     del index, res, bf16_data
     if bf16_launches == 0:
         raise RuntimeError("the flat bf16 path never launched "
@@ -851,19 +875,16 @@ def flat_phases(smi: str, dev) -> list:
              "launches": bf16_launches, "max_abs_err": bf16_k1[0],
              "ms": bf16_k1[1], "plain_ms": bf16_k1[2],
              **stage1_bound(BATCH, n_pad, DIM, 2, BATCH * n_pad // 128),
-             "library_ms": bf16_library_ms, "shape": [BATCH, n_pad, DIM]}]
+             "library_ms": bf16_library_ms, "shape": [BATCH, n_pad, DIM],
+             "callers": [seg_lo_caller]}]
 
 
 def ivf_data():
     """bench.py's serving-line recipe (bench.py:183-190): a clustered
-    Deep1M-shaped mixture, 1,024 held-out queries."""
-    rng = np.random.default_rng(2)
-    total = IVF_N + IVF_BATCH
-    centers = rng.random((1024, IVF_DIM), dtype=np.float32)
-    pts = centers[rng.integers(0, 1024, size=total)]
-    pts += rng.normal(size=(total, IVF_DIM)).astype(np.float32) / 12
-    pts = np.clip(pts, 0, 1).astype(np.float32)[rng.permutation(total)]
-    return pts[:IVF_N], pts[IVF_N:]
+    Deep1M-shaped mixture, 1,024 held-out queries (the port's
+    ``bench.serving_data``)."""
+    from smqtk_indexing_tpu_torch.bench import serving_data
+    return serving_data(IVF_N, IVF_DIM, IVF_BATCH)
 
 
 def _f64_tiled(db3, s2t, t, ti, c0, lo, hi):
@@ -984,13 +1005,7 @@ def ivf_phases(smi: str, dev) -> list:
         index._v_tile, index._v_col, index._v_len, qd,
         nprobe_orig=IVF_NPROBE)
     k7_args = (index._dev3, index._s2t, t, ti, c0, lo, hi)
-    n_tiles_k7, d_k7, tile_k7 = index._dev3.shape
-    cols, pairs = distinct_positions(
-        ti.long() * tile_k7 + c0.long(), lo, hi, ivf_scan.W_TILED,
-        n_tiles_k7 * tile_k7)
-    k7_bound = bound(cols * (d_k7 + 4) + 4 * t.numel() + 16 * ti.numel()
-                     + 4 * ti.numel() * ivf_scan.W_TILED,
-                     2.0 * d_k7 * pairs, FP32_FLOPS)
+    k7_row_bound = k7_bound(*k7_args)
     k7_live = int((hi > lo).sum())
     k7 = hold("ivf_list_scores_tiled",
               lambda: ivf_scan.ivf_list_scores_tiled(*k7_args),
@@ -1038,6 +1053,7 @@ def ivf_phases(smi: str, dev) -> list:
         raise RuntimeError(f"serving line: recall@10 {rec} < "
                            f"{IVF_RECALL_FLOOR}")
     k7_launches = counts["ivf_list_scores_tiled"]
+    virtual_row = virtual_tiled_phase(smi, index, qd)
     rebuilt_equal("ivf serving line", index, make, elems, q_elems, smi)
 
     index.rerank = "exact"
@@ -1163,13 +1179,14 @@ def ivf_phases(smi: str, dev) -> list:
          "source": "smqtk_indexing_tpu_torch/csrc/ivf_list_scores_tiled.cu",
          "replaces": "smqtk_indexing_tpu/ops/pallas_ivf.py:469",
          "launches": k7_launches, "max_abs_err": k7[0], "ms": k7[1],
-         "plain_ms": k7[2], **k7_bound, "library_ms": None,
-         "share": k7_bound["bound_ms"] / k7[1], "live_slots": k7_live},
+         "plain_ms": k7[2], **k7_row_bound, "library_ms": None,
+         "share": k7_row_bound["bound_ms"] / k7[1], "live_slots": k7_live},
         {"name": "seg_gather_tiled", "route": "cuda",
          "source": "smqtk_indexing_tpu_torch/csrc/seg_gather.cu",
          "replaces": "smqtk_indexing_tpu/ops/pallas_scan.py:406",
          "launches": k3_launches, "max_abs_err": k3[0], "ms": k3[1],
          "plain_ms": k3[2], **k3_bound, "library_ms": k3_library_ms},
+        virtual_row,
     ] + [
         {"name": name, "route": "cuda",
          "source": "smqtk_indexing_tpu_torch/csrc/ivf_list_scores.cu",
@@ -1184,19 +1201,12 @@ def ivf_phases(smi: str, dev) -> list:
 def pq_data():
     """bench_all.py's correlated recipe (bench_all.py:65-85; rank 8, seed
     2, scale 1.0): a 1,024-cluster mixture in a rank-8 latent space mixed
-    into 96 dims, 1,024 held-out queries."""
-    rng = np.random.default_rng(2)
-    n_clusters, rank, scale = 1024, 8, 1.0
-    total = IVF_N + IVF_BATCH
-    lat = rng.random((n_clusters, rank), dtype=np.float32) * scale
-    w = rng.standard_normal((rank, IVF_DIM)).astype(np.float32) \
-        / np.sqrt(rank)
-    z = lat[rng.integers(0, n_clusters, size=total)]
-    z += rng.normal(size=(total, rank)).astype(np.float32) * (scale / 12)
-    pts = (z @ w + rng.normal(size=(total, IVF_DIM)).astype(np.float32)
-           * (scale / 50)).astype(np.float32)
-    pts = pts[rng.permutation(total)]
-    return pts[:IVF_N], pts[IVF_N:]
+    into 96 dims, 1,024 held-out queries (the port's
+    ``bench_all._load_or_make``, which reads no file for a rank)."""
+    from smqtk_indexing_tpu_torch.bench_all import _load_or_make
+    data, queries, _ = _load_or_make("deep_base.fvecs", IVF_N, IVF_DIM, 1.0,
+                                     seed=2, nq=IVF_BATCH, rank=8)
+    return data, queries
 
 
 def topk64(x64, q64, k: int, valid=None):
@@ -2821,13 +2831,8 @@ def _k7_operands(index, s: int, qd):
     t, ti, c0, lo, hi = ivf_scan.tiled_windows(
         a, b, cents, st[0], vt[0], vc[0], vl[0], qd.to(db3.device),
         nprobe_orig=IVF_NPROBE)
-    n_tiles, d_k7, tile = db3.shape
-    cols, pairs = distinct_positions(ti.long() * tile + c0.long(), lo, hi,
-                                     ivf_scan.W_TILED, n_tiles * tile)
-    k7_bound = bound(cols * (d_k7 + 4) + 4 * t.numel() + 16 * ti.numel()
-                     + 4 * ti.numel() * ivf_scan.W_TILED,
-                     2.0 * d_k7 * pairs, FP32_FLOPS)
-    return (db3, s2t, t, ti, c0, lo, hi), k7_bound, int((hi > lo).sum())
+    args = (db3, s2t, t, ti, c0, lo, hi)
+    return args, k7_bound(*args), int((hi > lo).sum())
 
 
 def _k3_operands(k7_args):
@@ -2886,15 +2891,15 @@ def sharded_k7_k3(index, qd, smi: str) -> tuple:
     from smqtk_indexing_tpu_torch.ops import fused_scan, ivf_scan
     k7_rows, k3_rows = [], []
     for s in range(SHARD_DEVICES):
-        args, k7_bound, live = _k7_operands(index, s, qd)
+        args, k7_b, live = _k7_operands(index, s, qd)
         g_args, k3_bound = _k3_operands(args)
         k7_rows.append({"ms": _shard_ms(ivf_scan.ivf_list_scores_tiled,
-                                        args), "live": live, **k7_bound})
+                                        args), "live": live, **k7_b})
         k3_rows.append({"ms": _shard_ms(fused_scan.seg_gather_tiled,
                                         g_args), **k3_bound})
         if s == 0:
             args0, g_args0, k7_bound0, k3_bound0, live0 = \
-                args, g_args, k7_bound, k3_bound, live
+                args, g_args, k7_b, k3_bound, live
     args, g_args = args0, g_args0
     ti = args[3]
     k7 = hold("ivf_list_scores_tiled_shard0",
@@ -3533,12 +3538,7 @@ def _k7_100m(ctx, smi: str) -> dict:
         ctx["a"], ctx["b"], ctx["centroids"], *ctx["layout"], ctx["q"],
         nprobe_orig=IVF100M_HOLD_NPROBE)
     args = (db3, s2t, t, ti, c0, lo, hi)
-    n_tiles, d, tile = db3.shape
-    cols, pairs = distinct_positions(ti.long() * tile + c0.long(), lo, hi,
-                                     ivf_scan.W_TILED, n_tiles * tile)
-    k7_bound = bound(cols * (d + 4) + 4 * t.numel() + 16 * ti.numel()
-                     + 4 * ti.numel() * ivf_scan.W_TILED,
-                     2.0 * d * pairs, FP32_FLOPS)
+    k7_row_bound = k7_bound(*args)
     live = int((hi > lo).sum())
     k7 = hold("ivf_list_scores_tiled_ivf100m",
               lambda: ivf_scan.ivf_list_scores_tiled(*args),
@@ -3548,8 +3548,8 @@ def _k7_100m(ctx, smi: str) -> dict:
               shape=[ti.shape[0], ti.shape[1], ivf_scan.W_TILED],
               live_slots=live)
     return {"max_abs_err": k7[0], "ms": k7[1], "plain_ms": k7[2],
-            **k7_bound, "library_ms": None,
-            "share": k7_bound["bound_ms"] / k7[1], "live_slots": live,
+            **k7_row_bound, "library_ms": None,
+            "share": k7_row_bound["bound_ms"] / k7[1], "live_slots": live,
             "slots": int(ti.numel()),
             "shape": [ti.shape[0], ti.shape[1], ivf_scan.W_TILED]}
 
@@ -3660,6 +3660,147 @@ def ivf_100m_phase(smi: str, dev) -> list:
     del ivf_100m, records
     torch.cuda.empty_cache()
     return rows
+
+
+# -- 17. the last slice's two query forms -------------------------------
+#: A batch that 32 does not divide: the bf16 stage 2's per-query product.
+SEG_LO_PARTIAL = 2000
+
+
+def seg_lo_phase(smi: str, store, queries: np.ndarray) -> dict:
+    """
+    Phase 17a, on phase 3's flat bf16 store: ``flat_topk_fused(...,
+    db_seg_lo=...)`` (the bf16 stage 2) with the store's rows as their own
+    mirror, at B=2048 (32-query cohorts) and B=2000 (the per-query
+    product), each against the same call without it (the f32 stage 2:
+    the same rows but near ties, distances within RECON_TOL) and, on
+    N_ORACLE queries, against the float64 top-10 over the stored rows; the
+    runs' launches must be K1's bf16 form, once a call. Its stage 1 is the
+    launch that phase 3 holds as ``segment_minima_bf16`` (same store, same
+    queries), so it is not held again. Returns this caller's entry of
+    that row's ``callers``.
+    """
+    import torch
+    from smqtk_indexing_tpu_torch.ops import fused_scan
+    db, db_sq, valid = store._dev, store._dev_sq, store._dev_valid
+    n_pad, d = db.shape
+    seg_lo = db.view(n_pad // fused_scan.SEG, fused_scan.SEG, d)
+    q = torch.from_numpy(queries).to(db.device)
+    batches = (BATCH, SEG_LO_PARTIAL)
+    reset_counts()
+    got = {b: fused_scan.flat_topk_fused(db, db_sq, valid, q[:b], k=K,
+                                         db_seg_lo=seg_lo)
+           for b in batches}
+    torch.cuda.synchronize()
+    counts = {key: n for key, n in read_counts().items() if n}
+    if counts != {"segment_minima:wgmma": len(batches)}:
+        raise RuntimeError(f"db_seg_lo: launches {counts}, not K1's bf16 "
+                           "form once a call")
+    rows64, d64 = topk64(db.double(), q[:N_ORACLE].double(), K, valid)
+    for b, (dd, rr) in got.items():
+        d_ref, r_ref = fused_scan.flat_topk_fused(db, db_sq, valid, q[:b],
+                                                  k=K)
+        dd, rr = dd.cpu().numpy(), rr.cpu().numpy()
+        same_topk(rr, dd, r_ref.cpu().numpy(), d_ref.cpu().numpy(),
+                  f"db_seg_lo at B={b} against the f32 stage 2")
+        same_topk(rr[:N_ORACLE], dd[:N_ORACLE], rows64, d64,
+                  f"db_seg_lo at B={b} against float64")
+    ms = {f"{form}_b{b}": cuda_ms(
+              lambda b=b, lo=lo: fused_scan.flat_topk_fused(
+                  db, db_sq, valid, q[:b], k=K, db_seg_lo=lo), 5)
+          for b in batches for form, lo in (("bf16_stage2", seg_lo),
+                                            ("f32_stage2", None))}
+    emit("main", path="flat bf16 store, db_seg_lo stage 2", n=store.n_valid,
+         batches=list(batches), k=K, launches=counts,
+         flat_topk_fused_ms=ms, match="f32 stage 2 and float64", card=smi)
+    return {"caller": "fused_scan.flat_topk_fused(db_seg_lo=...)",
+            "launches": counts["segment_minima:wgmma"],
+            "flat_topk_fused_ms": ms}
+
+
+def virtual_tiled_phase(smi: str, index, qd) -> tuple:
+    """
+    Phase 17b, on phase 4's serving index: ``ivf_scan.ivf_query_dma_tiled``
+    (probe selection over the sublists' duplicated centroids, original-list
+    eligibility) at B=1024, nprobe 4, in score and gather mode, whose
+    distances must equal the slot-table form's (the index's own query)
+    bit for bit, and rows too but where they tie; K7 held against its
+    plain version and float64 at this caller's windows. Returns the
+    kernels line's row of K7 under this caller, with K3's launches under
+    it (gather mode) as ``k3_launches``; both counts must be above 0.
+    """
+    import torch
+    from smqtk_indexing_tpu_torch.ops import ivf_scan
+    dev = qd.device
+    lens = np.bincount(index._assign_host,
+                       minlength=index._centroids_np.shape[0])
+    v_tile, v_col, v_len, v_orig, first_virt = ivf_scan.build_tiled_csr(
+        lens[None, :], np.zeros(1, dtype=np.int64))
+    vt, vc, vl = (torch.from_numpy(x).to(dev) for x in (v_tile, v_col,
+                                                         v_len))
+    if not (torch.equal(vt, index._v_tile) and torch.equal(vc, index._v_col)
+            and torch.equal(vl, index._v_len)):
+        raise RuntimeError("virtual CSR differs from the index's")
+    fv = torch.from_numpy(first_virt).long().to(dev)
+    cents = index._dev_centroids[torch.from_numpy(v_orig).long().to(dev)]
+    n_probe = ivf_scan.probe_budget(v_orig, IVF_NPROBE)
+    codec = (index._sq8_a, index._sq8_b)
+
+    def virtual(rerank):
+        return ivf_scan.ivf_query_dma_tiled(
+            index._dev3, index._s2t, *codec, cents, vt, vc, vl, qd, k=16,
+            n_probe=n_probe, first_virt=fv, nprobe_orig=IVF_NPROBE,
+            rerank=rerank)
+
+    def table(rerank):
+        return ivf_scan.ivf_query_dma_tiled_table(
+            index._dev3, index._s2t, *codec, index._dev_centroids,
+            index._slot_table, vt, vc, vl, qd, k=16, nprobe_orig=IVF_NPROBE,
+            rerank=rerank)
+
+    reset_counts()
+    got = {rerank: virtual(rerank) for rerank in ("score", "gather")}
+    torch.cuda.synchronize()
+    counts = {key: n for key, n in read_counts().items() if n}
+    if set(counts) != {"ivf_list_scores_tiled", "seg_gather_tiled:copy"}:
+        raise RuntimeError(f"virtual tiled query: launches {counts}, not "
+                           "K7 and K3 both at least once")
+    for rerank, (dd, rr) in got.items():
+        d_t, r_t = table(rerank)
+        if not torch.equal(dd, d_t):
+            raise RuntimeError(f"virtual tiled query ({rerank}): distances "
+                               "differ from the slot-table form's")
+        same_topk(rr.cpu().numpy(), dd.cpu().numpy(), r_t.cpu().numpy(),
+                  d_t.cpu().numpy(), f"virtual tiled query ({rerank})")
+    ms = {f"{form}_{rerank}": cuda_ms(lambda f=f, r=rerank: f(r), 5)
+          for rerank in ("score", "gather")
+          for form, f in (("virtual", virtual), ("table", table))}
+    t, ti, c0, lo, hi = ivf_scan.virtual_windows(
+        *codec, cents, vt, vc, vl, qd, n_probe=n_probe, first_virt=fv,
+        nprobe_orig=IVF_NPROBE)
+    args = (index._dev3, index._s2t, t, ti, c0, lo, hi)
+    row_bound = k7_bound(*args)
+    live = int((hi > lo).sum())
+    k7 = hold("ivf_list_scores_tiled_virtual",
+              lambda: ivf_scan.ivf_list_scores_tiled(*args),
+              lambda: ivf_scan.ivf_list_scores_tiled_reference(*args),
+              smi, compare="f64", f64=lambda: _f64_tiled(*args),
+              n_f64=N_ORACLE, shape=[IVF_BATCH, n_probe, ivf_scan.W_TILED],
+              live_slots=live)
+    emit("main", path="ivf serving line, virtual-centroid tiled query",
+         n_virtual=len(v_len), n_probe=n_probe, batch=IVF_BATCH,
+         launches=counts, query_ms=ms, match="slot-table form", card=smi)
+    return {"name": "ivf_list_scores_tiled_virtual", "route": "cuda",
+            "source": "smqtk_indexing_tpu_torch/csrc/"
+                      "ivf_list_scores_tiled.cu",
+            "replaces": "smqtk_indexing_tpu/ops/pallas_ivf.py:469",
+            "caller": "ivf_scan.ivf_query_dma_tiled",
+            "launches": counts["ivf_list_scores_tiled"],
+            "k3_launches": counts["seg_gather_tiled:copy"],
+            "max_abs_err": k7[0], "ms": k7[1], "plain_ms": k7[2],
+            **row_bound, "library_ms": None,
+            "share": row_bound["bound_ms"] / k7[1], "live_slots": live,
+            "shape": [IVF_BATCH, n_probe, ivf_scan.W_TILED]}
 
 
 @contextlib.contextmanager

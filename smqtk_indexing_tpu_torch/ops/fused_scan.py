@@ -46,8 +46,11 @@ best), so its segment's minimum is <= theta; at most k distinct segment
 minima can be <= theta, so the best ``k + 8`` segments hold every true
 top-k row, with slack for ties.
 
-The bf16 ``db_seg_lo`` stage-2 form (``pallas_scan.py:702-755``) is not
-ported: the store never takes it.
+Stage 2's bf16 form (``db_seg_lo``, ``pallas_scan.py:702-755``,
+:func:`rerank_segments_bf16`) gathers the kept segments from a bf16
+mirror, half the f32 gather's bytes, ranks them by a surrogate from
+32-query cohort products, and re-scores the best ``k + rerank_margin``
+rows exactly from the f32 rows. No store takes it, as in JAX.
 
 ``seg_gather_tiled`` is the port of ``pallas_scan._seg_gather_tiled``
 (``:393-454``): it gathers (d, 128) segments of the tiled-transposed
@@ -480,6 +483,16 @@ def exact_dists(metric: str, cand: torch.Tensor, q: torch.Tensor,
     return 2.0 * torch.arccos(sim) / math.pi
 
 
+def _kept_rows(sid: torch.Tensor, valid_seg: torch.Tensor):
+    """The rows of (b, s_keep) kept segments: (clamped segment ids, row
+    ids (b, s_keep * 128), their liveness); a -1 segment is dead."""
+    sc = torch.clamp(sid, min=0)
+    lane = torch.arange(SEG, device=sid.device)
+    rows = (sc[..., None] * SEG + lane).reshape(sid.shape[0], -1)
+    alive = ((sid[..., None] >= 0) & valid_seg[sc]).reshape(rows.shape)
+    return sc, rows, alive
+
+
 def rerank_segments(db: torch.Tensor, valid: torch.Tensor, q: torch.Tensor,
                     sid: torch.Tensor, *, k: int, metric: str = "euclidean",
                     db_norm: Optional[torch.Tensor] = None
@@ -501,14 +514,10 @@ def rerank_segments(db: torch.Tensor, valid: torch.Tensor, q: torch.Tensor,
     db_seg = db.view(n // SEG, SEG, d)
     valid_seg = valid.view(n // SEG, SEG)
     norm_seg = db_norm.view(n // SEG, SEG) if metric == "cosine" else None
-    lane = torch.arange(SEG, device=db.device)
     out_d, out_r = [], []
     for lo in range(0, b, q_block):
         hi = min(lo + q_block, b)
-        sb = sid[lo:hi]
-        sc = torch.clamp(sb, min=0)
-        rows = (sc[..., None] * SEG + lane).reshape(hi - lo, m)
-        alive = ((sb[..., None] >= 0) & valid_seg[sc]).reshape(hi - lo, m)
+        sc, rows, alive = _kept_rows(sid[lo:hi], valid_seg)
         cand = db_seg[sc].reshape(hi - lo, m, d).float()
         cn = norm_seg[sc].reshape(hi - lo, m) if norm_seg is not None \
             else None
@@ -521,21 +530,105 @@ def rerank_segments(db: torch.Tensor, valid: torch.Tensor, q: torch.Tensor,
     return torch.cat(out_d), torch.cat(out_r)
 
 
+#: Queries a cohort product of the bf16 stage 2 scores at once
+#: (``pallas_scan.py:713-721``).
+COHORT = 32
+
+
+def rerank_segments_bf16(db: torch.Tensor, db_seg_lo: torch.Tensor,
+                         db_sq: torch.Tensor, valid: torch.Tensor,
+                         q: torch.Tensor, q_stage1: torch.Tensor,
+                         sid: torch.Tensor, *, k: int, metric: str,
+                         db_norm: Optional[torch.Tensor],
+                         rerank_margin: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """
+    Stage 2's bf16 form (``pallas_scan.py:702-755``): gather the kept
+    segments from the (N / 128, 128, d) bf16 mirror ``db_seg_lo``, score
+    every candidate row by the metric's surrogate, keep the best
+    ``k + rerank_margin`` and re-score those exactly from ``db``'s rows.
+
+    The surrogate's products run as the JAX function's cohort products:
+    each block of :data:`COHORT` queries against all of its queries'
+    candidates in one batched product, of which each query keeps its own
+    block of the result (a per-query product when 32 does not divide B).
+    They are plain array code outside any kernel in JAX too. Both operands
+    are bf16 values and the product runs in f32 with f32 sums, so every
+    product is exact: TF32, whose inputs keep more bits than bf16's,
+    would round nothing.
+
+    :param q_stage1: (B, d) stage 1's query (unit rows for cosine).
+    :return: (dists (B, k) ascending, rows (B, k) int64; +inf / -1 pad).
+    """
+    n, d = db.shape
+    b, s_keep = sid.shape
+    m = s_keep * SEG
+    q_norm = torch.sqrt((q * q).sum(-1))
+    valid_seg = valid.view(n // SEG, SEG)
+    sq_seg = db_sq.view(n // SEG, SEG)
+    norm_seg = db_norm.view(n // SEG, SEG) if metric == "cosine" else None
+    cohort = min(COHORT, b)
+    if b % cohort:
+        cohort = 1
+    # The (cohort, cohort * m) f32 product block and the gathered mirror
+    # are the bytes a query block holds.
+    per_query = 4 * cohort * m + 6 * m * d
+    q_block = max(cohort, STAGE2_BYTES // per_query // cohort * cohort)
+    kk2 = min(k + rerank_margin, m)
+    out_d, out_r = [], []
+    for lo in range(0, b, q_block):
+        hi = min(lo + q_block, b)
+        nb = hi - lo
+        sc, rows, alive = _kept_rows(sid[lo:hi], valid_seg)
+        nc = nb // cohort
+        g = db_seg_lo[sc].reshape(nc, cohort * m, d).float()
+        qs = q_stage1[lo:hi].to(torch.bfloat16).float() \
+            .reshape(nc, cohort, d)
+        s_all = torch.bmm(qs, g.transpose(1, 2))   # (nc, cohort, cohort*m)
+        own = torch.arange(cohort, device=db.device)
+        ip = s_all.reshape(nc, cohort, cohort, m)[:, own, own] \
+            .reshape(nb, m)
+        if metric == "euclidean":
+            s2 = sq_seg[sc].reshape(nb, m) - 2.0 * ip
+        elif metric == "inner_product":
+            s2 = -ip
+        else:
+            cn = norm_seg[sc].reshape(nb, m)
+            s2 = -(ip / torch.where(cn == 0, 1.0, cn))
+        s2 = torch.where(alive, s2, math.inf)
+        _, sel = topk_smallest(s2, kk2)
+        rows2 = torch.gather(rows, 1, sel)
+        alive2 = torch.gather(alive, 1, sel)
+        cand = db[rows2].float()
+        cn2 = db_norm[rows2] if metric == "cosine" else None
+        exact = exact_dists(metric, cand, q[lo:hi], q_norm[lo:hi], cn2)
+        exact = torch.where(alive2, exact, math.inf)
+        dd, sel2 = topk_smallest(exact, k)
+        rr = torch.gather(rows2, 1, sel2)
+        out_d.append(dd)
+        out_r.append(torch.where(torch.isinf(dd), -1, rr))
+    return torch.cat(out_d), torch.cat(out_r)
+
+
 def flat_topk_fused(db: torch.Tensor, db_sq: torch.Tensor,
                     valid: torch.Tensor, q: torch.Tensor, *, k: int,
                     metric: str = "euclidean",
                     db_mirror: Optional[torch.Tensor] = None,
                     db_norm: Optional[torch.Tensor] = None,
-                    precision: str = "split3"
+                    precision: str = "split3",
+                    db_seg_lo: Optional[torch.Tensor] = None,
+                    rerank_margin: int = 16
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """
-    Exact exhaustive top-k: fused stage 1 + exact f32 stage 2
-    (``pallas_scan.flat_topk_fused``, ``:577-700``, without ``db_seg_lo``).
+    Exact exhaustive top-k: fused stage 1 + exact stage 2
+    (``pallas_scan.flat_topk_fused``, ``:577-755``).
 
     Error budget (``pallas_scan.py:608-614``): an f32 database's "split3"
     stage 1 carries ~1e-5 relative score noise against the k+8 segment
     margin, and stage 2 is exact f32; ``precision="highest"`` is the
-    provably exact (and slower) configuration.
+    provably exact (and slower) configuration. With ``db_seg_lo`` stage 2
+    ranks the kept rows by a bf16 surrogate (~4e-3 relative noise)
+    against a ``k + rerank_margin`` row margin before its exact re-score.
 
     - 'euclidean': the kernel's ``sq - 2 ip`` surrogate;
     - 'inner_product': zero norms degrade the surrogate to ``-2 ip``;
@@ -554,6 +647,10 @@ def flat_topk_fused(db: torch.Tensor, db_sq: torch.Tensor,
     :param db_norm: (N,) f32 row norms; required for cosine.
     :param precision: stage 1's dot mode over an f32 database
         (:func:`segment_minima`); a bf16 database ignores it.
+    :param db_seg_lo: (N / 128, 128, d) bf16 mirror of ``db`` for stage
+        2's bf16 form (:func:`rerank_segments_bf16`); a bf16 ``db`` may
+        pass its own view. The reported distances stay exact on ``db``.
+    :param rerank_margin: rows past k that the bf16 form re-scores.
     :return: (dists (B, k) f32 ascending, rows (B, k) int64); entries past
         the live rows are +inf / -1.
     """
@@ -579,6 +676,10 @@ def flat_topk_fused(db: torch.Tensor, db_sq: torch.Tensor,
                                 precision)
         sid = select_segments(minima, segments_kept(k, n))
     with trace_span("fused_scan.stage2"):
+        if db_seg_lo is not None:
+            return rerank_segments_bf16(
+                db, db_seg_lo, db_sq, valid, q, q_stage1, sid, k=k,
+                metric=metric, db_norm=db_norm, rerank_margin=rerank_margin)
         return rerank_segments(db, valid, q, sid, k=k, metric=metric,
                                db_norm=db_norm)
 

@@ -47,8 +47,10 @@ K6's output) is not carried over: K6 writes its scores as (B, P, L_MAX).
 ``P_STEP_TILED`` still pads the tiled probe budget, so the operands match
 the JAX package's.
 
-Not ported here: ``ivf_query_dma_tiled`` (the virtual-centroid form, which
-only a JAX test calls).
+``ivf_query_dma_tiled`` is the virtual-centroid form of the tiled query
+(``pallas_ivf.py:520-577``): ``virtual_windows`` ranks the duplicated
+sublist centroids with original-list eligibility
+(``ops/ivf.probe_eligibility``), then the same K7 scan and finish run.
 """
 from __future__ import annotations
 
@@ -635,6 +637,69 @@ def ivf_query_dma_tiled_table(db3: torch.Tensor, s2t: torch.Tensor,
     return _tiled_scan_finish(db3, s2t, a, b_codec, q,
                               torch.sqrt((q * q).sum(-1)), t, ti, c0, lo,
                               hi, k=k, rerank=rerank, metric=metric)
+
+
+def virtual_windows(a: torch.Tensor, b_codec: torch.Tensor,
+                    centroids: torch.Tensor, v_tile: torch.Tensor,
+                    v_col: torch.Tensor, v_len: torch.Tensor,
+                    q: torch.Tensor, *, n_probe: int,
+                    first_virt: Optional[torch.Tensor] = None,
+                    nprobe_orig: Optional[int] = None,
+                    tile_n: int = TILE_ROWS):
+    """
+    K7's operands for a query batch under virtual-centroid probe selection
+    (``pallas_ivf.py:545-574``; euclidean): the (V, d) centroids are the
+    original ones duplicated per sublist of ``build_tiled_csr``'s layout,
+    ranked in full f32 with original-list eligibility
+    (``probe_eligibility``: with ``first_virt`` and ``nprobe_orig``,
+    exactly the sublists of the ``nprobe_orig`` nearest original lists).
+    The ``n_probe`` best slots become windows; slots past the eligible
+    ones, and the padding when ``n_probe`` exceeds V, are zero-length.
+
+    :return: (t (B, d), ti, c0, lo, hi (B, n_probe) int32).
+    """
+    b = q.shape[0]
+    q = q.float()
+    c_scores = probe_eligibility(
+        centroid_scores(q, centroids.float(), "euclidean"), v_len,
+        first_virt, nprobe_orig)
+    lists, ln = select_probes(c_scores, v_len,
+                              min(n_probe, c_scores.shape[1]))
+    col = v_col[lists]
+    c0 = torch.clamp(torch.div(col, 128, rounding_mode="floor") * 128,
+                     max=tile_n - W_TILED)
+    lo = col - c0
+    pad = torch.zeros((b, n_probe - lists.shape[1]), dtype=torch.int32,
+                      device=q.device)
+    ti, c0, lo, hi = (torch.cat([w.to(torch.int32), pad], dim=1)
+                      for w in (v_tile[lists], c0, lo, lo + ln))
+    return (q - b_codec[None, :]) * a[None, :], ti, c0, lo, hi
+
+
+def ivf_query_dma_tiled(db3: torch.Tensor, s2t: torch.Tensor,
+                        a: torch.Tensor, b_codec: torch.Tensor,
+                        centroids: torch.Tensor, v_tile: torch.Tensor,
+                        v_col: torch.Tensor, v_len: torch.Tensor,
+                        q: torch.Tensor, *, k: int, n_probe: int,
+                        first_virt: Optional[torch.Tensor] = None,
+                        nprobe_orig: Optional[int] = None,
+                        rerank: str = "gather"):
+    """
+    Tiled IVF query with virtual-centroid probe selection
+    (``pallas_ivf.ivf_query_dma_tiled``, ``:520-577``): the windows of
+    :func:`virtual_windows`, then K7 and the finish of
+    ``_tiled_scan_finish`` (K3 in gather mode).
+
+    :param n_probe: probe-slot budget (``probe_budget``).
+    :return: (dists (B, k) ascending, rows (B, k) int64; +inf / -1 pads).
+    """
+    q = q.float()
+    t, ti, c0, lo, hi = virtual_windows(
+        a, b_codec, centroids, v_tile, v_col, v_len, q, n_probe=n_probe,
+        first_virt=first_virt, nprobe_orig=nprobe_orig, tile_n=db3.shape[2])
+    return _tiled_scan_finish(db3, s2t, a, b_codec, q,
+                              torch.sqrt((q * q).sum(-1)), t, ti, c0, lo,
+                              hi, k=k, rerank=rerank)
 
 
 # ---------------------------------------------------------------------------

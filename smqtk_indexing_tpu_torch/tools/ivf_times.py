@@ -72,15 +72,11 @@ SOURCES = {
 
 
 def ivf_data(n: int = N, n_queries: int = 1024, dim: int = DIM):
-    """``bench.py``'s serving-line recipe (``bench.py:183-190``, seed 2): a
-    clustered Deep1M-shaped mixture; (vectors, held-out queries)."""
-    rng = np.random.default_rng(2)
-    total = n + n_queries
-    centers = rng.random((1024, dim), dtype=np.float32)
-    pts = centers[rng.integers(0, 1024, size=total)]
-    pts += rng.normal(size=(total, dim)).astype(np.float32) / 12
-    pts = np.clip(pts, 0, 1).astype(np.float32)[rng.permutation(total)]
-    return pts[:n], pts[n:]
+    """``bench.py``'s serving-line recipe (``bench.py:183-190``, seed 2;
+    the port's ``bench.serving_data``): a clustered Deep1M-shaped
+    mixture; (vectors, held-out queries)."""
+    from smqtk_indexing_tpu_torch.bench import serving_data
+    return serving_data(n, dim, n_queries)
 
 
 def build_index(name: str, elems, device: str = "cuda"):

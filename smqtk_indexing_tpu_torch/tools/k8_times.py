@@ -51,19 +51,13 @@ SOURCE = "ivf_list_scores_tiled_pq.cu"
 
 def pq_data(n: int = N, n_queries: int = 1024, dim: int = DIM):
     """``bench_all.py``'s correlated recipe (``bench_all.py:65-85``; rank 8,
-    seed 2, scale 1.0): a 1,024-cluster mixture in a rank-8 latent space
-    mixed into ``dim`` dims; (vectors, held-out queries)."""
-    rng = np.random.default_rng(2)
-    n_clusters, rank, scale = 1024, 8, 1.0
-    total = n + n_queries
-    lat = rng.random((n_clusters, rank), dtype=np.float32) * scale
-    w = rng.standard_normal((rank, dim)).astype(np.float32) / np.sqrt(rank)
-    z = lat[rng.integers(0, n_clusters, size=total)]
-    z += rng.normal(size=(total, rank)).astype(np.float32) * (scale / 12)
-    pts = (z @ w + rng.normal(size=(total, dim)).astype(np.float32)
-           * (scale / 50)).astype(np.float32)
-    pts = pts[rng.permutation(total)]
-    return pts[:n], pts[n:]
+    seed 2, scale 1.0; the port's ``bench_all._load_or_make``): a
+    1,024-cluster mixture in a rank-8 latent space mixed into ``dim``
+    dims; (vectors, held-out queries)."""
+    from smqtk_indexing_tpu_torch.bench_all import _load_or_make
+    data, queries, _ = _load_or_make("deep_base.fvecs", n, dim, 1.0, seed=2,
+                                     nq=n_queries, rank=8)
+    return data, queries
 
 
 def _k8_ms(fn, args, reps: int):

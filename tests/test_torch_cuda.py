@@ -31,7 +31,7 @@ from smqtk_indexing_tpu_torch.models.nn_index.flat import (
 )
 from smqtk_indexing_tpu_torch.ops import fused_scan
 from tests.test_torch_helpers import (
-    assert_same_neighbours, scan_inputs,
+    assert_same_neighbours, chunked_tiled_layout, near_rows, scan_inputs,
 )
 
 torch.set_num_threads(1)
@@ -2200,3 +2200,101 @@ def test_ivf_100m_example_mini_on_card(card, monkeypatch):
     finally:
         monkeypatch.undo()
         importlib.reload(ivf_100m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rerank", ["score", "gather"])
+def test_k7_under_the_virtual_centroid_query(card, rerank):
+    # ivf_scan.ivf_query_dma_tiled on the card: K7 (and K3 in gather mode)
+    # launches, distances bit-equal to the slot-table form's on the card
+    # (the same windows), rows too but where they tie, and the CPU's
+    # plain run within DIST_RTOL.
+    from smqtk_indexing_tpu_torch.ops import ivf_scan
+    lay = chunked_tiled_layout(seed=31)
+    db3, s2t, a, b, cents = (lay[key] for key in ("db3", "s2t", "a", "b",
+                                                   "cents"))
+    v_tile, v_col, v_len, v_orig, first_virt = lay["csr"]
+    q = near_rows(lay["dq"], 48, seed=32)
+    nprobe = 3
+    budget = ivf_scan.probe_budget(v_orig, nprobe)
+    table = ivf_scan.build_slot_table(v_orig, cents.shape[0])
+
+    def run(dev, form):
+        t = [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in
+             (db3, s2t, a, b)]
+        vt, vc, vl, qd = (torch.from_numpy(x).to(dev)
+                          for x in (v_tile, v_col, v_len, q))
+        if form == "virtual":
+            return ivf_scan.ivf_query_dma_tiled(
+                *t, torch.from_numpy(cents[v_orig]).to(dev), vt, vc, vl, qd,
+                k=10, n_probe=budget,
+                first_virt=torch.from_numpy(first_virt).long().to(dev),
+                nprobe_orig=nprobe, rerank=rerank)
+        return ivf_scan.ivf_query_dma_tiled_table(
+            *t, torch.from_numpy(cents).to(dev),
+            torch.from_numpy(table).long().to(dev), vt, vc, vl, qd, k=10,
+            nprobe_orig=nprobe, rerank=rerank)
+
+    before = dict(ivf_scan.LAUNCHES)
+    k3_before = fused_scan.LAUNCHES["seg_gather_tiled", "copy"]
+    d_v, r_v = run(card, "virtual")
+    torch.cuda.synchronize()
+    assert ivf_scan.LAUNCHES["ivf_list_scores_tiled"] \
+        == before["ivf_list_scores_tiled"] + 1
+    assert fused_scan.LAUNCHES["seg_gather_tiled", "copy"] - k3_before \
+        == (rerank == "gather")
+    d_t, r_t = run(card, "table")
+    assert torch.equal(d_v, d_t)
+    assert_same_neighbours(r_v.cpu(), d_v.cpu(), r_t.cpu(), d_t.cpu(),
+                           rtol=0.0)
+    d_c, r_c = run("cpu", "virtual")
+    if rerank == "gather":
+        assert_same_neighbours(r_v.cpu(), d_v.cpu(), r_c, d_c,
+                               rtol=DIST_RTOL, atol=1e-5)
+        return
+    # Score mode reads the surrogate s2 - 2 <t, u> + ||q - b||^2: K7's and
+    # the plain version's f32 sums differ by STAGE1_RTOL of its terms'
+    # magnitude, which the square root divides by 2 d.
+    rq2 = ((q - b) ** 2).sum(1)
+    for i in range(q.shape[0]):
+        tol = STAGE1_RTOL * (rq2[i] + s2t.max()) / (2.0 * d_c[i, 0].item())
+        assert_same_neighbours(r_v[i:i + 1].cpu(), d_v[i:i + 1].cpu(),
+                               r_c[i:i + 1], d_c[i:i + 1], rtol=0.0,
+                               atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [64, 40])
+def test_bf16_stage2_on_card(card, b):
+    # flat_topk_fused(db_seg_lo=...) over a bf16 database, its rows as
+    # their own mirror: K1's bf16 form on the tensor cores, then the
+    # cohort products (B = 64) or the per-query product (B = 40); the
+    # float64 top-k over the stored rows, distances within DIST_RTOL, and
+    # the CPU's run.
+    n, d, k = 8192, 128, 10
+    rng = np.random.default_rng(32)
+    db = torch.from_numpy((rng.normal(size=(n, d)) * 3).astype(np.float32)) \
+        .to(torch.bfloat16)
+    x = db.float().numpy().astype(np.float64)
+    q = (rng.normal(size=(b, d)) * 3).astype(np.float32)
+    sq = torch.from_numpy((x * x).sum(1).astype(np.float32))
+    valid = torch.from_numpy(rng.random(n) > 0.02)
+
+    def run(dev):
+        dv = db.to(dev)
+        return fused_scan.flat_topk_fused(
+            dv, sq.to(dev), valid.to(dev), torch.from_numpy(q).to(dev), k=k,
+            db_seg_lo=dv.view(n // 128, 128, d))
+
+    before = dict(fused_scan.LAUNCHES)
+    d_g, r_g = run(card)
+    torch.cuda.synchronize()
+    assert _launched(before) == {("segment_minima", "wgmma"): 1}
+    d2 = ((q.astype(np.float64)[:, None, :] - x[None]) ** 2).sum(-1)
+    d2[:, ~valid.numpy()] = np.inf
+    ref = np.argsort(d2, axis=1, kind="stable")[:, :k]
+    assert_same_neighbours(r_g.cpu().numpy(), d_g.cpu().numpy(), ref,
+                           np.sqrt(np.take_along_axis(d2, ref, 1)),
+                           rtol=DIST_RTOL)
+    d_c, r_c = run("cpu")
+    assert_same_neighbours(r_g.cpu(), d_g.cpu(), r_c, d_c, rtol=DIST_RTOL)

@@ -140,3 +140,80 @@ def test_rerank_segments_blocks_queries(monkeypatch):
     blocked = fused_scan.rerank_segments(t[0], t[4], t[3], sid, k=k)
     torch.testing.assert_close(blocked[0], whole[0], rtol=0, atol=0)
     torch.testing.assert_close(blocked[1], whole[1], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("b", [64, 40])
+@pytest.mark.parametrize("metric", ["euclidean", "inner_product", "cosine"])
+def test_flat_topk_fused_bf16_stage2_matches_jax(metric, b):
+    # db_seg_lo (pallas_scan.py:702-755) on the cases of the JAX test
+    # tests/ops/test_pallas_scan.py:144-170: B = 64 takes two 32-query
+    # cohorts, B = 40 the per-query product. Both sides re-score the
+    # winners exactly in f32, so the distances agree to DIST_RTOL.
+    n, d, k = 8192, 128, 10
+    db, sq, _, q, valid = scan_inputs(n, d, b, seed=5)
+    norm = np.sqrt(sq)
+    seg_lo = db.reshape(n // 128, 128, d)
+    kw_j = {"db_norm": jnp.asarray(norm)}
+    kw_p = {"db_norm": torch.from_numpy(norm)}
+    if metric == "cosine":
+        unit = db / np.where(norm == 0, 1, norm)[:, None]
+        kw_j["db_t"] = jnp.asarray(np.ascontiguousarray(unit.T))
+    d_ref, r_ref = jax_scan.flat_topk_fused(
+        jnp.asarray(db), jnp.asarray(sq), jnp.asarray(valid),
+        jnp.asarray(q), k=k, metric=metric, interpret=True,
+        precision="highest", db_seg_lo=jnp.asarray(seg_lo, jnp.bfloat16),
+        **kw_j)
+    d_port, r_port = fused_scan.flat_topk_fused(
+        torch.from_numpy(db), torch.from_numpy(sq), torch.from_numpy(valid),
+        torch.from_numpy(q), k=k, metric=metric, precision="highest",
+        db_seg_lo=torch.from_numpy(seg_lo).to(torch.bfloat16), **kw_p)
+    assert valid[r_port.numpy()].all()
+    assert_same_neighbours(r_port, d_port, np.asarray(r_ref),
+                           np.asarray(d_ref), rtol=DIST_RTOL, atol=1e-6)
+    # The f32 stage 2 on the same inputs gives the same answer.
+    d_f32, r_f32 = fused_scan.flat_topk_fused(
+        torch.from_numpy(db), torch.from_numpy(sq), torch.from_numpy(valid),
+        torch.from_numpy(q), k=k, metric=metric, precision="highest",
+        **kw_p)
+    assert_same_neighbours(r_port, d_port, r_f32, d_f32, rtol=DIST_RTOL,
+                           atol=1e-6)
+
+
+@pytest.mark.parametrize("b", [32, 24])
+def test_flat_topk_fused_bf16_stage2_exact_vs_float64(b):
+    # A bf16 store passes its own rows as the mirror: the answer is the
+    # float64 top-k over the stored (bf16) rows, rows identical.
+    n, d, k = 4096, 64, 8
+    rng = np.random.default_rng(6)
+    db = torch.from_numpy((rng.normal(size=(n, d)) * 3).astype(np.float32)) \
+        .to(torch.bfloat16)
+    q = (rng.normal(size=(b, d)) * 3).astype(np.float32)
+    x = db.float().numpy().astype(np.float64)
+    sq = torch.from_numpy((x * x).sum(1).astype(np.float32))
+    dist, rows = fused_scan.flat_topk_fused(
+        db, sq, torch.ones(n, dtype=torch.bool), torch.from_numpy(q), k=k,
+        db_seg_lo=db.view(n // 128, 128, d))
+    d2 = ((q.astype(np.float64)[:, None, :] - x[None]) ** 2).sum(-1)
+    ref_rows = np.argsort(d2, axis=1)[:, :k]
+    np.testing.assert_array_equal(rows.numpy(), ref_rows)
+    np.testing.assert_allclose(
+        dist.numpy(), np.sqrt(np.take_along_axis(d2, ref_rows, 1)),
+        rtol=DIST_RTOL)
+
+
+def test_bf16_stage2_blocks_queries(monkeypatch):
+    # Query blocks of whole cohorts under STAGE2_BYTES give the same
+    # answer as one block.
+    n, d, b, k = 2048, 64, 96, 6
+    db, sq, pen, q, valid = scan_inputs(n, d, b, seed=7)
+    t = [torch.from_numpy(a) for a in (db, sq, pen, q, valid)]
+    lo = t[0].to(torch.bfloat16).view(n // 128, 128, d)
+    sid = fused_scan.select_segments(
+        fused_scan.segment_minima(t[0], t[1], t[2], t[3]), 16)
+    args = (t[0], lo, t[1], t[4], t[3], t[3], sid)
+    kw = dict(k=k, metric="euclidean", db_norm=None, rerank_margin=16)
+    whole = fused_scan.rerank_segments_bf16(*args, **kw)
+    monkeypatch.setattr(fused_scan, "STAGE2_BYTES", 1)
+    blocked = fused_scan.rerank_segments_bf16(*args, **kw)
+    torch.testing.assert_close(blocked[0], whole[0], rtol=0, atol=0)
+    torch.testing.assert_close(blocked[1], whole[1], rtol=0, atol=0)

@@ -4,6 +4,47 @@ the card-only tests can use it on a machine without jax."""
 import numpy as np
 
 
+def chunked_tiled_layout(n_chunks=2, c_lists=16, d=128, seed=0):
+    """``tests/ops/test_pallas_ivf_tiled.py``'s layout, made by numpy from
+    ``seed``: per-chunk list-sorted clustered rows, one tile a chunk, the
+    SQ8 codec (the port's, bit-equal to JAX's), the virtual-sublist CSR and
+    each list's mean as its centroid."""
+    from smqtk_indexing_tpu_torch.ops import ivf_scan
+    from smqtk_indexing_tpu_torch.ops.sq8 import sq8_encode_np, sq8_train
+    tile = ivf_scan.TILE_ROWS
+    rng = np.random.default_rng(seed)
+    n = n_chunks * tile
+    centers = rng.normal(size=(c_lists, d)).astype(np.float32) * 2.0
+    rows = np.empty((n, d), np.float32)
+    chunk_lens = np.zeros((n_chunks, c_lists), np.int64)
+    assigns = np.empty(n, np.int32)
+    for c in range(n_chunks):
+        a_c = np.sort(rng.integers(0, c_lists, size=tile))
+        chunk_lens[c] = np.bincount(a_c, minlength=c_lists)
+        rows[c * tile:(c + 1) * tile] = (
+            centers[a_c] + rng.normal(size=(tile, d)).astype(np.float32)
+            * 0.3)
+        assigns[c * tile:(c + 1) * tile] = a_c
+    a, b = sq8_train(rows)
+    codes = sq8_encode_np(rows, a, b)
+    u = codes.astype(np.float64)
+    s2 = ((a.astype(np.float64) * u) ** 2).sum(1).astype(np.float32)
+    csr = ivf_scan.build_tiled_csr(chunk_lens, np.arange(n_chunks) * tile)
+    cents = np.stack([rows[assigns == li].mean(0) for li in range(c_lists)]
+                     ).astype(np.float32)
+    return {"db3": np.ascontiguousarray(
+                codes.reshape(n_chunks, tile, d).transpose(0, 2, 1)),
+            "s2t": s2.reshape(n_chunks, 1, tile), "a": a, "b": b,
+            "cents": cents, "csr": csr, "dq": u * a + b, "assigns": assigns}
+
+
+def near_rows(dq, b, seed):
+    """``b`` queries near rows of ``dq`` (float32), from ``seed``."""
+    rng = np.random.default_rng(seed)
+    return (dq[rng.integers(0, dq.shape[0], b)]
+            + rng.normal(size=(b, dq.shape[1])) * 0.1).astype(np.float32)
+
+
 def scan_inputs(n, d, b, seed, dead_frac=0.02):
     """(db, db_sq, penalty, q, valid) for a stage-1 scan, made by numpy
     from ``seed``: 2% dead rows plus one wholly dead segment (rows

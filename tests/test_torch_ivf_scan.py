@@ -19,7 +19,9 @@ from smqtk_indexing_tpu_torch.models.nn_index._ivf_rows import balance_lists
 from smqtk_indexing_tpu_torch.ops import fused_scan, ivf_scan
 from smqtk_indexing_tpu_torch.ops.device import capacity_for
 from smqtk_indexing_tpu_torch.ops.sq8 import sq8_encode_np, sq8_train
-from tests.test_torch_helpers import assert_same_neighbours
+from tests.test_torch_helpers import (
+    assert_same_neighbours, chunked_tiled_layout, near_rows,
+)
 
 torch.set_num_threads(1)
 
@@ -424,3 +426,93 @@ def test_list_gather_query_matches_jax(metric):
                              **kw)
     assert_same_neighbours(r_p.numpy(), d_p.numpy(), np.asarray(r_j),
                            np.asarray(d_j), rtol=1e-5, atol=1e-5)
+
+
+def _virtual_query(lay, q, k, n_probe, nprobe_orig, rerank="gather"):
+    """``ivf_query_dma_tiled`` of the port and of JAX (interpret mode) on
+    the same operands."""
+    v_tile, v_col, v_len, v_orig, first_virt = lay["csr"]
+    args = (lay["db3"], lay["s2t"], lay["a"], lay["b"],
+            lay["cents"][v_orig], v_tile, v_col, v_len, q)
+    fv = None if nprobe_orig is None else first_virt
+    before = dict(ivf_scan.LAUNCHES)
+    d_p, r_p = ivf_scan.ivf_query_dma_tiled(
+        *(_t(x) for x in args), k=k, n_probe=n_probe,
+        first_virt=None if fv is None else _t(fv), nprobe_orig=nprobe_orig,
+        rerank=rerank)
+    assert ivf_scan.LAUNCHES == before       # plain versions on the CPU
+    d_j, r_j = jpi.ivf_query_dma_tiled(
+        *(jnp.asarray(x) for x in args), k=k, n_probe=n_probe,
+        first_virt=None if fv is None else jnp.asarray(fv),
+        nprobe_orig=nprobe_orig, interpret=True, rerank=rerank)
+    return d_p.numpy(), r_p.numpy(), np.asarray(d_j), np.asarray(r_j)
+
+
+def test_virtual_tiled_query_full_probe_matches_jax_and_float64():
+    # tests/ops/test_pallas_ivf_tiled.py:72-95: every virtual slot probed
+    # (the budget padded past V): the exact top-k over the decoded codes.
+    lay = chunked_tiled_layout()
+    q = near_rows(lay["dq"], 8, seed=1)
+    n_virt = len(lay["csr"][2])
+    budget = -(-n_virt // ivf_scan.P_STEP_TILED) * ivf_scan.P_STEP_TILED
+    d_p, r_p, d_j, r_j = _virtual_query(lay, q, 8, budget, None)
+    assert_same_neighbours(r_p, d_p, r_j, d_j, rtol=GATHER_RTOL, atol=1e-5)
+    d2 = np.sqrt(((q[:, None, :].astype(np.float64)
+                   - lay["dq"][None]) ** 2).sum(-1))
+    ref = np.argsort(d2, axis=1)[:, :8]
+    assert_same_neighbours(r_p, d_p, ref, np.take_along_axis(d2, ref, 1),
+                           rtol=1e-4, atol=1e-4)
+
+
+def test_virtual_tiled_query_faithful_nprobe():
+    # :98-126: the nprobe nearest ORIGINAL lists, exactly their rows.
+    lay = chunked_tiled_layout(seed=7)
+    q = near_rows(lay["dq"], 8, seed=2)
+    k, nprobe = 4, 3
+    budget = ivf_scan.probe_budget(lay["csr"][3], nprobe)
+    d_p, r_p, d_j, r_j = _virtual_query(lay, q, k, budget, nprobe)
+    assert_same_neighbours(r_p, d_p, r_j, d_j, rtol=GATHER_RTOL, atol=1e-5)
+    c_d2 = ((q[:, None, :].astype(np.float64)
+             - lay["cents"][None]) ** 2).sum(-1)
+    for i in range(q.shape[0]):
+        cand = np.flatnonzero(
+            np.isin(lay["assigns"], np.argsort(c_d2[i])[:nprobe]))
+        dist = np.sqrt(((q[i].astype(np.float64)
+                         - lay["dq"][cand]) ** 2).sum(-1))
+        np.testing.assert_array_equal(r_p[i], cand[np.argsort(dist)][:k])
+        np.testing.assert_allclose(d_p[i], np.sort(dist)[:k], rtol=1e-4,
+                                   atol=1e-4)
+
+
+@pytest.mark.parametrize("rerank", ["gather", "score"])
+def test_virtual_tiled_query_equals_table_form(rerank):
+    # :129-145: the slot-table form over the original centroids selects
+    # the same windows (no centroid ties on random data), so both forms
+    # give the same rows and distances bit for bit.
+    lay = chunked_tiled_layout(n_chunks=3, seed=13)
+    q = near_rows(lay["dq"], 8, seed=4)
+    k, nprobe = 8, 3
+    v_tile, v_col, v_len, v_orig, _ = lay["csr"]
+    budget = ivf_scan.probe_budget(v_orig, nprobe)
+    d_p, r_p, d_j, r_j = _virtual_query(lay, q, k, budget, nprobe, rerank)
+    if rerank == "gather":
+        assert_same_neighbours(r_p, d_p, r_j, d_j, rtol=GATHER_RTOL,
+                               atol=1e-5)
+    else:
+        # The TPU kernel's split-bf16 surrogate against the plain
+        # version's f32 one: the bound of test_tiled_table_query_matches_jax
+        # on the squared distance, over 2 d at the first distance.
+        rq = (q - lay["b"]).astype(np.float64)
+        for i in range(q.shape[0]):
+            tol2 = 4.0 * 2.0 ** -16 * ((rq[i] ** 2).sum()
+                                       + lay["s2t"].max())
+            assert_same_neighbours(r_p[i:i + 1], d_p[i:i + 1],
+                                   r_j[i:i + 1], d_j[i:i + 1], rtol=0.0,
+                                   atol=tol2 / max(2.0 * d_j[i, 0], 1e-6))
+    table = ivf_scan.build_slot_table(v_orig, lay["cents"].shape[0])
+    d_t, r_t = ivf_scan.ivf_query_dma_tiled_table(
+        *(_t(x) for x in (lay["db3"], lay["s2t"], lay["a"], lay["b"],
+                          lay["cents"])), _t(table).long(), _t(v_tile),
+        _t(v_col), _t(v_len), _t(q), k=k, nprobe_orig=nprobe, rerank=rerank)
+    np.testing.assert_array_equal(r_t.numpy(), r_p)
+    np.testing.assert_array_equal(d_t.numpy(), d_p)

@@ -4,7 +4,8 @@ fresh interpreter where ``import jax`` fails, every module of
 ``smqtk_indexing_tpu_torch`` imports without loading any
 ``smqtk_indexing_tpu`` module, tiny CPU builds and queries of the flat,
 IVF, LSH and MRPT indexes run (the SQ8, PQ and OPQ codecs included; ITQ
-and a hash index too; the FAISS adapter and the autotuned index), ``get_impls()``
+and a hash index too; the FAISS adapter and the autotuned index; an
+exactness check and a bench section), ``get_impls()``
 returns the port's classes with no failed plugin import, the bare class
 names of a config resolve to them, and a file-backed key-value store the
 JAX package wrote loads into the port's copy. A source scan pins that no
@@ -116,6 +117,14 @@ for iface in (HashIndex, LshFunctor):
         out["bare"][c.__name__] = type(from_config_dict(
             {"type": c.__name__, c.__name__: {"device": "cpu"}},
             iface.get_impls())).__module__
+# The measuring tools: an exactness check and a bench section, tiny.
+import contextlib, io
+from smqtk_indexing_tpu_torch import bench_all
+from smqtk_indexing_tpu_torch.tools import verify_exactness
+with contextlib.redirect_stdout(io.StringIO()) as printed:
+    out["exactness"] = verify_exactness.main([3], n=2048, device="cpu")
+    bench_all.bench_sq8("cpu", n=2048)
+out["sq8_line"] = json.loads(printed.getvalue().splitlines()[-1])["metric"]
 # A store the JAX package wrote: its elements load as the port's classes.
 kvs = FileKeyValueStore(sys.argv[1], readonly=True)
 out["kvs"] = {str(k): [type(v).__module__, v.uuid(), v.vector().tolist()]
@@ -158,6 +167,9 @@ def test_no_port_file_imports_the_jax_package():
     for name in ("capacity_tiers", "ivf_100m", "ivf_400m"):
         assert f"smqtk_indexing_tpu_torch/examples/{name}.py" \
             in _NO_JAX_PACKAGE
+    for name in ("bench", "bench_all", "tools/verify_exactness",
+                 "tools/recall_ladder", "tools/metric_ab"):
+        assert f"smqtk_indexing_tpu_torch/{name}.py" in _NO_JAX_PACKAGE
     bad = [(path, mod) for path in _NO_JAX_PACKAGE
            for mod in _imported_modules(path)
            if mod == "smqtk_indexing_tpu"
@@ -199,7 +211,9 @@ def test_port_runs_with_jax_blocked(tmp_path):
                 "models.nn_index.autotune", "ops.mrpt", "utils.metrics",
                 "utils.parallel", "utils.progress_reporter",
                 "examples.config_driven", "examples.capacity_tiers",
-                "examples.ivf_100m", "examples.ivf_400m"):
+                "examples.ivf_100m", "examples.ivf_400m", "bench",
+                "bench_all", "tools.verify_exactness", "tools.recall_ladder",
+                "tools.metric_ab"):
         assert "smqtk_indexing_tpu_torch." + mod in out["modules"]
     assert out["loaded_jax"] == []
     assert out["flat"] == [[0, 1, 2, 3], [0.0] * 4]
@@ -246,3 +260,5 @@ def test_port_runs_with_jax_blocked(tmp_path):
             "smqtk_indexing_tpu_torch.models.lsh_functor.simple_rp"}
     assert out["lsh"] == [[0, 1, 2, 3], [0.0] * 4]
     assert out["hash_index"][0] > 1 and out["hash_index"][1][0] == 0.0
+    assert out["exactness"] == {"3": "ok"}
+    assert out["sq8_line"] == "torch_sq8_sift1m_scan_b128"
