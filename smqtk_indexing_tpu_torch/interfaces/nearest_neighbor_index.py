@@ -20,6 +20,7 @@ from smqtk_indexing_tpu_torch.core.configuration import Configurable
 from smqtk_indexing_tpu_torch.core.plugin import Pluggable
 from smqtk_indexing_tpu_torch.data.descriptor import DescriptorElement
 from smqtk_indexing_tpu_torch.utils.iter_validation import check_empty_iterable
+from smqtk_indexing_tpu_torch.utils.tracing import trace_span
 
 NNResult = Tuple[Tuple[DescriptorElement, ...], Tuple[float, ...]]
 
@@ -97,17 +98,22 @@ class NearestNeighborsIndex (Configurable, Pluggable):
         Device-backed implementations execute this as a single batched kernel
         launch; semantics per element match ``nn``.
 
+        The whole call, checks included, is the ``nn_many`` span
+        (``utils.tracing.trace_span``).
+
         :raises ValueError: Any query missing a vector, or the index is
             empty, or ``ds`` is empty.
         """
-        if not ds:
-            raise ValueError("No query descriptors provided.")
-        for d in ds:
-            if not d.has_vector():
-                raise ValueError("Query descriptor did not have a vector set!")
-        if not self.count():
-            raise ValueError("No index currently set to query from!")
-        return self._nn_many(ds, n)
+        with trace_span("nn_many"):
+            if not ds:
+                raise ValueError("No query descriptors provided.")
+            for d in ds:
+                if not d.has_vector():
+                    raise ValueError(
+                        "Query descriptor did not have a vector set!")
+            if not self.count():
+                raise ValueError("No index currently set to query from!")
+            return self._nn_many(ds, n)
 
     @abc.abstractmethod
     def count(self) -> int:

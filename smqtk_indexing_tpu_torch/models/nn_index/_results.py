@@ -10,7 +10,9 @@ The per-query Python loop (mask, per-row uid list-comp, one
 vectorised where it can be (float conversion via ``tolist``, uid mapping
 over only the B*k selected rows, never the full index), and ALL queries'
 descriptors are fetched in ONE storage call, regrouped by per-query
-counts.
+counts. Both assemblies are two host spans that tile them: ``results.fetch``
+(rows or uid lists to descriptor elements) and ``results.regroup`` (the
+distances and the per-query tuples).
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from typing import Hashable, List, Sequence
 import numpy as np
 
 from smqtk_indexing_tpu_torch.interfaces.nearest_neighbor_index import NNResult
+from smqtk_indexing_tpu_torch.utils.tracing import trace_span
 
 
 def assemble_results(dists: np.ndarray, rows: np.ndarray,
@@ -33,13 +36,15 @@ def assemble_results(dists: np.ndarray, rows: np.ndarray,
         ``get_many_descriptors`` output follows its input order).
     :return: per-query (descriptor tuple, distance tuple) results.
     """
-    b = rows.shape[0]
-    good = rows >= 0
-    counts = good.sum(axis=1)
-    flat_uids = [row2uid[i] for i in rows[good].tolist()]
-    flat_elems = _fetch_by_uid(descriptor_set, flat_uids)
-    flat_dists = dists[good].tolist()
-    return _regroup(b, counts, flat_elems, flat_dists)
+    # The flat lists are arguments, so each is freed inside its span.
+    with trace_span("results.fetch"):
+        good = rows >= 0
+        counts = good.sum(axis=1)
+        flat_elems = _fetch_by_uid(
+            descriptor_set, [row2uid[i] for i in rows[good].tolist()])
+    with trace_span("results.regroup"):
+        return _regroup(rows.shape[0], counts, flat_elems,
+                        dists[good].tolist())
 
 
 def _fetch_by_uid(descriptor_set, flat_uids: list) -> list:
@@ -61,12 +66,14 @@ def assemble_results_from_uids(dists: np.ndarray,
     lists (``VectorStore.knn``). ``uid_lists[i]`` aligns with the first
     ``len(uid_lists[i])`` entries of ``dists[i]``.
     """
-    counts = np.array([len(u) for u in uid_lists], dtype=np.int64)
-    flat_uids = [u for ul in uid_lists for u in ul]
-    flat_elems = _fetch_by_uid(descriptor_set, flat_uids)
-    flat_dists = [x for row, c in zip(dists.tolist(), counts)
-                  for x in row[:c]]
-    return _regroup(len(uid_lists), counts, flat_elems, flat_dists)
+    with trace_span("results.fetch"):
+        counts = np.array([len(u) for u in uid_lists], dtype=np.int64)
+        flat_elems = _fetch_by_uid(
+            descriptor_set, [u for ul in uid_lists for u in ul])
+    with trace_span("results.regroup"):
+        return _regroup(len(uid_lists), counts, flat_elems,
+                        [x for row, c in zip(dists.tolist(), counts)
+                         for x in row[:c]])
 
 
 def _regroup(b: int, counts: np.ndarray, flat_elems: list,

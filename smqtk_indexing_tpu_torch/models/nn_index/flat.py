@@ -333,7 +333,8 @@ class FlatNearestNeighborsIndex (NearestNeighborsIndex):
 
     def _nn_many(self, ds: Sequence[DescriptorElement],
                  n: int = 1) -> List[NNResult]:
-        q = np.vstack([d.vector() for d in ds]).astype(np.float32)
+        with trace_span("flat.stack"):
+            q = np.vstack([d.vector() for d in ds]).astype(np.float32)
         with self._model_lock, trace_span("flat.query"):
             COUNTERS.add("flat.queries", len(ds))
             dists, uid_lists, _ = self._store.knn(q, n, metric=self.metric)

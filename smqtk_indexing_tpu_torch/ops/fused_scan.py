@@ -90,7 +90,7 @@ from smqtk_indexing_tpu_torch.ops import _kernels
 from smqtk_indexing_tpu_torch.ops.device import (
     PRECISIONS, require_full_f32,
 )
-from smqtk_indexing_tpu_torch.utils.tracing import trace_span
+from smqtk_indexing_tpu_torch.utils.tracing import device_range
 
 #: Segment width: rows collapsing to one stage-1 output element.
 SEG = 128
@@ -500,7 +500,9 @@ def rerank_segments(db: torch.Tensor, valid: torch.Tensor, q: torch.Tensor,
     """
     Stage 2: gather the kept segments' rows, exact distances, final top-k.
     Runs over blocks of queries so that the (b, s_keep * 128, d) f32
-    candidate block stays under ``STAGE2_BYTES``.
+    candidate block stays under ``STAGE2_BYTES``. A block's three steps
+    are the profiler ranges ``fused_scan.gather``, ``fused_scan.exact``
+    and ``fused_scan.topk`` (``utils.tracing.device_range``).
 
     :param sid: (B, s_keep) segment ids from :func:`select_segments`.
     :return: (dists (B, k) ascending, rows (B, k) int64; +inf / -1 pad).
@@ -517,16 +519,19 @@ def rerank_segments(db: torch.Tensor, valid: torch.Tensor, q: torch.Tensor,
     out_d, out_r = [], []
     for lo in range(0, b, q_block):
         hi = min(lo + q_block, b)
-        sc, rows, alive = _kept_rows(sid[lo:hi], valid_seg)
-        cand = db_seg[sc].reshape(hi - lo, m, d).float()
-        cn = norm_seg[sc].reshape(hi - lo, m) if norm_seg is not None \
-            else None
-        exact = exact_dists(metric, cand, q[lo:hi], q_norm[lo:hi], cn)
-        exact = torch.where(alive, exact, math.inf)
-        dd, sel = topk_smallest(exact, k)
-        rr = torch.gather(rows, 1, sel)
-        out_d.append(dd)
-        out_r.append(torch.where(torch.isinf(dd), -1, rr))
+        with device_range("fused_scan.gather"):
+            sc, rows, alive = _kept_rows(sid[lo:hi], valid_seg)
+            cand = db_seg[sc].reshape(hi - lo, m, d).float()
+            cn = norm_seg[sc].reshape(hi - lo, m) if norm_seg is not None \
+                else None
+        with device_range("fused_scan.exact"):
+            exact = exact_dists(metric, cand, q[lo:hi], q_norm[lo:hi], cn)
+            exact = torch.where(alive, exact, math.inf)
+        with device_range("fused_scan.topk"):
+            dd, sel = topk_smallest(exact, k)
+            rr = torch.gather(rows, 1, sel)
+            out_d.append(dd)
+            out_r.append(torch.where(torch.isinf(dd), -1, rr))
     return torch.cat(out_d), torch.cat(out_r)
 
 
@@ -579,34 +584,39 @@ def rerank_segments_bf16(db: torch.Tensor, db_seg_lo: torch.Tensor,
     for lo in range(0, b, q_block):
         hi = min(lo + q_block, b)
         nb = hi - lo
-        sc, rows, alive = _kept_rows(sid[lo:hi], valid_seg)
-        nc = nb // cohort
-        g = db_seg_lo[sc].reshape(nc, cohort * m, d).float()
-        qs = q_stage1[lo:hi].to(torch.bfloat16).float() \
-            .reshape(nc, cohort, d)
-        s_all = torch.bmm(qs, g.transpose(1, 2))   # (nc, cohort, cohort*m)
-        own = torch.arange(cohort, device=db.device)
-        ip = s_all.reshape(nc, cohort, cohort, m)[:, own, own] \
-            .reshape(nb, m)
-        if metric == "euclidean":
-            s2 = sq_seg[sc].reshape(nb, m) - 2.0 * ip
-        elif metric == "inner_product":
-            s2 = -ip
-        else:
-            cn = norm_seg[sc].reshape(nb, m)
-            s2 = -(ip / torch.where(cn == 0, 1.0, cn))
-        s2 = torch.where(alive, s2, math.inf)
-        _, sel = topk_smallest(s2, kk2)
-        rows2 = torch.gather(rows, 1, sel)
-        alive2 = torch.gather(alive, 1, sel)
-        cand = db[rows2].float()
-        cn2 = db_norm[rows2] if metric == "cosine" else None
-        exact = exact_dists(metric, cand, q[lo:hi], q_norm[lo:hi], cn2)
-        exact = torch.where(alive2, exact, math.inf)
-        dd, sel2 = topk_smallest(exact, k)
-        rr = torch.gather(rows2, 1, sel2)
-        out_d.append(dd)
-        out_r.append(torch.where(torch.isinf(dd), -1, rr))
+        # The candidates: the kept segments' mirror rows, their surrogate
+        # scores and best kk2, and those rows gathered from ``db``.
+        with device_range("fused_scan.gather"):
+            sc, rows, alive = _kept_rows(sid[lo:hi], valid_seg)
+            nc = nb // cohort
+            g = db_seg_lo[sc].reshape(nc, cohort * m, d).float()
+            qs = q_stage1[lo:hi].to(torch.bfloat16).float() \
+                .reshape(nc, cohort, d)
+            s_all = torch.bmm(qs, g.transpose(1, 2))  # (nc, cohort, cohort*m)
+            own = torch.arange(cohort, device=db.device)
+            ip = s_all.reshape(nc, cohort, cohort, m)[:, own, own] \
+                .reshape(nb, m)
+            if metric == "euclidean":
+                s2 = sq_seg[sc].reshape(nb, m) - 2.0 * ip
+            elif metric == "inner_product":
+                s2 = -ip
+            else:
+                cn = norm_seg[sc].reshape(nb, m)
+                s2 = -(ip / torch.where(cn == 0, 1.0, cn))
+            s2 = torch.where(alive, s2, math.inf)
+            _, sel = topk_smallest(s2, kk2)
+            rows2 = torch.gather(rows, 1, sel)
+            alive2 = torch.gather(alive, 1, sel)
+            cand = db[rows2].float()
+            cn2 = db_norm[rows2] if metric == "cosine" else None
+        with device_range("fused_scan.exact"):
+            exact = exact_dists(metric, cand, q[lo:hi], q_norm[lo:hi], cn2)
+            exact = torch.where(alive2, exact, math.inf)
+        with device_range("fused_scan.topk"):
+            dd, sel2 = topk_smallest(exact, k)
+            rr = torch.gather(rows2, 1, sel2)
+            out_d.append(dd)
+            out_r.append(torch.where(torch.isinf(dd), -1, rr))
     return torch.cat(out_d), torch.cat(out_r)
 
 
@@ -657,25 +667,28 @@ def flat_topk_fused(db: torch.Tensor, db_sq: torch.Tensor,
     if metric not in FUSED_METRICS:
         raise ValueError(f"flat_topk_fused serves {FUSED_METRICS}, "
                          f"not {metric!r}")
+    if metric == "cosine" and db_norm is None:
+        raise ValueError("cosine needs db_norm")
     n = db.shape[0]
-    q = q.float()
-    q_stage1 = q
-    stage1_db = db
-    if metric != "euclidean":
-        db_sq = torch.zeros_like(db_sq)
-    if metric == "cosine":
-        if db_norm is None:
-            raise ValueError("cosine needs db_norm")
-        q_norm = torch.sqrt((q * q).sum(-1))
-        q_stage1 = q / torch.where(q_norm == 0, 1.0, q_norm)[:, None]
-        stage1_db = db_mirror if db_mirror is not None \
-            else normalized_rows(db, db_norm)
-    penalty = torch.where(valid, 0.0, math.inf).to(torch.float32)
-    with trace_span("fused_scan.stage1"):
+    # Stage 1's operands.
+    with device_range("fused_scan.prep"):
+        q = q.float()
+        q_stage1 = q
+        stage1_db = db
+        if metric != "euclidean":
+            db_sq = torch.zeros_like(db_sq)
+        if metric == "cosine":
+            q_norm = torch.sqrt((q * q).sum(-1))
+            q_stage1 = q / torch.where(q_norm == 0, 1.0, q_norm)[:, None]
+            stage1_db = db_mirror if db_mirror is not None \
+                else normalized_rows(db, db_norm)
+        penalty = torch.where(valid, 0.0, math.inf).to(torch.float32)
+    with device_range("fused_scan.stage1"):
         minima = segment_minima(stage1_db, db_sq, penalty, q_stage1,
                                 precision)
-        sid = select_segments(minima, segments_kept(k, n))
-    with trace_span("fused_scan.stage2"):
+        with device_range("fused_scan.select"):
+            sid = select_segments(minima, segments_kept(k, n))
+    with device_range("fused_scan.stage2"):
         if db_seg_lo is not None:
             return rerank_segments_bf16(
                 db, db_seg_lo, db_sq, valid, q, q_stage1, sid, k=k,

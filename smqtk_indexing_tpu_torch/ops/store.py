@@ -421,7 +421,9 @@ class VectorStore:
         """
         Exhaustive top-k for a (B, d) query batch. The results are copied
         back to the host, so the ``store.knn`` span's seconds hold the
-        device work too.
+        device work too. Its host spans: ``store.upload`` (the query's pad
+        and copy to the card), ``store.copy_back`` (the wait for the
+        card's work and the copies back) and ``store.row2uid``.
 
         :return: (dists (B, k') float32 ascending, per-query UID lists,
             rows (B, k') int64) where k' = min(k, live rows).
@@ -437,8 +439,9 @@ class VectorStore:
                 raise ValueError(
                     f"Query dim {q.shape[1]} != store dim {self._dim}")
             k_eff = min(k, self._n_live)
-            q_pad = pad_rows_np(q, q.shape[0], pad_dim(self._dim))
-            qd = self._to_dev(q_pad)
+            with trace_span("store.upload"):
+                q_pad = pad_rows_np(q, q.shape[0], pad_dim(self._dim))
+                qd = self._to_dev(q_pad)
             if pq_m(self._dtype_name) is not None:
                 perm, rot, _ = self._codec
                 if rot is not None and metric == "hik":
@@ -480,15 +483,18 @@ class VectorStore:
                 dists, rows = scan.flat_topk(
                     self._dev, self._dev_sq, self._dev_norm,
                     self._dev_valid, qd, k=k_eff, metric=metric)
-            dists = dists.cpu().numpy()
-            rows = rows.cpu().numpy()
+            # The host waits here for the card's work, then copies.
+            with trace_span("store.copy_back"):
+                dists = dists.cpu().numpy()
+                rows = rows.cpu().numpy()
             # Borrow, don't copy: the list only grows in place under the
             # lock and compaction replaces the object.
             row2uid = self._row2uid
         # r >= 0 guard: -1 padding must fail soft (skip), not resolve to
         # the last row via Python negative indexing.
-        uid_lists = [[row2uid[r] for r in row if r >= 0]
-                     for row in rows.tolist()]
+        with trace_span("store.row2uid"):
+            uid_lists = [[row2uid[r] for r in row if r >= 0]
+                         for row in rows.tolist()]
         return dists, uid_lists, rows
 
     def _knn_sharded(self, q_pad: np.ndarray, k: int, metric: str):

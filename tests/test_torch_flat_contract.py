@@ -2,8 +2,10 @@
 The JAX flat index's contract suite (``tests/impls/nn_index/test_flat.py``),
 run against the port's ``FlatNearestNeighborsIndex`` on the CPU: geometry,
 metrics, mutation, persistence and bf16 storage. It also covers the store's
-capacity growth and compaction, and concurrent queries during mutation.
+capacity growth and compaction, concurrent queries during mutation, and
+the query path's tracing spans and profiler ranges.
 """
+import json
 import random
 import threading
 
@@ -274,11 +276,25 @@ def test_concurrent_queries_during_mutation():
     assert idx.count() == 390
 
 
+def _annotations(log_dir):
+    """The profiler ranges of ``<log_dir>/trace.json``: (name, start,
+    end, thread), in microseconds."""
+    with open(log_dir / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    return [(e["name"], float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+             e.get("tid")) for e in events
+            if e.get("cat") == "user_annotation" and e.get("ph") == "X"]
+
+
+def _inside(child, parent) -> bool:
+    return (child[3] == parent[3] and parent[1] <= child[1]
+            and child[2] <= parent[2])
+
+
 def test_query_spans_and_profiler_trace(tmp_path):
     from smqtk_indexing_tpu_torch.utils.tracing import COUNTERS, trace
     idx, descrs = _small_index()
-    spans = ("flat.query", "store.knn", "flat.assemble",
-             "fused_scan.stage1", "fused_scan.stage2")
+    spans = ("flat.query", "store.knn", "flat.assemble")
     before = COUNTERS.snapshot()
     with trace(str(tmp_path)):
         idx.nn_many(descrs[:3], 2)
@@ -289,8 +305,111 @@ def test_query_spans_and_profiler_trace(tmp_path):
 
     for s in spans:
         assert delta(f"span.{s}.calls") == 1, s
+    # The stages are device ranges: in the trace, with no counter.
+    names = {a[0] for a in _annotations(tmp_path)}
+    for r in ("fused_scan.stage1", "fused_scan.stage2"):
+        assert r in names and f"span.{r}.calls" not in after, r
     # The query span encloses the store's and the assembly's.
     assert delta("span.flat.query.seconds") \
         >= delta("span.store.knn.seconds") \
         + delta("span.flat.assemble.seconds") > 0
     assert (tmp_path / "trace.json").stat().st_size > 0
+
+
+#: Each span and range of a flat query with the one it lies in.
+QUERY_NESTING = {
+    "flat.stack": "nn_many", "flat.query": "nn_many",
+    "store.knn": "flat.query", "flat.assemble": "flat.query",
+    "store.upload": "store.knn", "fused_scan.prep": "store.knn",
+    "fused_scan.stage1": "store.knn",
+    "fused_scan.stage2": "store.knn", "store.copy_back": "store.knn",
+    "store.row2uid": "store.knn", "fused_scan.select": "fused_scan.stage1",
+    "fused_scan.gather": "fused_scan.stage2",
+    "fused_scan.exact": "fused_scan.stage2",
+    "fused_scan.topk": "fused_scan.stage2",
+    "results.fetch": "flat.assemble", "results.regroup": "flat.assemble",
+}
+HOST_SPANS = ("nn_many", "flat.stack", "flat.query", "store.knn",
+              "store.upload", "store.copy_back", "store.row2uid",
+              "flat.assemble", "results.fetch", "results.regroup")
+
+
+def test_query_trace_nests_every_span_and_range(tmp_path):
+    """One ``nn_many`` under a profiler: every host span and device range
+    of the query path in the trace, each inside its parent; each host
+    span's call counter rises by one."""
+    from smqtk_indexing_tpu_torch.utils.tracing import COUNTERS, trace
+    idx, descrs = _small_index()
+    before = COUNTERS.snapshot()
+    with trace(str(tmp_path)):
+        idx.nn_many(descrs[:3], 2)
+    after = COUNTERS.snapshot()
+    ann = _annotations(tmp_path)
+    by_name = {}
+    for a in ann:
+        by_name.setdefault(a[0], []).append(a)
+    assert set(QUERY_NESTING) | {"nn_many"} <= set(by_name)
+    for child, parent in QUERY_NESTING.items():
+        for c in by_name[child]:
+            assert any(_inside(c, p) for p in by_name[parent]), child
+    for name in HOST_SPANS:
+        key = f"span.{name}.calls"
+        assert after.get(key, 0.0) - before.get(key, 0.0) == 1, name
+
+
+def test_bf16_stage2_opens_the_same_ranges(tmp_path):
+    """``rerank_segments_bf16`` puts its steps under the f32 stage 2's
+    range names."""
+    from smqtk_indexing_tpu_torch.ops import fused_scan
+    from smqtk_indexing_tpu_torch.utils.tracing import trace
+    rng = np.random.default_rng(8)
+    n, d, b = 2048, 16, 8
+    db = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32))
+    valid = torch.ones(n, dtype=torch.bool)
+    q = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32))
+    with trace(str(tmp_path)):
+        fused_scan.flat_topk_fused(
+            db, (db * db).sum(1), valid, q, k=4, precision="highest",
+            db_seg_lo=db.to(torch.bfloat16).view(n // 128, 128, d))
+    ann = _annotations(tmp_path)
+    stage2 = [a for a in ann if a[0] == "fused_scan.stage2"]
+    for name in ("fused_scan.gather", "fused_scan.exact", "fused_scan.topk"):
+        found = [a for a in ann if a[0] == name]
+        assert found and all(any(_inside(c, p) for p in stage2)
+                             for c in found), name
+
+
+def test_spans_open_a_profiler_range_only_under_a_profiler(monkeypatch):
+    """With no profiler running, ``trace_span`` and ``device_range`` enter
+    no ``record_function`` range (the span still counts); under one, each
+    enters its range."""
+    from smqtk_indexing_tpu_torch.utils import tracing
+    entered = []
+
+    class Recorder:
+        def __init__(self, name):
+            self.name = name
+
+        def __enter__(self):
+            entered.append(self.name)
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(torch.profiler, "record_function", Recorder)
+    ours = ("test.span", "test.range")
+
+    def both():
+        with tracing.trace_span("test.span"), \
+                tracing.device_range("test.range"):
+            pass
+
+    calls = tracing.COUNTERS.get("span.test.span.calls")
+    both()
+    assert [e for e in entered if e in ours] == []
+    assert tracing.COUNTERS.get("span.test.span.calls") == calls + 1
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        both()
+    assert [e for e in entered if e in ours] == list(ours)
+    assert tracing.COUNTERS.get("span.test.span.calls") == calls + 2
