@@ -35,7 +35,8 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = ("segment_minima.cu", "segment_minima_wgmma.cu",
            "segment_minima_tiled.cu", "segment_minima_tiled_wgmma.cu",
            "ivf_list_scores.cu", "ivf_list_scores_tiled.cu",
-           "ivf_list_scores_tiled_pq.cu", "seg_gather.cu")
+           "ivf_list_scores_tiled_pq.cu", "seg_gather.cu",
+           "rerank_segments.cu")
 #: Headers the sources include; hashed with them.
 HEADERS = ("scan_loads.cuh", "slot_runs.cuh", "tiled_minima.cuh",
            "wgmma.cuh", "wgmma_minima.cuh")
@@ -98,6 +99,10 @@ _ENTRY_POINTS = {
     "ivf_list_scores_tiled_pq": _args(8, 5),
     # (db3, sid, out, n_seg, dim, tile_n, esize)
     "seg_gather_tiled": _args(3, 4),
+    # (db, valid, q, q_norm, db_norm, seg, perm, out, pairs, s_keep, dim,
+    #  metric): f32 or bf16 rows
+    "rerank_segments_f32": _args(8, 4),
+    "rerank_segments_bf16": _args(8, 4),
 }
 
 _lock = threading.Lock()

@@ -44,7 +44,12 @@ in the difference form, and the final top-k. Exactness of the
 pre-selection: every row of the true top-k scores <= theta (the k-th
 best), so its segment's minimum is <= theta; at most k distinct segment
 minima can be <= theta, so the best ``k + 8`` segments hold every true
-top-k row, with slack for ties.
+top-k row, with slack for ties. On a CUDA tensor
+:func:`rerank_segments` runs ``csrc/rerank_segments.cu``, one launch over
+the whole batch, segment-major, with the gather, the f32 distances and
+the liveness mask fused (launches ``("rerank_segments", "f32" | "bf16")``
+in :data:`LAUNCHES`); on a CPU tensor its plain version
+:func:`rerank_segments_reference`.
 
 Stage 2's bf16 form (``db_seg_lo``, ``pallas_scan.py:702-755``,
 :func:`rerank_segments_bf16`) gathers the kept segments from a bf16
@@ -149,20 +154,28 @@ _STAGE1_WRAPPERS = ("segment_minima", "segment_minima_tiled",
 #: cores), ``wgmma`` (bf16 products on the tensor cores) or ``wgmma_s8``
 #: (an int8 query over int8 codes, s8 products on the tensor cores); K1's
 #: also ``wgmma_split3`` or ``wgmma_native`` (an f32 database split to
-#: bf16 on the tensor cores); ``seg_gather_tiled``'s is ``copy``. Each
-#: wrapper adds one where it launches its kernel and nowhere else.
+#: bf16 on the tensor cores); ``seg_gather_tiled``'s is ``copy``;
+#: ``rerank_segments``'s the row type, ``f32`` or ``bf16``. Each wrapper
+#: adds one where it launches its kernel and nowhere else.
 LAUNCHES = {**{(w, f): 0 for w in _STAGE1_WRAPPERS
                for f in ("ffma", "wgmma", "wgmma_s8")},
             ("segment_minima", "wgmma_split3"): 0,
             ("segment_minima", "wgmma_native"): 0,
-            ("seg_gather_tiled", "copy"): 0}
+            ("seg_gather_tiled", "copy"): 0,
+            ("rerank_segments", "f32"): 0,
+            ("rerank_segments", "bf16"): 0}
 
 #: Cap on the (B, C) f32 score block of ``segment_minima_reference``.
 REFERENCE_BYTES = 1 << 28
 
-#: Cap on stage 2's (b, s_keep * 128, d) f32 candidate block: queries run
-#: in blocks under it (eager PyTorch materialises the gather XLA fused).
+#: Cap on a stage-2 query block's bytes: the plain version's (b, s_keep *
+#: 128, d) f32 candidate block (eager PyTorch materialises the gather XLA
+#: fused), the kernel's (b, s_keep * 128) f32 distances. Queries run in
+#: blocks under it.
 STAGE2_BYTES = 1 << 28
+
+#: The stage-2 kernel's metric argument (``csrc/rerank_segments.cu``).
+_RERANK_METRIC = {"euclidean": 0, "inner_product": 1, "cosine": 2}
 
 
 def _q_kernel_dtype(q: torch.Tensor, db_dtype: torch.dtype) -> torch.Tensor:
@@ -498,11 +511,140 @@ def rerank_segments(db: torch.Tensor, valid: torch.Tensor, q: torch.Tensor,
                     db_norm: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """
-    Stage 2: gather the kept segments' rows, exact distances, final top-k.
-    Runs over blocks of queries so that the (b, s_keep * 128, d) f32
-    candidate block stays under ``STAGE2_BYTES``. A block's three steps
-    are the profiler ranges ``fused_scan.gather``, ``fused_scan.exact``
-    and ``fused_scan.topk`` (``utils.tracing.device_range``).
+    Stage 2: the exact distances of every row of the kept segments (+inf
+    for dead rows and -1 segments), and the final top-k.
+
+    On a CUDA tensor it runs ``csrc/rerank_segments.cu``: one launch a
+    query block scores the whole block segment-major, each kept segment
+    read once for every query that kept it, into a (b, s_keep * 128) f32
+    buffer, then one top-k and the row ids. The blocks cut the batch only
+    where that buffer would pass ``STAGE2_BYTES``
+    (:func:`stage2_query_blocks`). On a CPU tensor it runs the plain
+    version, :func:`rerank_segments_reference`.
+
+    :param db: (N, d) f32 or bf16 rows, N % 128 == 0; on the card d times
+        the element size a multiple of 16 (any width ``pad_dim`` gives).
+    :param valid: (N,) bool liveness.
+    :param q: (B, d) f32 queries.
+    :param sid: (B, s_keep) segment ids from :func:`select_segments`.
+    :param metric: one of ``FUSED_METRICS``; cosine takes ``db_norm``.
+    :return: (dists (B, k) ascending, rows (B, k) int64; +inf / -1 pad).
+    :raises RuntimeError: on CUDA tensors, if the kernel cannot be built
+        or launched. There is no fallback to the plain version.
+    """
+    if db.device.type == "cpu":
+        return rerank_segments_reference(db, valid, q, sid, k=k,
+                                         metric=metric, db_norm=db_norm)
+    if db.device.type == "cuda":
+        return _rerank_segments_cuda(db, valid, q, sid, k=k, metric=metric,
+                                     db_norm=db_norm)
+    raise ValueError(f"rerank_segments: unsupported device {db.device}")
+
+
+def stage2_query_blocks(b: int, m: int) -> list:
+    """The card's stage-2 query blocks for ``b`` queries of ``m`` kept
+    rows: (lo, hi) ranges whose (hi - lo, m) f32 distances stay under
+    ``STAGE2_BYTES`` (at least one query a block). One block unless k is
+    large (the LSH fused serve's ``n_codes``, the Hamming store's
+    ``k_dev``)."""
+    q_block = max(1, STAGE2_BYTES // (4 * m))
+    return [(lo, min(lo + q_block, b)) for lo in range(0, b, q_block)]
+
+
+def _check_rerank(db, valid, q, sid, metric, db_norm) -> None:
+    """What ``csrc/rerank_segments.cu`` takes."""
+    if metric not in _RERANK_METRIC:
+        raise ValueError(f"rerank_segments serves {FUSED_METRICS}, not "
+                         f"{metric!r}")
+    if db.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"rerank_segments: db dtype {db.dtype} is not "
+                        "float32 or bfloat16")
+    if db.dim() != 2 or sid.dim() != 2 or q.shape != (sid.shape[0],
+                                                      db.shape[1]):
+        raise ValueError(f"rerank_segments: db {tuple(db.shape)}, q "
+                         f"{tuple(q.shape)} and sid {tuple(sid.shape)} must "
+                         "be (N, d), (B, d) and (B, s_keep)")
+    n, d = db.shape
+    if n % SEG or d * db.element_size() % 16:
+        raise ValueError(
+            f"rerank_segments: N={n} must be a multiple of {SEG} and d={d} "
+            f"a multiple of {16 // db.element_size()} (stores pad it with "
+            "pad_dim)")
+    if valid.shape != (n,) or valid.dtype != torch.bool:
+        raise ValueError("rerank_segments: valid must be (N,) bool")
+    tensors = [db, valid, q, sid]
+    if metric == "cosine":
+        if db_norm is None or db_norm.shape != (n,):
+            raise ValueError("rerank_segments: cosine needs db_norm (N,)")
+        tensors.append(db_norm)
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"rerank_segments: tensors on several devices "
+                         f"{sorted(map(str, devices))}")
+    for what, t in (("db", db), ("valid", valid)):
+        if not t.is_contiguous():
+            raise ValueError(f"rerank_segments: {what} is not contiguous")
+    if db.data_ptr() % 16:
+        raise ValueError("rerank_segments: db must be 16-byte aligned")
+
+
+def _rerank_segments_cuda(db, valid, q, sid, *, k: int, metric: str,
+                          db_norm) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/rerank_segments.cu`` a query block on the current
+    stream: the block's pairs sorted by segment id on the card, the
+    kernel, one top-k over its distances, then the row ids. Nothing here
+    waits for the card."""
+    _check_rerank(db, valid, q, sid, metric, db_norm)
+    b, s_keep = sid.shape
+    m = s_keep * SEG
+    q = q.float().contiguous()
+    if q.data_ptr() % 16:
+        raise ValueError("rerank_segments: q must be 16-byte aligned")
+    sid = sid.to(torch.int64).contiguous()
+    q_norm = rn = q                    # read by the cosine kernel alone
+    if metric == "cosine":
+        q_norm = torch.sqrt((q * q).sum(-1))
+        rn = db_norm.float().contiguous()
+    name = "rerank_segments_" + ("f32" if db.dtype == torch.float32
+                                 else "bf16")
+    lib = _kernels.library()
+    stream = torch.cuda.current_stream(db.device).cuda_stream
+    out_d, out_r = [], []
+    for lo, hi in stage2_query_blocks(b, m):
+        nb = hi - lo
+        sb = sid[lo:hi]
+        seg, perm = torch.sort(sb.reshape(-1).to(torch.int32))
+        dist = torch.empty((nb, m), dtype=torch.float32, device=db.device)
+        with torch.cuda.device(db.device):       # see _kernels.library
+            err = getattr(lib, name)(
+                db.data_ptr(), valid.data_ptr(), q[lo:hi].data_ptr(),
+                q_norm[lo:hi].data_ptr(), rn.data_ptr(), seg.data_ptr(),
+                perm.data_ptr(), dist.data_ptr(), nb * s_keep, s_keep,
+                db.shape[1], _RERANK_METRIC[metric], db.device.index,
+                stream)
+        _kernels.check(err, name)
+        LAUNCHES["rerank_segments", name.rsplit("_", 1)[1]] += 1
+        dd, sel = topk_smallest(dist, k)
+        rows = sb.gather(1, sel // SEG) * SEG + sel % SEG
+        out_d.append(dd)
+        out_r.append(torch.where(torch.isinf(dd), -1, rows))
+    if len(out_d) == 1:
+        return out_d[0], out_r[0]
+    return torch.cat(out_d), torch.cat(out_r)
+
+
+def rerank_segments_reference(db: torch.Tensor, valid: torch.Tensor,
+                              q: torch.Tensor, sid: torch.Tensor, *, k: int,
+                              metric: str = "euclidean",
+                              db_norm: Optional[torch.Tensor] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """
+    The plain PyTorch version of :func:`rerank_segments`, on any device:
+    gather the kept segments' rows, exact distances, final top-k, over
+    blocks of queries so that the (b, s_keep * 128, d) f32 candidate block
+    stays under ``STAGE2_BYTES``. A block's three steps are the profiler
+    ranges ``fused_scan.gather``, ``fused_scan.exact`` and
+    ``fused_scan.topk`` (``utils.tracing.device_range``).
 
     :param sid: (B, s_keep) segment ids from :func:`select_segments`.
     :return: (dists (B, k) ascending, rows (B, k) int64; +inf / -1 pad).

@@ -274,7 +274,8 @@ def test_flat_store_takes_smqtk_tpu_stage1(card, monkeypatch, stage1, form):
         before = dict(fused_scan.LAUNCHES)
         results.append(index.nn_many(els[:64], 10))
         launched = _launched(before)
-        assert launched == ({("segment_minima", form): 1}
+        assert launched == ({("segment_minima", form): 1,
+                             ("rerank_segments", "f32"): 1}
                             if device == "cuda" else {})
     for r_gpu, r_cpu in zip(*results):
         assert r_gpu[0][0].uuid() == r_cpu[0][0].uuid()
@@ -318,10 +319,13 @@ def test_flat_topk_fused_matches_cpu(card, metric):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [100, 4224, 8192])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_flat_index_on_card_matches_cpu(card, dtype):
+def test_flat_index_on_card_matches_cpu(card, dtype, d):
+    # d = 4,224 and 8,192: rows past 4 KB, which the stage-2 kernel's wide
+    # layouts serve.
     rng = np.random.default_rng(7)
-    x = rng.random((3000, 100), dtype=np.float32)
+    x = rng.random((3000, d), dtype=np.float32)
     els = [DescriptorMemoryElement(i, x[i]) for i in range(3000)]
     results = []
     for device in ("cuda", "cpu"):
@@ -333,9 +337,13 @@ def test_flat_index_on_card_matches_cpu(card, dtype):
         res = index.nn_many(els[1:40:2], 5)
         launched = _launched(before)
         assert bool(launched) == (device == "cuda")
-        # The f32 store's default stage 1 is split3 on the tensor cores.
+        # The f32 store's default stage 1 is split3 on the tensor cores;
+        # stage 2 is the rows' own form of the re-rank kernel.
         form = "wgmma_split3" if dtype == "float32" else "wgmma"
-        assert set(launched) <= {("segment_minima", form)}
+        rows = "f32" if dtype == "float32" else "bf16"
+        assert set(launched) <= {("segment_minima", form),
+                                 ("rerank_segments", rows)}
+        assert (("rerank_segments", rows) in launched) == (device == "cuda")
         results.append(res)
     for r_gpu, r_cpu in zip(*results):
         assert [e.uuid() for e in r_gpu[0]] == [e.uuid() for e in r_cpu[0]]
@@ -362,6 +370,201 @@ def test_full_f32_policy_belongs_to_the_caller(card):
         assert torch.backends.cuda.matmul.allow_tf32
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+# ---------------------------------------------------------------------------
+# Stage 2: rerank_segments (csrc/rerank_segments.cu)
+# ---------------------------------------------------------------------------
+
+#: Stage 2 against float64 and its plain version: exact f32 distances whose
+#: sums run in another order.
+STAGE2_RTOL = 1e-6
+
+
+def _stage2_inputs(card, d, k, dtype, b=40, seed=0, extra=24):
+    """Rows (non-negative, so no product cancels), liveness (3% dead rows,
+    segment 2 wholly dead), queries, row norms and each query's k + 8
+    distinct kept segments, the last two -1 in the first three queries;
+    all on the card."""
+    rng = np.random.default_rng(seed)
+    s_keep = k + 8
+    nseg = s_keep + extra
+    n = nseg * 128
+    x = rng.random((n, d), dtype=np.float32)
+    q = rng.random((b, d), dtype=np.float32)
+    valid = rng.random(n) > 0.03
+    valid[2 * 128:3 * 128] = False
+    sid = np.stack([rng.permutation(nseg)[:s_keep] for _ in range(b)])
+    sid[:3, -2:] = -1
+    db = torch.from_numpy(x).to(card, getattr(torch, dtype))
+    return (db, torch.from_numpy(valid).to(card), torch.from_numpy(q).to(card),
+            db.float().norm(dim=1), torch.from_numpy(sid).to(card))
+
+
+def _f64_dists(db, qi, rows, metric, norm):
+    """Float64 distances of ``rows`` to the query ``qi`` under ``metric``
+    (the stored rows, bf16 ones widened exactly)."""
+    x, qd = db[rows].double(), qi.double()
+    if metric == "euclidean":
+        return (x - qd).square().sum(-1).sqrt()
+    if metric == "inner_product":
+        return -(x @ qd)
+    den = qd.norm() * norm[rows].double()
+    sim = torch.clamp((x @ qd) / torch.where(den == 0, 1.0, den), -1.0, 1.0)
+    return 2.0 * torch.arccos(sim) / math.pi
+
+
+def _held(dist, metric):
+    """Distances as float64 in the form STAGE2_RTOL holds: cosine's as
+    the similarity cos(pi d / 2), since the arccos of an f32 sum amplifies
+    its rounding at small angles (by 1 / angle^2, relatively) in every
+    f32 implementation alike; +inf stays."""
+    dist = torch.as_tensor(dist).double()
+    if metric != "cosine":
+        return dist.numpy()
+    return torch.where(torch.isinf(dist), dist,
+                       torch.cos(dist * (math.pi / 2))).numpy()
+
+
+def _assert_stage2(db, valid, q, sid, k, metric, norm, d_k, r_k):
+    """The kernel's answer against its plain version and float64 over
+    every live kept row: sorted distances within STAGE2_RTOL (cosine's as
+    similarities, :func:`_held`), the row sets equal but for ties, +inf /
+    -1 past the live rows, and each returned row's own float64 distance."""
+    d_ref, r_ref = fused_scan.rerank_segments_reference(
+        db, valid, q, sid, k=k, metric=metric, db_norm=norm)
+    b = q.shape[0]
+    d64 = torch.full((b, k), math.inf, dtype=torch.float64)
+    r64 = torch.full((b, k), -1, dtype=torch.int64)
+    own = torch.full((b, k), math.inf, dtype=torch.float64)
+    lanes = torch.arange(128, device=db.device)
+    for i in range(b):
+        kept = sid[i][sid[i] >= 0]
+        rows = (kept[:, None] * 128 + lanes).reshape(-1)
+        rows = rows[valid[rows]]
+        dd = _f64_dists(db, q[i], rows, metric, norm)
+        top, at = torch.topk(dd, min(k, dd.numel()), largest=False)
+        d64[i, :top.numel()] = top.cpu()
+        r64[i, :top.numel()] = rows[at].cpu()
+        got = r_k[i][r_k[i] >= 0]
+        own[i, :got.numel()] = _f64_dists(db, q[i], got, metric, norm).cpu()
+    d_k, r_k = d_k.cpu(), r_k.cpu()
+    assert torch.equal(torch.isinf(d_k), torch.isinf(d64))
+    assert torch.equal(r_k < 0, torch.isinf(d_k))
+    held = _held(d_k, metric)
+    assert_same_neighbours(r_k.numpy(), held, r_ref.cpu().numpy(),
+                           _held(d_ref.cpu(), metric), STAGE2_RTOL)
+    assert_same_neighbours(r_k.numpy(), held, r64.numpy(),
+                           _held(d64, metric), STAGE2_RTOL)
+    np.testing.assert_allclose(held, _held(own, metric), rtol=STAGE2_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 10, 100])
+@pytest.mark.parametrize("d", [16, 128, 960])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("metric", ["euclidean", "inner_product", "cosine"])
+def test_rerank_segments_matches_plain_version_and_f64(card, metric, dtype,
+                                                       d, k):
+    db, valid, q, norm, sid = _stage2_inputs(card, d, k, dtype)
+    before = dict(fused_scan.LAUNCHES)
+    d_k, r_k = fused_scan.rerank_segments(db, valid, q, sid, k=k,
+                                          metric=metric, db_norm=norm)
+    torch.cuda.synchronize()
+    rows = "f32" if dtype == "float32" else "bf16"
+    assert _launched(before) == {("rerank_segments", rows): 1}
+    _assert_stage2(db, valid, q, sid, k, metric, norm, d_k, r_k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b", [3, 300])
+def test_rerank_segments_edge_cases(card, dtype, b):
+    # One segment kept by every query of the batch (segment 7, first slot),
+    # a query whose every slot is -1 (all +inf, rows -1), -1 slots, dead
+    # rows and a wholly dead segment; B = 3 runs windows of one pair, B =
+    # 300 windows of several pairs on one segment.
+    k, d = 10, 128
+    db, valid, q, norm, sid = _stage2_inputs(card, d, k, dtype, b=b, seed=b)
+    others = sid[:, 1:].clone()
+    others[others == 7] = 2          # segment 2 is wholly dead
+    sid = torch.cat([torch.full_like(sid[:, :1], 7), others], dim=1)
+    sid[1] = -1
+    valid[7 * 128:7 * 128 + 40] = False
+    d_k, r_k = fused_scan.rerank_segments(db, valid, q, sid, k=k,
+                                          db_norm=norm)
+    torch.cuda.synchronize()
+    assert torch.isinf(d_k[1]).all() and (r_k[1] == -1).all()
+    _assert_stage2(db, valid, q, sid, k, "euclidean", norm, d_k, r_k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["euclidean", "cosine"])
+def test_rerank_segments_cuts_query_blocks(card, monkeypatch, metric):
+    # A (b, s_keep * 128) distance buffer past STAGE2_BYTES is cut into
+    # query blocks of that many bytes, a launch each, with the same
+    # answers as one block.
+    k, d, b = 10, 128, 40
+    db, valid, q, norm, sid = _stage2_inputs(card, d, k, "float32", b=b)
+    whole = fused_scan.rerank_segments(db, valid, q, sid, k=k, metric=metric,
+                                       db_norm=norm)
+    m = sid.shape[1] * 128
+    monkeypatch.setattr(fused_scan, "STAGE2_BYTES", 7 * 4 * m)
+    assert len(fused_scan.stage2_query_blocks(b, m)) == 6
+    before = dict(fused_scan.LAUNCHES)
+    d_k, r_k = fused_scan.rerank_segments(db, valid, q, sid, k=k,
+                                          metric=metric, db_norm=norm)
+    torch.cuda.synchronize()
+    assert _launched(before) == {("rerank_segments", "f32"): 6}
+    assert_same_neighbours(r_k.cpu().numpy(), d_k.cpu().numpy(),
+                           whole[1].cpu().numpy(), whole[0].cpu().numpy(),
+                           STAGE2_RTOL)
+    _assert_stage2(db, valid, q, sid, k, metric, norm, d_k, r_k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [4224, 8192, 16512, 40960])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("metric", ["euclidean", "inner_product", "cosine"])
+def test_rerank_segments_at_wide_rows(card, metric, dtype, d):
+    # Rows past 4 KB: the warps split each row (d = 4224 and bf16 8192),
+    # a tile of one row (f32 8192), rows cut into 32 KB slabs, the last
+    # one shorter (16512; bf16 40960), and queries too wide for shared
+    # memory read from global memory (40960). 300 queries over 12
+    # segments run windows of several pairs on one segment.
+    k = 1
+    db, valid, q, norm, sid = _stage2_inputs(card, d, k, dtype, b=300,
+                                             extra=3)
+    before = dict(fused_scan.LAUNCHES)
+    d_k, r_k = fused_scan.rerank_segments(db, valid, q, sid, k=k,
+                                          metric=metric, db_norm=norm)
+    torch.cuda.synchronize()
+    rows = "f32" if dtype == "float32" else "bf16"
+    assert _launched(before) == {("rerank_segments", rows): 1}
+    _assert_stage2(db, valid, q, sid, k, metric, norm, d_k, r_k)
+
+
+@pytest.mark.cuda
+def test_rerank_segments_rejects_what_the_kernel_cannot_take(card):
+    sid = torch.zeros((4, 2), dtype=torch.int64, device=card)
+    valid = torch.ones(256, dtype=torch.bool, device=card)
+    q = torch.zeros((4, 18), device=card)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        fused_scan.rerank_segments(torch.zeros((256, 18), device=card),
+                                   valid, q, sid, k=1)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fused_scan.rerank_segments(
+            torch.zeros((256, 32), dtype=torch.int8, device=card), valid,
+            torch.zeros((4, 32), device=card), sid, k=1)
+    with pytest.raises(ValueError, match="several devices"):
+        fused_scan.rerank_segments(torch.zeros((256, 32), device=card),
+                                   valid.cpu(),
+                                   torch.zeros((4, 32), device=card), sid,
+                                   k=1)
+    with pytest.raises(ValueError, match="db_norm"):
+        fused_scan.rerank_segments(torch.zeros((256, 32), device=card),
+                                   valid, torch.zeros((4, 32), device=card),
+                                   sid, k=1, metric="cosine")
 
 
 # ---------------------------------------------------------------------------
@@ -1595,7 +1798,10 @@ def test_flat_store_honours_no_fused(card, monkeypatch, dtype):
         s.remove(list(range(0, len(x), 17)))
     before = dict(fused_scan.LAUNCHES)
     stores[card].knn(q, 10, "euclidean")
-    assert sum(_launched(before).values()) == 1
+    # K1, and the f32 store's stage-2 kernel (the sq8 store re-ranks in
+    # ops/sq8).
+    assert sum(_launched(before).values()) == (2 if dtype == "float32"
+                                               else 1)
     monkeypatch.setenv("SMQTK_TPU_NO_FUSED", "1")
     for metric in ("euclidean", "inner_product"):
         before = dict(fused_scan.LAUNCHES)
@@ -1709,7 +1915,8 @@ def test_pm1_route_matches_xor_route_and_numpy(card, monkeypatch, width):
     store.build(mat)
     before = dict(fused_scan.LAUNCHES)
     d, codes = store.knn(q, 16)
-    assert _launched(before) == {("segment_minima", "wgmma"): 1}
+    assert _launched(before) == {("segment_minima", "wgmma"): 1,
+                                 ("rerank_segments", "bf16"): 1}
     assert store._dev_pm1.shape == (32768, width)
     monkeypatch.setenv("SMQTK_TPU_NO_MXU_HAMMING", "1")
     before = dict(fused_scan.LAUNCHES)
@@ -1794,7 +2001,8 @@ def test_lsh_fused_mxu_engine_on_card(card, monkeypatch):
     x, q, row_codes, q_codes, ((u, d, launched, gpu), (u_c, d_c, _, _)) = \
         _lsh_pair({"SMQTK_TPU_LSH_FUSED_MXU": "1"}, monkeypatch)
     assert gpu._fused["pm1"] is not None
-    assert launched == {("segment_minima", "wgmma"): 1}
+    assert launched == {("segment_minima", "wgmma"): 1,
+                        ("rerank_segments", "bf16"): 1}
     uniq = np.unique(row_codes, axis=0)
     untied = 0
     for i in range(len(q)):
@@ -2171,8 +2379,15 @@ def test_host_stream_matches_device_store_on_card(card, metric):
     assert COUNTERS.get("host_stream.blocks") == 5
     assert u1 == u2
     # The same exact formula on the same rows (inner_product and cosine
-    # by K1's elementwise one): bit for bit.
-    np.testing.assert_array_equal(d2, d1)
+    # by K1's elementwise one): bit for bit for hik, which both stores
+    # score with the same plain formula; the device store's fused metrics
+    # sum it in the stage-2 kernel's order (csrc/rerank_segments.cu), so
+    # within STAGE2_RTOL there (cosine as similarities, _held).
+    if metric == "hik":
+        np.testing.assert_array_equal(d2, d1)
+    else:
+        np.testing.assert_allclose(_held(d2, metric), _held(d1, metric),
+                                   rtol=STAGE2_RTOL)
     # Again, with the pinned staging buffers reused.
     d3, u3, _ = hst.knn(q, 9, metric)
     assert u3 == u2

@@ -6,13 +6,15 @@ from a seed and fed to both. On the CPU the port runs the kernel's plain
 PyTorch version; the kernel itself is checked on the card by
 ``tests/test_torch_cuda.py``.
 """
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from smqtk_indexing_tpu.ops import pallas_scan as jax_scan
-from smqtk_indexing_tpu_torch.ops import fused_scan
+from smqtk_indexing_tpu_torch.ops import _kernels, fused_scan
 from tests.test_torch_helpers import assert_same_neighbours, scan_inputs
 
 torch.set_num_threads(1)
@@ -127,19 +129,124 @@ def test_topk_smallest_matches_full_sort():
 
 
 def test_rerank_segments_blocks_queries(monkeypatch):
-    # Stage 2 runs in query blocks under STAGE2_BYTES: blocking must not
-    # change the answer.
+    # Stage 2's plain version (the CPU route) runs in query blocks under
+    # STAGE2_BYTES: blocking must not change the answer.
     n, d, b, k = 2048, 128, 24, 6
     db, sq, pen, q, valid = scan_inputs(n, d, b, seed=4)
     t = [torch.from_numpy(a) for a in (db, sq, pen, q, valid)]
     sid = fused_scan.select_segments(
         fused_scan.segment_minima(t[0], t[1], t[2], t[3]), 16)
-    whole = fused_scan.rerank_segments(t[0], t[4], t[3], sid, k=k)
+    whole = fused_scan.rerank_segments_reference(t[0], t[4], t[3], sid, k=k)
     # 5 queries a block.
     monkeypatch.setattr(fused_scan, "STAGE2_BYTES", 5 * 16 * 128 * d * 4)
     blocked = fused_scan.rerank_segments(t[0], t[4], t[3], sid, k=k)
     torch.testing.assert_close(blocked[0], whole[0], rtol=0, atol=0)
     torch.testing.assert_close(blocked[1], whole[1], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "inner_product", "cosine"])
+def test_rerank_segments_takes_the_plain_version_on_cpu(metric):
+    # A CPU tensor takes rerank_segments_reference: the same answer, and no
+    # kernel launch counted.
+    n, d, b, k = 2048, 32, 12, 5
+    db, sq, pen, q, valid = scan_inputs(n, d, b, seed=9)
+    t = [torch.from_numpy(a) for a in (db, sq, pen, q, valid)]
+    norm = torch.sqrt(t[1])
+    sid = fused_scan.select_segments(
+        fused_scan.segment_minima(t[0], t[1], t[2], t[3]), 13)
+    before = dict(fused_scan.LAUNCHES)
+    got = fused_scan.rerank_segments(t[0], t[4], t[3], sid, k=k,
+                                     metric=metric, db_norm=norm)
+    assert fused_scan.LAUNCHES == before
+    want = fused_scan.rerank_segments_reference(t[0], t[4], t[3], sid, k=k,
+                                                metric=metric, db_norm=norm)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_scan.rerank_segments(t[0].to("meta"), t[4], t[3], sid, k=k)
+
+
+@pytest.mark.parametrize("b, m, blocks", [
+    (1024, 18 * 128, 1),             # the GIST1M and Deep10M cells
+    (16, 18 * 128, 1),               # B = 16
+    (1024, 100_008 * 128, 205),      # k = 100,000 (LSH n_codes): 5 a block
+    (3, 1 << 27, 3),                 # a query past the cap: one a block
+    (0, 18 * 128, 0)])
+def test_stage2_query_blocks(b, m, blocks):
+    # The card's stage 2 cuts the batch only where its (b, m) f32
+    # distances would pass STAGE2_BYTES; the blocks tile the batch in
+    # order.
+    got = fused_scan.stage2_query_blocks(b, m)
+    assert len(got) == blocks
+    edges = [0] + [hi for _, hi in got]
+    assert [lo for lo, _ in got] == edges[:-1] and edges[-1] == b
+    for lo, hi in got:
+        assert hi > lo
+        assert 4 * (hi - lo) * m <= fused_scan.STAGE2_BYTES or hi - lo == 1
+
+
+@pytest.mark.parametrize("case, error, match", [
+    ("metric", ValueError, "serves"),
+    ("dtype", TypeError, "float32 or bfloat16"),
+    ("width", ValueError, "multiple of 4"),
+    ("aligned", ValueError, "16-byte aligned"),
+    ("rows", ValueError, "multiple of 128"),
+    ("shape", ValueError, "must be"),
+    ("valid", ValueError, "valid"),
+    ("norm", ValueError, "db_norm"),
+    ("devices", ValueError, "several devices"),
+    ("contiguous", ValueError, "contiguous")])
+def test_rerank_segments_checks_what_the_kernel_takes(case, error, match):
+    # The card's launcher refuses, before any launch, what
+    # csrc/rerank_segments.cu cannot take; each case breaks one thing.
+    d = 18 if case == "width" else 32
+    n = 200 if case == "rows" else 256
+    db = torch.zeros((n, d), dtype=torch.int8 if case == "dtype"
+                     else torch.float32)
+    if case == "contiguous":
+        db = torch.zeros((n, 2 * d))[:, :d]
+    if case == "aligned":
+        db = torch.zeros(n * d + 1)[1:].view(n, d)
+    valid = torch.ones(n, dtype=torch.uint8 if case == "valid"
+                       else torch.bool)
+    q = torch.zeros((4, d + (1 if case == "shape" else 0)))
+    sid = torch.zeros((4, 2), dtype=torch.int64)
+    metric = {"metric": "hik", "norm": "cosine"}.get(case, "euclidean")
+    norm = torch.ones(n, device="meta" if case == "devices" else "cpu")
+    if case == "devices":
+        metric = "cosine"
+    with pytest.raises(error, match=match):
+        fused_scan._check_rerank(db, valid, q, sid, metric,
+                                 None if case == "norm" else norm)
+
+
+@pytest.mark.parametrize("d", [4224, 8192, 16512, 40960])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rerank_segments_check_takes_any_padded_width(dtype, d):
+    # No width limit: rows past the kernel's 32 KB tiles are cut into
+    # slabs, and queries that do not fit in shared memory are read from
+    # global memory, so every width pad_dim gives is taken.
+    n = 256
+    db = torch.empty((n, d), dtype=dtype)
+    fused_scan._check_rerank(db, torch.ones(n, dtype=torch.bool),
+                             torch.empty((4, d)),
+                             torch.zeros((4, 2), dtype=torch.int64),
+                             "euclidean", None)
+
+
+def test_rerank_kernel_constants_follow_the_source():
+    # The launcher's limits and entry points are the kernel source's.
+    src = (_kernels.CSRC / "rerank_segments.cu").read_text()
+    assert int(re.search(r"kSeg = (\d+);", src).group(1)) == fused_scan.SEG
+    for name, code in fused_scan._RERANK_METRIC.items():
+        camel = "k" + "".join(w.title() for w in name.split("_"))
+        assert f"{camel} = {code}" in src
+    assert "rerank_segments.cu" in _kernels.SOURCES
+    for entry in ("rerank_segments_f32", "rerank_segments_bf16"):
+        assert len(re.findall(rf'^extern "C" int {entry}\(', src,
+                              re.M)) == 1
+        assert entry in _kernels._ENTRY_POINTS
+    assert {form for (w, form) in fused_scan.LAUNCHES
+            if w == "rerank_segments"} == {"f32", "bf16"}
 
 
 @pytest.mark.parametrize("b", [64, 40])

@@ -66,7 +66,8 @@ def test_only_k9_keeps_the_dp4a_form():
     assert fused_scan._ENTRY_FORM["stage1_variant_i8i8"] == "wgmma_s8"
     assert fused_scan._ENTRY_FORM["stage1_variant_i8"] == "wgmma"
     assert {f for _, f in fused_scan.LAUNCHES} == {
-        "ffma", "wgmma", "wgmma_s8", "wgmma_split3", "wgmma_native", "copy"}
+        "ffma", "wgmma", "wgmma_s8", "wgmma_split3", "wgmma_native", "copy",
+        "f32", "bf16"}
     for path in CSRC.glob("*.cu*"):
         assert "__dp4a" not in path.read_text(), path.name
     assert not (CSRC / "stage1_variants.cu").exists()
